@@ -1,0 +1,327 @@
+"""TorchAggregator: the aggregation tier on one device
+(port of ``zipkin_tpu/parallel/sharded.py``).
+
+Keeps ``ShardedAggregator``'s public names and host bookkeeping for a
+single device: the packed wire image is unpacked on the device
+(:func:`unfuse_columns`), due maintenance (digest flush, link rollup) runs
+in front of the step exactly where the reference fuses it into the step
+program, and every read returns numpy arrays with the reference's dtypes.
+With one shard the reference's cross-shard merges (psum, pmax, the
+digest all-gather + recluster) are the identity and are left out.
+
+The lock is a plain ``threading.RLock``; the reference's instrumented
+lock and flight-recorder stages (``obs``), the WAL hook, the sampler and
+the time-tier read are not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from zipkin_tpu_torch import convert, u32
+from zipkin_tpu_torch.device import resolve_device
+from zipkin_tpu_torch.ops import histogram
+from zipkin_tpu_torch.tpu import ingest as ing
+from zipkin_tpu_torch.tpu.columnar import SpanColumns, concat_remap, fuse_columns, remap_fused
+from zipkin_tpu_torch.tpu.state import AggConfig, AggState, init_state
+
+
+def unfuse_columns(fz: torch.Tensor) -> SpanColumns:
+    """``[11, n]`` packed wire image (int64 holding u32) -> typed columns
+    on the image's device: u32 lanes int64, ids int64, flags bool."""
+    sr = fz[9]
+    kf = fz[10]
+    return SpanColumns(
+        trace_h=fz[0], tl0=fz[1], tl1=fz[2],
+        s0=fz[3], s1=fz[4], p0=fz[5], p1=fz[6],
+        shared=(kf & 2) != 0,
+        kind=(kf >> 4) & 7,
+        svc=sr >> 16, rsvc=sr & 0xFFFF,
+        key=kf >> 8,
+        err=(kf & 4) != 0,
+        dur=fz[7],
+        has_dur=(kf & 8) != 0,
+        ts_min=fz[8],
+        valid=(kf & 1) != 0,
+    )
+
+
+class TorchAggregator:
+    """Owns the device state and runs the ingest step and the reads."""
+
+    n_shards = 1
+
+    def __init__(self, config: AggConfig = AggConfig(), device=None) -> None:
+        self.device = resolve_device(device)
+        self.config = config
+        self.state: AggState = init_state(config, self.device)
+        # device LinkContext of the current write_version
+        self._ctx_cache = (-1, None)
+        # exact host counters (the device counters are u32 and wrap)
+        self.host_counters = {
+            "spans": 0, "spansWithDuration": 0, "spansWithError": 0,
+            "batches": 0, "sampledKept": 0, "sampledDropped": 0,
+        }
+        # guards every touch of self.state; reentrant (reads nest)
+        self.lock = threading.RLock()
+        # host mirror of pend_pos: the flush runs before a batch that
+        # would overflow the pending buffer
+        self._pend_lanes = 0
+        # lanes written since the last rollup: the rollup runs before a
+        # batch would push this past rollup_segment (R/2), so no span is
+        # overwritten before its links are folded
+        self._lanes_since_rollup = 0
+        # ring-resident time ranges (ts_lo, ts_hi, cursor before), popped
+        # once the cursor has advanced a full ring past the batch
+        self._resident: deque = deque()
+        self._shard_cursor = np.zeros(self.n_shards, np.int64)
+        self.read_stats = {"rolled_only_reads": 0, "ctx_reads": 0, "host_transfers": 0}
+        self.ctx_stats = {"ctx_advances": 0, "ctx_maintenance_ms": 0.0}
+        # bumped on every query-visible state change (step, rollup)
+        self.write_version = 0
+
+    # -- write path ------------------------------------------------------
+
+    def ingest(self, cols: SpanColumns) -> None:
+        """Fold one host batch (one shard: no routing)."""
+        live_ts = cols.ts_min[cols.valid]
+        self.ingest_fused(
+            fuse_columns(cols)[None],
+            n_spans=int(cols.valid.sum()),
+            n_dur=int((cols.valid & cols.has_dur).sum()),
+            n_err=int((cols.valid & cols.err).sum()),
+            ts_range=(int(live_ts.min()), int(live_ts.max())) if live_ts.size else (0, 0),
+        )
+
+    @property
+    def lane_cap(self) -> int:
+        """Hard lane ceiling of one fused batch."""
+        return min(self.config.digest_buffer, self.config.rollup_segment)
+
+    def ingest_fused(self, fused: np.ndarray, n_spans: int, n_dur: int, n_err: int,
+                     ts_range=None) -> None:
+        """Fold one packed wire image ``[1, 11, n]`` (u32) into the state;
+        the caller supplies the live/duration/error counts."""
+        if fused.ndim != 3 or fused.shape[0] != self.n_shards or fused.shape[1] != 11:
+            raise ValueError(f"expected a [1, 11, n] wire image, got {fused.shape}")
+        lanes = int(fused.shape[-1])
+        if lanes > self.lane_cap:
+            raise ValueError(
+                f"batch of {lanes} lanes/shard exceeds digest_buffer "
+                f"({self.config.digest_buffer}) or rollup_segment "
+                f"({self.config.rollup_segment}); chunk before ingest"
+            )
+        live_per_shard = (fused[:, 10, :] & 1).sum(axis=1, dtype=np.int64)
+        batch = unfuse_columns(u32.from_numpy(fused[0], self.device))
+        with self.lock:
+            need_flush = self._pend_lanes + lanes > self.config.digest_buffer
+            need_rollup = self._lanes_since_rollup + lanes > self.config.rollup_segment
+            t0 = time.perf_counter()
+            s = self.state
+            if need_flush:
+                s = ing.flush_digest(self.config, s)
+                self._pend_lanes = 0
+            if need_rollup:
+                s = ing.rollup_step(self.config, s)
+            if self._pend_lanes + lanes > self.config.digest_buffer:
+                raise AssertionError("pending digest buffer would overflow")
+            self.state = ing.ingest_step(self.config, s, batch, live=int(live_per_shard[0]))
+            if need_rollup:
+                self._lanes_since_rollup = 0
+                self.ctx_stats["ctx_advances"] += 1
+                self.ctx_stats["ctx_maintenance_ms"] = (time.perf_counter() - t0) * 1000.0
+            self._pend_lanes += lanes
+            self._lanes_since_rollup += lanes
+            self.write_version += 1
+            c = self.host_counters
+            c["spans"] += n_spans
+            c["spansWithDuration"] += n_dur
+            c["spansWithError"] += n_err
+            c["batches"] += 1
+            lo, hi = ts_range if ts_range is not None else (0, (1 << 32) - 1)
+            if n_spans > 0:
+                self._resident.append((lo, hi, self._shard_cursor.copy()))
+                self._shard_cursor = self._shard_cursor + live_per_shard
+            while self._resident and (
+                (self._shard_cursor - self._resident[0][2]).min() >= self.config.ring_capacity
+            ):
+                self._resident.popleft()
+
+    def ingest_fused_multi(self, parts, n_spans: int, n_dur: int, n_err: int,
+                           ts_range=None, pad_to_multiple: int = 256) -> None:
+        """Coalesce ``(fused, svc_map, key_map)`` chunk images into one
+        bucket-padded batch (the :func:`lane_bucket` ladder keeps shapes
+        few) and fold it with one step."""
+        if len(parts) == 1:
+            fused, svc_map, key_map = parts[0]
+            remap_fused(fused, svc_map, key_map)
+            self.ingest_fused(fused, n_spans, n_dur, n_err, ts_range)
+            return
+        total = sum(int(p[0].shape[-1]) for p in parts)
+        cap = self.lane_cap
+        if total > cap:
+            raise ValueError(
+                f"coalesced run of {total} lanes/shard exceeds the lane "
+                f"cap ({cap}); the planner must split the run"
+            )
+        bucket = ing.lane_bucket(total, pad_to_multiple, cap)
+        shards, rows = parts[0][0].shape[0], parts[0][0].shape[1]
+        out = np.zeros((shards, rows, bucket), np.uint32)
+        concat_remap(parts, out)
+        self.ingest_fused(out, n_spans, n_dur, n_err, ts_range)
+
+    # -- maintenance -----------------------------------------------------
+
+    def _flush_now(self) -> None:
+        """Flush the pending digest buffer (callers hold the lock). Query
+        invisible, so write_version stays."""
+        self.state = ing.flush_digest(self.config, self.state)
+        self._pend_lanes = 0
+
+    def flush_now(self) -> None:
+        with self.lock:
+            self._flush_now()
+
+    def rollup_now(self) -> None:
+        """Run the link rollup (which also advances the link ctx)."""
+        with self.lock:
+            t0 = time.perf_counter()
+            self.state = ing.rollup_step(self.config, self.state)
+            self._lanes_since_rollup = 0
+            self.ctx_stats["ctx_advances"] += 1
+            self.ctx_stats["ctx_maintenance_ms"] = (time.perf_counter() - t0) * 1000.0
+            self.write_version += 1
+
+    # -- reads -----------------------------------------------------------
+
+    def _pull(self, *tensors) -> list:
+        """The query path's device->host copy (counted once per query)."""
+        self.read_stats["host_transfers"] += 1
+        return [t.cpu() for t in tensors]
+
+    def quantiles(self, qs, source: str = "digest", ts_lo_min: Optional[int] = None,
+                  ts_hi_min: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+        """([K, Q] quantiles, [K] counts); ``source`` "digest" or "hist";
+        a (ts_lo_min, ts_hi_min) window reads the time-sliced histograms."""
+        if (ts_lo_min is None) != (ts_hi_min is None):
+            raise ValueError(
+                "ts_lo_min and ts_hi_min must be given together "
+                f"(got ts_lo_min={ts_lo_min!r}, ts_hi_min={ts_hi_min!r})"
+            )
+        qarr = torch.as_tensor(np.asarray(qs, np.float32), device=self.device)
+        with self.lock:
+            if ts_lo_min is not None:
+                merged = ing.windowed_hist(self.config, self.state, ts_lo_min, ts_hi_min)
+                q, n = histogram.quantile(merged, qarr), histogram.total_count(merged)
+            elif source == "digest":
+                if self._pend_lanes:
+                    self._flush_now()  # flush-then-read
+                q = ing.key_quantiles_digest(self.state, qarr)
+                n = histogram.total_count(self.state.hist)
+            else:
+                q = ing.key_quantiles(self.state, qarr)
+                n = histogram.total_count(self.state.hist)
+            q, n = self._pull(q, n)
+            return q.numpy(), n.numpy().astype(np.uint32)
+
+    def windowed_histograms(self, ts_lo_min: int, ts_hi_min: int) -> np.ndarray:
+        with self.lock:
+            (out,) = self._pull(ing.windowed_hist(self.config, self.state, ts_lo_min, ts_hi_min))
+            return out.numpy().astype(np.uint32)
+
+    def cardinalities(self) -> np.ndarray:
+        """[S+1] HLL distinct-trace estimates (last row global)."""
+        with self.lock:
+            (est,) = self._pull(ing.cardinalities(self.state))
+            return est.numpy()
+
+    def sketch_overview(self, qs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """([K, Q] digest quantiles, [K] counts, [S+1] HLL estimates)."""
+        qarr = torch.as_tensor(np.asarray(qs, np.float32), device=self.device)
+        with self.lock:
+            if self._pend_lanes:
+                self._flush_now()
+            q, n, est = self._pull(
+                ing.key_quantiles_digest(self.state, qarr),
+                histogram.total_count(self.state.hist),
+                ing.cardinalities(self.state),
+            )
+            return q.numpy(), n.numpy().astype(np.uint32), est.numpy()
+
+    def merged_digest(self) -> np.ndarray:
+        """[K, C, 2] digest with the pending points folded in — a pure
+        read: the state is left untouched."""
+        with self.lock:
+            s = self.state
+            (out,) = self._pull(ing._flush_pending_digest(self.config, s.digest, s.pend_key, s.pend_val))
+            return out.numpy()
+
+    def _link_context_cached(self):
+        """Device LinkContext for the current state (callers hold lock)."""
+        if self._ctx_cache[0] != self.write_version:
+            self._ctx_cache = (self.write_version, ing.fresh_link_context(self.config, self.state))
+        return self._ctx_cache[1]
+
+    def dependency_matrices(self, ts_lo_min: int, ts_hi_min: int) -> Tuple[np.ndarray, np.ndarray]:
+        with self.lock:
+            calls, errors = self._pull(*ing.dependency_links(
+                self.config, self.state, ts_lo_min, ts_hi_min, ctx=self._link_context_cached()))
+            return calls.numpy().astype(np.uint32), errors.numpy().astype(np.uint32)
+
+    def window_fully_rolled(self, ts_lo_min: int, ts_hi_min: int) -> bool:
+        """True when no ring-resident span's timestamp can fall in the
+        window: the rollup matrices alone then answer it exactly."""
+        with self.lock:
+            return all(ts_hi_min < lo or ts_lo_min > hi for lo, hi, _ in self._resident)
+
+    def _edge_topk(self, calls: torch.Tensor, errors: torch.Tensor):
+        """The first E nonzero cells of the call matrix by prefix-sum
+        compaction: (flat_index int32, calls u32, errors u32), each [E]."""
+        e = min(4096, self.config.max_services ** 2)
+        cf = calls.reshape(-1)
+        ef = errors.reshape(-1)
+        cs = torch.cumsum((cf > 0).to(torch.int64), 0)
+        want = torch.arange(1, e + 1, dtype=torch.int64, device=cf.device)
+        pos = torch.clamp(torch.searchsorted(cs, want, right=False), 0, cf.shape[0] - 1)
+        have = torch.arange(e, device=cf.device) < cs[-1]
+        return (
+            torch.where(have, pos, 0),
+            torch.where(have, cf[pos], 0),
+            torch.where(have, ef[pos], 0),
+        )
+
+    def dependency_edges(self, ts_lo_min: int, ts_hi_min: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(flat_index, calls, errors) [E] — the nonzero cells of the
+        link matrix over the window, compacted on the device. Windows no
+        ring-resident span can touch read the rollups alone; a fresh read
+        (first after a write) builds and caches the delta link ctx."""
+        with self.lock:
+            if self.window_fully_rolled(ts_lo_min, ts_hi_min):
+                self.read_stats["rolled_only_reads"] += 1
+                calls, errors = ing.rolled_links(self.config, self.state, ts_lo_min, ts_hi_min)
+            else:
+                self.read_stats["ctx_reads"] += 1
+                calls, errors = ing.dependency_links(
+                    self.config, self.state, ts_lo_min, ts_hi_min,
+                    ctx=self._link_context_cached())
+            idx, c, e = self._pull(*self._edge_topk(calls, errors))
+            return (idx.numpy().astype(np.int32), c.numpy().astype(np.uint32),
+                    e.numpy().astype(np.uint32))
+
+    # -- state -----------------------------------------------------------
+
+    def state_arrays(self) -> list:
+        """Host copy of every state leaf with the reference's dtypes and
+        shapes (no shard axis)."""
+        with self.lock:
+            return convert.state_to_numpy(self.state)
+
+    def block_until_ready(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
