@@ -43,10 +43,11 @@ def log(msg: str) -> None:
 
 
 def cuda_ms(fn, iters: int, torch) -> float:
-    """Mean ms per call on the stream over ``iters`` calls after warm-up
-    (CUDA events: includes any gap while the host enqueues the next call)."""
+    """Mean ms per call on the stream over calls ``fn(0..iters-1)`` after
+    three warm-up calls ``fn(iters..iters+2)`` (CUDA events: includes any
+    gap while the host enqueues the next call)."""
     for i in range(3):
-        fn(i)
+        fn(iters + i)
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -66,12 +67,13 @@ def _device_us(evt) -> float:
 
 def device_profile(fn, iters: int, torch, warm: bool = True):
     """(device-busy ms per call, [(kernel name, ms per call)], wall ms per
-    call) from a torch.profiler trace of ``iters`` calls: the kernels' own
-    time on the card, without the host's launch gaps."""
+    call) from a torch.profiler trace of ``fn(0..iters-1)`` after one
+    warm-up call ``fn(iters)``: the kernels' own time on the card, without
+    the host's launch gaps."""
     from torch.profiler import ProfilerActivity, profile
 
     if warm:
-        fn(0)
+        fn(iters)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -87,89 +89,120 @@ def device_profile(fn, iters: int, torch, warm: bool = True):
     return sum(r[1] for r in rows), rows, wall
 
 
-def busy_ms(fn, iters: int, torch):
-    """Device-busy ms per call; a profile that saw no device event is
-    taken again (up to three times) before it counts as 0."""
+def busy_ms(fn, iters: int, torch, reset=lambda: None):
+    """Device-busy ms per call from the profiler; a trace that saw no
+    device event is taken again (``reset`` runs before each try), and a
+    third empty one raises."""
     for _ in range(3):
+        reset()
         busy, rows, _ = device_profile(fn, iters, torch)
         if busy > 0:
-            break
-    return busy, rows
+            return busy, rows
+    raise RuntimeError("the profiler saw no device time in three traces")
+
+
+def time_update(update, args, files, reset, iters: int, torch):
+    """(device ms, stream ms, profiled kernels) per call of
+    ``update(files[i], *args[i % len(args)])``; ``reset`` restores the
+    register files before each measurement."""
+    fn = lambda i: update(files[i], *args[i % len(args)])
+    dev, rows = busy_ms(fn, iters, torch, reset)
+    reset()
+    return dev, cuda_ms(fn, iters, torch), rows
 
 
 def phase_kernels(seed: int, torch):
-    """(a) HLL kernel vs plain version at [1025, 2048] and [4100, 2048]."""
-    from zipkin_tpu_torch import u32
+    """(a) HLL kernel vs plain version at [1025, 2048] and [4100, 2048],
+    timed on fresh (zeroed) register files, where most valid lanes raise
+    their register, and on filled ones, where none does."""
     from zipkin_tpu_torch.ops import hll_kernel
 
     dev = torch.device("cuda")
-    lanes = 65536
+    lanes, m, iters = 65536, 2048, {"kernel": 100, "plain": 30, "library": 100}
     rng = np.random.default_rng(seed)
-    per_shape = []
+    cases = []
     for rows_n in (1025, 4100):
         batches = []
         for _ in range(8):
-            rows = torch.from_numpy(rng.integers(0, rows_n, lanes)).to(dev)
-            hashes = u32.from_numpy(rng.integers(0, 1 << 32, lanes, dtype=np.uint32), dev)
+            rows = torch.from_numpy(rng.integers(0, rows_n, lanes, dtype=np.int32)).to(dev)
+            # the kernel's hash form: the u32 bits as int32
+            bits = rng.integers(0, 1 << 32, lanes, dtype=np.uint32).view(np.int32)
             valid = torch.from_numpy(rng.random(lanes) < 0.9).to(dev)
-            batches.append((rows, hashes, valid))
-        regs_k = torch.zeros((rows_n, 2048), dtype=torch.uint8, device=dev)
+            batches.append((rows, torch.from_numpy(bits).to(dev), valid))
+        regs_k = torch.zeros((rows_n, m), dtype=torch.uint8, device=dev)
         regs_p = regs_k.clone()
-        for b in batches[:4]:
+        for b in batches:
             hll_kernel.update(regs_k, *b)
             hll_kernel.update_plain(regs_p, *b)
         torch.cuda.synchronize()
         err = int((regs_k.int() - regs_p.int()).abs().max())
         if err != 0:
-            raise AssertionError(f"hll kernel disagrees with plain at [{rows_n}, 2048]: {err}")
+            raise AssertionError(f"hll kernel disagrees with plain at [{rows_n}, {m}]: {err}")
+        filled = regs_k
         # the library yardstick: one scatter_reduce_(amax) over the flat
         # register index with rho precomputed
-        lib_in = []
-        for rows, hashes, valid in batches:
-            bucket, rho = hll_kernel.rho_of(hashes, 11)
-            lib_in.append((rows * 2048 + bucket, torch.where(valid, rho, 0).to(torch.uint8)))
-        regs_l = regs_k.clone()
-        ms = cuda_ms(lambda i: hll_kernel.update(regs_k, *batches[i % 8]), 200, torch)
-        plain_ms = cuda_ms(lambda i: hll_kernel.update_plain(regs_p, *batches[i % 8]), 50, torch)
-        lib_ms = cuda_ms(lambda i: regs_l.view(-1).scatter_reduce_(
-            0, lib_in[i % 8][0], lib_in[i % 8][1], "amax"), 200, torch)
-        dev_ms, k_rows = busy_ms(lambda i: hll_kernel.update(regs_k, *batches[i % 8]), 50, torch)
-        log(f"profiled kernel launches at [{rows_n}, 2048]: {k_rows}")
-        dev_plain, _ = busy_ms(lambda i: hll_kernel.update_plain(regs_p, *batches[i % 8]), 20, torch)
-        dev_lib, _ = busy_ms(lambda i: regs_l.view(-1).scatter_reduce_(
-            0, lib_in[i % 8][0], lib_in[i % 8][1], "amax"), 50, torch)
-        torch.cuda.synchronize()
-        if not torch.equal(regs_k, regs_p) or not torch.equal(regs_k, regs_l):
-            raise AssertionError(f"hll register files diverged after timing at [{rows_n}, 2048]")
-        # bytes this run's data needs moved: each lane's row (8 B), hash
-        # (8 B) and valid flag (1 B) read once, and the 4-byte word of each
-        # distinct register a valid lane names read once (in the timed
-        # repeats no register rises, so nothing is written back). The dense
-        # count (whole register file read and written) is kept beside it.
-        words = [torch.unique((rows * 2048 + hll_kernel.rho_of(h, 11)[0])[v] // 4).numel()
-                 for rows, h, v in batches]
-        nbytes = lanes * 17 + 4 * sum(words) / len(words)
-        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        dense_bound_ms = (lanes * 17 + 2 * rows_n * 2048) / HBM_BYTES_PER_S * 1e3
-        # the profiler's device time where it saw the kernels, else the
-        # per-call stream time (events), marked as such
-        chosen = {k: (d, "profiler") if d > 0 else (e, "events") for k, d, e in
-                  (("ms", dev_ms, ms), ("plain_ms", dev_plain, plain_ms),
-                   ("library_ms", dev_lib, lib_ms))}
-        per_shape.append(dict(shape=[rows_n, 2048], lanes=lanes,
-                              **{k: v for k, (v, _) in chosen.items()},
-                              timed_by={k: how for k, (_, how) in chosen.items()},
-                              device_ms=dev_ms,
-                              device_plain_ms=dev_plain, device_library_ms=dev_lib,
-                              stream_ms=ms, stream_plain_ms=plain_ms, stream_library_ms=lib_ms,
-                              bound_ms=bound_ms, dense_bound_ms=dense_bound_ms, max_abs_err=err))
-        log(f"hll_update [{rows_n}, 2048] x {lanes} lanes, device busy per call (profiler): "
-            f"kernel {dev_ms:.5f} ms, plain {dev_plain:.5f} ms, scatter_reduce_ {dev_lib:.5f} ms; "
-            f"per call on the stream (events): kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, "
-            f"scatter_reduce_ {lib_ms:.5f} ms; bound {bound_ms:.5f} ms "
-            f"(dense {dense_bound_ms:.5f} ms)")
+        lib_in, flat_ix = [], []
+        for rows, bits, valid in batches:
+            bucket, rho = hll_kernel.rho_of(bits, 11)
+            flat_ix.append((rows.long() * m + bucket)[valid])
+            lib_in.append((flat_ix[-1], rho[valid].to(torch.uint8)))
+        lib = lambda regs, ix, rho: regs.view(-1).scatter_reduce_(0, ix, rho, "amax")
+        fns = {"kernel": (hll_kernel.update, batches), "plain": (hll_kernel.update_plain, batches),
+               "library": (lib, lib_in)}
+        pool = [torch.zeros_like(filled) for _ in range(max(iters.values()) + 3)]
+
+        def reset_pool():
+            for r in pool:
+                r.zero_()
+
+        for state in ("fresh", "filled"):
+            if state == "fresh":
+                files, reset = pool, reset_pool
+            else:
+                files, reset = [filled] * len(pool), (lambda: None)
+            got = {}
+            for name, (fn, args) in fns.items():
+                got[name] = time_update(fn, args, files, reset, iters[name], torch)
+            log(f"profiled kernels, {state} [{rows_n}, {m}]: {got['kernel'][2]}")
+            if state == "fresh":
+                # each pool file holds one batch's update by one of the three
+                # (the library's went last); a fresh kernel run must equal it
+                for i in range(8):
+                    want = pool[i].clone()
+                    pool[i].zero_()
+                    hll_kernel.update(pool[i], *batches[i])
+                    if not torch.equal(pool[i], want):
+                        raise AssertionError(f"hll kernel != scatter_reduce_ on a fresh file, batch {i}")
+            elif not torch.equal(filled, regs_p):
+                raise AssertionError(f"filled register file changed at [{rows_n}, {m}]")
+            # bytes this run's data needs moved per call: each lane's row
+            # (i32), hash bits (i32) and valid flag (1 B) read once; the
+            # 4-byte word of each distinct register a valid lane names read
+            # once; each word that rises written once
+            start = torch.zeros_like(filled) if state == "fresh" else filled
+            read_w, write_w = [], []
+            for b, ix in zip(batches, flat_ix):
+                after = hll_kernel.update(start.clone(), *b)
+                read_w.append(torch.unique(ix // 4).numel())
+                write_w.append(int((after.view(torch.int32) != start.view(torch.int32)).sum()))
+            nbytes = lanes * 9 + 4 * (sum(read_w) + sum(write_w)) / len(batches)
+            bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            case = dict(shape=[rows_n, m], registers=state, lanes=lanes,
+                        ms=got["kernel"][0], plain_ms=got["plain"][0], library_ms=got["library"][0],
+                        stream_ms=got["kernel"][1], stream_plain_ms=got["plain"][1],
+                        stream_library_ms=got["library"][1], bound_ms=bound_ms,
+                        words_read=sum(read_w) / len(batches), words_written=sum(write_w) / len(batches),
+                        max_abs_err=err)
+            cases.append(case)
+            log(f"hll_update {state} [{rows_n}, {m}] x {lanes} lanes, device busy per call (profiler): "
+                f"kernel {case['ms']:.5f} ms, plain {case['plain_ms']:.5f} ms, scatter_reduce_ "
+                f"{case['library_ms']:.5f} ms; per call on the stream (events): kernel "
+                f"{case['stream_ms']:.5f} ms, plain {case['stream_plain_ms']:.5f} ms, scatter_reduce_ "
+                f"{case['stream_library_ms']:.5f} ms; bound {bound_ms:.6f} ms "
+                f"({case['words_read']:.0f} words read, {case['words_written']:.0f} written)")
+        del pool
     hll_kernel.update.launches = 0
-    return per_shape
+    return cases
 
 
 def drive(agg, traffic, step_spans: int, chunk: int, cfg) -> list:
@@ -407,7 +440,7 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {', '.join(kernels.SOURCES)}")
 
     t0 = time.perf_counter()
-    per_shape = phase_kernels(args.seed, torch)
+    cases = phase_kernels(args.seed, torch)
     log(f"phase a done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_gpu_vs_cpu(args.seed, torch)
@@ -417,15 +450,16 @@ def main() -> int:
     log(f"phase c done in {time.perf_counter() - t0:.1f} s")
 
     # the main path launches the kernel on both shapes equally (2 + 2 per
-    # step): report the mean per launch over that mix
-    mean = lambda key: sum(p[key] for p in per_shape) / len(per_shape)
+    # step), on register files between fresh and filled: report the mean
+    # per launch over the four cases, each case beside it
+    mean = lambda key: sum(c[key] for c in cases) / len(cases)
     record = dict(
         name="hll_update", route="cuda", source="zipkin_tpu_torch/csrc/hll_update.cu",
         replaces="zipkin_tpu/ops/pallas_hll.py:67", launches=launches,
-        max_abs_err=max(p["max_abs_err"] for p in per_shape),
+        max_abs_err=max(c["max_abs_err"] for c in cases),
         ms=mean("ms"), kernel_ms=mean("ms"), plain_ms=mean("plain_ms"),
         bound_ms=mean("bound_ms"), bound_by="bytes", library_ms=mean("library_ms"),
-        shapes=per_shape, card=card,
+        cases=cases, card=card,
     )
     print(json.dumps({"kernels": [record]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -141,7 +141,7 @@ def test_state_round_trips_through_convert(traffic):
     ref = ShardedAggregator(JCFG, mesh=make_mesh(1))
     ref.ingest(slice_columns(traffic.cols, 0, 200, pad_to=256))
     leaves = ref.state_arrays()
-    state = convert.state_from_numpy(leaves, CFG)
+    state = convert.state_from_numpy(leaves, CFG, device="cpu")
     back = convert.state_to_numpy(state)
     for name, b, w in zip(AggState._fields, back, leaves):
         assert b.dtype == LEAF_DTYPES[name]

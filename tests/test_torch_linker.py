@@ -187,7 +187,7 @@ def test_incremental_ctx_interleavings(seed, ring_pow):
     jfresh = jax.jit(lambda s: jing.fresh_link_context(jcfg, s))
 
     jstate = jinit_state(jcfg)
-    pstate = convert.state_from_numpy([np.asarray(a) for a in jstate], cfg)
+    pstate = convert.state_from_numpy([np.asarray(a) for a in jstate], cfg, device="cpu")
     rnd = random.Random(seed * 101 + 7)
     lo, since, checks = 0, 0, 0
     ring = [f for f in AggState._fields if f.startswith("r_")] + ["ring_pos"]

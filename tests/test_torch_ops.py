@@ -80,7 +80,7 @@ def test_hll_update_matches_xla_and_pallas(rows_n, precision, n):
     """Same cases as tests/test_pallas_hll.py: the port's update (plain
     path on CPU) equals the XLA update and the Pallas kernel run in the
     Pallas interpreter, over sequential batches."""
-    port = hll.new_registers(rows_n, precision)
+    port = hll.new_registers(rows_n, precision, device="cpu")
     want = jhll.new_registers(rows_n, precision)
     kern = jhll.new_registers(rows_n, precision)
     for rows, hashes, valid in _hll_batches(rows_n, n):
@@ -91,8 +91,25 @@ def test_hll_update_matches_xla_and_pallas(rows_n, precision, n):
     np.testing.assert_array_equal(_n(port), np.asarray(kern))
 
 
+def test_hll_update_takes_the_kernels_int32_form():
+    """The kernel reads i32 rows and the u32 hash bits as i32
+    (``u32.bits32``); the plain path gives the same registers for that
+    form as for int64 values, exactly."""
+    rows_n, precision = 33, 8
+    wide = hll.new_registers(rows_n, precision, device="cpu")
+    narrow = hll.new_registers(rows_n, precision, device="cpu")
+    for rows, hashes, valid in _hll_batches(rows_n, 1000):
+        hashes[:len(EDGE_U32)] = EDGE_U32
+        wide = hll.update(wide, _t(rows), _t(hashes), _t(valid))
+        h32 = u32.bits32(_t(hashes))
+        assert h32.dtype == torch.int32
+        np.testing.assert_array_equal(h32.numpy().view(np.uint32), hashes)
+        narrow = hll.update(narrow, torch.from_numpy(rows), h32, _t(valid))
+    np.testing.assert_array_equal(_n(narrow), _n(wide))
+
+
 def test_hll_invalid_lanes_are_inert_and_launches_not_counted_on_cpu():
-    regs = hll.new_registers(16, 8)
+    regs = hll.new_registers(16, 8, device="cpu")
     before = hll_kernel.update.launches
     out = hll.update(regs, torch.zeros(64, dtype=torch.int64),
                      torch.full((64,), 0xDEADBEEF, dtype=torch.int64),
@@ -110,7 +127,7 @@ def test_hll_estimate(n_distinct):
     hashes = rng.integers(0, 2**32, n_distinct, dtype=np.uint32)
     rows = rng.integers(0, 5, n_distinct, dtype=np.int32)
     valid = np.ones(n_distinct, bool)
-    port = hll.update(hll.new_registers(5, 11), _t(rows), _t(hashes), _t(valid))
+    port = hll.update(hll.new_registers(5, 11, device="cpu"), _t(rows), _t(hashes), _t(valid))
     want = jhll.update(jhll.new_registers(5, 11), rows, hashes, valid)
     np.testing.assert_array_equal(_n(port), np.asarray(want))
     np.testing.assert_allclose(_n(hll.estimate(port)), np.asarray(jhll.estimate(want)), rtol=1e-6)
@@ -126,7 +143,7 @@ def test_histogram_ops():
     idx = np.arange(jhist.BUCKETS, dtype=np.int32)
     for got, want in zip(histogram.bucket_bounds(_t(idx)), jhist.bucket_bounds(idx)):
         np.testing.assert_array_equal(_n(got), np.asarray(want))  # same f32 ops: exact
-    h = histogram.update(histogram.new_histograms(keys), _t(key), _t(dur), _t(valid))
+    h = histogram.update(histogram.new_histograms(keys, device="cpu"), _t(key), _t(dur), _t(valid))
     hj = jhist.update(jhist.new_histograms(keys), key, dur, valid)
     np.testing.assert_array_equal(_n(h), np.asarray(hj))
     np.testing.assert_array_equal(_n(histogram.total_count(h)), np.asarray(jhist.total_count(hj)))

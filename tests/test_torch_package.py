@@ -69,6 +69,39 @@ def test_aggregator_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert TorchAggregator(small, device="cpu").state.hll.device.type == "cpu"
 
 
+def _small_config():
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    return AggConfig(max_services=4, max_keys=8, hll_precision=4, digest_centroids=4,
+                     digest_buffer=64, ring_capacity=64, time_buckets=0)
+
+
+@pytest.mark.parametrize("entry", ["state_from_numpy", "init_state", "new_registers",
+                                   "new_histograms", "init_ctx"])
+def test_state_builders_default_to_cuda_and_raise_without_it(monkeypatch, entry):
+    """Every function that builds state puts it on the card unless the
+    caller names a device; with no card and no device it raises."""
+    from zipkin_tpu_torch import convert
+    from zipkin_tpu_torch.ops import delta_linker, histogram, hll
+    from zipkin_tpu_torch.tpu.state import init_state
+
+    cfg = _small_config()
+    build = {
+        "state_from_numpy": lambda **kw: convert.state_from_numpy(
+            convert.state_to_numpy(init_state(cfg, device="cpu")), cfg, **kw).hll,
+        "init_state": lambda **kw: init_state(cfg, **kw).hll,
+        "new_registers": lambda **kw: hll.new_registers(4, 4, **kw),
+        "new_histograms": lambda **kw: histogram.new_histograms(8, **kw),
+        "init_ctx": lambda **kw: delta_linker.init_ctx(16, **kw).order,
+    }[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
+    with pytest.raises(RuntimeError):
+        build(device="cuda")
+    assert build(device="cpu").device.type == "cpu"
+
+
 def test_hll_kernel_refuses_bad_inputs_before_building():
     """The CUDA wrapper checks device, dtype and shape in Python; on the
     CPU it takes the plain path only because the tensor is on the CPU."""

@@ -3,7 +3,7 @@
 ``state_from_numpy`` takes the reference's ``AggState`` leaves as numpy
 arrays (what ``ShardedAggregator.state_arrays()`` returns — with the
 leading shard axis of one shard, or without it) and builds the port's
-state on ``device``; ``state_to_numpy`` gives them back with the
+state on ``device`` (the card unless the caller names another); ``state_to_numpy`` gives them back with the
 reference's dtypes and shapes (no shard axis), so two states can be
 diffed leaf by leaf. numpy and torch only.
 """
@@ -15,11 +15,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from zipkin_tpu_torch.device import resolve_device
 from zipkin_tpu_torch.tpu.state import LEAF_DTYPES, AggConfig, AggState, init_state, torch_dtype
 
 
-def state_from_numpy(leaves: Sequence[np.ndarray], config: AggConfig, device="cpu") -> AggState:
+def state_from_numpy(leaves: Sequence[np.ndarray], config: AggConfig, device=None) -> AggState:
     """The port's state from reference leaves (in AggState order)."""
+    device = resolve_device(device)
     if len(leaves) != len(AggState._fields):
         raise ValueError(f"expected {len(AggState._fields)} leaves, got {len(leaves)}")
     template = init_state(config, "meta")

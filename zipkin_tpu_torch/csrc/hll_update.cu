@@ -20,11 +20,12 @@
 // atomic. That skip is the common case once registers fill.
 //
 // What bounds it on the card: memory and atomics, not arithmetic. Each
-// lane reads its row (8 B), hash (8 B; the port holds u32 values as int64)
-// and valid flag (1 B) once, plus one 4-byte read-modify-write of a word
-// for each lane that raises its register. At 65,536 lanes that is ~1.1 MB,
-// well under a microsecond of HBM traffic at 3.35 TB/s; the register files
-// (2 MB and 8.4 MB) stay in the 50 MB L2. Launch latency dominates.
+// lane reads its row (i32, 4 B), hash (the u32 bits, 4 B) and valid flag
+// (1 B) once: 9 B. A valid lane reads the 4-byte word of its register, and
+// a lane that raises it adds one 4-byte read-modify-write. At 65,536 lanes
+// that is under 1 MB, well under a microsecond of HBM traffic at
+// 3.35 TB/s; the register files (2 MB and 8.4 MB) fit the 50 MB L2. Launch
+// latency dominates.
 //
 // Plain C interface, built with nvcc into a shared library and loaded with
 // ctypes (zipkin_tpu_torch/kernels.py). Launches on the caller's stream,
@@ -36,8 +37,8 @@
 namespace {
 
 __global__ void hll_update_kernel(uint8_t* __restrict__ regs,
-                                  const int64_t* __restrict__ rows,
-                                  const int64_t* __restrict__ hashes,
+                                  const int32_t* __restrict__ rows,
+                                  const uint32_t* __restrict__ hashes,
                                   const bool* __restrict__ valid,
                                   int64_t n, int64_t n_rows, int p) {
   const int64_t m = int64_t(1) << p;
@@ -48,7 +49,7 @@ __global__ void hll_update_kernel(uint8_t* __restrict__ regs,
     if (!valid[i]) continue;  // rho 0: inert
     const int64_t row = rows[i];
     if (row < 0 || row >= n_rows) continue;  // out of range: dropped
-    const uint32_t h = static_cast<uint32_t>(hashes[i]);
+    const uint32_t h = hashes[i];
     const uint32_t bucket = h >> (32 - p);
     const uint32_t rest = h & rest_mask;
     // floor(log2(rest)) = 31 - clz(rest) for rest >= 1
@@ -80,8 +81,8 @@ extern "C" int hll_update(void* regs, const void* rows, const void* hashes,
   if (blocks > 132LL * 16) blocks = 132LL * 16;  // grid-stride beyond this
   hll_update_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint8_t*>(regs), static_cast<const int64_t*>(rows),
-      static_cast<const int64_t*>(hashes), static_cast<const bool*>(valid),
+      static_cast<uint8_t*>(regs), static_cast<const int32_t*>(rows),
+      static_cast<const uint32_t*>(hashes), static_cast<const bool*>(valid),
       static_cast<int64_t>(n), static_cast<int64_t>(n_rows), p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,6 +17,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from zipkin_tpu_torch import u32
+from zipkin_tpu_torch.device import resolve_device
 from zipkin_tpu_torch.ops import linker
 from zipkin_tpu_torch.ops.segments import segment_starts
 
@@ -36,10 +37,11 @@ class CtxStruct(NamedTuple):
     delta: torch.Tensor     # [] lanes written since the last advance
 
 
-def init_ctx(n: int, device="cpu") -> CtxStruct:
-    """Ctx of an all-invalid ring: identity order, one run, no candidates."""
+def init_ctx(n: int, device=None) -> CtxStruct:
+    """Ctx of an all-invalid ring: identity order, one run, no candidates
+    (on the card unless ``device`` names another)."""
     u = 2 * n
-    i64 = dict(dtype=torch.int64, device=device)
+    i64 = dict(dtype=torch.int64, device=resolve_device(device))
     return CtxStruct(
         order=torch.arange(u, **i64),
         keys=torch.full((4, u), u32.SENTINEL, **i64),

@@ -10,6 +10,7 @@ from __future__ import annotations
 import torch
 
 from zipkin_tpu_torch import u32
+from zipkin_tpu_torch.device import resolve_device
 from zipkin_tpu_torch.ops.hashing import floor_log2
 
 SUB_BITS = 5
@@ -17,8 +18,9 @@ SUB = 1 << SUB_BITS
 BUCKETS = (32 - SUB_BITS + 1) * SUB  # 896
 
 
-def new_histograms(keys: int, device="cpu") -> torch.Tensor:
-    return torch.zeros((keys, BUCKETS), dtype=u32.DTYPE, device=device)
+def new_histograms(keys: int, device=None) -> torch.Tensor:
+    """Zeroed rows on the card unless ``device`` names another."""
+    return torch.zeros((keys, BUCKETS), dtype=u32.DTYPE, device=resolve_device(device))
 
 
 def bucket_of(duration_us: torch.Tensor) -> torch.Tensor:

@@ -12,11 +12,13 @@ from __future__ import annotations
 
 import torch
 
+from zipkin_tpu_torch.device import resolve_device
 from zipkin_tpu_torch.ops import hll_kernel
 
 
-def new_registers(rows: int, precision: int = 11, device="cpu") -> torch.Tensor:
-    return torch.zeros((rows, 1 << precision), dtype=torch.uint8, device=device)
+def new_registers(rows: int, precision: int = 11, device=None) -> torch.Tensor:
+    """Zeroed registers on the card unless ``device`` names another."""
+    return torch.zeros((rows, 1 << precision), dtype=torch.uint8, device=resolve_device(device))
 
 
 def update(registers, row_ids, hashes, valid) -> torch.Tensor:

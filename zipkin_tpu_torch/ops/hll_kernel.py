@@ -22,8 +22,8 @@ from zipkin_tpu_torch.ops.hashing import floor_log2
 
 
 def rho_of(hashes: torch.Tensor, p: int):
-    """(bucket, rho) of each u32 hash for precision ``p`` — the bit rules
-    of ``zipkin_tpu/ops/hll.py:update``."""
+    """(bucket, rho) of each u32 hash (int64 value or int32 bits) for
+    precision ``p`` — the bit rules of ``zipkin_tpu/ops/hll.py:update``."""
     h = u32.wrap(hashes.to(u32.DTYPE))
     bucket = h >> (32 - p)
     rest = h & ((1 << (32 - p)) - 1)
@@ -80,9 +80,11 @@ def _launch(registers, rows, hashes, valid) -> None:
 def update(registers, row_ids, hashes, valid) -> torch.Tensor:
     """Raise ``registers[row, bucket]`` to ``rho`` of each valid lane.
 
-    ``registers``: u8 ``[rows, 2**p]``, contiguous. ``row_ids``: int64
-    ``[n]``. ``hashes``: int64 ``[n]`` holding u32 values. ``valid``: bool
-    ``[n]``. On a CUDA tensor all four must be on the same card.
+    ``registers``: u8 ``[rows, 2**p]``, contiguous. ``row_ids``: int32
+    ``[n]``. ``hashes``: int32 ``[n]`` holding the bits of the u32 hashes
+    (:func:`zipkin_tpu_torch.u32.bits32`). ``valid``: bool ``[n]``. On a
+    CUDA tensor all four must be on the same card, so the kernel reads
+    9 B a lane; the plain path also takes int64 rows and u32 values.
     """
     if registers.device.type == "cpu":
         return update_plain(registers, row_ids, hashes, valid)
@@ -98,8 +100,8 @@ def update(registers, row_ids, hashes, valid) -> torch.Tensor:
     if not registers.is_contiguous() or registers.data_ptr() % 4:
         raise ValueError("hll update: registers must be contiguous and 4-byte aligned")
     n = row_ids.shape[0]
-    for name, t, dt in (("row_ids", row_ids, torch.int64),
-                        ("hashes", hashes, torch.int64),
+    for name, t, dt in (("row_ids", row_ids, torch.int32),
+                        ("hashes", hashes, torch.int32),
                         ("valid", valid, torch.bool)):
         if t.device != dev:
             raise ValueError(f"hll update: {name} on {t.device}, registers on {dev}")

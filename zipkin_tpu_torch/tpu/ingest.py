@@ -65,10 +65,11 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
         live = int(valid.sum().item())
 
     # --- HLL: distinct traces per service + globally --------------------
-    h = hashing.fmix32(batch.trace_h)
-    svc_rows = torch.clamp(batch.svc, 0, config.max_services - 1)
+    # the register update reads i32 rows and the u32 hash bits as i32
+    h = u32.bits32(hashing.fmix32(batch.trace_h))
+    svc_rows = torch.clamp(batch.svc, 0, config.max_services - 1).to(torch.int32)
     hll.update(state.hll, svc_rows, h, valid & (batch.svc > 0))
-    hll.update(state.hll, torch.full((n,), config.global_hll_row, dtype=torch.int64, device=dev),
+    hll.update(state.hll, torch.full((n,), config.global_hll_row, dtype=torch.int32, device=dev),
                h, valid)
 
     # --- latency sketches per (service, spanName) key -------------------
@@ -88,8 +89,9 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
         tb_epoch, tb_wipe, tb_keep = _recycle_slots(w_tt, state.tb_epoch, sl_tt, ep_tt, valid)
         state.tb_hll.masked_fill_(tb_wipe[:, None, None], 0)
         flat = state.tb_hll.view(w_tt * config.hll_rows, -1)
-        hll.update(flat, sl_tt * config.hll_rows + svc_rows, h, tb_keep & (batch.svc > 0))
-        hll.update(flat, sl_tt * config.hll_rows + config.global_hll_row, h, tb_keep)
+        tt_rows = (sl_tt * config.hll_rows).to(torch.int32)
+        hll.update(flat, tt_rows + svc_rows, h, tb_keep & (batch.svc > 0))
+        hll.update(flat, tt_rows + config.global_hll_row, h, tb_keep)
         state.tb_digest.masked_fill_(tb_wipe[:, None, None, None], 0.0)
         state.tb_calls.masked_fill_(tb_wipe[:, None, None], 0)
         state.tb_errs.masked_fill_(tb_wipe[:, None, None], 0)

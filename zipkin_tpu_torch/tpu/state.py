@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from zipkin_tpu_torch import u32
+from zipkin_tpu_torch.device import resolve_device
 from zipkin_tpu_torch.ops import histogram
 from zipkin_tpu_torch.tpu.columnar import MAX_WIRE_KEYS, MAX_WIRE_SERVICES
 
@@ -163,8 +164,10 @@ class AggState(NamedTuple):
     counters: torch.Tensor  # u32 [NUM_COUNTERS]
 
 
-def init_state(config: AggConfig, device="cpu") -> AggState:
-    """Fresh state with the reference's load-bearing sentinels."""
+def init_state(config: AggConfig, device=None) -> AggState:
+    """Fresh state with the reference's load-bearing sentinels, on the
+    card unless ``device`` names another."""
+    device = resolve_device(device)
     r = config.ring_capacity
     s, k = config.max_services, config.max_keys
     m = 1 << config.hll_precision

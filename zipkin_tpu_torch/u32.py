@@ -65,6 +65,12 @@ def as_int32(x: torch.Tensor) -> torch.Tensor:
     return ((x + (1 << 31)) & MASK) - (1 << 31)
 
 
+def bits32(x: torch.Tensor) -> torch.Tensor:
+    """The int32 tensor holding the bits of ``x``'s u32 values — the form
+    the HLL kernel reads (4 B a hash)."""
+    return as_int32(x).to(torch.int32)
+
+
 def from_numpy(arr: np.ndarray, device) -> torch.Tensor:
     """A numpy ``uint32`` array -> int64 tensor on ``device``. The copy to
     the card moves 4 bytes a value (the bits travel as int32) and widens
