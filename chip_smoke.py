@@ -5,16 +5,21 @@
 
 Builds the hand-written kernels from the sources in the checkout, then:
 
-(a) holds each kernel against its plain PyTorch version at the main
-    path's shapes on the card (results must be equal) and times kernel,
-    plain version and the nearest single PyTorch call;
+(a) holds the single-target HLL kernel against its plain PyTorch version
+    at the main path's shapes, on uniform random rows, on the card
+    (results must be equal) and times kernel, plain version and the
+    nearest single PyTorch call;
 (b) drives the same seeded batches through TorchAggregator on the card
     and on the CPU at a small config (flushes, rollups, ring wraps) and
     compares every state leaf and every read;
 (c) drives the main path at the default AggConfig: 2**20 synthetic spans
     in 8 x 8192-span coalesced steps through ingest_fused_multi, then the
     quantile, cardinality and dependency reads, checked against what the
-    generator knows, with each kernel's launch count.
+    generator knows, with each kernel's launch count;
+(a2) holds the fused HLL update against its plain version and the four
+    single-target launches it replaced, on the main path's own lanes at
+    its first step (fresh register files) and its last (the files (c)
+    left), and times them in turns.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -101,11 +106,9 @@ def busy_ms(fn, iters: int, torch, reset=lambda: None):
     raise RuntimeError("the profiler saw no device time in three traces")
 
 
-def time_update(update, args, files, reset, iters: int, torch):
-    """(device ms, stream ms, profiled kernels) per call of
-    ``update(files[i], *args[i % len(args)])``; ``reset`` restores the
-    register files before each measurement."""
-    fn = lambda i: update(files[i], *args[i % len(args)])
+def time_calls(fn, reset, iters: int, torch):
+    """(device ms, stream ms, profiled kernels) per call ``fn(i)``;
+    ``reset`` restores the register files before each measurement."""
     dev, rows = busy_ms(fn, iters, torch, reset)
     reset()
     return dev, cuda_ms(fn, iters, torch), rows
@@ -162,7 +165,8 @@ def phase_kernels(seed: int, torch):
                 files, reset = [filled] * len(pool), (lambda: None)
             got = {}
             for name, (fn, args) in fns.items():
-                got[name] = time_update(fn, args, files, reset, iters[name], torch)
+                call = lambda i, fn=fn, args=args: fn(files[i], *args[i % len(args)])
+                got[name] = time_calls(call, reset, iters[name], torch)
             log(f"profiled kernels, {state} [{rows_n}, {m}]: {got['kernel'][2]}")
             if state == "fresh":
                 # each pool file holds one batch's update by one of the three
@@ -202,6 +206,153 @@ def phase_kernels(seed: int, torch):
                 f"({case['words_read']:.0f} words read, {case['words_written']:.0f} written)")
         del pool
     hll_kernel.update.launches = 0
+    return cases
+
+
+def phase_step(torch, agg, traffic, chunk: int):
+    """(a2, after c) the step's HLL update on the main path's own lanes:
+    "fresh" is the first step's lanes on zeroed register files, "filled"
+    the last step's lanes on the files (c) left after its 2**20 spans, so
+    that none of them rises. Timed in turns on one card: the four
+    single-target launches as the main path made them before the fused
+    kernel (rows and masks precomputed, and once more with them built as
+    that step built them), ``update_step`` (and on the same lanes with none
+    live: the launch's floor), ``update_step_plain``, and two ``scatter_reduce_(amax)`` calls (one
+    per file) on precomputed flat indices and rho. Every one of them must
+    leave the registers that ``update_step_plain`` leaves."""
+    from zipkin_tpu_torch import u32
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.parallel.aggregator import unfuse_columns
+    from zipkin_tpu_torch.tpu import ingest as ing
+    from zipkin_tpu_torch.tpu.columnar import fuse_columns
+    from zipkin_tpu_torch.workload import slice_columns
+
+    cfg, dev, st = agg.config, agg.device, agg.state
+    s_, r_, g_ = cfg.max_services, cfg.hll_rows, cfg.global_hll_row
+    kw = dict(max_services=s_, hll_rows=r_, global_row=g_)
+    step = 8 * chunk
+    iters = dict(four=100, four_built=100, step=100, step_inert=100, plain=30, library=100)
+    turns = ["four", "step", "four_built", "plain", "step_inert", "library", "four_built", "step", "four"]
+    cases = []
+    for state in ("fresh", "filled"):
+        k = 0 if state == "fresh" else traffic.cols.size // step - 1
+        image = fuse_columns(slice_columns(traffic.cols, k * step, (k + 1) * step))
+        batch = unfuse_columns(u32.from_numpy(image, dev))
+        if state == "fresh":
+            start = (torch.zeros_like(st.hll), torch.zeros_like(st.tb_hll))
+            epoch = torch.full_like(st.tb_epoch, -1)
+        else:
+            start, epoch = (st.hll.clone(), st.tb_hll.clone()), st.tb_epoch
+        lanes, _, wipe = ing.hll_lanes(cfg, epoch, batch)
+        start[1].masked_fill_(wipe[:, None, None], 0)
+        start = (start[0], start[1].view(-1, start[1].shape[-1]))
+        args = tuple(lanes[x] for x in ("hashes", "svc", "valid", "tb_keep", "slot"))
+        h, svc, valid, keep, slot = args
+        n = h.shape[0]
+        # the same lanes with none live: what a launch costs that reads the
+        # lanes and raises nothing
+        inert = (h, svc, torch.zeros_like(valid), torch.zeros_like(keep), slot)
+
+        def four_rows():
+            """The row and mask vectors of the four calls, built as the
+            step built them before the fused kernel."""
+            svc_rows = torch.clamp(svc, 0, s_ - 1)
+            named = svc > 0
+            tt_rows = slot.to(torch.int32) * r_
+            return [(0, svc_rows, valid & named), (0, torch.full_like(svc_rows, g_), valid),
+                    (1, tt_rows + svc_rows, keep & named), (1, tt_rows + g_, keep)]
+
+        four_args = four_rows()
+        m = start[0].shape[1]
+        bucket, rho = hll_kernel.rho_of(h, cfg.hll_precision)
+        lib_in = [(torch.cat([(rows.long() * m + bucket)[mask] for ff, rows, mask in four_args if ff == f]),
+                   torch.cat([rho[mask] for ff, rows, mask in four_args if ff == f]).to(torch.uint8))
+                  for f in (0, 1)]
+
+        def four(files, built=False):
+            for which, rows, mask in (four_rows() if built else four_args):
+                hll_kernel.update(files[which], rows, h, mask)
+
+        fns = dict(
+            four=four,
+            four_built=lambda f: four(f, built=True),
+            step=lambda f: hll_kernel.update_step(*f, *args, **kw),
+            step_inert=lambda f: hll_kernel.update_step(*f, *inert, **kw),
+            plain=lambda f: hll_kernel.update_step_plain(*f, *args, **kw),
+            library=lambda f: [f[i].view(-1).scatter_reduce_(0, ix, rh, "amax")
+                               for i, (ix, rh) in enumerate(lib_in)],
+        )
+        want = tuple(x.clone() for x in start)
+        hll_kernel.update_step_plain(*want, *args, **kw)
+        err = 0
+        for name, fn in fns.items():
+            got = tuple(x.clone() for x in start)
+            fn(got)
+            torch.cuda.synchronize()
+            ref = start if name == "step_inert" else want
+            err = max(err, max(int((a.int() - b.int()).abs().max()) for a, b in zip(got, ref)))
+            if err:
+                raise AssertionError(f"{name} != update_step_plain on the main path's lanes ({state}): {err}")
+        # bytes this data needs moved: each lane's columns read once (11 B
+        # in the fused form, 9 B per call in each of the four), one 4-byte
+        # word read per distinct register word a live target names, one
+        # written per word that rises
+        words = sum(torch.unique(ix // 4).numel() for ix, _ in lib_in)
+        written = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum()) for a, b in zip(start, want))
+        # the same at the card's access granularity, 32-byte sectors (shown
+        # beside the bound, not in it: why a random 4-byte word costs more)
+        sectors = sum(torch.unique(ix // 32).numel() for ix, _ in lib_in)
+        sectors_written = sum(int((a.view(torch.int64).view(-1, 4) != b.view(torch.int64).view(-1, 4))
+                                  .any(1).sum()) for a, b in zip(start, want))
+        if state == "filled":
+            # time on the files after this step's update: nothing rises
+            log(f"the last step's lanes raise {written} words of the files phase c left")
+            start, written, sectors_written = want, 0, 0
+            files = [want] * (max(iters.values()) + 3)
+            snapshot = tuple(x.clone() for x in want)
+            reset = lambda: None
+        else:
+            files = [tuple(torch.zeros_like(x) for x in start) for _ in range(max(iters.values()) + 3)]
+
+            def reset():
+                for pair in files:
+                    for x in pair:
+                        x.zero_()
+        lane_bytes = n * sum(t.element_size() for t in args)
+        bound_ms = (lane_bytes + 4 * (words + written)) / HBM_BYTES_PER_S * 1e3
+        bound_four_ms = (4 * 9 * n + 4 * (words + written)) / HBM_BYTES_PER_S * 1e3
+        sector_ms = (lane_bytes + 32 * (sectors + sectors_written)) / HBM_BYTES_PER_S * 1e3
+        got = {name: [] for name in fns}
+        for name in turns:
+            fn = fns[name]
+            got[name].append(time_calls(lambda i, fn=fn: fn(files[i]), reset, iters[name], torch))
+        if state == "filled" and not all(torch.equal(a, b) for a, b in zip(want, snapshot)):
+            raise AssertionError("a filled register file changed")
+        dev_ms = {name: [t[0] for t in v] for name, v in got.items()}
+        stream_ms = {name: [t[1] for t in v] for name, v in got.items()}
+        mean = lambda xs: sum(xs) / len(xs)
+        case = dict(registers=state, lanes=n, lane_bytes=lane_bytes, ms=mean(dev_ms["step"]),
+                    four_launch_ms=mean(dev_ms["four"]), four_built_ms=mean(dev_ms["four_built"]),
+                    inert_ms=mean(dev_ms["step_inert"]),
+                    plain_ms=mean(dev_ms["plain"]), library_ms=mean(dev_ms["library"]),
+                    bound_ms=bound_ms, four_launch_bound_ms=bound_four_ms,
+                    words_read=words, words_written=written, max_abs_err=err,
+                    sectors_read=sectors, sectors_written=sectors_written, sector_bytes_ms=sector_ms,
+                    turns=dev_ms, stream_ms=stream_ms)
+        cases.append(case)
+        log(f"hll step, {state} files, main path's lanes ({n}, {lane_bytes} B of lane columns), "
+            f"device busy per step (profiler), in turns {turns}: "
+            + json.dumps({k2: [round(x, 6) for x in v] for k2, v in dev_ms.items()}))
+        log(f"hll step, {state}: update_step {case['ms']:.5f} ms, "
+            f"no live lane {case['inert_ms']:.5f} ms, four launches "
+            f"{case['four_launch_ms']:.5f} ms "
+            f"(with their row/mask ops {case['four_built_ms']:.5f} ms), plain {case['plain_ms']:.5f} ms, "
+            f"scatter_reduce_ x2 {case['library_ms']:.5f} ms; bound {bound_ms:.6f} ms fused, "
+            f"{bound_four_ms:.6f} ms as four calls ({words} words read, {written} written; in 32-byte "
+            f"sectors {sectors} read, {sectors_written} written: {sector_ms:.6f} ms); per step on "
+            f"the stream (events): " + json.dumps({k2: round(mean(v), 5) for k2, v in stream_ms.items()}))
+        log(f"profiled kernels, {state}, update_step: {got['step'][0][2]}")
+        del files
     return cases
 
 
@@ -280,7 +431,7 @@ def median_ms(fn, reps: int = 5) -> float:
 def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, device=None):
     """(c) the main path (default AggConfig, 8 chunks of ``chunk`` spans
     per step, on the card unless ``device`` says otherwise); returns the
-    kernel launches of the run."""
+    kernel launches of the run by wrapper, the aggregator and the traffic."""
     from zipkin_tpu_torch.ops import hll_kernel, tdigest
     from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
     from zipkin_tpu_torch.tpu.state import CTR_BATCHES, CTR_ERRORS, CTR_SPANS, AggConfig, state_bytes
@@ -293,12 +444,13 @@ def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, devi
     agg.block_until_ready()
     log(f"state: {state_bytes(agg.state) / 2**30:.3f} GiB on {agg.device} for {cfg}")
 
-    hll_kernel.update.launches = 0
+    hll_kernel.update.launches = hll_kernel.update_step.launches = 0
     walls = drive(agg, traffic, 8 * chunk, chunk, cfg)
-    launches = hll_kernel.update.launches
+    launches = {"update": hll_kernel.update.launches, "update_step": hll_kernel.update_step.launches}
     steps = len(walls)
-    if launches != 4 * steps:
-        raise AssertionError(f"hll kernel launched {launches} times over {steps} steps, want {4 * steps}")
+    if launches != {"update": 0, "update_step": steps}:
+        raise AssertionError(f"hll kernel launches over {steps} steps: {launches}, "
+                             f"want update_step once a step and update never")
     log(f"ingest: {n_spans} spans in {steps} steps, {n_spans / (sum(walls) / 1e3):.0f} spans/s "
         f"(first step {walls[0]:.1f} ms, median step {statistics.median(walls):.2f} ms); "
         f"{agg.ctx_stats['ctx_advances']} rollups; step walls ms {[round(w, 2) for w in walls]}")
@@ -392,7 +544,7 @@ def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, devi
         profile_steps(agg, traffic, chunk, cfg, torch)
     peak = torch.cuda.max_memory_allocated() / 2**30 if agg.device.type == "cuda" else float("nan")
     log(f"read stats: {json.dumps(agg.read_stats)}; peak device memory {peak:.3f} GiB")
-    return launches
+    return launches, agg, traffic
 
 
 def profile_steps(agg, traffic, chunk: int, cfg, torch) -> None:
@@ -438,6 +590,8 @@ def main() -> int:
     t0 = time.perf_counter()
     kernels.build()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {', '.join(kernels.SOURCES)}")
+    for name, out in kernels.BUILD_LOGS.items():  # -Xptxas=-v: registers, shared memory, spills
+        log(f"nvcc {name}: " + " | ".join(ln.strip() for ln in out.splitlines() if "ptxas info" in ln))
 
     t0 = time.perf_counter()
     cases = phase_kernels(args.seed, torch)
@@ -446,22 +600,31 @@ def main() -> int:
     phase_gpu_vs_cpu(args.seed, torch)
     log(f"phase b done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = phase_main(args.seed, args.spans, torch)
+    launches, agg, traffic = phase_main(args.seed, args.spans, torch)
     log(f"phase c done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    step_cases = phase_step(torch, agg, traffic, 8192)
+    log(f"phase a2 done in {time.perf_counter() - t0:.1f} s")
 
-    # the main path launches the kernel on both shapes equally (2 + 2 per
-    # step), on register files between fresh and filled: report the mean
-    # per launch over the four cases, each case beside it
-    mean = lambda key: sum(c[key] for c in cases) / len(cases)
-    record = dict(
-        name="hll_update", route="cuda", source="zipkin_tpu_torch/csrc/hll_update.cu",
-        replaces="zipkin_tpu/ops/pallas_hll.py:67", launches=launches,
-        max_abs_err=max(c["max_abs_err"] for c in cases),
-        ms=mean("ms"), kernel_ms=mean("ms"), plain_ms=mean("plain_ms"),
-        bound_ms=mean("bound_ms"), bound_by="bytes", library_ms=mean("library_ms"),
-        cases=cases, card=card,
-    )
-    print(json.dumps({"kernels": [record]}))
+    # hll_update: its single-target cases of phase a (uniform rows, both
+    # shapes, fresh and filled); hll_update_step: the main path's own lanes,
+    # fresh and filled. Each reports the mean over its cases, each case
+    # beside it; launches are those of the main path's run (phase c).
+    mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
+    source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
+    records = [
+        dict(name="hll_update", route="cuda", source=source, replaces=replaces,
+             launches=launches["update"], max_abs_err=max(c["max_abs_err"] for c in cases),
+             ms=mean(cases, "ms"), plain_ms=mean(cases, "plain_ms"), bound_ms=mean(cases, "bound_ms"),
+             bound_by="bytes", library_ms=mean(cases, "library_ms"), cases=cases, card=card),
+        dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
+             launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
+             ms=mean(step_cases, "ms"), plain_ms=mean(step_cases, "plain_ms"),
+             bound_ms=mean(step_cases, "bound_ms"), bound_by="bytes",
+             library_ms=mean(step_cases, "library_ms"),
+             four_launch_ms=mean(step_cases, "four_launch_ms"), cases=step_cases, card=card),
+    ]
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -24,11 +24,14 @@ BUILD_DIR = _PKG / "build"
 SOURCES = ("hll_update",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# compiler output of each source built by this process (``-Xptxas=-v``:
+# registers, shared memory and spills of every kernel)
+BUILD_LOGS: Dict[str, str] = {}
 
 
 def _nvcc() -> str:
@@ -66,6 +69,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
     failed = []
     for name, so, tmp, proc in procs:
         log, _ = proc.communicate()
+        BUILD_LOGS[name] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
         else:

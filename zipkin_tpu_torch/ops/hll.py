@@ -1,8 +1,10 @@
 """HyperLogLog registers (port of ``zipkin_tpu/ops/hll.py``).
 
 ``uint8 [rows, 2**p]`` register files; :func:`update` raises registers by
-scatter-max (through the Hopper kernel on the card, see
-:mod:`zipkin_tpu_torch.ops.hll_kernel`), :func:`merge` is element-wise
+scatter-max and :func:`update_step` raises all of an ingest step's
+registers (per-service and global rows of ``hll`` and of the time tier's
+flat view) in one launch — both through the Hopper kernel on the card, see
+:mod:`zipkin_tpu_torch.ops.hll_kernel`. :func:`merge` is element-wise
 max, :func:`estimate` the bias-corrected harmonic mean with linear
 counting below 2.5m (no 32-bit large-range correction, as in the
 reference — its docstring gives the measured reason).
@@ -26,6 +28,18 @@ def update(registers, row_ids, hashes, valid) -> torch.Tensor:
     IN PLACE (the reference returns a new array; the port saves the copy
     of the register file). Invalid lanes are inert."""
     return hll_kernel.update(registers, row_ids, hashes, valid)
+
+
+def update_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
+                max_services: int, hll_rows: int, global_row: int):
+    """The ingest step's four register updates in one pass, IN PLACE:
+    ``hll`` at ``clamp(svc, 0, max_services-1)`` (lanes ``valid & svc > 0``)
+    and at ``global_row`` (``valid``); with the time tier (``tb_flat``
+    not None) the same two rows of slot ``slot`` (``tb_keep``). Integer
+    max is order-free, so the registers equal the four separate updates."""
+    return hll_kernel.update_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot,
+                                  max_services=max_services, hll_rows=hll_rows,
+                                  global_row=global_row)
 
 
 def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

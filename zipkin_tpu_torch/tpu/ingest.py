@@ -8,6 +8,11 @@ are hundreds of MB at the default config, and a copy per step would
 double the traffic. Callers keep only the returned state. Reads never
 mutate.
 
+The HLL registers of a step (per service and global, in ``hll`` and in
+the time tier's ``tb_hll``) are raised by one launch,
+:func:`zipkin_tpu_torch.ops.hll.update_step`, over the lane columns
+:func:`hll_lanes` builds.
+
 Sampling (``config.sampling``) is not ported yet: a state built with it
 raises instead of silently skipping the verdict.
 """
@@ -59,18 +64,9 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
     if config.sampling:
         raise NotImplementedError("the sampling tier is not ported yet")
     valid = batch.valid
-    n = valid.shape[0]
     dev = valid.device
     if live is None:
         live = int(valid.sum().item())
-
-    # --- HLL: distinct traces per service + globally --------------------
-    # the register update reads i32 rows and the u32 hash bits as i32
-    h = u32.bits32(hashing.fmix32(batch.trace_h))
-    svc_rows = torch.clamp(batch.svc, 0, config.max_services - 1).to(torch.int32)
-    hll.update(state.hll, svc_rows, h, valid & (batch.svc > 0))
-    hll.update(state.hll, torch.full((n,), config.global_hll_row, dtype=torch.int32, device=dev),
-               h, valid)
 
     # --- latency sketches per (service, spanName) key -------------------
     has_dur = valid & batch.has_dur
@@ -81,21 +77,20 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
     )
 
     # --- time-disaggregated current-bucket leaves ------------------------
-    tt = {}
+    lanes, tb_epoch, tb_wipe = hll_lanes(config, state.tb_epoch, batch)
+    tt, tb_flat = {}, None
     if config.timetier_enabled:
-        w_tt = config.time_buckets
-        ep_tt = batch.ts_min // config.time_bucket_minutes
-        sl_tt = ep_tt % w_tt
-        tb_epoch, tb_wipe, tb_keep = _recycle_slots(w_tt, state.tb_epoch, sl_tt, ep_tt, valid)
         state.tb_hll.masked_fill_(tb_wipe[:, None, None], 0)
-        flat = state.tb_hll.view(w_tt * config.hll_rows, -1)
-        tt_rows = (sl_tt * config.hll_rows).to(torch.int32)
-        hll.update(flat, tt_rows + svc_rows, h, tb_keep & (batch.svc > 0))
-        hll.update(flat, tt_rows + config.global_hll_row, h, tb_keep)
+        tb_flat = state.tb_hll.view(config.time_buckets * config.hll_rows, -1)
         state.tb_digest.masked_fill_(tb_wipe[:, None, None, None], 0.0)
         state.tb_calls.masked_fill_(tb_wipe[:, None, None], 0)
         state.tb_errs.masked_fill_(tb_wipe[:, None, None], 0)
         tt = dict(tb_epoch=tb_epoch, pend_ep=pend_ep)
+
+    # --- HLL: distinct traces per service + globally, and per time bucket:
+    # one launch for all four register targets
+    hll.update_step(state.hll, tb_flat, **lanes, max_services=config.max_services,
+                    hll_rows=config.hll_rows, global_row=config.global_hll_row)
 
     # --- ring append (valid lanes first, advance by live count) ---------
     order = torch.sort((~valid).to(torch.uint8), stable=True).indices[:live]
@@ -119,6 +114,26 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
         counters=u32.add(state.counters, add),
         **tt,
     )
+
+
+def hll_lanes(config: AggConfig, tb_epoch, batch: SpanColumns):
+    """The lane columns of the step's one HLL update in the form the kernel
+    reads (``hashes`` the u32 hash bits as int32, ``svc`` int32, ``valid``,
+    and with the time tier ``tb_keep`` and the u8 ``slot``), then the time
+    tier's recycled epochs and wipe mask (the caller wipes): ``(lanes,
+    tb_epoch, tb_wipe)``, the last two None with the tier off."""
+    valid = batch.valid
+    lanes = dict(hashes=u32.bits32(hashing.fmix32(batch.trace_h)),
+                 svc=batch.svc.to(torch.int32), valid=valid, tb_keep=None, slot=None)
+    if not config.timetier_enabled:
+        return lanes, None, None
+    w_tt = config.time_buckets
+    ep_tt = batch.ts_min // config.time_bucket_minutes
+    sl_tt = ep_tt % w_tt
+    tb_epoch, tb_wipe, lanes["tb_keep"] = _recycle_slots(w_tt, tb_epoch, sl_tt, ep_tt, valid)
+    # the kernel reads u8 slots; more than 256 slots stay int64 (CPU only)
+    lanes["slot"] = sl_tt.to(torch.uint8) if w_tt <= 256 else sl_tt
+    return lanes, tb_epoch, tb_wipe
 
 
 def _recycle_slots(num_slots: int, stored_epoch, slot, ep, active):
