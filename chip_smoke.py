@@ -11,15 +11,27 @@ Builds the hand-written kernels from the sources in the checkout, then:
     nearest single PyTorch call;
 (b) drives the same seeded batches through TorchAggregator on the card
     and on the CPU at a small config (flushes, rollups, ring wraps) and
-    compares every state leaf and every read;
+    compares every state leaf and every read; then once more with
+    sampling on, tables published twice mid-stream, a WAL hook and a
+    TimeTier sealing after every step, comparing leaves, time-tier reads,
+    window answers and WAL records, and that every read on the card makes
+    one transfer;
 (c) drives the main path at the default AggConfig: 2**20 synthetic spans
     in 8 x 8192-span coalesced steps through ingest_fused_multi, then the
     quantile, cardinality and dependency reads, checked against what the
-    generator knows, with each kernel's launch count;
+    generator knows, with each kernel's launch count and each read's
+    transfers;
 (a2) holds the fused HLL update against its plain version and the four
     single-target launches it replaced, on the main path's own lanes at
     its first step (fresh register files) and its last (the files (c)
-    left), and times them in turns.
+    left), and times them in turns;
+(d) the same traffic at the default AggConfig with sampling on: a
+    RateController ticking every 4 steps at a quarter of the span rate, a
+    TimeTier sealing after every step; checks each step's ring verdicts
+    against the host sampler, the sketches against an unsampled twin that
+    replays the run's flushes, and every sealed epoch and window against
+    what the generator knows; times the sampled step, the host sampler,
+    the seal read, window reads and the controller's tick.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -356,28 +368,126 @@ def phase_step(torch, agg, traffic, chunk: int):
     return cases
 
 
-def drive(agg, traffic, step_spans: int, chunk: int, cfg) -> list:
-    """Deliver ``traffic`` in coalesced steps of ``step_spans`` spans cut
-    into ``chunk``-span images; returns the wall ms of each step."""
+def step_parts(cols, lo: int, hi: int, chunk: int, cfg):
+    """The ``chunk``-span wire images of lanes ``[lo, hi)`` (identity id
+    maps) and the step's counts, as ``ingest_fused_multi`` takes them."""
     from zipkin_tpu_torch.tpu.columnar import fuse_columns
     from zipkin_tpu_torch.workload import slice_columns
 
-    cols = traffic.cols
     ident_svc = np.arange(1 << 16, dtype=np.uint32)
     ident_key = np.arange(cfg.max_keys, dtype=np.uint32)
+    parts = [(fuse_columns(slice_columns(cols, a, min(a + chunk, hi)))[None], ident_svc, ident_key)
+             for a in range(lo, hi, chunk)]
+    v = cols.valid[lo:hi]
+    ts = cols.ts_min[lo:hi][v]
+    return parts, (int(v.sum()), int((v & cols.has_dur[lo:hi]).sum()),
+                   int((v & cols.err[lo:hi]).sum()), (int(ts.min()), int(ts.max())))
+
+
+def drive(agg, traffic, step_spans: int, chunk: int, cfg, after=None) -> list:
+    """Deliver ``traffic`` in coalesced steps of ``step_spans`` spans cut
+    into ``chunk``-span images; returns the wall ms of each step.
+    ``after(i)`` runs after step ``i``, outside its wall."""
+    cols = traffic.cols
     walls = []
-    for lo in range(0, cols.size, step_spans):
-        hi = min(lo + step_spans, cols.size)
-        parts = [(fuse_columns(slice_columns(cols, a, min(a + chunk, hi)))[None], ident_svc, ident_key)
-                 for a in range(lo, hi, chunk)]
-        v = cols.valid[lo:hi]
-        ts = cols.ts_min[lo:hi][v]
+    for i, lo in enumerate(range(0, cols.size, step_spans)):
+        parts, counts = step_parts(cols, lo, min(lo + step_spans, cols.size), chunk, cfg)
         t0 = time.perf_counter()
-        agg.ingest_fused_multi(parts, int(v.sum()), int((v & cols.has_dur[lo:hi]).sum()),
-                               int((v & cols.err[lo:hi]).sum()), (int(ts.min()), int(ts.max())))
+        agg.ingest_fused_multi(parts, *counts)
         agg.block_until_ready()
         walls.append((time.perf_counter() - t0) * 1e3)
+        if after is not None:
+            after(i)
     return walls
+
+
+def counted(agg, fn):
+    """(fn(), readpack transfers it made, read_stats["host_transfers"] it
+    added)."""
+    from zipkin_tpu_torch import readpack
+
+    t0, r0 = readpack.transfer_count(), agg.read_stats["host_transfers"]
+    out = fn()
+    return out, readpack.transfer_count() - t0, agg.read_stats["host_transfers"] - r0
+
+
+def one_transfer(agg, fn, what: str):
+    """fn() on the card, which must make exactly one counted transfer."""
+    out, n, r = counted(agg, fn)
+    if (n, r) != (1, 1):
+        raise AssertionError(f"{what}: {n} transfers ({r} counted by read_stats), want 1")
+    return out
+
+
+class WalLog:
+    """A WAL hook that keeps every record as bytes and can pass the
+    explicit flush/rollup markers on to another aggregator (replay)."""
+
+    def __init__(self, replay_to=None):
+        self.records = []
+        self.replay_to = replay_to
+        self.replay_ms = 0.0  # host wall spent replaying markers
+
+    def __call__(self, fused, n_spans, n_dur, n_err, ts_range, extra=None):
+        f = np.ascontiguousarray(fused, np.uint32)
+        self.records.append((f.shape, f.tobytes(), n_spans, n_dur, n_err,
+                             None if ts_range is None else tuple(int(x) for x in ts_range),
+                             None if extra is None else sorted(extra.items())))
+        if self.replay_to is not None and extra:
+            t0 = time.perf_counter()
+            if "ttflush" in extra:
+                self.replay_to.flush_now()
+            if "ttroll" in extra:
+                self.replay_to.rollup_now()
+            self.replay_to.block_until_ready()
+            self.replay_ms += (time.perf_counter() - t0) * 1e3
+        return len(self.records)
+
+
+class TimedSampler:
+    """A HostSampler whose per-batch calls (verdict, observe, compaction)
+    are timed on the host clock; keeps the last batch's verdicts."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.ms = 0.0
+        self.last_keep = None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _timed(self, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        self.ms += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def verdict_fused(self, fused):
+        self.last_keep = self._timed(self.inner.verdict_fused, fused)
+        return self.last_keep
+
+    def observe(self, fused, keep):
+        return self._timed(self.inner.observe, fused, keep)
+
+    def compact_fused(self, fused, keep):
+        return self._timed(self.inner.compact_fused, fused, keep)
+
+
+def assert_parts_equal(got, want, what: str) -> None:
+    """Time-tier parts or window answers: (epochs|None, regs, digest,
+    calls, errs); digest weights exact, means rtol 1e-5."""
+    for name, g, w in zip(("epochs", "hll", "digest", "calls", "errs"), got, want):
+        if g is None:
+            continue
+        if name == "digest":
+            np.testing.assert_array_equal(g[..., 1], w[..., 1], err_msg=f"{what} digest weights")
+            np.testing.assert_allclose(g[..., 0], w[..., 0], rtol=1e-5, err_msg=f"{what} digest")
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"{what} {name}")
+
+
+def window_parts(ans):
+    return (None, ans.hll, ans.digest, ans.calls, ans.errs)
 
 
 def phase_gpu_vs_cpu(seed: int, torch) -> None:
@@ -417,6 +527,103 @@ def phase_gpu_vs_cpu(seed: int, torch) -> None:
             np.testing.assert_array_equal(g, c, err_msg=name)
     log(f"phase b: card == CPU over {len(AggState._fields)} leaves and every read "
         f"({gpu.ctx_stats['ctx_advances']} rollups, {traffic.cols.size} spans, ring {cfg.ring_capacity})")
+    phase_sampled_small(seed, torch, cfg, traffic)
+
+
+def phase_sampled_small(seed: int, torch, cfg, traffic) -> None:
+    """(b, sampled) card and CPU with sampling on, the same tables
+    published twice mid-stream, a WAL hook and a TimeTier sealing after
+    every step; every read on the card makes one transfer."""
+    import dataclasses
+    import tempfile
+
+    from zipkin_tpu_torch import convert
+    from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
+    from zipkin_tpu_torch.sampling import RATE_ONE, HostSampler
+    from zipkin_tpu_torch.tpu.state import AggState
+    from zipkin_tpu_torch.tpu.timetier import TimeTier
+
+    cfg = dataclasses.replace(cfg, sampling=True)
+    rng = np.random.default_rng(seed + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        gpu, cpu = TorchAggregator(cfg), TorchAggregator(cfg, device="cpu")
+        tiers = {}
+        for name, agg in (("gpu", gpu), ("cpu", cpu)):
+            agg.sampler = HostSampler(cfg.max_services, cfg.max_keys, cfg.sample_rare_min)
+            agg.wal_hook = WalLog()
+            tiers[name] = TimeTier(cfg, directory=f"{tmp}/{name}")
+        steps = traffic.cols.size // 256
+        publish_at = {steps // 3, 2 * steps // 3}
+        seals = []
+
+        def after(i, agg, name):
+            seals.append(tiers[name].seal_up_to(agg))
+            if i in publish_at:
+                # the same tables on both: seeded rates below RATE_ONE, tail
+                # cuts from the CPU's digest (the card reads it too, so both
+                # flush here), link counts from the CPU's host sampler
+                if name == "gpu":
+                    one_transfer(gpu, lambda: gpu.quantiles([0.9], "digest"), "publish quantiles")
+                else:
+                    q, n = cpu.quantiles([0.9], "digest")
+                    tail = np.full(cfg.max_keys, 0xFFFFFFFF, np.uint32)
+                    tail[n > 0] = np.ceil(np.maximum(q[n > 0, 0], 1.0)).astype(np.uint32)
+                    rate = rng.integers(RATE_ONE // 8, RATE_ONE // 2, cfg.max_services, dtype=np.uint32)
+                    tables[i] = (rate, tail, cpu.sampler.link_snapshot())
+                rate, tail, link = tables[i]
+                agg.sampler.set_tables(rate, tail, link)
+                agg.set_sampler_tables(rate, tail, link)
+
+        tables = {}  # step -> the tables published after it
+        # the CPU runs first so that its tables exist when the card publishes
+        drive(cpu, traffic, 256, 64, cfg, after=lambda i: after(i, cpu, "cpu"))
+        drive(gpu, traffic, 256, 64, cfg, after=lambda i: after(i, gpu, "gpu"))
+        np.testing.assert_array_equal(gpu.sampler.link_snapshot(), cpu.sampler.link_snapshot())
+        for name, g, c in zip(AggState._fields, convert.state_to_numpy(gpu.state),
+                              convert.state_to_numpy(cpu.state)):
+            if name in ("digest", "tb_digest"):
+                np.testing.assert_array_equal(g[..., 1], c[..., 1], err_msg=name)
+                np.testing.assert_allclose(g[..., 0], c[..., 0], rtol=1e-5, err_msg=name)
+            else:
+                np.testing.assert_array_equal(g, c, err_msg=f"sampled {name}")
+        assert gpu.host_counters == cpu.host_counters and gpu.host_counters["sampledDropped"] > 0
+        if gpu.wal_hook.records != cpu.wal_hook.records:
+            raise AssertionError("WAL-hook records differ between the card and the CPU")
+        tg, tc = tiers["gpu"], tiers["cpu"]
+        assert tg.sealed_through == tc.sealed_through and tg.counters["ttSeals"] == tc.counters["ttSeals"] > 5
+        top, sealed = gpu.tt_max_epoch, tg.sealed_through
+        for lo, hi in ((top - 3, top), (top, top), (top - 1, top - 1), (0, (1 << 31) - 1)):
+            g = one_transfer(gpu, lambda: gpu.tt_read(lo, hi), "tt_read")
+            assert_parts_equal(g, cpu.tt_read(lo, hi), f"tt_read({lo}, {hi})")
+        first = min(tg._fine)
+        for lo, hi in ((first, sealed), (sealed - 1, top), (top, top), (first - 5, first + 1)):
+            g, n, _ = counted(gpu, lambda: tg.window(gpu, lo, hi))
+            if n != (1 if hi > sealed else 0):
+                raise AssertionError(f"window {lo}-{hi}: {n} transfers")
+            c = tc.window(cpu, lo, hi)
+            assert (g.covered, g.missing, g.unsealed) == (c.covered, c.missing, c.unsealed)
+            assert_parts_equal(window_parts(g), window_parts(c), f"window {lo}-{hi}")
+        reads = {
+            "quantiles": lambda a: a.quantiles(QS, "digest"),
+            "hist_quantiles": lambda a: a.quantiles(QS, "hist"),
+            "cardinalities": lambda a: a.cardinalities(),
+            "sketch_overview": lambda a: a.sketch_overview(QS),
+            "merged_sketches": lambda a: a.merged_sketches(),
+            "merged_digest": lambda a: a.merged_digest(),
+            "edges": lambda a: a.dependency_edges(0, (1 << 32) - 1),
+        }
+        for name, fn in reads.items():
+            g = one_transfer(gpu, lambda: fn(gpu), name)
+            c = fn(cpu)
+            for x, y in zip(g if isinstance(g, tuple) else (g,), c if isinstance(c, tuple) else (c,)):
+                if x.dtype == np.float32:
+                    np.testing.assert_allclose(x, y, rtol=1e-5, err_msg=name)
+                else:
+                    np.testing.assert_array_equal(x, y, err_msg=name)
+    log(f"phase b, sampled: card == CPU over every leaf (r_keep, counters 5/6 "
+        f"{gpu.host_counters['sampledKept']}/{gpu.host_counters['sampledDropped']}), "
+        f"{len(gpu.wal_hook.records)} WAL records byte-equal, {tg.counters['ttSeals']} seals, "
+        f"tt_read and window answers equal; one transfer per read on the card")
 
 
 def median_ms(fn, reps: int = 5) -> float:
@@ -458,7 +665,7 @@ def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, devi
     # --- reads, timed (median wall of a few, each ending in a host copy)
     reads = {}
     t0 = time.perf_counter()
-    dq, dn = agg.quantiles(QS, "digest")  # flush-then-read
+    (dq, dn), *first_transfers = counted(agg, lambda: agg.quantiles(QS, "digest"))  # flush-then-read
     reads["digest_quantiles_first_ms"] = (time.perf_counter() - t0) * 1e3
     reads["digest_quantiles_ms"] = median_ms(lambda: agg.quantiles(QS, "digest"))
     reads["hist_quantiles_ms"] = median_ms(lambda: agg.quantiles(QS, "hist"))
@@ -468,7 +675,7 @@ def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, devi
     reads["sketch_overview_ms"] = median_ms(lambda: agg.sketch_overview(QS))
     full = (0, (1 << 32) - 1)
     t0 = time.perf_counter()
-    agg.dependency_edges(*full)
+    _, *fresh_transfers = counted(agg, lambda: agg.dependency_edges(*full))
     reads["edges_fresh_ms"] = (time.perf_counter() - t0) * 1e3
     reads["edges_cached_ms"] = median_ms(lambda: agg.dependency_edges(*full))
     old = (BASE_MINUTE, BASE_MINUTE + 2)
@@ -476,6 +683,26 @@ def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, devi
         raise AssertionError("the earliest minutes should have left the ring")
     reads["edges_rolled_only_ms"] = median_ms(lambda: agg.dependency_edges(*old))
     log("read wall ms: " + json.dumps({k: round(v, 4) for k, v in reads.items()}))
+    # transfers each read makes: one packed buffer, counted at the chokepoint
+    read_fns = {
+        "digest_quantiles": lambda: agg.quantiles(QS, "digest"),
+        "hist_quantiles": lambda: agg.quantiles(QS, "hist"),
+        "windowed_quantiles": lambda: agg.quantiles(QS, ts_lo_min=win[0], ts_hi_min=win[1]),
+        "cardinalities": agg.cardinalities,
+        "sketch_overview": lambda: agg.sketch_overview(QS),
+        "merged_digest": agg.merged_digest,
+        "merged_sketches": agg.merged_sketches,
+        "windowed_histograms": lambda: agg.windowed_histograms(*win),
+        "dependency_matrices": lambda: agg.dependency_matrices(*full),
+        "edges_cached": lambda: agg.dependency_edges(*full),
+        "edges_rolled_only": lambda: agg.dependency_edges(*old),
+    }
+    transfers = {"digest_quantiles_flush_first": tuple(first_transfers),
+                 "edges_fresh": tuple(fresh_transfers)}
+    transfers.update({name: counted(agg, fn)[1:] for name, fn in read_fns.items()})
+    log("transfers per read (readpack, read_stats): " + json.dumps(transfers))
+    if any(t != (1, 1) for t in transfers.values()):
+        raise AssertionError(f"a read made other than one transfer: {transfers}")
 
     # --- checks against the generator -------------------------------------
     ctr = agg.state.counters.cpu().numpy()
@@ -562,6 +789,214 @@ def profile_steps(agg, traffic, chunk: int, cfg, torch) -> None:
         [[k[:60], round(v, 3)] for k, v in rows[:12]]))
 
 
+def np_registers(cols, mask, cfg) -> np.ndarray:
+    """The HLL register file ([S+1, m] u8) that the lanes in ``mask``
+    raise, in numpy: per-service rows for named services, the global row
+    for all (the rules of zipkin_tpu/ops/hll.py:update)."""
+    from zipkin_tpu_torch.tpu.columnar import _mix32
+
+    p = cfg.hll_precision
+    h = _mix32(cols.trace_h[mask]).astype(np.int64)
+    bucket = h >> (32 - p)
+    rest = h & ((1 << (32 - p)) - 1)
+    rho = np.where(rest == 0, 33 - p, (32 - p) - np.floor(np.log2(np.maximum(rest, 1))).astype(np.int64))
+    regs = np.zeros((cfg.hll_rows, 1 << p), np.uint8)
+    svc = cols.svc[mask].astype(np.int64)
+    named = svc > 0
+    rows = np.clip(svc, 0, cfg.max_services - 1)
+    np.maximum.at(regs, (rows[named], bucket[named]), rho[named].astype(np.uint8))
+    np.maximum.at(regs, (np.full(bucket.shape, cfg.global_hll_row), bucket), rho.astype(np.uint8))
+    return regs
+
+
+def check_window(ans, cols, epochs, cfg, what: str) -> None:
+    """A window answer (or one sealed segment) against the generator's
+    lanes whose bucket epoch is in ``epochs`` (none: an empty segment): HLL
+    registers exact, digest weight per key = span count, calls/errors =
+    client lanes with a remote service."""
+    ep = cols.ts_min.astype(np.int64) // cfg.time_bucket_minutes
+    mask = cols.valid & np.isin(ep, list(epochs))
+    np.testing.assert_array_equal(ans.hll, np_registers(cols, mask, cfg), err_msg=f"{what} hll")
+    want_w = np.bincount(cols.key[mask & cols.has_dur], minlength=cfg.max_keys)
+    got_w = ans.digest[..., 1].astype(np.float64).sum(-1)
+    np.testing.assert_array_equal(got_w, want_w, err_msg=f"{what} digest weights")
+    s = cfg.max_services
+    client = mask & (cols.rsvc > 0)
+    flat = cols.svc[client].astype(np.int64) * s + cols.rsvc[client]
+    want_c = np.bincount(flat, minlength=s * s).reshape(s, s)
+    want_e = np.bincount(flat, weights=cols.err[client], minlength=s * s).reshape(s, s)
+    np.testing.assert_array_equal(np.asarray(ans.calls, np.int64), want_c, err_msg=f"{what} calls")
+    np.testing.assert_array_equal(np.asarray(ans.errs, np.int64), want_e.astype(np.int64),
+                                  err_msg=f"{what} errors")
+
+
+def phase_sampled(seed: int, n_spans: int, torch, card: str, cfg=None, chunk: int = 8192) -> dict:
+    """(d) the default AggConfig with sampling on, through the same traffic
+    as (c): a RateController ticking every 4 steps at a quarter of the
+    span rate and a TimeTier sealing after every step. An unsampled twin
+    takes the same steps and replays the run's explicit flushes and
+    rollups from its WAL markers (the sealer's and the controller's
+    flush-then-read move where digest points fold), so its sketches must
+    equal the sampled run's. ``cfg`` (sampling on) defaults to the
+    default AggConfig. Returns the figures."""
+    import dataclasses
+    import gc
+    import tempfile
+    import types
+
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
+    from zipkin_tpu_torch.sampling import HostSampler, RateController
+    from zipkin_tpu_torch.tpu.state import CTR_SAMPLED_DROPPED, CTR_SAMPLED_KEPT, AggConfig, AggState
+    from zipkin_tpu_torch.tpu.timetier import TimeTier
+    from zipkin_tpu_torch.workload import generate
+
+    cfg = cfg or AggConfig(sampling=True)
+    traffic = generate(n_spans, seed=seed)
+    cols = traffic.cols
+    step = 8 * chunk
+    twin = TorchAggregator(dataclasses.replace(cfg, sampling=False))
+    agg = TorchAggregator(cfg)
+    agg.sampler = sampler = TimedSampler(HostSampler(cfg.max_services, cfg.max_keys, cfg.sample_rare_min))
+    agg.wal_hook = WalLog(replay_to=twin)
+    # one synthetic second per 4 steps; the budget keeps a quarter of them
+    ctl = RateController(types.SimpleNamespace(agg=agg), budget_spans_per_sec=0.25 * 4 * step)
+    fig = dict(step_ms=[], sampler_ms=[], seal_ms=[], tick_ms=[], seals=[], launches=[], kept=[],
+               persist_ms=[], tick_tail_ms=[], tick_publish_ms=[], tick_gc=[])
+
+    def timed(fn, key):
+        """``fn`` with its host wall appended to ``fig[key]``, less the
+        twin's replayed flushes inside it."""
+        def run(*a, **k):
+            replay0, t0 = agg.wal_hook.replay_ms, time.perf_counter()
+            out = fn(*a, **k)
+            fig[key].append((time.perf_counter() - t0) * 1e3 - (agg.wal_hook.replay_ms - replay0))
+            return out
+        return run
+
+    # the interpreter's garbage-collector pauses, so that a tick or seal
+    # that pays one says so: (generation, ms) each
+    gc_pauses = []
+
+    def gc_watch(phase, info, start=[0.0]):
+        if phase == "start":
+            start[0] = time.perf_counter()
+        else:
+            gc_pauses.append((info["generation"], (time.perf_counter() - start[0]) * 1e3))
+
+    # the tick's two halves: the tail cuts (a digest quantile read, which
+    # flushes first) and the publish (sctl diff, WAL record, table swap)
+    ctl._tail_thresholds = timed(ctl._tail_thresholds, "tick_tail_ms")
+    ctl._publish = timed(ctl._publish, "tick_publish_ms")
+    r = cfg.ring_capacity
+    hll_kernel.update.launches = 0
+    gc.callbacks.append(gc_watch)
+    with tempfile.TemporaryDirectory() as tmp:
+        tier = TimeTier(cfg, directory=tmp)
+        tier._persist = timed(tier._persist, "persist_ms")  # npz + fsync + manifest
+        for i, lo in enumerate(range(0, cols.size, step)):
+            parts, counts = step_parts(cols, lo, min(lo + step, cols.size), chunk, cfg)
+            cursor = int(agg._shard_cursor[0])
+            sampler.ms = 0.0
+            hll_kernel.update_step.launches = 0
+            t0 = time.perf_counter()
+            agg.ingest_fused_multi(parts, *counts)
+            agg.block_until_ready()
+            fig["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            fig["launches"].append(hll_kernel.update_step.launches)
+            fig["sampler_ms"].append(sampler.ms)
+            twin.ingest_fused_multi(parts, *counts)
+            # the ring's new lanes hold the host verdicts of the step's live
+            # lanes, in order, under the tables the step read
+            hi = min(lo + step, cols.size)
+            keep = sampler.last_keep[0][:hi - lo][cols.valid[lo:hi]]
+            pos = torch.from_numpy((cursor + np.arange(keep.size)) % r).to(agg.device)
+            got = agg.state.r_keep[pos].cpu().numpy()
+            if not np.array_equal(got, keep):
+                raise AssertionError(f"step {i}: r_keep != HostSampler.verdict_fused "
+                                     f"({int((got != keep).sum())} lanes)")
+            fig["kept"].append(int(keep.sum()) / keep.size)
+            # seal and tick walls leave out the twin's replayed flushes
+            replay0, t0 = agg.wal_hook.replay_ms, time.perf_counter()
+            fig["seals"].append(tier.seal_up_to(agg))
+            fig["seal_ms"].append((time.perf_counter() - t0) * 1e3 - (agg.wal_hook.replay_ms - replay0))
+            if i % 4 == 3:
+                replay0, t0, gc0 = agg.wal_hook.replay_ms, time.perf_counter(), len(gc_pauses)
+                ctl.tick(1.0)
+                fig["tick_gc"].append(gc_pauses[gc0:])
+                fig["tick_ms"].append((time.perf_counter() - t0) * 1e3 - (agg.wal_hook.replay_ms - replay0))
+        steps = len(fig["step_ms"])
+        fig["update_launches"] = hll_kernel.update.launches
+        if fig["launches"] != [1] * steps or hll_kernel.update.launches:
+            raise AssertionError(f"update_step launches per sampled step: {fig['launches']}, "
+                                 f"update {hll_kernel.update.launches}")
+        ctr = agg.state.counters.cpu().numpy()
+        hc = agg.host_counters
+        if (ctr[CTR_SAMPLED_KEPT], ctr[CTR_SAMPLED_DROPPED]) != (hc["sampledKept"], hc["sampledDropped"]):
+            raise AssertionError(f"counters 5/6 {ctr[5:7]} != host tallies {hc}")
+        if not 0 < hc["sampledDropped"] < n_spans or ctl.publishes != steps // 4:
+            raise AssertionError(f"verdicts did not vary: {hc}, {ctl.publishes} publishes")
+        # sampling gates retention, never the sketches
+        skip = {"r_keep", "counters", "s_rate", "s_tail", "s_link"}
+        for name, a, b in zip(AggState._fields, agg.state, twin.state):
+            if name in skip:
+                continue
+            if name in ("digest", "tb_digest"):
+                same = torch.equal(a[..., 1], b[..., 1]) and torch.allclose(a[..., 0], b[..., 0],
+                                                                         rtol=1e-5, atol=0)
+            else:
+                same = torch.equal(a, b)
+            if not same:
+                raise AssertionError(f"sampled leaf {name} != the unsampled twin's")
+        agg.wal_hook.replay_to = None
+        del twin
+
+        top, sealed = agg.tt_max_epoch, tier.sealed_through
+        gen_epochs = set((cols.ts_min[cols.valid].astype(np.int64) // cfg.time_bucket_minutes).tolist())
+        first = min(gen_epochs)
+        if sealed != top - 1 or not gen_epochs - {top} <= set(tier._fine) or len(gen_epochs) < 4:
+            raise AssertionError(f"sealed {sorted(tier._fine)}, generated {sorted(gen_epochs)}, top {top}")
+        for e in sorted(tier._fine):
+            check_window(tier._fine[e], cols, [e], cfg, f"sealed epoch {e}")
+        win_sealed, win_mixed = (first, first + 2), (sealed - 1, top)
+        for lo, hi in (win_sealed, win_mixed):
+            ans, n, _ = counted(agg, lambda: tier.window(agg, lo, hi))
+            if n != (1 if hi > sealed else 0):
+                raise AssertionError(f"window {lo}-{hi}: {n} transfers")
+            check_window(ans, cols, range(lo, hi + 1), cfg, f"window {lo}-{hi}")
+        fig["transfers"] = {
+            "tt_read_seal": counted(agg, lambda: agg.tt_read(sealed, sealed))[1:],
+            "window_sealed_only": counted(agg, lambda: tier.window(agg, *win_sealed))[1:],
+            "window_mixed": counted(agg, lambda: tier.window(agg, *win_mixed))[1:],
+        }
+        fig["tt_read_ms"] = median_ms(lambda: agg.tt_read(sealed, sealed))
+        fig["window_sealed_only_ms"] = median_ms(lambda: tier.window(agg, *win_sealed))
+        fig["window_mixed_ms"] = median_ms(lambda: tier.window(agg, *win_mixed))
+    gc.callbacks.remove(gc_watch)
+    fig["gc_pauses_over_1ms"] = [(g, round(ms, 2)) for g, ms in gc_pauses if ms > 1.0]
+    fig.update(steps=steps, spans_per_s=n_spans / (sum(fig["step_ms"]) / 1e3),
+               sampled_kept=hc["sampledKept"], sampled_dropped=hc["sampledDropped"],
+               rate_min=int(agg.sampler.rate.min()), rate_mean=float(agg.sampler.rate.mean()),
+               sealed_epochs=sorted(tier._fine), card=card)
+    log(f"phase d ({card}): {n_spans} spans in {steps} sampled steps, {fig['spans_per_s']:.0f} spans/s "
+        f"(median step {statistics.median(fig['step_ms']):.2f} ms); host sampler per step median "
+        f"{statistics.median(fig['sampler_ms']):.3f} ms; kept {hc['sampledKept']}, dropped "
+        f"{hc['sampledDropped']}; kept share per step {[round(k, 4) for k in fig['kept']]}; "
+        f"rates min {fig['rate_min']}, mean {fig['rate_mean']:.0f} of 65536 after {ctl.publishes} ticks")
+    log(f"phase d ({card}): tt_read seal read {fig['tt_read_ms']:.3f} ms; window sealed-only "
+        f"{fig['window_sealed_only_ms']:.3f} ms, mixed {fig['window_mixed_ms']:.3f} ms; controller tick ms "
+        f"{[round(t, 2) for t in fig['tick_ms']]} (tail cuts {[round(t, 2) for t in fig['tick_tail_ms']]}, "
+        f"publish {[round(t, 2) for t in fig['tick_publish_ms']]}; garbage-collector ms in each tick "
+        f"{[round(sum(ms for _, ms in t), 2) for t in fig['tick_gc']]}); seals per step {fig['seals']} "
+        f"(seal ms {[round(t, 2) for t in fig['seal_ms']]}; of which segment persist "
+        f"{[round(t, 2) for t in fig['persist_ms']]}); transfers {json.dumps(fig['transfers'])}")
+    log(f"phase d: step walls ms {[round(w, 2) for w in fig['step_ms']]}; host sampler ms "
+        f"{[round(w, 3) for w in fig['sampler_ms']]}; sealed epochs {fig['sealed_epochs']} and windows "
+        f"{win_sealed}, {win_mixed} equal the generator's HLL registers, key counts and edges; "
+        f"garbage-collector pauses over 1 ms in phase d (generation, ms): {fig['gc_pauses_over_1ms']}")
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -605,24 +1040,33 @@ def main() -> int:
     t0 = time.perf_counter()
     step_cases = phase_step(torch, agg, traffic, 8192)
     log(f"phase a2 done in {time.perf_counter() - t0:.1f} s")
+    del agg, traffic
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    sampled = phase_sampled(args.seed, args.spans, torch, card)
+    log(f"phase d done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
     # fresh and filled. Each reports the mean over its cases, each case
-    # beside it; launches are those of the main path's run (phase c).
+    # beside it; launches are those of the main path's run (phase c), and
+    # launches_phase_d those of the sampled run (phase d).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
         dict(name="hll_update", route="cuda", source=source, replaces=replaces,
              launches=launches["update"], max_abs_err=max(c["max_abs_err"] for c in cases),
              ms=mean(cases, "ms"), plain_ms=mean(cases, "plain_ms"), bound_ms=mean(cases, "bound_ms"),
-             bound_by="bytes", library_ms=mean(cases, "library_ms"), cases=cases, card=card),
+             bound_by="bytes", library_ms=mean(cases, "library_ms"),
+             launches_phase_d=sampled["update_launches"],
+             cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
              ms=mean(step_cases, "ms"), plain_ms=mean(step_cases, "plain_ms"),
              bound_ms=mean(step_cases, "bound_ms"), bound_by="bytes",
              library_ms=mean(step_cases, "library_ms"),
-             four_launch_ms=mean(step_cases, "four_launch_ms"), cases=step_cases, card=card),
+             four_launch_ms=mean(step_cases, "four_launch_ms"),
+             launches_phase_d=sum(sampled["launches"]), cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,172 @@
+"""Crashpoint and corruption fault injection (the port's copy of the part
+of ``zipkin_tpu/faults.py`` that its time tier calls).
+
+A crashpoint names an instant inside a write path where a crash is most
+likely to tear on-disk state; a corrupt site names an artifact the write
+path just made durable and, when armed, damages those bytes on disk (silent
+bit rot). The time tier's seal carries ``timetier.seal.pre_commit`` (the
+segment's tmp file written, not yet renamed), ``timetier.seal.post_commit``
+(renamed, ``sealed_through`` not yet advanced) and the corrupt site
+``timetier.segment``. The site catalogs are the reference's, so a test
+arms the same names against either package.
+
+Arming is programmatic (:func:`arm`, :func:`arm_corrupt`) or through the
+environment, read once at import:
+``ZT_CRASHPOINT=<site>[:nth][,...]`` with ``ZT_CRASHPOINT_ACTION`` one of
+``kill`` (SIGKILL), ``exit`` (``os._exit(137)``) or ``raise``
+(:class:`CrashpointTriggered`), and ``ZT_CORRUPT=<site>[:mode[:nth]][,...]``
+with mode ``flip``, ``zero`` or ``truncate``. Every site is one-shot: it
+disarms itself as it fires. Disarmed, a hook is one dict probe.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import signal
+from typing import Dict, List
+
+logger = logging.getLogger(__name__)
+
+SITES = (
+    "wal.append.mid",
+    "wal.append.pre_fsync",
+    "snapshot.post_state",
+    "snapshot.post_meta",
+    "archive.mid_segment",
+    "timetier.seal.pre_commit",
+    "timetier.seal.post_commit",
+)
+CORRUPT_SITES = (
+    "snapshot.state",
+    "wal.record",
+    "archive.frame",
+    "timetier.segment",
+)
+CORRUPT_MODES = ("flip", "truncate", "zero")
+
+ENV_VAR = "ZT_CRASHPOINT"
+ENV_ACTION = "ZT_CRASHPOINT_ACTION"
+ENV_CORRUPT = "ZT_CORRUPT"
+EXIT_CODE = 137  # what a SIGKILL'd child reports; `exit` mimics it
+
+_ACTIONS = ("kill", "exit", "raise")
+
+
+class CrashpointTriggered(RuntimeError):
+    """Raised by a crashpoint armed with action="raise": the owning
+    object is notionally dead at this instant and must be abandoned."""
+
+
+# site -> [remaining_nth, action]; mutated in place by crashpoint()
+_armed: Dict[str, List] = {}
+# site -> [remaining_nth, mode]; mutated in place by corrupt_point()
+_corrupt_armed: Dict[str, List] = {}
+
+
+def arm(site: str, nth: int = 1, action: str = "kill") -> None:
+    """Arm one site to fire on its ``nth`` traversal."""
+    if site not in SITES:
+        raise ValueError(f"unknown crashpoint site {site!r} (see faults.SITES)")
+    if action not in _ACTIONS:
+        raise ValueError(f"unknown crashpoint action {action!r}")
+    _armed[site] = [max(1, int(nth)), action]
+
+
+def arm_corrupt(site: str, mode: str = "flip", nth: int = 1) -> None:
+    """Arm a corruption site to damage its ``nth`` written artifact."""
+    if site not in CORRUPT_SITES:
+        raise ValueError(f"unknown corrupt site {site!r} (see faults.CORRUPT_SITES)")
+    if mode not in CORRUPT_MODES:
+        raise ValueError(f"unknown corrupt mode {mode!r} (see faults.CORRUPT_MODES)")
+    _corrupt_armed[site] = [max(1, int(nth)), mode]
+
+
+def disarm() -> None:
+    _armed.clear()
+    _corrupt_armed.clear()
+
+
+def crashpoint(site: str) -> None:
+    """Hot-path hook: a no-op unless ``site`` is armed."""
+    spec = _armed.get(site)
+    if spec is None:
+        return
+    spec[0] -= 1
+    if spec[0] > 0:
+        return
+    del _armed[site]  # one-shot: recovery code may re-enter this path
+    action = spec[1]
+    logger.warning("crashpoint %s firing (action=%s)", site, action)
+    if action == "kill":
+        os.kill(os.getpid(), signal.SIGKILL)
+    if action == "exit":
+        os._exit(EXIT_CODE)
+    raise CrashpointTriggered(site)
+
+
+def corrupt_point(site: str, path: str, start: int, length: int) -> bool:
+    """Write-path hook: the caller just made ``length`` bytes at ``start``
+    of ``path`` durable. If ``site`` is armed, damage them in place
+    (deterministically: the middle of the range) and return True."""
+    spec = _corrupt_armed.get(site)
+    if spec is None or length <= 0:
+        return False
+    spec[0] -= 1
+    if spec[0] > 0:
+        return False
+    del _corrupt_armed[site]
+    mode = spec[1]
+    mid = start + length // 2
+    logger.warning("corrupt point %s firing (mode=%s) on %s [%d:+%d]",
+                   site, mode, path, start, length)
+    if mode == "truncate":
+        os.truncate(path, mid)
+        return True
+    with open(path, "r+b") as fh:
+        if mode == "flip":
+            fh.seek(mid)
+            b = fh.read(1)
+            fh.seek(mid)
+            fh.write(bytes([b[0] ^ 0xFF]) if b else b"\xff")
+        else:  # zero
+            run = min(256, max(1, length // 3))
+            fh.seek(start + length // 3)
+            fh.write(b"\x00" * run)
+        fh.flush()
+        os.fsync(fh.fileno())
+    return True
+
+
+def _arm_from_env() -> None:
+    raw = os.environ.get(ENV_VAR)
+    if raw:
+        action = os.environ.get(ENV_ACTION, "kill").strip() or "kill"
+        for spec in raw.split(","):
+            spec = spec.strip()
+            if not spec:
+                continue
+            site, _, nth = spec.partition(":")
+            try:
+                arm(site.strip(), int(nth) if nth.strip() else 1, action)
+            except ValueError as e:
+                # a typo'd variable must not stop a boot
+                logger.warning("ignoring %s=%r: %s", ENV_VAR, raw, e)
+    raw = os.environ.get(ENV_CORRUPT)
+    if raw:
+        for spec in raw.split(","):
+            spec = spec.strip()
+            if not spec:
+                continue
+            parts = spec.split(":")
+            try:
+                arm_corrupt(
+                    parts[0].strip(),
+                    parts[1].strip() if len(parts) > 1 and parts[1].strip() else "flip",
+                    int(parts[2]) if len(parts) > 2 and parts[2].strip() else 1,
+                )
+            except ValueError as e:
+                logger.warning("ignoring %s=%r: %s", ENV_CORRUPT, raw, e)
+
+
+_arm_from_env()

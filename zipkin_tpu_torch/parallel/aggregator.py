@@ -5,13 +5,18 @@ Keeps ``ShardedAggregator``'s public names and host bookkeeping for a
 single device: the packed wire image is unpacked on the device
 (:func:`unfuse_columns`), due maintenance (digest flush, link rollup) runs
 in front of the step exactly where the reference fuses it into the step
-program, and every read returns numpy arrays with the reference's dtypes.
-With one shard the reference's cross-shard merges (psum, pmax, the
-digest all-gather + recluster) are the identity and are left out.
+program, and every read packs its outputs on the device into one ZPK1
+buffer that crosses to the host in one counted transfer
+(:mod:`zipkin_tpu_torch.readpack`), as numpy arrays with the reference's
+dtypes. With one shard the reference's cross-shard merges (psum, pmax,
+the digest all-gather + recluster) are the identity and are left out.
 
-The lock is a plain ``threading.RLock``; the reference's instrumented
-lock and flight-recorder stages (``obs``), the WAL hook, the sampler and
-the time-tier read are not ported yet.
+With a :class:`zipkin_tpu_torch.sampling.HostSampler` installed as
+``sampler``, every batch is also scored on the host over the same
+published tables, and ``wal_hook`` (when set) receives the kept lanes;
+without a sampler it receives every batch. The lock is a plain
+``threading.RLock``; the reference's instrumented lock and flight-recorder
+stages (``obs``) are not ported yet.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from zipkin_tpu_torch import convert, u32
+from zipkin_tpu_torch import convert, readpack, u32
 from zipkin_tpu_torch.device import resolve_device
 from zipkin_tpu_torch.ops import histogram
 from zipkin_tpu_torch.tpu import ingest as ing
@@ -81,10 +86,22 @@ class TorchAggregator:
         # once the cursor has advanced a full ring past the batch
         self._resident: deque = deque()
         self._shard_cursor = np.zeros(self.n_shards, np.int64)
+        # highest time-tier bucket epoch ingest has touched (-1: none); the
+        # sealer seals the epochs below it
+        self._tt_max_epoch = -1
         self.read_stats = {"rolled_only_reads": 0, "ctx_reads": 0, "host_transfers": 0}
         self.ctx_stats = {"ctx_advances": 0, "ctx_maintenance_ms": 0.0}
         # bumped on every query-visible state change (step, rollup)
         self.write_version = 0
+        # write-ahead log seam: when set, every batch (its kept lanes, with
+        # a sampler) and every explicit flush/rollup is logged under the
+        # lock, and wal_seq holds the last sequence folded into the state
+        self.wal_hook = None
+        self.wal_seq = 0
+        # host reference sampler (HostSampler): scores every batch over
+        # the tables the step read, feeds the controller's tallies and
+        # compacts what the WAL keeps
+        self.sampler = None
 
     # -- write path ------------------------------------------------------
 
@@ -145,6 +162,8 @@ class TorchAggregator:
             c["spansWithError"] += n_err
             c["batches"] += 1
             lo, hi = ts_range if ts_range is not None else (0, (1 << 32) - 1)
+            if n_spans > 0 and self.config.timetier_enabled and ts_range is not None:
+                self._tt_max_epoch = max(self._tt_max_epoch, int(hi) // self.config.time_bucket_minutes)
             if n_spans > 0:
                 self._resident.append((lo, hi, self._shard_cursor.copy()))
                 self._shard_cursor = self._shard_cursor + live_per_shard
@@ -152,6 +171,26 @@ class TorchAggregator:
                 (self._shard_cursor - self._resident[0][2]).min() >= self.config.ring_capacity
             ):
                 self._resident.popleft()
+            if self.sampler is not None:
+                # the host verdicts over the tables the step just read (both
+                # under this lock, so a publish never straddles a batch)
+                keep2d = self.sampler.verdict_fused(fused)
+                seen_b, kept_b = self.sampler.observe(fused, keep2d)
+                c["sampledKept"] += kept_b
+                c["sampledDropped"] += seen_b - kept_b
+                if self.wal_hook is not None:
+                    compacted = self.sampler.compact_fused(fused, keep2d)
+                    if compacted is not None:
+                        cf, k_spans, k_dur, k_err, k_ts = compacted
+                        # pre-compaction tallies restore the host counters
+                        # on replay
+                        self.wal_seq = self.wal_hook(
+                            cf, k_spans, k_dur, k_err, k_ts,
+                            extra={"seen": seen_b, "kept": kept_b,
+                                   "seen_dur": n_dur, "seen_err": n_err},
+                        )
+            elif self.wal_hook is not None:
+                self.wal_seq = self.wal_hook(fused, n_spans, n_dur, n_err, ts_range)
 
     def ingest_fused_multi(self, parts, n_spans: int, n_dur: int, n_err: int,
                            ts_range=None, pad_to_multiple: int = 256) -> None:
@@ -176,6 +215,17 @@ class TorchAggregator:
         concat_remap(parts, out)
         self.ingest_fused(out, n_spans, n_dur, n_err, ts_range)
 
+    def set_sampler_tables(self, rate: np.ndarray, tail: np.ndarray, link: np.ndarray) -> None:
+        """Publish host-computed sampling tables to the state's table
+        leaves under the lock; every later step scores against them.
+        Verdicts gate retention only, so write_version stays."""
+        with self.lock:
+            self.state = self.state._replace(
+                s_rate=u32.from_numpy(rate, self.device),
+                s_tail=u32.from_numpy(tail, self.device),
+                s_link=u32.from_numpy(link, self.device),
+            )
+
     # -- maintenance -----------------------------------------------------
 
     def _flush_now(self) -> None:
@@ -183,6 +233,15 @@ class TorchAggregator:
         invisible, so write_version stays."""
         self.state = ing.flush_digest(self.config, self.state)
         self._pend_lanes = 0
+        self._wal_marker("ttflush")
+
+    def _wal_marker(self, tag: str) -> None:
+        """Log a zero-lane WAL record at an explicit flush or rollup
+        (callers hold the lock): digest folding depends on where flushes
+        fall, so replay re-applies them at the same stream position."""
+        if self.wal_hook is not None and self.config.timetier_enabled:
+            self.wal_seq = self.wal_hook(
+                np.zeros((self.n_shards, 11, 0), np.uint32), 0, 0, 0, (0, 0), extra={tag: 1})
 
     def flush_now(self) -> None:
         with self.lock:
@@ -197,13 +256,38 @@ class TorchAggregator:
             self.ctx_stats["ctx_advances"] += 1
             self.ctx_stats["ctx_maintenance_ms"] = (time.perf_counter() - t0) * 1000.0
             self.write_version += 1
+            self._wal_marker("ttroll")
+
+    def warm_programs(self, cols: SpanColumns) -> None:
+        """Run every maintenance combination the ingest loop can take
+        (step alone, with a flush, with a rollup, with both), then the
+        standalone rollup and flush, on a real batch, and wait for the
+        device: first-use costs (allocator growth, kernel build) land here
+        and not in a timed or serving window. Ingests ``cols`` four
+        times."""
+        for force_flush, force_rollup in ((False, False), (True, False), (False, True), (True, True)):
+            with self.lock:
+                if force_flush:
+                    self._pend_lanes = self.config.digest_buffer
+                if force_rollup:
+                    self._lanes_since_rollup = self.config.rollup_segment
+            self.ingest(cols)
+        self.rollup_now()
+        self.flush_now()
+        self.block_until_ready()
 
     # -- reads -----------------------------------------------------------
+    #
+    # Every read below ends in exactly one device->host transfer: its
+    # outputs are packed on the device into one buffer (readpack.pack) and
+    # self._pull makes the one counted readpack.device_get.
 
-    def _pull(self, *tensors) -> list:
-        """The query path's device->host copy (counted once per query)."""
+    def _pull(self, tensors, dtypes) -> list:
+        """THE read path's device->host pull (callers hold the lock): pack
+        ``tensors`` as the reference ``dtypes``, one counted transfer,
+        then zero-copy numpy views of the sections."""
         self.read_stats["host_transfers"] += 1
-        return [t.cpu() for t in tensors]
+        return readpack.pull(readpack.pack(tensors, dtypes))
 
     def quantiles(self, qs, source: str = "digest", ts_lo_min: Optional[int] = None,
                   ts_hi_min: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -227,19 +311,20 @@ class TorchAggregator:
             else:
                 q = ing.key_quantiles(self.state, qarr)
                 n = histogram.total_count(self.state.hist)
-            q, n = self._pull(q, n)
-            return q.numpy(), n.numpy().astype(np.uint32)
+            q, n = self._pull((q, n), (np.float32, np.uint32))
+            return q, n
 
     def windowed_histograms(self, ts_lo_min: int, ts_hi_min: int) -> np.ndarray:
         with self.lock:
-            (out,) = self._pull(ing.windowed_hist(self.config, self.state, ts_lo_min, ts_hi_min))
-            return out.numpy().astype(np.uint32)
+            (out,) = self._pull(
+                (ing.windowed_hist(self.config, self.state, ts_lo_min, ts_hi_min),), (np.uint32,))
+            return out
 
     def cardinalities(self) -> np.ndarray:
         """[S+1] HLL distinct-trace estimates (last row global)."""
         with self.lock:
-            (est,) = self._pull(ing.cardinalities(self.state))
-            return est.numpy()
+            (est,) = self._pull((ing.cardinalities(self.state),), (np.float32,))
+            return est
 
     def sketch_overview(self, qs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """([K, Q] digest quantiles, [K] counts, [S+1] HLL estimates)."""
@@ -248,19 +333,30 @@ class TorchAggregator:
             if self._pend_lanes:
                 self._flush_now()
             q, n, est = self._pull(
-                ing.key_quantiles_digest(self.state, qarr),
-                histogram.total_count(self.state.hist),
-                ing.cardinalities(self.state),
+                (ing.key_quantiles_digest(self.state, qarr),
+                 histogram.total_count(self.state.hist),
+                 ing.cardinalities(self.state)),
+                (np.float32, np.uint32, np.float32),
             )
-            return q.numpy(), n.numpy().astype(np.uint32), est.numpy()
+            return q, n, est
 
     def merged_digest(self) -> np.ndarray:
         """[K, C, 2] digest with the pending points folded in — a pure
         read: the state is left untouched."""
         with self.lock:
             s = self.state
-            (out,) = self._pull(ing._flush_pending_digest(self.config, s.digest, s.pend_key, s.pend_val))
-            return out.numpy()
+            (out,) = self._pull(
+                (ing._flush_pending_digest(self.config, s.digest, s.pend_key, s.pend_val),),
+                (np.float32,))
+            return out
+
+    def merged_sketches(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(hist [K, B] u32, hll [S+1, m] u8, counters u32) in one pull."""
+        with self.lock:
+            s = self.state
+            hist, hll_regs, counters = self._pull(
+                (s.hist, s.hll, s.counters), (np.uint32, np.uint8, np.uint32))
+            return hist, hll_regs, counters
 
     def _link_context_cached(self):
         """Device LinkContext for the current state (callers hold lock)."""
@@ -270,9 +366,11 @@ class TorchAggregator:
 
     def dependency_matrices(self, ts_lo_min: int, ts_hi_min: int) -> Tuple[np.ndarray, np.ndarray]:
         with self.lock:
-            calls, errors = self._pull(*ing.dependency_links(
-                self.config, self.state, ts_lo_min, ts_hi_min, ctx=self._link_context_cached()))
-            return calls.numpy().astype(np.uint32), errors.numpy().astype(np.uint32)
+            calls, errors = self._pull(
+                ing.dependency_links(self.config, self.state, ts_lo_min, ts_hi_min,
+                                     ctx=self._link_context_cached()),
+                (np.uint32, np.uint32))
+            return calls, errors
 
     def window_fully_rolled(self, ts_lo_min: int, ts_hi_min: int) -> bool:
         """True when no ring-resident span's timestamp can fall in the
@@ -310,17 +408,66 @@ class TorchAggregator:
                 calls, errors = ing.dependency_links(
                     self.config, self.state, ts_lo_min, ts_hi_min,
                     ctx=self._link_context_cached())
-            idx, c, e = self._pull(*self._edge_topk(calls, errors))
-            return (idx.numpy().astype(np.int32), c.numpy().astype(np.uint32),
-                    e.numpy().astype(np.uint32))
+            idx, c, e = self._pull(self._edge_topk(calls, errors), (np.int32, np.uint32, np.uint32))
+            return idx, c, e
+
+    def tt_read(self, lo_ep: int, hi_ep: int):
+        """(slot_epochs [W] i32, hll_regs [S+1, m] u8, digest [K, Cw, 2]
+        f32, calls [S, S] u32, errs [S, S] u32) for the bucket-epoch range
+        ``[lo_ep, hi_ep]`` in one pull: the time tier's seal read
+        (``lo == hi``) and its unsealed-suffix read. The pending digest
+        points are flushed first, so the bucket digests hold every point."""
+        with self.lock:
+            if self._pend_lanes:
+                self._flush_now()
+            ep, regs, digest, calls, errs = self._pull(
+                ing.tt_sketches(self.config, self.state, int(lo_ep), int(hi_ep),
+                                ctx=self._link_context_cached()),
+                (np.int32, np.uint8, np.float32, np.uint32, np.uint32))
+            return ep, regs, digest, calls, errs
+
+    @property
+    def tt_max_epoch(self) -> int:
+        """Highest bucket epoch ingest has touched (-1: none yet)."""
+        return self._tt_max_epoch
 
     # -- state -----------------------------------------------------------
 
+    def sync_pend_lanes(self) -> None:
+        """Re-derive the host bookkeeping from the device state after
+        ``self.state`` was replaced wholesale (snapshot restore): one
+        packed pull of ``pend_pos`` and, with the tier, ``tb_epoch``."""
+        with self.lock:
+            lanes = [self.state.pend_pos.reshape(-1)]
+            if self.config.timetier_enabled:
+                lanes.append(self.state.tb_epoch.reshape(-1))
+            (packed,) = readpack.pull(readpack.pack((torch.cat(lanes),), (np.int32,)))
+            n_pend = self.state.pend_pos.numel()
+            self._pend_lanes = int(packed[:n_pend].max())
+            # the write distance since the last rollup is not in the state:
+            # assume the worst so the next batch rolls up first
+            self._lanes_since_rollup = self.config.rollup_segment
+            # restored ring content has unknown timestamps: one entry that
+            # covers every window until a full ring of writes displaces it
+            self._resident.clear()
+            self._resident.append((0, (1 << 32) - 1, self._shard_cursor.copy()))
+            if self.config.timetier_enabled:
+                self._tt_max_epoch = int(packed[n_pend:].max())
+            self.write_version += 1
+
+    def state_clone(self):
+        """(device clone of every leaf, wal_seq, host_counters copy), all
+        taken under the lock: one instant for a snapshot. Callers copy the
+        clone to the host without the lock while ingest goes on."""
+        with self.lock:
+            return (AggState(*(t.clone() for t in self.state)), self.wal_seq,
+                    dict(self.host_counters))
+
     def state_arrays(self) -> list:
         """Host copy of every state leaf with the reference's dtypes and
-        shapes (no shard axis)."""
-        with self.lock:
-            return convert.state_to_numpy(self.state)
+        shapes (no shard axis), from one :meth:`state_clone`."""
+        clone, _, _ = self.state_clone()
+        return convert.state_to_numpy(clone)
 
     def block_until_ready(self) -> None:
         if self.device.type == "cuda":

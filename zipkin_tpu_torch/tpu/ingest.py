@@ -13,8 +13,10 @@ the time tier's ``tb_hll``) are raised by one launch,
 :func:`zipkin_tpu_torch.ops.hll.update_step`, over the lane columns
 :func:`hll_lanes` builds.
 
-Sampling (``config.sampling``) is not ported yet: a state built with it
-raises instead of silently skipping the verdict.
+With ``config.sampling`` the step also scores every lane with
+:func:`zipkin_tpu_torch.sampling.device.device_verdict`, records the
+verdict in ``r_keep`` in the ring append's own order and counts kept and
+dropped spans in counter slots 5/6; with it off those stay untouched.
 """
 
 from __future__ import annotations
@@ -25,10 +27,13 @@ import torch
 
 from zipkin_tpu_torch import u32
 from zipkin_tpu_torch.ops import delta_linker, hashing, histogram, hll, linker, tdigest
+from zipkin_tpu_torch.sampling.device import device_verdict
 from zipkin_tpu_torch.tpu.columnar import SpanColumns
 from zipkin_tpu_torch.tpu.state import (
     CTR_BATCHES,
     CTR_ERRORS,
+    CTR_SAMPLED_DROPPED,
+    CTR_SAMPLED_KEPT,
     CTR_SPANS,
     CTR_WITH_DURATION,
     NUM_COUNTERS,
@@ -61,8 +66,6 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
     ``pend_pos + n <= digest_buffer`` — the aggregator keeps that
     invariant and an index past the buffer raises.
     """
-    if config.sampling:
-        raise NotImplementedError("the sampling tier is not ported yet")
     valid = batch.valid
     dev = valid.device
     if live is None:
@@ -105,6 +108,18 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
     add[CTR_WITH_DURATION] = has_dur.sum()
     add[CTR_ERRORS] = (valid & batch.err).sum()
     add[CTR_BATCHES] = 1
+
+    # --- tail-sampling verdicts: the ring's lanes in the append's order
+    if config.sampling:
+        keep = device_verdict(
+            batch.trace_h, batch.svc, batch.rsvc, batch.key,
+            batch.dur, batch.has_dur, batch.err, valid,
+            state.s_rate, state.s_tail, state.s_link, config.sample_rare_min,
+        )
+        n_keep = keep.sum()
+        add[CTR_SAMPLED_KEPT] = n_keep
+        add[CTR_SAMPLED_DROPPED] = live - n_keep
+        state.r_keep[pos] = keep[order]
 
     return state._replace(
         hist_t_epoch=hist_t_epoch,
@@ -312,6 +327,34 @@ def dependency_links(config: AggConfig, state: AggState, ts_lo: int, ts_hi: int,
                                       config.max_services)
     rc, re = rolled_links(config, state, ts_lo, ts_hi)
     return u32.wrap(calls + rc), u32.wrap(errors + re)
+
+
+def tt_sketches(config: AggConfig, state: AggState, lo_ep: int, hi_ep: int,
+                ctx: Optional[linker.LinkContext] = None):
+    """The time-tier slots whose bucket epoch lies in ``[lo_ep, hi_ep]``
+    as one mergeable part: ``(epoch [W], regs [S+1, m] u8, digest
+    [K, Cw, 2] f32, calls [S, S], errs [S, S])`` — the slot epochs, the
+    register-max over the selected slots, one row-parallel recluster of
+    their compact digests, and the edges split as in
+    :func:`dependency_links`: un-rolled ring lanes whose bucket epoch is
+    in the range emit through ``ctx`` (built fresh without one), rolled
+    lanes come from the ``tb_calls`` / ``tb_errs`` planes."""
+    sel = _slots_in_window(state.tb_epoch, lo_ep, hi_ep)
+    regs = torch.where(sel[:, None, None], state.tb_hll, 0).amax(0)
+    d = state.tb_digest  # [W, K, Cw, 2]
+    w_tt, k, cw, _ = d.shape
+    dm = torch.stack([d[..., 0], torch.where(sel[:, None, None], d[..., 1], 0.0)], dim=-1)
+    all_c = dm.movedim(0, 1).reshape(k, w_tt * cw, 2)
+    digest = tdigest.row_merge(torch.zeros((k, cw, 2), dtype=torch.float32, device=d.device), all_c)
+    if ctx is None:
+        ctx = fresh_link_context(config, state)
+    ep_lane = state.r_ts_min // config.time_bucket_minutes
+    in_w = (ep_lane >= lo_ep) & (ep_lane <= hi_ep)
+    live_c, live_e = linker.emit_links(ctx, state.r_valid & ~state.r_rolled & in_w,
+                                       config.max_services)
+    calls = u32.wrap(live_c + _masked_slot_sum(sel, state.tb_calls))
+    errs = u32.wrap(live_e + _masked_slot_sum(sel, state.tb_errs))
+    return state.tb_epoch, regs, digest, calls, errs
 
 
 def key_quantiles(state: AggState, qs: torch.Tensor) -> torch.Tensor:
