@@ -31,7 +31,14 @@ Builds the hand-written kernels from the sources in the checkout, then:
     against the host sampler, the sketches against an unsampled twin that
     replays the run's flushes, and every sealed epoch and window against
     what the generator knows; times the sampled step, the host sampler,
-    the seal read, window reads and the controller's tick.
+    the seal read, window reads and the controller's tick;
+(e) the storage SPI's object path at the default AggConfig: 2**18 spans
+    rendered as Span objects and encoded as 4,096-span JSON v2 and proto3
+    payloads, each through codec.decode_spans -> TorchStorage's
+    span_consumer().accept(); checks get_trace, dependencies, cardinalities,
+    percentile rows, names, and after tt_seal() sealed and mixed windows
+    against the generator, the transfers of every store read and that
+    update_step launched once per device batch; times each stage and read.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -997,10 +1004,297 @@ def phase_sampled(seed: int, n_spans: int, torch, card: str, cfg=None, chunk: in
     return fig
 
 
+def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload: int = 4096,
+                services: int = 60, device=None) -> dict:
+    """(e) the storage SPI's object path at the default AggConfig: the
+    traffic rendered as Span objects and encoded as payloads of
+    ``per_payload`` spans, JSON v2 and proto3 by turns; each payload goes
+    through ``codec.decode_spans`` -> ``span_consumer().accept(...)`` of a
+    TorchStorage on the card. Then every store read is checked against what
+    the generator knows, before and after ``tt_seal()``, with its transfers
+    and its wall. ``services`` keeps the whole window's edges (3,522 at 2**18
+    spans) inside the store's 4,096-edge compaction, so each dependency read
+    is one device read. Returns the figures."""
+    import types
+
+    from zipkin_tpu_torch.model import codec, json_v2
+    from zipkin_tpu_torch.ops import hll_kernel, tdigest
+    from zipkin_tpu_torch.ops.histogram import SUB
+    from zipkin_tpu_torch.tpu import store as store_mod
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+    from zipkin_tpu_torch.workload import (
+        BASE_MINUTE, generate, payloads, render_spans, service_name, span_name)
+
+    cfg = cfg or AggConfig()
+    t0 = time.perf_counter()
+    traffic = generate(n_spans, seed=seed + 7, services=services)
+    cols = traffic.cols
+    spans = render_spans(traffic)
+    wire = payloads(spans, per_payload)
+    setup_s = time.perf_counter() - t0
+    store = TorchStorage(config=cfg, device=device)
+    store._deps_max_stale_ms = 0.0  # no cached answer hides a write
+    agg = store.agg
+    fig = dict(card=card, spans=n_spans, payloads=len(wire), setup_s=setup_s,
+               stage_ms={"decode": 0.0, "pack_spans": 0.0, "archive_write": 0.0, "device_step": 0.0})
+    stage = fig["stage_ms"]
+    batches = []
+
+    def timed(fn, name, sync=False):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:  # the step's device time belongs to the step
+                agg.block_until_ready()
+            stage[name] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    def count_batch(c):
+        batches.append(int(c.valid.sum()))
+        return ingest(c)
+
+    ingest = timed(agg.ingest, "device_step", sync=True)
+    agg.ingest = count_batch
+    archive_accept = store._archive.accept
+
+    def timed_archive(kept):
+        # the archive's work runs in the Call's execute()
+        return types.SimpleNamespace(execute=timed(archive_accept(kept).execute, "archive_write"))
+
+    store._archive.accept = timed_archive
+    pack = store_mod.pack_spans
+    store_mod.pack_spans = timed(pack, "pack_spans")
+    try:
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        for p in wire:
+            t = time.perf_counter()
+            got = codec.decode_spans(p)
+            stage["decode"] += (time.perf_counter() - t) * 1e3
+            store.span_consumer().accept(got).execute()
+        agg.block_until_ready()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"update": hll_kernel.update.launches, "update_step": hll_kernel.update_step.launches}
+    finally:
+        store_mod.pack_spans = pack
+        del agg.ingest
+    if sum(batches) != n_spans:
+        raise AssertionError(f"device batches carried {sum(batches)} spans, want {n_spans}")
+    if launches["update"] or launches["update_step"] != len(batches) or not batches:
+        raise AssertionError(f"hll launches {launches} over {len(batches)} device batches")
+    fig.update(device_batches=len(batches), launches=launches["update_step"],
+               update_launches=launches["update"], wall_ms=wall_ms,
+               spans_per_s=n_spans / (wall_ms / 1e3),
+               stage_spans_per_s={k: n_spans / (v / 1e3) for k, v in stage.items()})
+    log(f"phase e ({card}): {n_spans} spans in {len(wire)} payloads (JSON v2 and proto3 by turns, "
+        f"rendered in {setup_s:.1f} s) through decode_spans -> accept: {fig['spans_per_s']:.0f} spans/s "
+        f"end to end ({wall_ms:.0f} ms); per stage ms {json.dumps({k: round(v, 1) for k, v in stage.items()})}"
+        f", spans/s {json.dumps({k: round(v) for k, v in fig['stage_spans_per_s'].items()})}; "
+        f"{len(batches)} device batches, update_step launches {launches['update_step']}, "
+        f"update {launches['update']}")
+
+    # --- the generator's truth, by name (key = svc * names + name) ----------
+    svc_of = lambda i: service_name(int(i))
+    key_name = lambda k: (svc_of(k // traffic.names_per_service), span_name(traffic, int(k)))
+    trace64 = (cols.tl1.astype(np.uint64) << np.uint64(32)) | cols.tl0
+    t_end = (BASE_MINUTE + 60) * 60_000  # epoch ms past the last span
+    lookback = 2 * 60 * 60_000
+    order = np.argsort(cols.key, kind="stable")
+    bounds = np.searchsorted(cols.key[order], np.arange(cfg.max_keys + 1))
+    key_durs = {key_name(k): np.sort(cols.dur[order[bounds[k]:bounds[k + 1]]].astype(np.float64))
+                for k in np.nonzero(np.diff(bounds))[0]}
+
+    def link_map(links):
+        return {(x.parent, x.child): (x.call_count, x.error_count) for x in links}
+
+    def fresh(fn):
+        """``fn`` after dropping the store's caches: what a first read pays
+        (the aggregator's link context stays built)."""
+        def run():
+            store.invalidate_read_cache()
+            return fn()
+        return run
+
+    def measure(reads, want_transfers):
+        """Transfers of each read from a dropped cache, then its wall (median
+        of 5) from a dropped cache and served by the cache."""
+        transfers = {name: counted(agg, fresh(fn))[1:] for name, fn in reads.items()}
+        if transfers != {name: want_transfers for name in reads}:
+            raise AssertionError(f"transfers per read {transfers}, want {want_transfers} each")
+        fig["transfers"].update(transfers)
+        fig["read_ms"].update({name: median_ms(fresh(fn)) for name, fn in reads.items()})
+        fig["read_cached_ms"].update({name: median_ms(fn) for name, fn in reads.items()})
+
+    fig.update(transfers={}, read_ms={}, read_cached_ms={})
+
+    # 1. traces: 64 sampled ids, every span as the generator rendered it
+    rng = np.random.default_rng(seed)
+    per_trace = 8
+    for t in rng.choice(n_spans // per_trace, 64, replace=False):
+        want = sorted(json_v2.encode_span(s) for s in spans[t * per_trace:(t + 1) * per_trace])
+        got = sorted(json_v2.encode_span(s) for s in store.get_trace(spans[t * per_trace].trace_id).execute())
+        if got != want:
+            raise AssertionError(f"get_trace({spans[t * per_trace].trace_id}) != the generated spans")
+
+    # 2. dependencies over the whole window: every edge, exact counts (the
+    # first read builds the link context)
+    want_edges = {(svc_of(a), svc_of(b)): ce for (a, b), ce in traffic.edges.items()}
+    t0 = time.perf_counter()
+    deps, *first_deps = counted(agg, lambda: store.get_dependencies(t_end, lookback).execute())
+    fig["read_ms"]["dependencies_first"] = (time.perf_counter() - t0) * 1e3
+    if tuple(first_deps) != (1, 1) or link_map(deps) != want_edges:
+        raise AssertionError(f"get_dependencies: {len(deps)} links != {len(want_edges)} generated, "
+                             f"transfers {first_deps}")
+
+    # 3. cardinalities within phase c's HLL band
+    est = store.trace_cardinalities()
+    sig = 1.04 / math.sqrt(1 << cfg.hll_precision)
+    pairs = np.unique(np.stack([cols.svc.astype(np.uint64), trace64], 1), axis=0)
+    true = {svc_of(s): n for s, n in zip(*np.unique(pairs[:, 0], return_counts=True))}
+    rel = np.array([abs(est[name] - n) / n for name, n in true.items()])
+    n_traces = len(np.unique(trace64))
+    g_rel = abs(est["_global"] - n_traces) / n_traces
+    if set(est) != set(true) | {"_global"} or g_rel > 3 * sig or rel.max() > 4 * sig \
+            or math.sqrt((rel ** 2).mean()) > 1.5 * sig:
+        raise AssertionError(f"cardinality off: global {g_rel:.4f}, max {rel.max():.4f}, sigma {sig:.4f}")
+
+    # 4. percentile rows: counts exact; histogram quantiles inside the log2
+    # buckets of the bracketing order statistics (1/32 of an octave); digest
+    # p99 inside the digest's rank band for keys with >= 1000 points
+    w99 = tdigest.cluster_q_width(cfg.digest_centroids, 0.99)
+
+    def check_rows(rows, what, digest):
+        if {(r["serviceName"], r["spanName"]) for r in rows} != set(key_durs):
+            raise AssertionError(f"{what}: rows {len(rows)} != keys {len(key_durs)}")
+        checked = 0
+        for r in rows:
+            v = key_durs[(r["serviceName"], r["spanName"])]
+            n = len(v)
+            if r["count"] != n:
+                raise AssertionError(f"{what}: count {r['count']} != {n} for {r['serviceName']}/{r['spanName']}")
+            for q, got in r["quantiles"].items():
+                if digest:
+                    if q != 0.99 or n < 1000:
+                        continue
+                    lo_v, hi_v = np.quantile(v, [0.99 - w99, min(0.99 + w99, 1.0)])
+                else:
+                    rank = math.ceil(q * n)
+                    lo_v = v[max(0, rank - 2)] * (1 - 1 / SUB)
+                    hi_v = v[min(n - 1, rank)] * (1 + 1 / SUB)
+                if not lo_v <= got <= hi_v:
+                    raise AssertionError(f"{what}: q{q} {got} outside [{lo_v}, {hi_v}]")
+                checked += 1
+        return checked
+
+    hist_checked = check_rows(store.latency_quantiles(QS, use_digest=False), "hist rows", False)
+    digest_checked = check_rows(store.latency_quantiles(QS), "digest rows", True)
+    overview = store.sketch_overview(QS)
+    check_rows(overview["percentiles"], "overview rows", True)
+    if overview["cardinalities"] != est or overview["counters"]["spans"] != n_spans:
+        raise AssertionError("sketch_overview disagrees with the reads it coalesces")
+
+    # 5. names
+    names = store.get_service_names().execute()
+    if names != sorted(true):
+        raise AssertionError(f"service names: {len(names)} != {len(true)}")
+    for name in names[:8]:
+        want = sorted({s for (svc, s) in key_durs if svc == name})
+        if store.get_span_names(name).execute() != want:
+            raise AssertionError(f"span names of {name}")
+
+    # 7a. the ring's reads: one transfer each
+    measure({
+        "digest_quantiles": lambda: store.latency_quantiles(QS),
+        "hist_quantiles": lambda: store.latency_quantiles(QS, use_digest=False),
+        "windowed_hist_quantiles": lambda: store.latency_quantiles(
+            QS, use_digest=False, end_ts=t_end, lookback=lookback),
+        "cardinalities": lambda: store.trace_cardinalities(),
+        "sketch_overview": lambda: store.sketch_overview(QS),
+        "dependencies": lambda: store.get_dependencies(t_end, lookback).execute(),
+        # the device read under the last one, without the store's link shaping
+        "aggregator_dependency_edges": lambda: agg.dependency_edges(
+            (t_end - lookback) // 60_000, t_end // 60_000),
+    }, (1, 1))
+
+    # 6. seal, then windows over sealed buckets and through the unsealed one
+    g = cfg.time_bucket_minutes
+    t0 = time.perf_counter()
+    sealed_n = store.tt_seal()
+    fig["tt_seal_ms"] = (time.perf_counter() - t0) * 1e3
+    sealed, top = store.timetier.sealed_through, agg.tt_max_epoch
+    if sealed != top - 1 or sealed_n < 2:
+        raise AssertionError(f"tt_seal sealed {sealed_n}, through {sealed}, top {top}")
+    ep = cols.ts_min.astype(np.int64) // g
+
+    def window(lo_ep, hi_ep):
+        """(end_ts, lookback) in epoch ms covering buckets lo_ep..hi_ep."""
+        end = (hi_ep * g + g - 1) * 60_000 + 30_000
+        return end, end - lo_ep * g * 60_000 - 30_000
+
+    def check_window(lo_ep, hi_ep, what):
+        end_ts, lb = window(lo_ep, hi_ep)
+        mask = (ep >= lo_ep) & (ep <= hi_ep)
+        want = np.bincount(cols.key[mask], minlength=cfg.max_keys)
+        got = {(r["serviceName"], r["spanName"]): r
+               for r in store.latency_quantiles(QS, end_ts=end_ts, lookback=lb)}
+        for k in np.nonzero(want)[0]:
+            r = got.pop(key_name(k))
+            qv = list(r["quantiles"].values())
+            if r["count"] != want[k] or not np.isfinite(qv).all() or qv != sorted(qv):
+                raise AssertionError(f"{what}: key {k} row {r}, want count {want[k]}")
+        if got:
+            raise AssertionError(f"{what}: {len(got)} rows past the generator's keys")
+        client = mask & (cols.rsvc > 0)
+        flat = cols.svc[client].astype(np.int64) * cfg.max_services + cols.rsvc[client]
+        uniq, inv = np.unique(flat, return_inverse=True)
+        calls = np.bincount(inv)
+        errs = np.bincount(inv, weights=cols.err[client])
+        want_e = {(svc_of(f // cfg.max_services), svc_of(f % cfg.max_services)): (int(c), int(e))
+                  for f, c, e in zip(uniq, calls, errs)}
+        if link_map(store.get_dependencies(end_ts, lb).execute()) != want_e:
+            raise AssertionError(f"{what}: windowed dependencies != the generator's")
+        return end_ts, lb
+
+    s_end, s_lb = check_window(sealed - 1, sealed, "sealed window")
+    m_end, m_lb = check_window(sealed, top, "mixed window")
+
+    # 7b. a window of sealed buckets reads no device; one through the
+    # unsealed bucket reads it once
+    measure({
+        "sealed_quantiles": lambda: store.latency_quantiles(QS, end_ts=s_end, lookback=s_lb),
+        "sealed_dependencies": lambda: store.get_dependencies(s_end, s_lb).execute(),
+        "sealed_cardinalities": lambda: store.trace_cardinalities(end_ts=s_end, lookback=s_lb),
+    }, (0, 0))
+    measure({
+        "mixed_quantiles": lambda: store.latency_quantiles(QS, end_ts=m_end, lookback=m_lb),
+        "mixed_dependencies": lambda: store.get_dependencies(m_end, m_lb).execute(),
+        "mixed_cardinalities": lambda: store.trace_cardinalities(end_ts=m_end, lookback=m_lb),
+    }, (1, 1))
+    fig["get_trace_ms"] = median_ms(lambda: store.get_trace(spans[0].trace_id).execute())
+    fig["service_names_ms"] = median_ms(lambda: store.get_service_names().execute())
+    fig.update(sealed=sealed_n, hist_checked=hist_checked, digest_checked=digest_checked,
+               edges=len(want_edges))
+    log(f"phase e: transfers per store read (readpack, read_stats): {json.dumps(fig['transfers'])}")
+    log(f"phase e ({card}): store read wall ms, median of 5 from a dropped cache: "
+        + json.dumps({k: round(v, 3) for k, v in fig["read_ms"].items()})
+        + "; served by the cache: " + json.dumps({k: round(v, 4) for k, v in fig["read_cached_ms"].items()})
+        + f"; get_trace {fig['get_trace_ms']:.3f} ms, get_service_names {fig['service_names_ms']:.1f} ms, "
+        f"tt_seal {fig['tt_seal_ms']:.1f} ms")
+    log(f"phase e: 64 traces equal the generated spans; {len(want_edges)} edges exact; cardinalities "
+        f"within the HLL band (global {g_rel:.4f}, max {rel.max():.4f}, sigma {sig:.4f}); {hist_checked} "
+        f"histogram and {digest_checked} digest quantiles inside their bounds over {len(key_durs)} keys; "
+        f"{len(names)} service names; {sealed_n} epochs sealed, sealed and mixed windows exact")
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--spans", type=int, default=1 << 20)
+    parser.add_argument("--store-spans", type=int, default=1 << 18,
+                        help="spans through the store's object path (phase e)")
     args = parser.parse_args()
 
     import torch
@@ -1045,12 +1339,17 @@ def main() -> int:
     t0 = time.perf_counter()
     sampled = phase_sampled(args.seed, args.spans, torch, card)
     log(f"phase d done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stored = phase_store(args.seed, args.store_spans, torch, card)
+    log(f"phase e done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
     # fresh and filled. Each reports the mean over its cases, each case
-    # beside it; launches are those of the main path's run (phase c), and
-    # launches_phase_d those of the sampled run (phase d).
+    # beside it; launches are those of the main path's run (phase c),
+    # launches_phase_d those of the sampled run (phase d) and
+    # launches_phase_e those of the store's object path (phase e).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -1059,6 +1358,7 @@ def main() -> int:
              ms=mean(cases, "ms"), plain_ms=mean(cases, "plain_ms"), bound_ms=mean(cases, "bound_ms"),
              bound_by="bytes", library_ms=mean(cases, "library_ms"),
              launches_phase_d=sampled["update_launches"],
+             launches_phase_e=stored["update_launches"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -1066,7 +1366,8 @@ def main() -> int:
              bound_ms=mean(step_cases, "bound_ms"), bound_by="bytes",
              library_ms=mean(step_cases, "library_ms"),
              four_launch_ms=mean(step_cases, "four_launch_ms"),
-             launches_phase_d=sum(sampled["launches"]), cases=step_cases, card=card),
+             launches_phase_d=sum(sampled["launches"]), launches_phase_e=stored["launches"],
+             cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,6 +69,22 @@ def test_aggregator_defaults_to_cuda_and_raises_without_it(monkeypatch):
     assert TorchAggregator(small, device="cpu").state.hll.device.type == "cpu"
 
 
+def test_storage_defaults_to_cuda_and_raises_without_it(monkeypatch):
+    """The store's aggregator resolves to the card; without one it raises
+    unless the caller names the CPU, and clear() keeps the device."""
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    small = _small_config()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchStorage(config=small, pad_to_multiple=32)
+    with pytest.raises(RuntimeError):
+        TorchStorage(config=small, pad_to_multiple=32, device="cuda")
+    store = TorchStorage(config=small, pad_to_multiple=32, device="cpu")
+    store.clear()
+    assert store.agg.device.type == "cpu" and store.agg.state.hll.device.type == "cpu"
+
+
 def _small_config():
     from zipkin_tpu_torch.tpu.state import AggConfig
 

@@ -5,6 +5,10 @@ span wire image is folded into device sketch state (HLL registers, log2
 histograms, t-digests, the retention ring and its incremental link
 context), and three aggregate reads are served from it — latency
 quantiles, distinct-trace cardinalities and service dependency edges.
+Users reach it through the storage SPI:
+:class:`zipkin_tpu_torch.tpu.store.TorchStorage` takes Zipkin spans
+(:mod:`zipkin_tpu_torch.model`, decoded from any of the four wire
+formats) and answers trace, search, name and aggregate queries.
 
 Layout mirrors the JAX package module for module
 (``zipkin_tpu_torch/ops/hll.py`` is the counterpart of

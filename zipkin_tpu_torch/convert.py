@@ -5,7 +5,8 @@ arrays (what ``ShardedAggregator.state_arrays()`` returns — with the
 leading shard axis of one shard, or without it) and builds the port's
 state on ``device`` (the card unless the caller names another); ``state_to_numpy`` gives them back with the
 reference's dtypes and shapes (no shard axis), so two states can be
-diffed leaf by leaf. numpy and torch only.
+diffed leaf by leaf. ``vocab_from_reference`` carries the store's host
+state, the name and key interners, from plain lists. numpy and torch only.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 import torch
 
 from zipkin_tpu_torch.device import resolve_device
+from zipkin_tpu_torch.tpu.columnar import Vocab
 from zipkin_tpu_torch.tpu.state import LEAF_DTYPES, AggConfig, AggState, init_state, torch_dtype
 
 
@@ -49,3 +51,27 @@ def state_to_numpy(state: AggState) -> list:
             a = a.astype(LEAF_DTYPES[name])
         out.append(a)
     return out
+
+
+def vocab_from_reference(services: Sequence[str], span_names: Sequence[str],
+                         keys: Sequence[Sequence[int]], max_services: int = 1024,
+                         max_keys: int = 8192) -> Vocab:
+    """A :class:`Vocab` with the given id assignment: ``services`` and
+    ``span_names`` are the names by id and ``keys`` the (service id, span
+    name id) pairs by key id, each with id 0's entry first (the reference
+    store's ``vocab.services._names``, ``vocab.span_names._names`` and
+    ``vocab._key_list``). Later interning continues from there."""
+    if not services or services[0] or not span_names or span_names[0]:
+        raise ValueError("services and span_names must start with id 0's empty name")
+    if not keys or tuple(keys[0]) != (0, 0):
+        raise ValueError("keys must start with id 0's (0, 0) pair")
+    if len(services) > max_services or len(keys) > max_keys:
+        raise ValueError("the id assignment exceeds the vocab's capacity")
+    v = Vocab(max_services=max_services, max_keys=max_keys)
+    v.services._names = list(services)
+    v.services._ids = {n: i for i, n in enumerate(services) if i}
+    v.span_names._names = list(span_names)
+    v.span_names._ids = {n: i for i, n in enumerate(span_names) if i}
+    v._key_list = [(int(a), int(b)) for a, b in keys]
+    v._keys = {pair: i for i, pair in enumerate(v._key_list) if i}
+    return v

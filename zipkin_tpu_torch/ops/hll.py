@@ -7,10 +7,15 @@ flat view) in one launch — both through the Hopper kernel on the card, see
 :mod:`zipkin_tpu_torch.ops.hll_kernel`. :func:`merge` is element-wise
 max, :func:`estimate` the bias-corrected harmonic mean with linear
 counting below 2.5m (no 32-bit large-range correction, as in the
-reference — its docstring gives the measured reason).
+reference — its docstring gives the measured reason). The host half,
+:func:`standard_error`, :func:`bias_fraction` and :func:`envelope_max`,
+says where an estimate stops being one: the store flags rows past the
+envelope.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -69,3 +74,49 @@ def estimate(registers: torch.Tensor) -> torch.Tensor:
     use_linear = (raw <= 2.5 * m) & (zeros > 0)
     return torch.where(use_linear, linear, raw)
 
+
+def standard_error(precision: int) -> float:
+    return 1.04 / math.sqrt(1 << precision)
+
+
+# |bias| / n of the raw estimator against the distinct count n, as the
+# reference measured it: 32-bit hash-space saturation drives it, so the
+# curve depends on n and not on m up to the 4e9 hash boundary
+BIAS_CURVE = (
+    (5.0e8, 0.004),
+    (1.0e9, 0.012),
+    (2.0e9, 0.044),
+    (4.0e9, 0.140),
+)
+
+
+def bias_fraction(n: float) -> float:
+    """|bias|/n of the raw estimator at ``n`` distinct values: log-log
+    interpolation of :data:`BIAS_CURVE`, clamped to the measured range."""
+    pts = BIAS_CURVE
+    if n <= pts[0][0]:
+        return pts[0][1]
+    if n >= pts[-1][0]:
+        return pts[-1][1]
+    for (n0, b0), (n1, b1) in zip(pts, pts[1:]):
+        if n <= n1:
+            t = (math.log(n) - math.log(n0)) / (math.log(n1) - math.log(n0))
+            return math.exp(math.log(b0) + t * (math.log(b1) - math.log(b0)))
+    return pts[-1][1]  # pragma: no cover - the loop always returns
+
+
+def envelope_max(precision: int = 11) -> float:
+    """Largest cardinality the estimator serves inside its operating
+    envelope: where |bias| crosses half the 3-sigma noise gate (the inverse
+    of :func:`bias_fraction` over the same segments; about 1.8e9 at p=11).
+    Only the gate moves with ``precision``; past 4e9 every precision is out
+    of its envelope."""
+    gate = 1.5 * standard_error(precision)
+    pts = BIAS_CURVE
+    if gate <= pts[0][1]:
+        return pts[0][0]
+    for (n0, b0), (n1, b1) in zip(pts, pts[1:]):
+        if gate <= b1:
+            t = (math.log(gate) - math.log(b0)) / (math.log(b1) - math.log(b0))
+            return math.exp(math.log(n0) + t * (math.log(n1) - math.log(n0)))
+    return pts[-1][0]

@@ -1,21 +1,37 @@
-"""Host-side columnar batch and packed wire image (the port's copy of the
-parts of ``zipkin_tpu/tpu/columnar.py`` its path needs).
+"""Host-side columnar packing and the packed wire image (the port's copy of
+the parts of ``zipkin_tpu/tpu/columnar.py`` its path needs).
 
-numpy only. :class:`SpanColumns` is one fixed-shape batch; the whole
-batch travels to the device as one ``[11, n]`` u32 image
-(:func:`fuse_columns`), unpacked there by
-:func:`zipkin_tpu_torch.parallel.aggregator.unfuse_columns`.
-``pack_spans`` (Span objects -> columns) needs the span model and comes
-with the port's store.
+numpy only. :func:`pack_spans` turns the port's :class:`Span` objects into
+one fixed-shape :class:`SpanColumns` batch, interning service and span
+names into a bounded :class:`Vocab` (id 0 is "unknown/absent"; overflow
+past capacity lands in id 0, or in the service's catch-all key row, and is
+counted). The whole batch travels to the device as one ``[11, n]`` u32
+image (:func:`fuse_columns`), unpacked there by
+:func:`zipkin_tpu_torch.parallel.aggregator.unfuse_columns`. Trace and span
+ids travel as u32 lane pairs; ``trace_h`` is a 32-bit avalanche hash of
+the full 128-bit trace id (HLL cardinality, the cheap first join lane).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import threading
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from zipkin_tpu_torch.internal.hex import normalize_trace_id
+from zipkin_tpu_torch.model.span import Kind, Span
+
+KIND_TO_ID = {
+    None: 0,
+    Kind.CLIENT: 1,
+    Kind.SERVER: 2,
+    Kind.PRODUCER: 3,
+    Kind.CONSUMER: 4,
+}
+
 _U32 = np.uint32
+_MASK32 = 0xFFFFFFFF
 
 # Packed wire image: 11 u32 rows = 44 B/span.
 #   rows 0-8: trace_h, tl0, tl1, s0, s1, p0, p1, dur, ts_min (plain u32)
@@ -47,6 +63,87 @@ def _hash2_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     )
 
 
+class Interner:
+    """Bounded, thread-safe string -> dense id map. Id 0 is reserved."""
+
+    def __init__(self, capacity: int) -> None:
+        self.capacity = capacity
+        self._ids: Dict[str, int] = {}
+        self._names: List[str] = [""]  # id 0
+        self._overflow = 0
+        self._lock = threading.Lock()
+
+    def intern(self, name: Optional[str]) -> int:
+        if not name:
+            return 0
+        with self._lock:
+            got = self._ids.get(name)
+            if got is not None:
+                return got
+            if len(self._names) >= self.capacity:
+                self._overflow += 1
+                return 0
+            nid = len(self._names)
+            self._ids[name] = nid
+            self._names.append(name)
+            return nid
+
+    def lookup(self, nid: int) -> str:
+        return self._names[nid] if 0 <= nid < len(self._names) else ""
+
+    def get(self, name: str) -> Optional[int]:
+        return self._ids.get(name)
+
+    @property
+    def names(self) -> List[str]:
+        return self._names[1:]
+
+    @property
+    def overflow(self) -> int:
+        return self._overflow
+
+
+class Vocab:
+    """The interners one store shares across batches: service names, span
+    names, and ``keys``, the (service, spanName) pairs that are the sketch
+    row space of the latency digests and histograms."""
+
+    def __init__(self, max_services: int = 1024, max_keys: int = 8192) -> None:
+        self.services = Interner(max_services)
+        self.span_names = Interner(max_keys)
+        self._keys: Dict[Tuple[int, int], int] = {}
+        self._key_list: List[Tuple[int, int]] = [(0, 0)]
+        self.max_keys = max_keys
+        self._overflow = 0
+        self._lock = threading.Lock()
+
+    def key_id(self, service_id: int, span_name_id: int) -> int:
+        pair = (service_id, span_name_id)
+        with self._lock:
+            got = self._keys.get(pair)
+            if got is not None:
+                return got
+            if span_name_id != 0 and service_id != 0:
+                # reserve the service's catch-all (svc, 0) before its first
+                # named pair: past capacity, span-name churn then lands in
+                # its service's row instead of the global unknown row 0.
+                # Service 0 is the unknown itself and gets no catch-all.
+                ca = (service_id, 0)
+                if ca not in self._keys and len(self._key_list) < self.max_keys:
+                    cid = len(self._key_list)
+                    self._keys[ca] = cid
+                    self._key_list.append(ca)
+            if len(self._key_list) >= self.max_keys:
+                self._overflow += 1
+                if span_name_id != 0 and service_id != 0:
+                    return self._keys.get((service_id, 0), 0)
+                return 0
+            kid = len(self._key_list)
+            self._keys[pair] = kid
+            self._key_list.append(pair)
+            return kid
+
+
 class SpanColumns(NamedTuple):
     """One fixed-shape batch; every field is an array of length n (numpy
     on the host, torch tensors once unpacked on the device)."""
@@ -59,7 +156,7 @@ class SpanColumns(NamedTuple):
     p0: np.ndarray  # u32 parent id lanes (0,0 = absent)
     p1: np.ndarray
     shared: np.ndarray  # bool
-    kind: np.ndarray  # i32 kind id (0 none, 1 client, 2 server, 3 producer, 4 consumer)
+    kind: np.ndarray  # i32 KIND_TO_ID
     svc: np.ndarray  # i32 local service id
     rsvc: np.ndarray  # i32 remote service id
     key: np.ndarray  # i32 (service, spanName) sketch row
@@ -105,6 +202,54 @@ def empty_columns(n: int) -> SpanColumns:
         dur=z32.copy(), has_dur=np.zeros(n, bool),
         ts_min=z32.copy(), valid=np.zeros(n, bool),
     )
+
+
+def _pad(n: int, multiple: int) -> int:
+    if n == 0:
+        return multiple
+    return ((n + multiple - 1) // multiple) * multiple
+
+
+def pack_spans(spans: Sequence[Span], vocab: Vocab, pad_to_multiple: int = 1024) -> SpanColumns:
+    """Pack spans into one columnar batch padded (valid=0) to a multiple of
+    ``pad_to_multiple`` lanes, interning their names into ``vocab``."""
+    n = len(spans)
+    cap = _pad(n, pad_to_multiple)
+    cols = empty_columns(cap)
+
+    hi = np.zeros(n, np.uint64)
+    lo = np.zeros(n, np.uint64)
+    for i, span in enumerate(spans):
+        full = int(normalize_trace_id(span.trace_id), 16)
+        lo[i] = full & 0xFFFFFFFFFFFFFFFF
+        hi[i] = full >> 64
+        sid = int(span.id, 16)
+        cols.s0[i] = sid & _MASK32
+        cols.s1[i] = (sid >> 32) & _MASK32
+        if span.parent_id:
+            pid = int(span.parent_id, 16)
+            cols.p0[i] = pid & _MASK32
+            cols.p1[i] = (pid >> 32) & _MASK32
+        cols.shared[i] = bool(span.shared)
+        cols.kind[i] = KIND_TO_ID[span.kind]
+        svc = vocab.services.intern(span.local_service_name)
+        cols.svc[i] = svc
+        cols.rsvc[i] = vocab.services.intern(span.remote_service_name)
+        name_id = vocab.span_names.intern(span.name)
+        cols.key[i] = vocab.key_id(svc, name_id)
+        cols.err[i] = span.is_error
+        if span.duration is not None:
+            cols.dur[i] = min(int(span.duration), _MASK32)
+            cols.has_dur[i] = True
+        if span.timestamp is not None:
+            cols.ts_min[i] = min(int(span.timestamp) // 60_000_000, _MASK32)
+        cols.valid[i] = True
+
+    cols.tl0[:n] = (lo & _MASK32).astype(_U32)
+    cols.tl1[:n] = (lo >> np.uint64(32)).astype(_U32)
+    hi32 = _hash2_np((hi & _MASK32).astype(_U32), (hi >> np.uint64(32)).astype(_U32))
+    cols.trace_h[:n] = _hash2_np(_hash2_np(cols.tl0[:n], cols.tl1[:n]), hi32)
+    return cols
 
 
 def remap_fused(fused: np.ndarray, svc_map: np.ndarray, key_map: np.ndarray) -> None:

@@ -1,0 +1,559 @@
+"""TorchStorage: the storage SPI over the aggregation tier on the card
+(port of the object path of ``zipkin_tpu/tpu/store.py:TpuStorage``).
+
+It implements the same SPI as the in-memory store, so a server or a
+collector uses either one, and serves the aggregate reads (dependencies,
+latency percentiles, trace cardinalities) from the device sketches of a
+:class:`~zipkin_tpu_torch.parallel.aggregator.TorchAggregator`:
+
+- **device**: latency histograms and t-digests per (service, spanName),
+  HLL trace cardinality per service, dependency links over the retained
+  span ring, and the time tier's current buckets;
+- **host archive**: a bounded :class:`InMemoryStorage` keeps the raw spans
+  for exact trace reads and search; past its eviction horizon the
+  aggregates stay answerable from the device;
+- **host time tier**: sealed time buckets (:class:`TimeTier`) answer
+  windowed reads over any ``[endTs - lookback, endTs]`` range.
+
+Each aggregate read is one device read (one packed transfer) memoized by
+the aggregator's write version. Left out, against the reference: the
+epoch-published read mirror and its shared-memory segment (the reference
+falls back to the versioned cache when no epoch is published, which is
+what a library caller sees), the disk archive, the native parser's fast
+path, the flight recorder and query-trace stamps, the overload, shadow and
+accuracy hooks, the multi-process ingest tier and the resume adapter.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+
+from zipkin_tpu_torch import readpack
+from zipkin_tpu_torch.internal.hex import epoch_minutes
+from zipkin_tpu_torch.model.span import DependencyLink, Span
+from zipkin_tpu_torch.ops import hll, ttmerge
+from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
+from zipkin_tpu_torch.sampling import RATE_ONE, HostSampler, RateController
+from zipkin_tpu_torch.storage.memory import InMemoryStorage
+from zipkin_tpu_torch.storage.spi import (
+    AutocompleteTags,
+    QueryRequest,
+    ServiceAndSpanNames,
+    SpanConsumer,
+    SpanStore,
+    StorageComponent,
+)
+from zipkin_tpu_torch.tpu.columnar import Vocab, pack_spans
+from zipkin_tpu_torch.tpu.state import AggConfig
+from zipkin_tpu_torch.tpu.timetier import TimeTier
+from zipkin_tpu_torch.utils.call import Call
+from zipkin_tpu_torch.utils.component import CheckResult
+
+logger = logging.getLogger(__name__)
+
+# the largest device batch before the state's own bounds: the reference's
+# default transport cap, kept so that both stores cut a POST into the same
+# chunks (digest flushes and rollups then fall at the same lanes)
+MAX_DEVICE_BATCH = 65536
+# dependency answers may be this stale under ingest: the reference's
+# dependency table is an offline batch job, hours stale by design
+DEPS_MAX_STALE_MS = 5000.0
+
+
+class TorchStorage(
+    StorageComponent, SpanConsumer, SpanStore, ServiceAndSpanNames, AutocompleteTags
+):
+    def __init__(
+        self,
+        *,
+        config: Optional[AggConfig] = None,
+        device=None,
+        strict_trace_id: bool = True,
+        search_enabled: bool = True,
+        autocomplete_keys: Sequence[str] = (),
+        archive_max_span_count: int = 500_000,
+        pad_to_multiple: int = 1024,
+        sampling_budget: float = 0.0,
+        sampling_interval_s: float = 5.0,
+        sampling_min_rate: int = 256,
+        sampling_tail_quantile: float = 0.99,
+        sampling_rare_min: Optional[int] = None,
+    ) -> None:
+        """``device``: where the aggregator's state lives — the card unless
+        the caller names another (``"cpu"`` runs the plain path)."""
+        self.config = config or AggConfig()
+        self.strict_trace_id = strict_trace_id
+        self.search_enabled = search_enabled
+        self.autocomplete_keys = tuple(autocomplete_keys)
+        self.vocab = Vocab(max_services=self.config.max_services, max_keys=self.config.max_keys)
+        self.agg = TorchAggregator(self.config, device=device)
+        # tail sampling gates retention (the RAM archive keeps the kept
+        # spans) while the device sketches see every span
+        self.sampler = None
+        self.sampling_controller = None
+        if self.config.sampling:
+            self.sampler = HostSampler(
+                self.config.max_services,
+                self.config.max_keys,
+                rare_min=(self.config.sample_rare_min if sampling_rare_min is None
+                          else sampling_rare_min),
+            )
+            self.agg.sampler = self.sampler
+            if sampling_budget > 0:
+                self.sampling_controller = RateController(
+                    self,
+                    budget_spans_per_sec=sampling_budget,
+                    interval_s=sampling_interval_s,
+                    min_rate=sampling_min_rate,
+                    tail_quantile=sampling_tail_quantile,
+                )
+        self._archive = InMemoryStorage(
+            max_span_count=archive_max_span_count,
+            strict_trace_id=strict_trace_id,
+            search_enabled=search_enabled,
+            autocomplete_keys=autocomplete_keys,
+        )
+        self._pad = pad_to_multiple
+        # largest device batch after padding: the digest pending buffer and
+        # the rollup segment bound it (the port's pending append does not
+        # clamp, so no chunk past this may reach the device); rounded down
+        # to a pad multiple
+        bound = min(self.config.digest_buffer, self.config.rollup_segment, MAX_DEVICE_BATCH)
+        self.max_batch = (bound // pad_to_multiple) * pad_to_multiple
+        if self.max_batch <= 0:
+            raise ValueError(
+                f"digest_buffer ({self.config.digest_buffer}) must be >= "
+                f"pad_to_multiple ({pad_to_multiple})"
+            )
+        # every interning pass holds this, so ids are assigned in one order
+        self._intern_lock = threading.RLock()
+        # estimates past this are bias-dominated (see hll.envelope_max)
+        self._hll_envelope_max = hll.envelope_max(self.config.hll_precision)
+        self._hll_envelope_exceeded = 0  # reads that saw such a row
+        self._hll_beyond_envelope_rows = 0  # rows beyond, at the last read
+        # device reads memoized until the next query-visible write (the
+        # aggregator's write_version): key -> (value, born monotonic)
+        self._read_cache: dict = {}
+        self._read_cache_version = -1
+        self._read_cache_lock = threading.Lock()
+        self._read_cache_age_ms = 0.0
+        self._read_cache_age_max_ms = 0.0
+        # cached dependency answers by window: (value, version, born
+        # monotonic), served up to this stale (0: always fresh)
+        self._deps_max_stale_ms = DEPS_MAX_STALE_MS
+        self._deps_cache: dict = {}
+        self.timetier = TimeTier(self.config) if self.config.timetier_enabled else None
+
+    # -- sampling tier hooks ---------------------------------------------
+
+    def apply_sctl(self, delta: dict) -> None:
+        """WAL-replay callback: apply one replayed controller publish to the
+        host tables at its point of the batch stream."""
+        if self.sampler is not None:
+            self.sampler.apply_sctl(delta)
+
+    def install_sampler(self) -> None:
+        """(Re-)arm the sampling gate: push the host tables to the device
+        leaves and attach the sampler to the ingest path. No-op when the
+        tier is off."""
+        if self.sampler is None:
+            return
+        self.agg.set_sampler_tables(self.sampler.rate, self.sampler.tail, self.sampler.link)
+        self.agg.sampler = self.sampler
+
+    def sampler_rates(self) -> dict:
+        """{service: keep fraction} from the published rate table; empty
+        when the sampling tier is off."""
+        sampler = self.agg.sampler
+        if sampler is None:
+            return {}
+        out = {}
+        for name in self.vocab.services.names:
+            sid = self.vocab.services.get(name)
+            if sid:
+                out[name] = float(sampler.rate[sid]) / RATE_ONE
+        return out
+
+    # -- SPI factories ---------------------------------------------------
+
+    def span_consumer(self) -> SpanConsumer:
+        return self
+
+    def span_store(self) -> SpanStore:
+        return self
+
+    def service_and_span_names(self) -> ServiceAndSpanNames:
+        return self
+
+    def autocomplete_tags(self) -> AutocompleteTags:
+        return self._archive
+
+    # -- write path ------------------------------------------------------
+
+    def accept(self, spans: Sequence[Span]) -> Call[None]:
+        def run() -> None:
+            # chunks of at most max_batch spans, each one device batch; with
+            # sampling on the archive keeps the verdict-kept spans while the
+            # device ingests the whole chunk
+            for lo in range(0, len(spans), self.max_batch):
+                chunk = spans[lo : lo + self.max_batch]
+                with self._intern_lock:
+                    cols = pack_spans(chunk, self.vocab, self._pad)
+                kept = chunk
+                if self.agg.sampler is not None:
+                    keep = self.agg.sampler.verdict_cols(cols)[: len(chunk)]
+                    kept = [s for s, k in zip(chunk, keep) if k]
+                if kept:
+                    self._archive.accept(kept).execute()
+                self.agg.ingest(cols)
+
+        return Call.of(run)
+
+    # -- raw trace reads: the host archive --------------------------------
+
+    def get_trace(self, trace_id: str) -> Call[List[Span]]:
+        return self._archive.get_trace(trace_id)
+
+    def get_traces(self, trace_ids: Sequence[str]) -> Call[List[List[Span]]]:
+        return self._archive.get_traces(trace_ids)
+
+    def get_traces_query(self, request: QueryRequest) -> Call[List[List[Span]]]:
+        return self._archive.get_traces_query(request)
+
+    def get_service_names(self) -> Call[List[str]]:
+        return self._archive.get_service_names()
+
+    def get_remote_service_names(self, service_name: str) -> Call[List[str]]:
+        return self._archive.get_remote_service_names(service_name)
+
+    def get_span_names(self, service_name: str) -> Call[List[str]]:
+        return self._archive.get_span_names(service_name)
+
+    def get_keys(self) -> Call[List[str]]:
+        return self._archive.get_keys()
+
+    def get_values(self, key: str) -> Call[List[str]]:
+        return self._archive.get_values(key)
+
+    # -- aggregate reads: device ----------------------------------------
+
+    def _cached_read(self, key: str, compute):
+        """Memoize a device read until the next query-visible state change:
+        the aggregator bumps write_version on a step and a rollup, not on a
+        digest flush (which changes no answer). The whole cache drops when
+        the version moves, so keys holding windows cannot pile up."""
+        version = self.agg.write_version
+        with self._read_cache_lock:
+            if self._read_cache_version != version:
+                self._read_cache.clear()
+                self._read_cache_version = version
+            hit = self._read_cache.get(key)
+            if hit is not None:
+                value, born = hit
+                age_ms = (time.monotonic() - born) * 1000.0
+                self._read_cache_age_ms = age_ms
+                self._read_cache_age_max_ms = max(self._read_cache_age_max_ms, age_ms)
+                return value
+        value = compute()
+        with self._read_cache_lock:
+            if self._read_cache_version == version:
+                self._read_cache[key] = (value, time.monotonic())
+        return value
+
+    def invalidate_read_cache(self) -> None:
+        """Drop memoized device reads and cached dependency answers (the
+        aggregator's link context stays)."""
+        with self._read_cache_lock:
+            self._read_cache.clear()
+            self._deps_cache.clear()
+
+    # -- time-disaggregated sketch tier ----------------------------------
+
+    def tt_seal(self, limit: Optional[int] = None) -> int:
+        """Seal every finished device time bucket into the host time tier
+        (a ticker calls this); returns the segments sealed, 0 when the tier
+        is off or nothing is due."""
+        if self.timetier is None:
+            return 0
+        return self.timetier.seal_up_to(self.agg, limit=limit)
+
+    def _tt_epochs(self, end_ts: int, lookback: Optional[int]):
+        """The bucket-epoch range of a windowed read: every (endTs,
+        lookback) whose ends fall in the same buckets maps to one range,
+        and so to one cache key."""
+        g = self.config.time_bucket_minutes
+        lb = lookback if lookback is not None else end_ts
+        lo_ep = max(0, epoch_minutes(end_ts - lb) // g)
+        hi_ep = max(0, epoch_minutes(end_ts) // g)
+        return lo_ep, hi_ep
+
+    def _tt_window(self, lo_ep: int, hi_ep: int):
+        """The merged window answer of all three windowed reads; a range
+        past ``sealed_through`` makes one device read of the unsealed
+        buckets, a sealed-only range none."""
+        return self._cached_read(
+            f"ttq:{lo_ep}:{hi_ep}",
+            # self.agg is read at call time: clear() replaces it
+            lambda: self.timetier.window(self.agg, lo_ep, hi_ep),
+        )
+
+    def _tt_dependency_links(self, ans) -> List[DependencyLink]:
+        dense_c = np.asarray(ans.calls)
+        dense_e = np.asarray(ans.errs)
+        out: List[DependencyLink] = []
+        for p, c in zip(*np.nonzero(dense_c)):
+            parent = self.vocab.services.lookup(int(p))
+            child = self.vocab.services.lookup(int(c))
+            if not parent or not child:
+                continue
+            out.append(DependencyLink(parent=parent, child=child,
+                                      call_count=int(dense_c[p, c]),
+                                      error_count=int(dense_e[p, c])))
+        return out
+
+    # -- dependencies ----------------------------------------------------
+
+    def get_dependencies(
+        self, end_ts: int, lookback: int, staleness_ms: Optional[float] = None,
+    ) -> Call[List[DependencyLink]]:
+        """``staleness_ms`` is the reference's bound on a mirror serve; the
+        port has no mirror, so it changes nothing. Set
+        ``_deps_max_stale_ms`` to 0 for answers that are never stale."""
+        return Call.of(lambda: self._get_dependencies(end_ts, lookback))
+
+    def _get_dependencies(self, end_ts: int, lookback: int) -> List[DependencyLink]:
+        tt = self.timetier
+        if tt is not None:
+            lo_ep, hi_ep = self._tt_epochs(end_ts, lookback)
+            if lo_ep <= tt.sealed_through:
+                # part of the window is sealed: merge the covering segments
+                # on the host (exact per-bucket edge counts) instead of
+                # linking the span ring
+                return self._tt_dependency_links(self._tt_window(lo_ep, hi_ep))
+        lo_min = epoch_minutes(end_ts - lookback)
+        hi_min = epoch_minutes(end_ts)
+        fresh = self.agg.write_version
+        now = time.monotonic()
+        with self._read_cache_lock:
+            hit = self._deps_cache.get((lo_min, hi_min))
+            if hit is not None:
+                value, version, t = hit
+                age_ms = (now - t) * 1000.0
+                if version == fresh or age_ms < self._deps_max_stale_ms:
+                    self._read_cache_age_ms = age_ms
+                    self._read_cache_age_max_ms = max(self._read_cache_age_max_ms, age_ms)
+                    return value
+        value = self._dependency_links(lo_min, hi_min)
+        with self._read_cache_lock:
+            self._deps_cache[(lo_min, hi_min)] = (value, fresh, now)
+            # prune by age so windows that move with endTs cannot pile up
+            for k in [k for k, (_, _, t) in self._deps_cache.items()
+                      if (now - t) * 1000.0 >= self._deps_max_stale_ms and k != (lo_min, hi_min)]:
+                del self._deps_cache[k]
+        return value
+
+    def _dependency_links(self, lo_min: int, hi_min: int) -> List[DependencyLink]:
+        # the edges are compacted on the device: [E] vectors, not [S, S]
+        idx, calls, errors = self._cached_read(
+            f"edges:{lo_min}:{hi_min}", lambda: self.agg.dependency_edges(lo_min, hi_min))
+        s = self.config.max_services
+        live = calls > 0
+        if bool(live.all()) and len(calls) < s * s:
+            # every compaction slot is taken: the graph may have more edges
+            # than the compaction holds, so read the dense matrices instead
+            # of dropping any
+            logger.debug("dependency edge compaction full (%d); using dense pull", len(calls))
+            dense_c, dense_e = self._cached_read(
+                f"depmat:{lo_min}:{hi_min}", lambda: self.agg.dependency_matrices(lo_min, hi_min))
+            p_idx, c_idx = np.nonzero(dense_c)
+            idx, calls, errors = p_idx * s + c_idx, dense_c[p_idx, c_idx], dense_e[p_idx, c_idx]
+            live = calls > 0
+        out: List[DependencyLink] = []
+        for flat, n_calls, n_errs in zip(idx[live], calls[live], errors[live]):
+            parent = self.vocab.services.lookup(int(flat) // s)
+            child = self.vocab.services.lookup(int(flat) % s)
+            if not parent or not child:
+                continue
+            out.append(DependencyLink(parent=parent, child=child,
+                                      call_count=int(n_calls), error_count=int(n_errs)))
+        return out
+
+    # -- latency percentiles and cardinalities -----------------------------
+
+    def latency_quantiles(
+        self,
+        qs: Sequence[float],
+        service_name: Optional[str] = None,
+        span_name: Optional[str] = None,
+        use_digest: bool = True,
+        end_ts: Optional[int] = None,
+        lookback: Optional[int] = None,
+        staleness_ms: Optional[float] = None,
+    ) -> List[dict]:
+        """Latency percentile rows per (service, spanName):
+        ``{serviceName, spanName, count, quantiles: {q: µs}}``.
+
+        With ``end_ts``/``lookback`` (epoch ms, as in the query API) the
+        rows come from the time tier when its sealer has reached the window
+        (per-bucket digests merged over the covering segments), else from
+        the time-sliced histograms (``use_digest=False`` forces these).
+        ``staleness_ms`` is accepted for the reference's signature and
+        changes nothing here (no mirror)."""
+        if end_ts is None and lookback is not None:
+            end_ts = int(time.time() * 1000)  # endTs defaults to now
+        qkey = ",".join(f"{q:.6g}" for q in qs)
+        if end_ts is not None:
+            tt = self.timetier
+            lo_ep, hi_ep = self._tt_epochs(end_ts, lookback) if tt is not None else (0, -1)
+            if use_digest and tt is not None and lo_ep <= tt.sealed_through:
+                ans = self._tt_window(lo_ep, hi_ep)
+                source_q = ttmerge.digest_quantile(ans.digest, qs)
+                counts = ttmerge.digest_total(ans.digest)
+            else:
+                lb = lookback if lookback is not None else end_ts
+                lo_min = epoch_minutes(end_ts - lb)
+                hi_min = epoch_minutes(end_ts)
+                source_q, counts = self._cached_read(
+                    f"quant:w:{lo_min}:{hi_min}:{qkey}",
+                    lambda: self.agg.quantiles(qs, ts_lo_min=lo_min, ts_hi_min=hi_min),
+                )
+        else:
+            src = "digest" if use_digest else "hist"
+            source_q, counts = self._cached_read(
+                f"quant:{src}:{qkey}", lambda: self.agg.quantiles(qs, source=src))
+        return self._quantile_rows(qs, source_q, counts, service_name, span_name)
+
+    def _quantile_rows(self, qs, source_q: np.ndarray, counts: np.ndarray,
+                       service_name: Optional[str], span_name: Optional[str]) -> List[dict]:
+        """Shape ([K, Q] quantiles, [K] counts) into API rows over the key
+        vocab, keys with no count left out."""
+        want_svc = self.vocab.services.get(service_name.lower()) if service_name else None
+        if service_name and want_svc is None:
+            return []
+        with self.vocab._lock:
+            pairs = np.asarray(self.vocab._key_list, np.int32)  # [num_keys, 2]
+        kids = np.arange(1, pairs.shape[0])
+        mask = counts[kids] > 0
+        if want_svc is not None:
+            mask &= pairs[kids, 0] == want_svc
+        if span_name:
+            want_name = self.vocab.span_names.get(span_name.lower())
+            if want_name is None:
+                return []
+            mask &= pairs[kids, 1] == want_name
+        return [
+            {
+                "serviceName": self.vocab.services.lookup(int(pairs[kid, 0])),
+                "spanName": self.vocab.span_names.lookup(int(pairs[kid, 1])),
+                "count": int(counts[kid]),
+                "quantiles": {float(q): float(source_q[kid, i]) for i, q in enumerate(qs)},
+            }
+            for kid in kids[mask]
+        ]
+
+    def _cardinality_rows(self, est: np.ndarray) -> dict:
+        # past envelope_max the estimator's bias outgrows half its 3-sigma
+        # noise gate: such a row reads as a lower bound; count it, say so once
+        beyond = int((est > self._hll_envelope_max).sum())
+        if beyond:
+            self._hll_envelope_exceeded += 1
+            if not self._hll_beyond_envelope_rows:
+                logger.warning(
+                    "%d HLL row(s) estimate beyond the p=%d operating envelope (%.3g): "
+                    "bias now dominates noise; treat these cardinalities as lower bounds",
+                    beyond, self.config.hll_precision, self._hll_envelope_max)
+        self._hll_beyond_envelope_rows = beyond
+        out = {"_global": float(est[self.config.global_hll_row])}
+        for name in self.vocab.services.names:
+            sid = self.vocab.services.get(name)
+            if sid:
+                out[name] = float(est[sid])
+        return out
+
+    def trace_cardinalities(
+        self, staleness_ms: Optional[float] = None,
+        end_ts: Optional[int] = None, lookback: Optional[int] = None,
+    ) -> dict:
+        """Estimated distinct traces: ``{"_global": n, service: n, ...}``;
+        with ``end_ts``/``lookback`` (epoch ms) over the time tier's
+        covering buckets, else over all time."""
+        if end_ts is None and lookback is not None:
+            end_ts = int(time.time() * 1000)
+        if end_ts is not None and self.timetier is not None:
+            ans = self._tt_window(*self._tt_epochs(end_ts, lookback))
+            return self._cardinality_rows(ttmerge.hll_estimate(ans.hll))
+        return self._cardinality_rows(self._cached_read("card", lambda: self.agg.cardinalities()))
+
+    def sketch_overview(
+        self, qs: Sequence[float], service_name: Optional[str] = None,
+        span_name: Optional[str] = None, staleness_ms: Optional[float] = None,
+    ) -> dict:
+        """The sketch page from one device read: ``{"percentiles": rows,
+        "cardinalities": dict, "counters": ingest_counters()}``."""
+        qkey = ",".join(f"{q:.6g}" for q in qs)
+        source_q, counts, est = self._cached_read(
+            f"overview:{qkey}", lambda: self.agg.sketch_overview(qs))
+        return {
+            "percentiles": self._quantile_rows(qs, source_q, counts, service_name, span_name),
+            "cardinalities": self._cardinality_rows(est),
+            "counters": self.ingest_counters(),
+        }
+
+    def ingest_counters(self) -> dict:
+        """The store's and the aggregator's own counters (host counters are
+        exact and do not wrap, unlike the device's u32 counters)."""
+        agg = self.agg
+        return {
+            **agg.host_counters,
+            # hostTransfers / reads ~ 1 is the one-transfer rule
+            "hostTransfers": agg.read_stats["host_transfers"],
+            "rolledOnlyReads": agg.read_stats["rolled_only_reads"],
+            "ctxReads": agg.read_stats["ctx_reads"],
+            # process-wide bytes through the readpack chokepoint
+            "hostTransferBytes": readpack.transfer_bytes(),
+            # lanes the next fresh link read must merge, ctx advances, and
+            # the wall of the last one
+            "ctxDeltaLanes": agg._lanes_since_rollup,
+            "ctxAdvances": agg.ctx_stats["ctx_advances"],
+            "ctxMaintenanceMs": agg.ctx_stats["ctx_maintenance_ms"],
+            "hllEnvelopeExceeded": self._hll_envelope_exceeded,
+            "hllBeyondEnvelopeRows": self._hll_beyond_envelope_rows,
+            "serviceVocabOverflow": self.vocab.services.overflow,
+            "keyVocabOverflow": self.vocab._overflow,
+            **(self.sampling_controller.counters() if self.sampling_controller is not None else {}),
+            "readCacheServeAgeMs": round(self._read_cache_age_ms, 3),
+            "readCacheServeAgeMaxMs": round(self._read_cache_age_max_ms, 3),
+            "readCacheEntries": len(self._read_cache),
+            **(self.timetier.export_counters() if self.timetier is not None else {}),
+        }
+
+    # -- lifecycle -------------------------------------------------------
+
+    def check(self) -> CheckResult:
+        try:
+            self.agg.block_until_ready()  # the probe: the device answers
+            return CheckResult.OK
+        except Exception as e:  # pragma: no cover - device failure path
+            return CheckResult.failed(e)
+
+    def close(self) -> None:
+        if self.sampling_controller is not None:
+            self.sampling_controller.stop()
+        self._archive.close()
+
+    def clear(self) -> None:
+        """Drop the archive and reset the device state, on the same device."""
+        self._archive.clear()
+        self.agg = TorchAggregator(self.config, device=self.agg.device)
+        # sealed segments were cut from the old aggregator's buckets
+        if self.timetier is not None:
+            self.timetier.clear()
+        # the new aggregator's write versions start again from 0, so a read
+        # cached at version v would serve the new state's version v
+        self.invalidate_read_cache()
+        self._read_cache_version = -1

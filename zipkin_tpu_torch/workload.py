@@ -10,16 +10,20 @@ skew, durations are lognormal, and timestamps advance over
 
 :func:`generate` returns the columns plus what a checker needs: the
 distinct traces per service, the edges with their call and error counts
-and the durations per sketch key.
+and the durations per sketch key. :func:`render_spans` and
+:func:`payloads` give the same traffic as the port's Span objects and as
+JSON v2 and proto3 ingest payloads, for the store's object path.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
+from zipkin_tpu_torch.model import json_v2, proto3
+from zipkin_tpu_torch.model.span import Endpoint, Kind, Span
 from zipkin_tpu_torch.tpu.columnar import SpanColumns, empty_columns
 
 BASE_MINUTE = 29_000_000  # an epoch minute in 2025
@@ -29,6 +33,7 @@ BASE_MINUTE = 29_000_000  # an epoch minute in 2025
 class Traffic:
     cols: SpanColumns  # all spans, in delivery order
     edges: Dict[Tuple[int, int], Tuple[int, int]]  # (caller, callee) -> (calls, errors)
+    names_per_service: int = 10  # key = svc * names_per_service + name
 
 
 def _zipf_weights(n: int, s: float) -> np.ndarray:
@@ -91,7 +96,65 @@ def generate(n_spans: int, seed: int, services: int = 200, names_per_service: in
     errs = np.bincount(inv.ravel(), weights=pairs[:, 2], minlength=len(uniq))
     for (a, b), c, e in zip(uniq, calls, errs):
         edges[(int(a), int(b))] = (int(c), int(e))
-    return Traffic(cols=cols, edges=edges)
+    return Traffic(cols=cols, edges=edges, names_per_service=names_per_service)
+
+
+def service_name(svc: int) -> str:
+    return f"svc{svc:04d}"
+
+
+def span_name(traffic: Traffic, key: int) -> str:
+    return f"op{key % traffic.names_per_service:02d}"
+
+
+def render_spans(traffic: Traffic) -> List[Span]:
+    """The valid lanes of ``traffic`` as Span objects, in lane order: the
+    64-bit trace id ``tl1:tl0``, span and parent ids from their lanes,
+    service ``svc`` as :func:`service_name`, the client half's remote
+    service, key ``k``'s span name :func:`span_name`, an ``error`` tag on
+    failed hops, and a timestamp inside the lane's epoch minute. Packing
+    them gives the generator's columns except ``trace_h`` (hashed from the
+    id) and the service and key ids (interned in first-seen order)."""
+    c = traffic.cols
+    lanes = np.nonzero(c.valid)[0]
+    trace = (c.tl1[lanes].astype(np.uint64) << np.uint64(32)) | c.tl0[lanes]
+    span = (c.s1[lanes].astype(np.uint64) << np.uint64(32)) | c.s0[lanes]
+    parent = (c.p1[lanes].astype(np.uint64) << np.uint64(32)) | c.p0[lanes]
+    ts = c.ts_min[lanes].astype(np.int64) * 60_000_000 + (lanes % 60_000) * 1000
+    endpoints: Dict[int, Endpoint] = {}
+
+    def endpoint(svc: int):
+        if svc not in endpoints:
+            endpoints[svc] = Endpoint.create(service_name(svc))
+        return endpoints[svc]
+
+    kinds = {1: Kind.CLIENT, 2: Kind.SERVER}
+    out = []
+    for j, i in enumerate(lanes.tolist()):
+        out.append(Span.create(
+            trace_id=f"{int(trace[j]):016x}",
+            id=f"{int(span[j]):016x}",
+            parent_id=f"{int(parent[j]):016x}" if parent[j] else None,
+            kind=kinds[int(c.kind[i])],
+            name=span_name(traffic, int(c.key[i])),
+            timestamp=int(ts[j]),
+            duration=int(c.dur[i]),
+            local_endpoint=endpoint(int(c.svc[i])),
+            remote_endpoint=endpoint(int(c.rsvc[i])) if c.rsvc[i] else None,
+            tags={"error": "true"} if c.err[i] else {},
+            shared=True if c.shared[i] else None,
+        ))
+    return out
+
+
+def payloads(spans: Sequence[Span], per: int = 4096) -> List[bytes]:
+    """``spans`` as ingest payloads of ``per`` spans each, JSON v2 and
+    proto3 ``ListOfSpans`` by turns."""
+    out = []
+    for n, lo in enumerate(range(0, len(spans), per)):
+        encode = proto3.encode_span_list if n % 2 else json_v2.encode_span_list
+        out.append(encode(spans[lo : lo + per]))
+    return out
 
 
 def slice_columns(cols: SpanColumns, lo: int, hi: int, pad_to: int = 0) -> SpanColumns:
