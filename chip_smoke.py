@@ -38,7 +38,20 @@ Builds the hand-written kernels from the sources in the checkout, then:
     span_consumer().accept(); checks get_trace, dependencies, cardinalities,
     percentile rows, names, and after tt_seal() sealed and mixed windows
     against the generator, the transfers of every store read and that
-    update_step launched once per device batch; times each stage and read.
+    update_step launched once per device batch; times each stage and read;
+(f1) the line-rate path: phase e's payloads through
+    Collector(fast_ingest=True) -> TorchStorage.ingest_json_fast (native
+    parser, pack_parsed, a 1/64 archive sample); checks that the parser took
+    every payload, that every state leaf equals phase e's, that update_step
+    launched once per device batch, and the same reads against the
+    generator; times each stage;
+(f2) the server in-process (ZipkinServer, STORAGE_TYPE=tpu, TPU_FAST_INGEST=1,
+    an ephemeral port): 4 threads POST the payloads over HTTP, then gzip,
+    protobuf, v1, malformed (400) and gzip-bomb (413) bodies; every ported
+    route is checked against the generator and the store's direct answer
+    and timed;
+(f3) ``python -m zipkin_tpu_torch.server --storage tpu`` as a subprocess:
+    /health UP, a trace POSTed and read back, SIGTERM -> exit code 0.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -1004,6 +1017,127 @@ def phase_sampled(seed: int, n_spans: int, torch, card: str, cfg=None, chunk: in
     return fig
 
 
+def store_truth(traffic, cfg):
+    """What the generator knows, by name, for the store-level checks: the
+    sorted durations of each (service, span name), every caller -> callee
+    edge with its counts, distinct traces per service, and a query window
+    (epoch ms) past the last span."""
+    import types
+
+    from zipkin_tpu_torch.workload import BASE_MINUTE, service_name, span_name
+
+    cols = traffic.cols
+    svc_of = lambda i: service_name(int(i))  # noqa: E731
+    key_name = lambda k: (svc_of(k // traffic.names_per_service), span_name(traffic, int(k)))  # noqa: E731
+    trace64 = (cols.tl1.astype(np.uint64) << np.uint64(32)) | cols.tl0
+    order = np.argsort(cols.key, kind="stable")
+    bounds = np.searchsorted(cols.key[order], np.arange(cfg.max_keys + 1))
+    pairs = np.unique(np.stack([cols.svc.astype(np.uint64), trace64], 1), axis=0)
+    return types.SimpleNamespace(
+        cols=cols, cfg=cfg, svc_of=svc_of, key_name=key_name,
+        t_end=(BASE_MINUTE + 60) * 60_000, lookback=2 * 60 * 60_000,
+        key_durs={key_name(k): np.sort(cols.dur[order[bounds[k]:bounds[k + 1]]].astype(np.float64))
+                  for k in np.nonzero(np.diff(bounds))[0]},
+        edges={(svc_of(a), svc_of(b)): ce for (a, b), ce in traffic.edges.items()},
+        cards={svc_of(s): n for s, n in zip(*np.unique(pairs[:, 0], return_counts=True))},
+        n_traces=len(np.unique(trace64)),
+    )
+
+
+def link_map(links):
+    return {(x.parent, x.child): (x.call_count, x.error_count) for x in links}
+
+
+def check_store_answers(store, agg, truth, spans, traces, what: str, per_trace: int = 8,
+                        archived=None) -> dict:
+    """The store's answers (or an adapter over its HTTP routes) against
+    the generator: ``traces`` (trace indices) read back span for span,
+    every edge exact, cardinalities within phase c's HLL band, histogram
+    quantiles inside the log2 buckets of the bracketing order statistics
+    (1/32 of an octave), digest p99s inside the digest's rank band for keys
+    with >= 1000 points, the overview equal to the reads it coalesces,
+    service and span names: those of ``archived`` (the spans the archive
+    holds) when given, else every generated one. Returns the figures."""
+    from zipkin_tpu_torch.model import json_v2
+    from zipkin_tpu_torch.ops import tdigest
+    from zipkin_tpu_torch.ops.histogram import SUB
+
+    cfg, key_durs = truth.cfg, truth.key_durs
+    fig = {}
+    # 1. traces: every span as the generator rendered it
+    for t in traces:
+        want = sorted(json_v2.encode_span(s) for s in spans[t * per_trace:(t + 1) * per_trace])
+        got = sorted(json_v2.encode_span(s) for s in store.get_trace(spans[t * per_trace].trace_id).execute())
+        if got != want:
+            raise AssertionError(f"{what}: get_trace({spans[t * per_trace].trace_id}) != the generated spans")
+
+    # 2. dependencies over the whole window: every edge, exact counts (the
+    # first read builds the link context: one transfer)
+    t0 = time.perf_counter()
+    deps, *first = counted(agg, lambda: store.get_dependencies(truth.t_end, truth.lookback).execute())
+    fig["dependencies_first_ms"] = (time.perf_counter() - t0) * 1e3
+    if tuple(first) != (1, 1) or link_map(deps) != truth.edges:
+        raise AssertionError(f"{what}: get_dependencies: {len(deps)} links != {len(truth.edges)} "
+                             f"generated, transfers {first}")
+
+    # 3. cardinalities within phase c's HLL band
+    est = store.trace_cardinalities()
+    sig = 1.04 / math.sqrt(1 << cfg.hll_precision)
+    rel = np.array([abs(est[name] - n) / n for name, n in truth.cards.items()])
+    g_rel = abs(est["_global"] - truth.n_traces) / truth.n_traces
+    if set(est) != set(truth.cards) | {"_global"} or g_rel > 3 * sig or rel.max() > 4 * sig \
+            or math.sqrt((rel ** 2).mean()) > 1.5 * sig:
+        raise AssertionError(f"{what}: cardinality off: global {g_rel:.4f}, max {rel.max():.4f}, "
+                             f"sigma {sig:.4f}")
+
+    # 4. percentile rows: counts exact, quantiles inside their bounds
+    w99 = tdigest.cluster_q_width(cfg.digest_centroids, 0.99)
+
+    def check_rows(rows, kind, digest):
+        if {(r["serviceName"], r["spanName"]) for r in rows} != set(key_durs):
+            raise AssertionError(f"{what}: {kind}: rows {len(rows)} != keys {len(key_durs)}")
+        checked = 0
+        for r in rows:
+            v = key_durs[(r["serviceName"], r["spanName"])]
+            n = len(v)
+            if r["count"] != n:
+                raise AssertionError(f"{what}: {kind}: count {r['count']} != {n} for "
+                                     f"{r['serviceName']}/{r['spanName']}")
+            for q, got in r["quantiles"].items():
+                if digest:
+                    if q != 0.99 or n < 1000:
+                        continue
+                    lo_v, hi_v = np.quantile(v, [0.99 - w99, min(0.99 + w99, 1.0)])
+                else:
+                    rank = math.ceil(q * n)
+                    lo_v = v[max(0, rank - 2)] * (1 - 1 / SUB)
+                    hi_v = v[min(n - 1, rank)] * (1 + 1 / SUB)
+                if not lo_v <= got <= hi_v:
+                    raise AssertionError(f"{what}: {kind}: q{q} {got} outside [{lo_v}, {hi_v}]")
+                checked += 1
+        return checked
+
+    fig["hist_checked"] = check_rows(store.latency_quantiles(QS, use_digest=False), "hist rows", False)
+    fig["digest_checked"] = check_rows(store.latency_quantiles(QS), "digest rows", True)
+    overview = store.sketch_overview(QS)
+    check_rows(overview["percentiles"], "overview rows", True)
+    if overview["cardinalities"] != est or overview["counters"]["spans"] != len(spans):
+        raise AssertionError(f"{what}: sketch_overview disagrees with the reads it coalesces")
+
+    # 5. names, which the archive answers
+    pairs = set(key_durs) if archived is None else {(s.local_service_name, s.name) for s in archived}
+    names = store.get_service_names().execute()
+    if names != sorted({svc for svc, _ in pairs}):
+        raise AssertionError(f"{what}: service names: {len(names)} != {len({svc for svc, _ in pairs})}")
+    for name in names[:8]:
+        want = sorted({s for (svc, s) in pairs if svc == name})
+        if store.get_span_names(name).execute() != want:
+            raise AssertionError(f"{what}: span names of {name}")
+    fig.update(traces=len(traces), edges=len(truth.edges), names=len(names), keys=len(key_durs),
+               hll_global_rel=g_rel, hll_max_rel=float(rel.max()), hll_sigma=sig)
+    return fig
+
+
 def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload: int = 4096,
                 services: int = 60, device=None) -> dict:
     """(e) the storage SPI's object path at the default AggConfig: the
@@ -1014,17 +1148,17 @@ def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload
     the generator knows, before and after ``tt_seal()``, with its transfers
     and its wall. ``services`` keeps the whole window's edges (3,522 at 2**18
     spans) inside the store's 4,096-edge compaction, so each dependency read
-    is one device read. Returns the figures."""
+    is one device read. Returns the figures, with the payloads, the traffic,
+    its spans and the state leaves right after ingest (phase f feeds the
+    same payloads)."""
     import types
 
-    from zipkin_tpu_torch.model import codec, json_v2
-    from zipkin_tpu_torch.ops import hll_kernel, tdigest
-    from zipkin_tpu_torch.ops.histogram import SUB
+    from zipkin_tpu_torch.model import codec
+    from zipkin_tpu_torch.ops import hll_kernel
     from zipkin_tpu_torch.tpu import store as store_mod
     from zipkin_tpu_torch.tpu.state import AggConfig
     from zipkin_tpu_torch.tpu.store import TorchStorage
-    from zipkin_tpu_torch.workload import (
-        BASE_MINUTE, generate, payloads, render_spans, service_name, span_name)
+    from zipkin_tpu_torch.workload import generate, payloads, render_spans
 
     cfg = cfg or AggConfig()
     t0 = time.perf_counter()
@@ -1080,10 +1214,13 @@ def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload
     finally:
         store_mod.pack_spans = pack
         del agg.ingest
+        del store._archive.accept
     if sum(batches) != n_spans:
         raise AssertionError(f"device batches carried {sum(batches)} spans, want {n_spans}")
     if launches["update"] or launches["update_step"] != len(batches) or not batches:
         raise AssertionError(f"hll launches {launches} over {len(batches)} device batches")
+    # the leaves as ingest left them (a digest read flushes into them)
+    fig.update(wire=wire, traffic=traffic, spans=spans, state=agg.state_arrays())
     fig.update(device_batches=len(batches), launches=launches["update_step"],
                update_launches=launches["update"], wall_ms=wall_ms,
                spans_per_s=n_spans / (wall_ms / 1e3),
@@ -1095,19 +1232,8 @@ def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload
         f"{len(batches)} device batches, update_step launches {launches['update_step']}, "
         f"update {launches['update']}")
 
-    # --- the generator's truth, by name (key = svc * names + name) ----------
-    svc_of = lambda i: service_name(int(i))
-    key_name = lambda k: (svc_of(k // traffic.names_per_service), span_name(traffic, int(k)))
-    trace64 = (cols.tl1.astype(np.uint64) << np.uint64(32)) | cols.tl0
-    t_end = (BASE_MINUTE + 60) * 60_000  # epoch ms past the last span
-    lookback = 2 * 60 * 60_000
-    order = np.argsort(cols.key, kind="stable")
-    bounds = np.searchsorted(cols.key[order], np.arange(cfg.max_keys + 1))
-    key_durs = {key_name(k): np.sort(cols.dur[order[bounds[k]:bounds[k + 1]]].astype(np.float64))
-                for k in np.nonzero(np.diff(bounds))[0]}
-
-    def link_map(links):
-        return {(x.parent, x.child): (x.call_count, x.error_count) for x in links}
+    truth = store_truth(traffic, cfg)
+    t_end, lookback, key_name = truth.t_end, truth.lookback, truth.key_name
 
     def fresh(fn):
         """``fn`` after dropping the store's caches: what a first read pays
@@ -1129,80 +1255,11 @@ def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload
 
     fig.update(transfers={}, read_ms={}, read_cached_ms={})
 
-    # 1. traces: 64 sampled ids, every span as the generator rendered it
+    # 1-5. 64 sampled traces, edges, cardinalities, percentile rows, names
     rng = np.random.default_rng(seed)
-    per_trace = 8
-    for t in rng.choice(n_spans // per_trace, 64, replace=False):
-        want = sorted(json_v2.encode_span(s) for s in spans[t * per_trace:(t + 1) * per_trace])
-        got = sorted(json_v2.encode_span(s) for s in store.get_trace(spans[t * per_trace].trace_id).execute())
-        if got != want:
-            raise AssertionError(f"get_trace({spans[t * per_trace].trace_id}) != the generated spans")
-
-    # 2. dependencies over the whole window: every edge, exact counts (the
-    # first read builds the link context)
-    want_edges = {(svc_of(a), svc_of(b)): ce for (a, b), ce in traffic.edges.items()}
-    t0 = time.perf_counter()
-    deps, *first_deps = counted(agg, lambda: store.get_dependencies(t_end, lookback).execute())
-    fig["read_ms"]["dependencies_first"] = (time.perf_counter() - t0) * 1e3
-    if tuple(first_deps) != (1, 1) or link_map(deps) != want_edges:
-        raise AssertionError(f"get_dependencies: {len(deps)} links != {len(want_edges)} generated, "
-                             f"transfers {first_deps}")
-
-    # 3. cardinalities within phase c's HLL band
-    est = store.trace_cardinalities()
-    sig = 1.04 / math.sqrt(1 << cfg.hll_precision)
-    pairs = np.unique(np.stack([cols.svc.astype(np.uint64), trace64], 1), axis=0)
-    true = {svc_of(s): n for s, n in zip(*np.unique(pairs[:, 0], return_counts=True))}
-    rel = np.array([abs(est[name] - n) / n for name, n in true.items()])
-    n_traces = len(np.unique(trace64))
-    g_rel = abs(est["_global"] - n_traces) / n_traces
-    if set(est) != set(true) | {"_global"} or g_rel > 3 * sig or rel.max() > 4 * sig \
-            or math.sqrt((rel ** 2).mean()) > 1.5 * sig:
-        raise AssertionError(f"cardinality off: global {g_rel:.4f}, max {rel.max():.4f}, sigma {sig:.4f}")
-
-    # 4. percentile rows: counts exact; histogram quantiles inside the log2
-    # buckets of the bracketing order statistics (1/32 of an octave); digest
-    # p99 inside the digest's rank band for keys with >= 1000 points
-    w99 = tdigest.cluster_q_width(cfg.digest_centroids, 0.99)
-
-    def check_rows(rows, what, digest):
-        if {(r["serviceName"], r["spanName"]) for r in rows} != set(key_durs):
-            raise AssertionError(f"{what}: rows {len(rows)} != keys {len(key_durs)}")
-        checked = 0
-        for r in rows:
-            v = key_durs[(r["serviceName"], r["spanName"])]
-            n = len(v)
-            if r["count"] != n:
-                raise AssertionError(f"{what}: count {r['count']} != {n} for {r['serviceName']}/{r['spanName']}")
-            for q, got in r["quantiles"].items():
-                if digest:
-                    if q != 0.99 or n < 1000:
-                        continue
-                    lo_v, hi_v = np.quantile(v, [0.99 - w99, min(0.99 + w99, 1.0)])
-                else:
-                    rank = math.ceil(q * n)
-                    lo_v = v[max(0, rank - 2)] * (1 - 1 / SUB)
-                    hi_v = v[min(n - 1, rank)] * (1 + 1 / SUB)
-                if not lo_v <= got <= hi_v:
-                    raise AssertionError(f"{what}: q{q} {got} outside [{lo_v}, {hi_v}]")
-                checked += 1
-        return checked
-
-    hist_checked = check_rows(store.latency_quantiles(QS, use_digest=False), "hist rows", False)
-    digest_checked = check_rows(store.latency_quantiles(QS), "digest rows", True)
-    overview = store.sketch_overview(QS)
-    check_rows(overview["percentiles"], "overview rows", True)
-    if overview["cardinalities"] != est or overview["counters"]["spans"] != n_spans:
-        raise AssertionError("sketch_overview disagrees with the reads it coalesces")
-
-    # 5. names
-    names = store.get_service_names().execute()
-    if names != sorted(true):
-        raise AssertionError(f"service names: {len(names)} != {len(true)}")
-    for name in names[:8]:
-        want = sorted({s for (svc, s) in key_durs if svc == name})
-        if store.get_span_names(name).execute() != want:
-            raise AssertionError(f"span names of {name}")
+    checked = check_store_answers(store, agg, truth, spans, rng.choice(n_spans // 8, 64, replace=False),
+                                  "phase e")
+    fig["read_ms"]["dependencies_first"] = checked.pop("dependencies_first_ms")
 
     # 7a. the ring's reads: one transfer each
     measure({
@@ -1227,6 +1284,7 @@ def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload
     if sealed != top - 1 or sealed_n < 2:
         raise AssertionError(f"tt_seal sealed {sealed_n}, through {sealed}, top {top}")
     ep = cols.ts_min.astype(np.int64) // g
+    svc_of = truth.svc_of
 
     def window(lo_ep, hi_ep):
         """(end_ts, lookback) in epoch ms covering buckets lo_ep..hi_ep."""
@@ -1274,18 +1332,490 @@ def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload
     }, (1, 1))
     fig["get_trace_ms"] = median_ms(lambda: store.get_trace(spans[0].trace_id).execute())
     fig["service_names_ms"] = median_ms(lambda: store.get_service_names().execute())
-    fig.update(sealed=sealed_n, hist_checked=hist_checked, digest_checked=digest_checked,
-               edges=len(want_edges))
+    fig.update(sealed=sealed_n, hist_checked=checked["hist_checked"],
+               digest_checked=checked["digest_checked"], edges=checked["edges"])
     log(f"phase e: transfers per store read (readpack, read_stats): {json.dumps(fig['transfers'])}")
     log(f"phase e ({card}): store read wall ms, median of 5 from a dropped cache: "
         + json.dumps({k: round(v, 3) for k, v in fig["read_ms"].items()})
         + "; served by the cache: " + json.dumps({k: round(v, 4) for k, v in fig["read_cached_ms"].items()})
         + f"; get_trace {fig['get_trace_ms']:.3f} ms, get_service_names {fig['service_names_ms']:.1f} ms, "
         f"tt_seal {fig['tt_seal_ms']:.1f} ms")
-    log(f"phase e: 64 traces equal the generated spans; {len(want_edges)} edges exact; cardinalities "
-        f"within the HLL band (global {g_rel:.4f}, max {rel.max():.4f}, sigma {sig:.4f}); {hist_checked} "
-        f"histogram and {digest_checked} digest quantiles inside their bounds over {len(key_durs)} keys; "
-        f"{len(names)} service names; {sealed_n} epochs sealed, sealed and mixed windows exact")
+    log(f"phase e: 64 traces equal the generated spans; {checked['edges']} edges exact; cardinalities "
+        f"within the HLL band (global {checked['hll_global_rel']:.4f}, max {checked['hll_max_rel']:.4f}, "
+        f"sigma {checked['hll_sigma']:.4f}); {checked['hist_checked']} histogram and "
+        f"{checked['digest_checked']} digest quantiles inside their bounds over {checked['keys']} keys; "
+        f"{checked['names']} service names; {sealed_n} epochs sealed, sealed and mixed windows exact")
+    return fig
+
+
+def assert_leaves_equal(got, want, what: str) -> None:
+    """State leaves of two runs over the same batches: integer leaves bit
+    for bit; digest weights exact, means rtol 1e-5 (float atomics sum in a
+    run-dependent order on the card)."""
+    from zipkin_tpu_torch.tpu.state import AggState
+
+    for name, g, w in zip(AggState._fields, got, want):
+        if name in ("digest", "tb_digest"):
+            np.testing.assert_array_equal(g[..., 1], w[..., 1], err_msg=f"{what} {name} weights")
+            np.testing.assert_allclose(g[..., 0], w[..., 0], rtol=1e-5, err_msg=f"{what} {name}")
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=f"{what} {name}")
+
+
+def sampled_traces(traffic, every: int = 64, per_trace: int = 8):
+    """Indices of the traces the fast path's 1/``every`` archive sample
+    keeps (the store's rule: fmix32 of the id's xor-folded lanes)."""
+    from zipkin_tpu_torch.tpu.columnar import _mix32
+
+    c = traffic.cols
+    first = np.arange(0, c.size, per_trace)
+    return np.nonzero(_mix32(c.tl0[first] ^ c.tl1[first]) % np.uint32(every) == 0)[0]
+
+
+def phase_fast(seed: int, torch, card: str, stored: dict, cfg=None, device=None) -> dict:
+    """(f1) the line-rate path: phase e's payloads through
+    ``Collector(store, fast_ingest=True).accept_spans_bytes`` into a fresh
+    TorchStorage on the card. The native parser must take every payload;
+    the state leaves must equal phase e's; update_step launches once per
+    device batch; the reads answer as the generator says, trace reads for
+    the 1/64 sample. Times parse + intern, ``pack_parsed``, the archive
+    sample and the device step (with a sync)."""
+    from zipkin_tpu_torch import native
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.tpu import store as store_mod
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    if not native.available():
+        raise AssertionError("phase f: the native parser did not build")
+    cfg = cfg or AggConfig()
+    wire, traffic, spans = stored["wire"], stored["traffic"], stored["spans"]
+    n_spans = len(spans)
+    store = TorchStorage(config=cfg, device=device)
+    store._deps_max_stale_ms = 0.0
+    agg = store.agg
+    stage = {"fast_parse": 0.0, "pack_parsed": 0.0, "archive_sample": 0.0, "device_step": 0.0}
+    batches, results = [], []
+
+    def timed(fn, name, sync=False):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                agg.block_until_ready()
+            stage[name] += (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    def count_batch(c):
+        batches.append(int(c.valid.sum()))
+        return ingest(c)
+
+    def recorded(data, sampler=None):
+        results.append(fast(data, sampler))
+        return results[-1]
+
+    ingest = timed(agg.ingest, "device_step", sync=True)
+    agg.ingest = count_batch
+    fast = store.ingest_json_fast
+    store.ingest_json_fast = recorded
+    store._fast_parse = timed(store._fast_parse, "fast_parse")
+    store._archive_fast_sample = timed(store._archive_fast_sample, "archive_sample")
+    pack = store_mod.pack_parsed
+    store_mod.pack_parsed = timed(pack, "pack_parsed")
+    collector = Collector(store, fast_ingest=True)
+    try:
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        for p in wire:
+            collector.accept_spans_bytes(p)
+        agg.block_until_ready()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = {"update": hll_kernel.update.launches, "update_step": hll_kernel.update_step.launches}
+    finally:
+        store_mod.pack_parsed = pack
+        del agg.ingest, store.ingest_json_fast, store._fast_parse, store._archive_fast_sample
+    # the parse + intern stage is _fast_parse without its pack_parsed calls
+    stage["parse_intern"] = stage.pop("fast_parse") - stage["pack_parsed"]
+    if len(results) != len(wire) or None in results or sum(a for a, _ in results) != n_spans:
+        raise AssertionError(f"phase f: the native path refused or dropped a payload: {results}")
+    if sum(batches) != n_spans:
+        raise AssertionError(f"phase f: device batches carried {sum(batches)} spans, want {n_spans}")
+    if launches["update"] or launches["update_step"] != len(batches):
+        raise AssertionError(f"phase f: hll launches {launches} over {len(batches)} device batches")
+    assert_leaves_equal(agg.state_arrays(), stored["state"], "phase f vs phase e")
+    if agg.host_counters["spans"] != n_spans:
+        raise AssertionError(f"phase f: host counters {agg.host_counters}")
+
+    truth = store_truth(traffic, cfg)
+    picked = sampled_traces(traffic)
+    if store._archive.span_count != 8 * len(picked):
+        raise AssertionError(f"phase f: archive holds {store._archive.span_count} spans, "
+                             f"want the 1/64 sample's {8 * len(picked)}")
+    rng = np.random.default_rng(seed)
+    archived = [s for t in picked for s in spans[8 * t:8 * t + 8]]
+    checked = check_store_answers(store, agg, truth, spans,
+                                  rng.choice(picked, min(64, len(picked)), replace=False), "phase f1",
+                                  archived=archived)
+    fig = dict(card=card, spans=n_spans, payloads=len(wire), wall_ms=wall_ms,
+               spans_per_s=n_spans / (wall_ms / 1e3), stage_ms=stage,
+               stage_spans_per_s={k: n_spans / (v / 1e3) for k, v in stage.items()},
+               device_batches=len(batches), launches=launches["update_step"],
+               update_launches=launches["update"], archived_traces=len(picked), **checked)
+    log(f"phase f1 ({card}): {n_spans} spans in {len(wire)} payloads through Collector(fast_ingest) -> "
+        f"ingest_json_fast: {fig['spans_per_s']:.0f} spans/s end to end ({wall_ms:.0f} ms; phase e "
+        f"{stored['spans_per_s']:.0f}); per stage ms {json.dumps({k: round(v, 1) for k, v in stage.items()})}"
+        f", spans/s {json.dumps({k: round(v) for k, v in fig['stage_spans_per_s'].items()})}; "
+        f"{len(batches)} device batches, update_step launches {launches['update_step']}, update "
+        f"{launches['update']}; every payload parsed natively; state leaves equal phase e's")
+    log(f"phase f1: {len(picked)} traces archived (1/64), {checked['traces']} read back exact; "
+        f"{checked['edges']} edges exact; cardinalities within the HLL band (global "
+        f"{checked['hll_global_rel']:.4f}, max {checked['hll_max_rel']:.4f}); {checked['hist_checked']} "
+        f"histogram and {checked['digest_checked']} digest quantiles inside their bounds; "
+        f"{checked['names']} service names; first dependency read {checked['dependencies_first_ms']:.1f} ms")
+    return fig
+
+
+class HttpStore:
+    """The store-shaped view of a server's HTTP routes, for
+    :func:`check_store_answers`: each call is one GET, decoded to the
+    port's model objects."""
+
+    def __init__(self, base: str) -> None:
+        self.base = base
+
+    def get(self, path: str, params=None, want=200):
+        import urllib.error
+        import urllib.parse
+        import urllib.request
+
+        url = self.base + path + ("?" + urllib.parse.urlencode(params) if params else "")
+        try:
+            with urllib.request.urlopen(url, timeout=120) as resp:
+                status, body = resp.status, resp.read()
+        except urllib.error.HTTPError as e:
+            status, body = e.code, e.read()
+        if status != want:
+            raise AssertionError(f"GET {path} {params}: {status} {body[:200]!r}, want {want}")
+        return json.loads(body) if body and status == 200 else body
+
+    @staticmethod
+    def _call(value):
+        import types
+
+        return types.SimpleNamespace(execute=lambda: value)
+
+    @staticmethod
+    def _rows(rows):
+        return [{**r, "quantiles": {float(q): v for q, v in r["quantiles"].items()}} for r in rows]
+
+    def get_trace(self, trace_id):
+        from zipkin_tpu_torch.model import json_v2
+
+        return self._call([json_v2.span_from_dict(d) for d in self.get(f"/api/v2/trace/{trace_id}")])
+
+    def get_dependencies(self, end_ts, lookback):
+        from zipkin_tpu_torch.model import json_v2
+
+        body = self.get("/api/v2/dependencies", {"endTs": end_ts, "lookback": lookback})
+        return self._call(json_v2.decode_link_list(json.dumps(body).encode()))
+
+    def trace_cardinalities(self):
+        return self.get("/api/v2/tpu/cardinalities")
+
+    def latency_quantiles(self, qs, use_digest=True):
+        return self._rows(self.get("/api/v2/tpu/percentiles", {
+            "q": ",".join(map(str, qs)), "sketch": "digest" if use_digest else "hist"}))
+
+    def sketch_overview(self, qs):
+        body = self.get("/api/v2/tpu/overview", {"q": ",".join(map(str, qs))})
+        return {**body, "percentiles": self._rows(body["percentiles"])}
+
+    def get_service_names(self):
+        return self._call(self.get("/api/v2/services"))
+
+    def get_span_names(self, service):
+        return self._call(self.get("/api/v2/spans", {"serviceName": service}))
+
+
+def small_trace(tid: int, service: str, ts_us: int):
+    """A client/server pair of one trace (ids chosen by the caller)."""
+    from zipkin_tpu_torch.model.span import Endpoint, Kind, Span
+
+    front, back = Endpoint.create(service), Endpoint.create(f"{service}-db")
+    t = f"{tid:016x}"
+    return [Span.create(t, "1", name="get", kind=Kind.CLIENT, timestamp=ts_us, duration=900,
+                        local_endpoint=front, remote_endpoint=back),
+            Span.create(t, "1", name="get", kind=Kind.SERVER, timestamp=ts_us + 10, duration=700,
+                        local_endpoint=back, shared=True, tags={"env": "smoke"})]
+
+
+def archived_ids(n: int, every: int = 64):
+    """``n`` 64-bit trace ids above the generator's that the 1/``every``
+    archive sample keeps."""
+    from zipkin_tpu_torch.tpu.columnar import _mix32
+
+    out, tid = [], 1 << 62
+    while len(out) < n:
+        tid += 1
+        if int(_mix32(np.array([(tid & 0xFFFFFFFF) ^ (tid >> 32)], np.uint32))[0]) % every == 0:
+            out.append(tid)
+    return out
+
+
+def phase_server(seed: int, torch, card: str, stored: dict, cfg=None, device=None) -> dict:
+    """(f2) the server in-process: ZipkinServer with STORAGE_TYPE=tpu and
+    TPU_FAST_INGEST=1 on 127.0.0.1 (ephemeral port), its TorchStorage
+    built on the card by build_storage. 4 threads POST phase e's payloads
+    over urllib; then a gzip, a protobuf, a v1 JSON, a malformed body
+    (400) and a gzip bomb (413). Every ported route is read, checked
+    against the generator and against the store's direct answer, and
+    timed (median of 5). ``device`` other than None builds the store
+    there instead (a rehearsal off the card)."""
+    import concurrent.futures
+    import dataclasses
+    import gzip
+    import urllib.error
+    import urllib.request
+    import zlib
+
+    from zipkin_tpu_torch.model import json_v1, json_v2, proto3
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.server.app import ZipkinServer
+    from zipkin_tpu_torch.server.config import ServerConfig
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    wire, traffic, spans = stored["wire"], stored["traffic"], stored["spans"]
+    n_spans = len(spans)
+    config = ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", tpu_fast_ingest=True,
+                          tpu_deps_max_stale_ms=0.0, autocomplete_keys=("env",),
+                          tpu_agg=dataclasses.asdict(cfg))
+    # no seal ticker here: its device reads would mix into the counted
+    # transfers of the checks (phase f3 runs the entry point with it)
+    storage = None
+    if device is not None:  # a rehearsal off the card
+        from zipkin_tpu_torch.tpu.store import TorchStorage
+
+        storage = TorchStorage(config=cfg, device=device, deps_max_stale_ms=0.0,
+                               autocomplete_keys=("env",))
+    server = ZipkinServer(config, storage=storage, seal_interval_s=0).start()
+    store, base = server.storage, f"http://127.0.0.1:{server.port}"
+    agg = store.agg
+    batches = []
+    ingest = agg.ingest
+
+    def count_batch(c):
+        batches.append(int(c.valid.sum()))
+        return ingest(c)
+
+    agg.ingest = count_batch
+
+    def post(body, headers=None, path="/api/v2/spans"):
+        req = urllib.request.Request(base + path, data=body, headers=headers or {}, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                return resp.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    http = HttpStore(base)
+    fig = dict(card=card)
+    try:
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            statuses = list(pool.map(post, wire))
+        agg.block_until_ready()
+        post_ms = (time.perf_counter() - t0) * 1e3
+        launches, n_batches = hll_kernel.update_step.launches, len(batches)
+        if statuses != [202] * len(wire):
+            raise AssertionError(f"phase f2: POST statuses {sorted(set(statuses))}")
+        if sum(batches) != n_spans or launches != n_batches or hll_kernel.update.launches:
+            raise AssertionError(f"phase f2: {sum(batches)} spans in {n_batches} batches, "
+                                 f"update_step launches {launches}")
+        counters = http.get("/api/v2/tpu/counters")
+        if counters["spans"] != n_spans or counters["nativeVocabOverflow"]:
+            raise AssertionError(f"phase f2: counters {counters}")
+        truth = store_truth(traffic, cfg)
+        picked = sampled_traces(traffic)
+        checked = check_store_answers(http, agg, truth, spans,
+                                      np.random.default_rng(seed + 1).choice(picked, 16, replace=False),
+                                      "phase f2", archived=[s for t in picked for s in spans[8 * t:8 * t + 8]])
+
+        # the other encodings and the error answers
+        ts_us = (truth.t_end - 30 * 60_000) * 1000
+        extra = [small_trace(t, f"smoke{i}", ts_us) for i, t in enumerate(archived_ids(3))]
+        bomb = zlib.compressobj(1, zlib.DEFLATED, 31)
+        zeros = b"\0" * (1 << 24)
+        bomb_body = b"".join(bomb.compress(zeros) for _ in range((server.MAX_INFLATED >> 24) + 1))
+        bomb_body += bomb.flush()
+        v1_body = json_v1.encode_v1_span_list(extra[2])
+        answers = {
+            "gzip": post(gzip.compress(json_v2.encode_span_list(extra[0])), {"Content-Encoding": "gzip"}),
+            "protobuf": post(proto3.encode_span_list(extra[1]), {"Content-Type": "application/x-protobuf"}),
+            "v1": post(v1_body, {"Content-Type": "application/json"}, "/api/v1/spans"),
+            "malformed": post(b"\xffnot-spans"),
+            "gzip_bomb": post(bomb_body, {"Content-Encoding": "gzip"}),
+        }
+        if answers != {"gzip": 202, "protobuf": 202, "v1": 202, "malformed": 400, "gzip_bomb": 413}:
+            raise AssertionError(f"phase f2: POST answers {answers}")
+        # the fast path archives the exact slices; v1 converts on the way in
+        v1_spans = json_v1.decode_v1_span_list(v1_body)
+        for trace in extra[:2] + [v1_spans]:
+            got = http.get(f"/api/v2/trace/{trace[0].trace_id}")
+            if sorted(json.dumps(d, sort_keys=True) for d in got) != \
+                    sorted(json.dumps(json_v2.span_to_dict(s), sort_keys=True) for s in trace):
+                raise AssertionError(f"phase f2: trace {trace[0].trace_id} read back {got}")
+        metrics = http.get("/metrics")
+        # the bomb is refused before the collector sees a message
+        want_metrics = {"messages": len(wire) + 4, "messages_dropped": 1,
+                        "spans": n_spans + 4 + len(v1_spans)}
+        if {k: metrics[f"counter.zipkin_collector.{k}.http"] for k in want_metrics} != want_metrics:
+            raise AssertionError(f"phase f2: metrics {metrics}")
+
+        # every route against the store's direct answer, then its wall
+        window = {"endTs": truth.t_end, "lookback": truth.lookback}
+        svc = sorted(truth.cards)[0]
+        some = [spans[8 * int(t)].trace_id for t in picked[:5]]
+        from zipkin_tpu_torch.storage.spi import QueryRequest
+
+        query = QueryRequest(end_ts=truth.t_end, lookback=truth.lookback, limit=10, service_name=svc)
+        routes = {
+            "traces": ("/api/v2/traces", {"serviceName": svc, **window},
+                       lambda: [[json_v2.span_to_dict(s) for s in t]
+                                for t in store.get_traces_query(query).execute()]),
+            "trace": (f"/api/v2/trace/{some[0]}", None,
+                      lambda: [json_v2.span_to_dict(s) for s in store.get_trace(some[0]).execute()]),
+            "traceMany": ("/api/v2/traceMany", {"traceIds": ",".join(some)},
+                          lambda: [[json_v2.span_to_dict(s) for s in t]
+                                   for t in store.get_traces(some).execute()]),
+            "services": ("/api/v2/services", None, lambda: store.get_service_names().execute()),
+            "spans": ("/api/v2/spans", {"serviceName": svc}, lambda: store.get_span_names(svc).execute()),
+            "remoteServices": ("/api/v2/remoteServices", {"serviceName": svc},
+                               lambda: store.get_remote_service_names(svc).execute()),
+            "dependencies": ("/api/v2/dependencies", window,
+                             lambda: [json_v2.link_to_dict(x) for x in store.get_dependencies(
+                                 truth.t_end, truth.lookback).execute()]),
+            "autocompleteKeys": ("/api/v2/autocompleteKeys", None, lambda: store.get_keys().execute()),
+            "autocompleteValues": ("/api/v2/autocompleteValues", {"key": "env"},
+                                   lambda: store.get_values("env").execute()),
+            "tpu/percentiles": ("/api/v2/tpu/percentiles", {"q": "0.5,0.9,0.99"},
+                                lambda: store.latency_quantiles(QS)),
+            "tpu/cardinalities": ("/api/v2/tpu/cardinalities", None, store.trace_cardinalities),
+            "tpu/overview": ("/api/v2/tpu/overview", {"q": "0.5,0.9,0.99"},
+                             lambda: {**store.sketch_overview(QS), "counters": None}),
+            "tpu/counters": ("/api/v2/tpu/counters", None, None),
+            "health": ("/health", None, lambda: {"status": "UP", "zipkin": {"tpu": {"status": "UP"}}}),
+            "info": ("/info", None, None),
+            "metrics": ("/metrics", None, None),
+        }
+        for name, (path, params, direct) in routes.items():
+            got = http.get(path, params)
+            if name == "tpu/overview":
+                got["counters"] = None  # wall-clock gauges move between two calls
+            if direct is not None and got != json.loads(json.dumps(direct())):
+                raise AssertionError(f"phase f2: {name} differs from the store's direct answer")
+            if name in ("traces", "traceMany", "trace") and not got:
+                raise AssertionError(f"phase f2: {name} answered nothing")
+        if http.get("/api/v2/autocompleteValues", {"key": "env"}) != ["smoke"]:
+            raise AssertionError("phase f2: autocomplete values")
+        http.get("/api/v2/trace/feed", want=404)
+        http.get("/api/v2/trace/nothex!", want=400)
+        http.get("/api/v2/dependencies", want=400)
+        route_ms = {name: median_ms(lambda p=path, q=params: http.get(p, q))
+                    for name, (path, params, _) in routes.items()}
+    finally:
+        del agg.ingest
+        server.stop()
+    fig.update(post_ms=post_ms, post_spans_per_s=n_spans / (post_ms / 1e3), device_batches=n_batches,
+               launches=launches, route_ms=route_ms, **checked)
+    log(f"phase f2 ({card}): 4 threads POST {len(wire)} payloads over HTTP: {fig['post_spans_per_s']:.0f} "
+        f"spans/s ({post_ms:.0f} ms), {n_batches} device batches, update_step launches {launches}; "
+        f"gzip, protobuf, v1 202 and read back, malformed 400, gzip bomb 413; every route equals the "
+        f"store's direct answer and the generator ({checked['edges']} edges, {checked['hist_checked']} "
+        f"histogram and {checked['digest_checked']} digest quantiles, {checked['names']} services)")
+    log(f"phase f2 ({card}): route wall ms, median of 5: "
+        + json.dumps({k: round(v, 3) for k, v in route_ms.items()}))
+    return fig
+
+
+def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> dict:
+    """(f3) ``python -m zipkin_tpu_torch.server --port P --storage tpu``
+    with TPU_FAST_INGEST=1 and TPU_FAST_ARCHIVE_SAMPLE=1 as a subprocess:
+    /health UP within ``timeout_s``, a small trace POSTed and read back
+    through trace/{id}, dependencies and tpu/percentiles, then SIGTERM and
+    exit code 0 within 30 s. ``storage="mem"`` rehearses it off the card
+    (no sketch routes)."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from zipkin_tpu_torch.model import json_v2
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, TPU_FAST_INGEST="1", TPU_FAST_ARCHIVE_SAMPLE="1",
+               TPU_DEPS_MAX_STALE_MS="0", QUERY_HOST="127.0.0.1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    http = HttpStore(f"http://127.0.0.1:{port}")
+    fig = dict(card=card, port=port)
+    with tempfile.TemporaryFile() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "zipkin_tpu_torch.server", "--port", str(port),
+                                 "--storage", storage], cwd=root, env=env, stdout=out,
+                                stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"phase f3: the server exited {proc.returncode} before /health")
+                try:
+                    if http.get("/health")["status"] == "UP":
+                        break
+                except (OSError, AssertionError):
+                    pass
+                if time.perf_counter() - t0 > timeout_s:
+                    raise AssertionError(f"phase f3: /health not UP within {timeout_s} s")
+                time.sleep(0.25)
+            fig["boot_s"] = time.perf_counter() - t0
+            now_ms = int(time.time() * 1000)
+            trace = small_trace(0x1234567890ABCDEF, "entry", (now_ms - 60_000) * 1000)
+            req = urllib.request.Request(http.base + "/api/v2/spans", method="POST",
+                                         data=json_v2.encode_span_list(trace),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                if resp.status != 202:
+                    raise AssertionError(f"phase f3: POST {resp.status}")
+            got = http.get(f"/api/v2/trace/{trace[0].trace_id}")
+            deps = http.get("/api/v2/dependencies", {"endTs": now_ms + 60_000, "lookback": 3_600_000})
+            rows = [{"serviceName": "entry", "count": 1}, {"serviceName": "entry-db", "count": 1}]
+            if storage == "tpu":
+                rows = http.get("/api/v2/tpu/percentiles", {"q": "0.5"})
+            if len(got) != 2 or deps != [{"parent": "entry", "child": "entry-db", "callCount": 1}] \
+                    or sorted((r["serviceName"], r["count"]) for r in rows) != [("entry", 1), ("entry-db", 1)]:
+                raise AssertionError(f"phase f3: read back {got}, {deps}, {rows}")
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+            fig["stop_s"] = time.perf_counter() - t1
+            if rc != 0:
+                raise AssertionError(f"phase f3: exit code {rc} after SIGTERM")
+        except BaseException:
+            out.seek(0)
+            log("phase f3: server output:\n" + out.read().decode(errors="replace")[-4000:])
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    log(f"phase f3 ({card}): python -m zipkin_tpu_torch.server --storage {storage}: /health UP in "
+        f"{fig['boot_s']:.1f} s; a trace POSTed and read back through trace/{{id}}, dependencies and "
+        f"tpu/percentiles; SIGTERM -> exit 0 in {fig['stop_s']:.2f} s")
     return fig
 
 
@@ -1343,13 +1873,27 @@ def main() -> int:
     t0 = time.perf_counter()
     stored = phase_store(args.seed, args.store_spans, torch, card)
     log(f"phase e done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fast = phase_fast(args.seed, torch, card, stored)
+    torch.cuda.empty_cache()
+    log(f"phase f1 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served = phase_server(args.seed, torch, card, stored)
+    torch.cuda.empty_cache()
+    log(f"phase f2 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_entry(card)
+    log(f"phase f3 done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
     # fresh and filled. Each reports the mean over its cases, each case
     # beside it; launches are those of the main path's run (phase c),
-    # launches_phase_d those of the sampled run (phase d) and
-    # launches_phase_e those of the store's object path (phase e).
+    # launches_phase_d those of the sampled run (phase d),
+    # launches_phase_e those of the store's object path (phase e) and
+    # launches_phase_f those of the line-rate path (phase f1; f2 is checked
+    # against its own device batches and printed with it).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -1359,6 +1903,7 @@ def main() -> int:
              bound_by="bytes", library_ms=mean(cases, "library_ms"),
              launches_phase_d=sampled["update_launches"],
              launches_phase_e=stored["update_launches"],
+             launches_phase_f=fast["update_launches"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -1367,6 +1912,7 @@ def main() -> int:
              library_ms=mean(step_cases, "library_ms"),
              four_launch_ms=mean(step_cases, "four_launch_ms"),
              launches_phase_d=sum(sampled["launches"]), launches_phase_e=stored["launches"],
+             launches_phase_f=fast["launches"],
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

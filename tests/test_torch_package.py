@@ -127,3 +127,20 @@ def test_hll_kernel_refuses_bad_inputs_before_building():
     one = torch.zeros(1, dtype=torch.int64)
     with pytest.raises(ValueError, match="unsupported device"):
         hll_kernel.update(regs, one, one, torch.zeros(1, dtype=torch.bool))
+
+
+def test_server_entry_defaults_to_the_card_and_refuses_without_one(tmp_path):
+    """``python -m zipkin_tpu_torch.server`` with no storage flag builds the
+    card's store; with no card it fails to start instead of serving from
+    memory. ``--storage mem`` is the caller's own request."""
+    import os
+
+    env = {k: v for k, v in os.environ.items() if k != "STORAGE_TYPE"}
+    env.update(CUDA_VISIBLE_DEVICES="", HOME=str(tmp_path))
+    out = subprocess.run([sys.executable, "-m", "zipkin_tpu_torch.server", "--port", "0"],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode != 0
+    assert "no CUDA device is available" in out.stderr
+    from zipkin_tpu_torch.server.config import ServerConfig
+
+    assert ServerConfig().storage_type == "tpu"

@@ -17,3 +17,5 @@ what it needs of the JAX package's numpy helpers it keeps its own copy
 of. Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"`` (see :func:`zipkin_tpu_torch.device.resolve_device`).
 """
+
+__version__ = "0.1.0"

@@ -1,0 +1,504 @@
+"""The HTTP server: the Zipkin v2 API, the collector's HTTP transport, the
+sketch reads, health and metrics (the port's copy of
+``zipkin_tpu/server/app.py``, on the standard library's
+``http.server.ThreadingHTTPServer`` instead of aiohttp).
+
+Routes and status codes follow the reference:
+
+- ``POST /api/v2/spans``, ``POST /api/v1/spans``: gzip (by its magic, with
+  a 256 MiB inflation cap -> 413), Content-Type -> encoding, else sniffed;
+  malformed -> 400, throttle shed -> 503, accepted -> 202;
+- ``GET /api/v2/{traces,trace/{id},traceMany,services,spans,remoteServices,
+  dependencies,autocompleteKeys,autocompleteValues}``;
+- ``GET /api/v2/tpu/{percentiles,cardinalities,counters,overview}`` when the
+  storage serves sketch reads;
+- ``GET /health``, ``/info`` and ``/metrics`` (the reference's
+  ``counter.zipkin_collector.<name>.<transport>`` taxonomy).
+
+Each request runs on its own thread; a ticker thread seals the store's
+time tier every ``seal_interval_s``. Left out, against the reference:
+gRPC, scribe, the UI and ``/config.json``, ``/prometheus``, statusz, the
+snapshot route, deadlines, overload and tenant admission, self-tracing and
+the observability plane, and the multi-process tier.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import threading
+import time
+import zlib
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, Optional
+from urllib.parse import parse_qs, unquote, urlsplit
+
+import zipkin_tpu_torch
+from zipkin_tpu_torch.collector.core import Collector, CollectorSampler, InMemoryCollectorMetrics
+from zipkin_tpu_torch.internal.hex import normalize_trace_id
+from zipkin_tpu_torch.model import json_v2
+from zipkin_tpu_torch.model.codec import Encoding
+from zipkin_tpu_torch.server.config import ServerConfig
+from zipkin_tpu_torch.storage.memory import InMemoryStorage
+from zipkin_tpu_torch.storage.spi import QueryRequest, StorageComponent
+from zipkin_tpu_torch.storage.throttle import RejectedExecutionError, ThrottledStorage
+
+logger = logging.getLogger(__name__)
+
+JSON = "application/json"
+MAX_BODY = 64 * 1024 * 1024  # compressed request bytes, as the reference's client_max_size
+# gauges of ingest_counters() that /metrics publishes as gauge.zipkin_tpu.<name>
+_METRIC_GAUGES = (
+    "ctxDeltaLanes", "ctxAdvances", "ctxMaintenanceMs",
+    "readCacheServeAgeMs", "readCacheServeAgeMaxMs", "readCacheEntries",
+)
+_SAMPLER_GAUGES = ("sampledKept", "sampledDropped", "budgetUtilization",
+                   "samplerPublishes", "samplerPressure")
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True  # a request in flight does not hold the process up
+    request_queue_size = 128  # the listen backlog aiohttp uses, not socketserver's 5
+
+
+class PayloadTooLarge(ValueError):
+    """The request body, or its inflated form, is past its cap."""
+
+
+class HttpError(Exception):
+    """An error answer: status and plain-text body."""
+
+    def __init__(self, status: int, text: str) -> None:
+        super().__init__(text)
+        self.status = status
+        self.text = text
+
+
+def build_storage(config: ServerConfig) -> StorageComponent:
+    """STORAGE_TYPE -> StorageComponent: ``mem`` the in-memory store,
+    ``tpu`` a :class:`~zipkin_tpu_torch.tpu.store.TorchStorage` on the card."""
+    common = dict(
+        strict_trace_id=config.strict_trace_id,
+        search_enabled=config.search_enabled,
+        autocomplete_keys=config.autocomplete_keys,
+    )
+    if config.storage_type == "mem":
+        return InMemoryStorage(max_span_count=config.mem_max_spans, **common)
+    if config.storage_type == "tpu":
+        from zipkin_tpu_torch.tpu.state import AggConfig
+        from zipkin_tpu_torch.tpu.store import TorchStorage
+
+        agg_kwargs = dict(config.tpu_agg)
+        if config.tpu_sampling:
+            # sampling changes the ingest step, so it is an AggConfig field
+            agg_kwargs["sampling"] = True
+            agg_kwargs["sample_rare_min"] = config.tpu_sampling_rare_min
+        return TorchStorage(
+            config=AggConfig(**agg_kwargs),
+            archive_max_span_count=config.mem_max_spans,
+            fast_archive_sample=config.tpu_fast_archive_sample,
+            max_device_batch=config.tpu_max_device_batch,
+            deps_max_stale_ms=config.tpu_deps_max_stale_ms,
+            sampling_budget=config.tpu_sampling_budget if config.tpu_sampling else 0.0,
+            sampling_interval_s=config.tpu_sampling_interval_s,
+            sampling_min_rate=config.tpu_sampling_min_rate,
+            sampling_tail_quantile=config.tpu_sampling_tail_quantile,
+            **common,
+        )
+    raise ValueError(f"unknown STORAGE_TYPE: {config.storage_type}")
+
+
+def parse_annotation_query(raw: Optional[str]) -> Dict[str, str]:
+    """Parse ``"error and http.method=GET"`` into ``{error: '', http.method:
+    'GET'}``: the upstream annotationQuery grammar."""
+    out: Dict[str, str] = {}
+    if not raw:
+        return out
+    for token in raw.split(" and "):
+        token = token.strip()
+        if not token:
+            continue
+        key, sep, value = token.partition("=")
+        out[key] = value if sep else ""
+    return out
+
+
+def _quantile_list(raw: str):
+    qs = [float(x) for x in raw.split(",") if x]
+    if not qs or any(not (0.0 <= q <= 1.0) for q in qs):
+        raise ValueError(f"q out of range: {raw!r}")
+    return qs
+
+
+def _opt_int(query: Dict[str, str], name: str) -> Optional[int]:
+    raw = query.get(name)
+    return int(raw) if raw is not None else None
+
+
+class ZipkinServer:
+    """Wires storage, collector and routes; owns their lifecycle.
+
+    ``start()`` binds ``config.host:config.port`` (port 0: an ephemeral
+    port, read back from ``self.port``) and serves on a thread;
+    ``stop()`` shuts the listener down and closes the storage."""
+
+    MAX_INFLATED = 256 * 1024 * 1024  # decompression-bomb guard
+
+    def __init__(self, config: Optional[ServerConfig] = None, *,
+                 storage: Optional[StorageComponent] = None, seal_interval_s: float = 1.0) -> None:
+        self.config = config or ServerConfig()
+        self.storage = storage if storage is not None else build_storage(self.config)
+        if self.config.throttle_enabled:
+            self.storage = ThrottledStorage(
+                self.storage, max_concurrency=self.config.throttle_max_concurrency)
+        self.metrics = InMemoryCollectorMetrics()
+        self.collector = Collector(
+            self.storage,
+            sampler=CollectorSampler(self.config.sample_rate),
+            metrics=self.metrics.for_transport("http"),
+            fast_ingest=self.config.tpu_fast_ingest,
+        )
+        self.components = {self.config.storage_type: self.storage}
+        self.seal_interval_s = seal_interval_s
+        self.port: Optional[int] = None
+        self._httpd: Optional[_HTTPServer] = None
+        self._threads = []
+        self._stopping = threading.Event()
+        routes = {
+            "/api/v2/traces": self.get_traces,
+            "/api/v2/traceMany": self.get_trace_many,
+            "/api/v2/services": self.get_services,
+            "/api/v2/spans": self.get_span_names,
+            "/api/v2/remoteServices": self.get_remote_services,
+            "/api/v2/dependencies": self.get_dependencies,
+            "/api/v2/autocompleteKeys": self.get_autocomplete_keys,
+            "/api/v2/autocompleteValues": self.get_autocomplete_values,
+            "/health": self.get_health,
+            "/info": self.get_info,
+            "/metrics": self.get_metrics,
+        }
+        if hasattr(self.storage, "latency_quantiles"):
+            routes.update({
+                "/api/v2/tpu/percentiles": self.get_tpu_percentiles,
+                "/api/v2/tpu/cardinalities": self.get_tpu_cardinalities,
+                "/api/v2/tpu/counters": self.get_tpu_counters,
+                "/api/v2/tpu/overview": self.get_tpu_overview,
+            })
+        self.get_routes = routes
+        self.post_routes = {}
+        if self.config.http_collector_enabled:
+            self.post_routes = {"/api/v2/spans": False, "/api/v1/spans": True}  # path -> v1
+
+    # -- lifecycle ---------------------------------------------------------
+
+    def start(self) -> "ZipkinServer":
+        self._httpd = _HTTPServer((self.config.host, self.config.port), _handler_for(self))
+        self.port = self._httpd.server_address[1]
+        self._stopping.clear()
+        self._threads = [threading.Thread(target=self._httpd.serve_forever, name="zipkin-http",
+                                          daemon=True)]
+        core = getattr(self.storage, "delegate", self.storage)
+        if getattr(core, "timetier", None) is not None and self.seal_interval_s > 0:
+            self._threads.append(threading.Thread(target=self._seal_loop, args=(core,),
+                                                  name="zipkin-tt-seal", daemon=True))
+        for t in self._threads:
+            t.start()
+        logger.info("zipkin-tpu-torch listening on %s:%d", self.config.host, self.port)
+        return self
+
+    def _seal_loop(self, core) -> None:
+        """Seal finished time buckets into the host time tier, as the
+        reference's ticker does, until ``stop()``."""
+        while not self._stopping.wait(self.seal_interval_s):
+            try:
+                core.tt_seal()
+            except Exception:  # keep the ticker alive; the next tick retries
+                logger.exception("time-tier seal failed")
+
+    def stop(self) -> None:
+        self._stopping.set()
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._httpd = None
+        for t in self._threads:
+            t.join(timeout=30)
+        self._threads = []
+        self.storage.close()
+
+    # -- ingest ------------------------------------------------------------
+
+    def _inflate(self, body: bytes) -> bytes:
+        """Inflate a gzip body (by its magic, with or without the header)
+        incrementally under ``MAX_INFLATED``; multi-member gzip is valid.
+
+        Unlike the reference, each member may inflate one byte past what is
+        left and the body is refused past the cap: a limit of 0 would make
+        zlib inflate a later member without bound."""
+        if body[:2] != b"\x1f\x8b":
+            return body
+        chunks, total, remaining = [], 0, body
+        while remaining:
+            d = zlib.decompressobj(wbits=31)
+            out = d.decompress(remaining, self.MAX_INFLATED - total + 1)
+            total += len(out)
+            if total > self.MAX_INFLATED:
+                raise PayloadTooLarge(f"gzip payload inflates past {self.MAX_INFLATED} bytes")
+            chunks.append(out)
+            remaining = d.unused_data
+        return b"".join(chunks)
+
+    def post_spans(self, body: bytes, content_type: str, v1: bool):
+        try:
+            body = self._inflate(body)
+        except PayloadTooLarge as e:
+            raise HttpError(413, str(e))
+        except zlib.error:
+            raise HttpError(400, "cannot gunzip body")
+        ctype = content_type.split(";")[0].strip()
+        encoding: Optional[Encoding] = None
+        if ctype == "application/x-protobuf":
+            encoding = Encoding.PROTO3
+        elif ctype == "application/x-thrift":
+            encoding = Encoding.THRIFT
+        elif ctype == JSON and v1:
+            encoding = Encoding.JSON_V1
+        try:
+            self.collector.accept_spans_bytes(body, encoding)
+        except ValueError as e:
+            raise HttpError(400, str(e))
+        except RejectedExecutionError as e:
+            # the storage throttle shed the write: the sender backs off
+            raise HttpError(503, str(e))
+        return 202, None
+
+    # -- query -------------------------------------------------------------
+
+    def _query_request(self, q: Dict[str, str]) -> QueryRequest:
+        def opt_int(name: str) -> Optional[int]:
+            raw = q.get(name)
+            return int(raw) if raw else None  # a blank parameter is absent
+
+        return QueryRequest(
+            end_ts=opt_int("endTs") or int(time.time() * 1000),
+            lookback=opt_int("lookback") or self.config.default_lookback,
+            limit=opt_int("limit") or self.config.query_limit,
+            service_name=q.get("serviceName"),
+            remote_service_name=q.get("remoteServiceName"),
+            span_name=q.get("spanName"),
+            annotation_query=parse_annotation_query(q.get("annotationQuery")),
+            min_duration=opt_int("minDuration"),
+            max_duration=opt_int("maxDuration"),
+        )
+
+    def get_traces(self, q):
+        try:
+            request = self._query_request(q)
+        except ValueError as e:
+            raise HttpError(400, str(e))
+        traces = self.storage.span_store().get_traces_query(request).execute()
+        return 200, [[json_v2.span_to_dict(s) for s in t] for t in traces]
+
+    def get_trace(self, raw_id: str):
+        try:
+            normalize_trace_id(raw_id)
+        except ValueError as e:
+            raise HttpError(400, str(e))
+        spans = self.storage.span_store().get_trace(raw_id).execute()
+        if not spans:
+            raise HttpError(404, f"trace {raw_id} not found")
+        return 200, [json_v2.span_to_dict(s) for s in spans]
+
+    def get_trace_many(self, q):
+        ids = [x for x in q.get("traceIds", "").split(",") if x]
+        if not ids:
+            raise HttpError(400, "traceIds parameter is required")
+        traces = self.storage.traces().get_traces(ids).execute()
+        return 200, [[json_v2.span_to_dict(s) for s in t] for t in traces]
+
+    def get_services(self, q):
+        return 200, self.storage.service_and_span_names().get_service_names().execute()
+
+    def get_span_names(self, q):
+        names = self.storage.service_and_span_names()
+        return 200, names.get_span_names(q.get("serviceName", "")).execute()
+
+    def get_remote_services(self, q):
+        names = self.storage.service_and_span_names()
+        return 200, names.get_remote_service_names(q.get("serviceName", "")).execute()
+
+    def get_dependencies(self, q):
+        if not q.get("endTs"):
+            raise HttpError(400, "endTs parameter is required")
+        try:
+            end_ts = int(q["endTs"])
+            lookback = int(q.get("lookback") or self.config.default_lookback)
+        except ValueError as e:
+            raise HttpError(400, str(e))
+        links = self.storage.span_store().get_dependencies(end_ts, lookback).execute()
+        return 200, [json_v2.link_to_dict(x) for x in links]
+
+    def get_autocomplete_keys(self, q):
+        return 200, self.storage.autocomplete_tags().get_keys().execute()
+
+    def get_autocomplete_values(self, q):
+        key = q.get("key")
+        if not key:
+            raise HttpError(400, "key parameter is required")
+        return 200, self.storage.autocomplete_tags().get_values(key).execute()
+
+    # -- sketch reads (the device store's extensions, under /api/v2/tpu/) --
+
+    def get_tpu_percentiles(self, q):
+        try:
+            qs = _quantile_list(q.get("q", "0.5,0.9,0.99"))
+            end_ts, lookback = _opt_int(q, "endTs"), _opt_int(q, "lookback")
+        except ValueError as e:
+            raise HttpError(400, str(e))
+        return 200, self.storage.latency_quantiles(
+            qs, q.get("serviceName"), q.get("spanName"), q.get("sketch", "digest") == "digest",
+            end_ts, lookback)
+
+    def get_tpu_cardinalities(self, q):
+        try:
+            end_ts, lookback = _opt_int(q, "endTs"), _opt_int(q, "lookback")
+        except ValueError as e:
+            raise HttpError(400, str(e))
+        return 200, self.storage.trace_cardinalities(None, end_ts, lookback)
+
+    def get_tpu_counters(self, q):
+        return 200, self.storage.ingest_counters()
+
+    def get_tpu_overview(self, q):
+        """Percentiles, cardinalities and counters from one device read."""
+        if not hasattr(self.storage, "sketch_overview"):
+            raise HttpError(501, "storage does not serve sketch_overview")
+        try:
+            qs = _quantile_list(q.get("q", "0.5,0.9,0.99"))
+        except ValueError as e:
+            raise HttpError(400, str(e))
+        return 200, self.storage.sketch_overview(qs, q.get("serviceName"), q.get("spanName"))
+
+    # -- ops ---------------------------------------------------------------
+
+    def get_health(self, q):
+        results, up = {}, True
+        for name, component in self.components.items():
+            result = component.check()
+            results[name] = {"status": "UP" if result.ok else "DOWN",
+                             **({"error": str(result.error)} if result.error else {})}
+            up &= result.ok
+        return (200 if up else 503), {"status": "UP" if up else "DOWN", "zipkin": results}
+
+    def get_info(self, q):
+        return 200, {"zipkin": {"version": zipkin_tpu_torch.__version__, "flavor": "tpu"}}
+
+    def get_metrics(self, q):
+        """Actuator-style counters, the reference's names:
+        ``counter.zipkin_collector.spans.http`` and so on, plus the store's
+        gauges as ``gauge.zipkin_tpu.<name>``."""
+        out = {}
+        for key, value in self.metrics.snapshot().items():
+            transport, _, name = key.partition(".")
+            out[f"counter.zipkin_collector.{name}.{transport}"] = value
+        if hasattr(self.storage, "ingest_counters"):
+            counters = self.storage.ingest_counters()
+            names = _METRIC_GAUGES
+            if getattr(self.storage, "sampler", None) is not None:
+                names += _SAMPLER_GAUGES
+                for svc, rate in sorted(self.storage.sampler_rates().items()):
+                    out[f"gauge.zipkin_tpu.samplerRate.{svc}"] = rate
+            for name in names:
+                if name in counters:
+                    out[f"gauge.zipkin_tpu.{name}"] = counters[name]
+        return 200, out
+
+
+def _handler_for(server: ZipkinServer):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+        server_version = "zipkin-tpu-torch"
+
+        def log_message(self, fmt, *args):  # requests are not logged
+            pass
+
+        def _send(self, status: int, body: bytes = b"", ctype: str = "text/plain; charset=utf-8"):
+            self.send_response(status)
+            if body:
+                self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            if body:
+                self.wfile.write(body)
+
+        def _answer(self, fn, *args):
+            try:
+                status, body = fn(*args)
+            except HttpError as e:
+                self._send(e.status, e.text.encode())
+                return
+            except Exception as e:  # the request fails, the server keeps serving
+                logger.exception("%s %s failed", self.command, self.path)
+                self._send(500, f"{type(e).__name__}: {e}".encode())
+                return
+            if body is None:
+                self._send(status)
+            else:
+                self._send(status, json.dumps(body).encode(), "application/json; charset=utf-8")
+
+        def _read_body(self) -> bytes:
+            if "chunked" in self.headers.get("Transfer-Encoding", "").lower():
+                parts, total = [], 0
+                while True:
+                    size = int(self.rfile.readline().split(b";")[0].strip() or b"0", 16)
+                    if size == 0:
+                        while self.rfile.readline() not in (b"\r\n", b"\n", b""):
+                            pass  # trailers
+                        return b"".join(parts)
+                    total += size
+                    if total > MAX_BODY:
+                        raise PayloadTooLarge(f"request body past {MAX_BODY} bytes")
+                    parts.append(self.rfile.read(size))
+                    self.rfile.readline()
+            length = int(self.headers.get("Content-Length") or 0)
+            if length > MAX_BODY:
+                raise PayloadTooLarge(f"request body past {MAX_BODY} bytes")
+            return self.rfile.read(length)
+
+        def do_GET(self):
+            url = urlsplit(self.path)
+            # the first value of a repeated parameter, as aiohttp's query.get
+            query = {k: v[0] for k, v in parse_qs(url.query, keep_blank_values=True).items()}
+            fn = server.get_routes.get(url.path)
+            if fn is not None:
+                self._answer(fn, query)
+            elif url.path.startswith("/api/v2/trace/") and url.path.count("/") == 4:
+                self._answer(server.get_trace, unquote(url.path[len("/api/v2/trace/"):]))
+            else:
+                self._send(404, b"404: Not Found")
+
+        def do_POST(self):
+            path = urlsplit(self.path).path
+            v1 = server.post_routes.get(path)
+            if v1 is None:
+                self._send(405 if path in server.get_routes else 404)
+                self.close_connection = True
+                return
+            try:
+                body = self._read_body()
+            except PayloadTooLarge as e:
+                self._send(413, str(e).encode())
+                self.close_connection = True
+                return
+            self._answer(server.post_spans, body, self.headers.get("Content-Type", ""), v1)
+
+    return Handler
+
+
+def run_server(config: Optional[ServerConfig] = None, stop: Optional[threading.Event] = None) -> None:
+    """Serve until ``stop`` is set, then shut down cleanly."""
+    server = ZipkinServer(config or ServerConfig.from_env()).start()
+    try:
+        (stop or threading.Event()).wait()
+    finally:
+        server.stop()

@@ -1,0 +1,127 @@
+"""Server configuration from the environment (the port's copy of the part
+of ``zipkin_tpu/server/config.py:58-458`` that its routes read).
+
+The environment names and defaults are the reference's, but for one:
+``STORAGE_TYPE`` defaults to ``tpu``, which builds a
+:class:`~zipkin_tpu_torch.tpu.store.TorchStorage` on the card and raises
+without one, as every entry point of the port does; ``mem`` is the
+in-memory store, taken only when asked for by name. The others are
+``QUERY_PORT``,
+``COLLECTOR_SAMPLE_RATE``, ``QUERY_LOOKBACK``, ``QUERY_LIMIT``,
+``MEM_MAX_SPANS``, ``STORAGE_THROTTLE_*``, ``TPU_FAST_INGEST``,
+``TPU_FAST_ARCHIVE_SAMPLE``, ``TPU_SAMPLING*``, ``TPU_MAX_DEVICE_BATCH``,
+``TPU_DEPS_MAX_STALE_MS`` and the ``TPU_<AggConfig field>`` sizes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Sequence, Tuple
+
+DAY_MS = 86_400_000
+
+
+def _env_bool(name: str, default: bool) -> bool:
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    return raw.strip().lower() in ("1", "true", "yes", "on")
+
+
+def _env_int(name: str, default: int) -> int:
+    raw = os.environ.get(name)
+    return int(raw) if raw else default
+
+
+def _env_float(name: str, default: float) -> float:
+    raw = os.environ.get(name)
+    return float(raw) if raw else default
+
+
+def _env_list(name: str) -> Tuple[str, ...]:
+    raw = os.environ.get(name, "")
+    return tuple(x.strip() for x in raw.split(",") if x.strip())
+
+
+# AggConfig fields sizable from the environment (TPU_MAX_SERVICES=256 etc.;
+# TPU_TIME_BUCKETS=0 turns the time tier off)
+_AGG_ENV_FIELDS = (
+    "max_services", "max_keys", "hll_precision", "digest_centroids",
+    "digest_buffer", "ring_capacity", "link_buckets", "bucket_minutes",
+    "hist_slices", "hist_slice_minutes",
+    "time_buckets", "time_bucket_minutes", "time_digest_centroids",
+)
+
+
+def _env_agg() -> dict:
+    out = {}
+    for field in _AGG_ENV_FIELDS:
+        raw = os.environ.get("TPU_" + field.upper())
+        if raw:
+            out[field] = int(raw)
+    return out
+
+
+@dataclasses.dataclass(frozen=True)
+class ServerConfig:
+    host: str = "0.0.0.0"
+    port: int = 9411  # 0 binds an ephemeral port
+    storage_type: str = "tpu"  # tpu (the card) | mem
+    strict_trace_id: bool = True
+    search_enabled: bool = True
+    autocomplete_keys: Sequence[str] = ()
+    mem_max_spans: int = 500_000
+    default_lookback: int = 7 * DAY_MS  # QUERY_LOOKBACK, ms
+    query_limit: int = 10
+    sample_rate: float = 1.0
+    http_collector_enabled: bool = True
+    throttle_enabled: bool = False
+    throttle_max_concurrency: int = 8
+    # line-rate path: JSON v2 and proto3 bytes through the native parser,
+    # with a trace-affine 1/N archive sample (0: none)
+    tpu_fast_ingest: bool = False
+    tpu_fast_archive_sample: int = 64
+    # largest device batch before the state's own bounds, and how stale a
+    # cached dependency answer may be served under ingest (0: always fresh)
+    tpu_max_device_batch: int = 65536
+    tpu_deps_max_stale_ms: float = 5000.0
+    # tail sampling: device verdicts gate what the archive keeps while the
+    # sketches see every span; a budget > 0 runs the rate controller
+    tpu_sampling: bool = False
+    tpu_sampling_budget: float = 0.0
+    tpu_sampling_interval_s: float = 5.0
+    tpu_sampling_min_rate: int = 256
+    tpu_sampling_tail_quantile: float = 0.99
+    tpu_sampling_rare_min: int = 4
+    # device state shape (AggConfig fields); absent = AggConfig's default
+    tpu_agg: dict = dataclasses.field(default_factory=dict)
+
+    @staticmethod
+    def from_env() -> "ServerConfig":
+        return ServerConfig(
+            host=os.environ.get("QUERY_HOST", "0.0.0.0"),
+            port=_env_int("QUERY_PORT", 9411),
+            storage_type=os.environ.get("STORAGE_TYPE", "tpu"),
+            strict_trace_id=_env_bool("STRICT_TRACE_ID", True),
+            search_enabled=_env_bool("SEARCH_ENABLED", True),
+            autocomplete_keys=_env_list("AUTOCOMPLETE_KEYS"),
+            mem_max_spans=_env_int("MEM_MAX_SPANS", 500_000),
+            default_lookback=_env_int("QUERY_LOOKBACK", 7 * DAY_MS),
+            query_limit=_env_int("QUERY_LIMIT", 10),
+            sample_rate=_env_float("COLLECTOR_SAMPLE_RATE", 1.0),
+            http_collector_enabled=_env_bool("COLLECTOR_HTTP_ENABLED", True),
+            throttle_enabled=_env_bool("STORAGE_THROTTLE_ENABLED", False),
+            throttle_max_concurrency=_env_int("STORAGE_THROTTLE_MAX_CONCURRENCY", 8),
+            tpu_fast_ingest=_env_bool("TPU_FAST_INGEST", False),
+            tpu_fast_archive_sample=_env_int("TPU_FAST_ARCHIVE_SAMPLE", 64),
+            tpu_max_device_batch=_env_int("TPU_MAX_DEVICE_BATCH", 65536),
+            tpu_deps_max_stale_ms=_env_float("TPU_DEPS_MAX_STALE_MS", 5000.0),
+            tpu_sampling=_env_bool("TPU_SAMPLING", False),
+            tpu_sampling_budget=_env_float("TPU_SAMPLING_BUDGET", 0.0),
+            tpu_sampling_interval_s=_env_float("TPU_SAMPLING_INTERVAL_S", 5.0),
+            tpu_sampling_min_rate=_env_int("TPU_SAMPLING_MIN_RATE", 256),
+            tpu_sampling_tail_quantile=_env_float("TPU_SAMPLING_TAIL_QUANTILE", 0.99),
+            tpu_sampling_rare_min=_env_int("TPU_SAMPLING_RARE_MIN", 4),
+            tpu_agg=_env_agg(),
+        )

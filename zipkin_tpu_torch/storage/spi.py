@@ -200,6 +200,18 @@ class StorageComponent(Component):
 # -- result shaping shared by backends ------------------------------------
 
 
+class FastIngestError(RuntimeError):
+    """A line-rate ingest failed after its parse, so part of the payload may
+    already be stored: the caller counts its ``spans`` (boundary-sampled
+    ones included) as dropped and must not ingest it again another way.
+    The port's own: the reference lets such an error fall back to the
+    object path, which ingests the stored part a second time."""
+
+    def __init__(self, spans: int, message: str) -> None:
+        super().__init__(message)
+        self.spans = spans
+
+
 def trace_id_key(trace_id: str, strict: bool) -> str:
     """The grouping key for a trace id under (non-)strict matching."""
     normalized = normalize_trace_id(trace_id)

@@ -1,8 +1,9 @@
 """Host-side columnar packing and the packed wire image (the port's copy of
 the parts of ``zipkin_tpu/tpu/columnar.py`` its path needs).
 
-numpy only. :func:`pack_spans` turns the port's :class:`Span` objects into
-one fixed-shape :class:`SpanColumns` batch, interning service and span
+numpy only. :func:`pack_spans` turns the port's :class:`Span` objects,
+and :func:`pack_parsed` the native parser's columns, into one fixed-shape
+:class:`SpanColumns` batch, interning service and span
 names into a bounded :class:`Vocab` (id 0 is "unknown/absent"; overflow
 past capacity lands in id 0, or in the service's catch-all key row, and is
 counted). The whole batch travels to the device as one ``[11, n]`` u32
@@ -102,6 +103,9 @@ class Interner:
     def overflow(self) -> int:
         return self._overflow
 
+    def __len__(self) -> int:
+        return len(self._names)
+
 
 class Vocab:
     """The interners one store shares across batches: service names, span
@@ -142,6 +146,13 @@ class Vocab:
             self._keys[pair] = kid
             self._key_list.append(pair)
             return kid
+
+    def key_pair(self, key_id: int) -> Tuple[int, int]:
+        return self._key_list[key_id] if 0 <= key_id < len(self._key_list) else (0, 0)
+
+    @property
+    def num_keys(self) -> int:
+        return len(self._key_list)
 
 
 class SpanColumns(NamedTuple):
@@ -250,6 +261,94 @@ def pack_spans(spans: Sequence[Span], vocab: Vocab, pad_to_multiple: int = 1024)
     hi32 = _hash2_np((hi & _MASK32).astype(_U32), (hi >> np.uint64(32)).astype(_U32))
     cols.trace_h[:n] = _hash2_np(_hash2_np(cols.tl0[:n], cols.tl1[:n]), hi32)
     return cols
+
+
+def pack_parsed(parsed, vocab: Vocab, pad_to_multiple: int = 1024) -> SpanColumns:
+    """Columns from a native parse (:func:`zipkin_tpu_torch.native.parse_spans`,
+    port of ``zipkin_tpu/tpu/columnar.py:280`` ``pack_parsed``): the fast
+    ingest path, no Span objects, strings interned straight from the wire
+    buffer's slices.
+
+    A parse made against a ``NativeVocab`` carries its ids already; else
+    each slice is interned here, cached per call by its raw bytes (names
+    repeat heavily within a batch)."""
+    n = parsed.n
+    cap = _pad(n, pad_to_multiple)
+    svc = np.zeros(cap, np.int32)
+    rsvc = np.zeros(cap, np.int32)
+    key = np.zeros(cap, np.int32)
+
+    if getattr(parsed, "svc_id", None) is not None:
+        # interning already happened inside the native parse
+        svc[:n] = parsed.svc_id[:n]
+        rsvc[:n] = parsed.rsvc_id[:n]
+        key[:n] = parsed.key_id[:n]
+        return _assemble(parsed, n, cap, svc, rsvc, key)
+
+    mv = memoryview(parsed.data)
+    intern_svc = vocab.services.intern
+    intern_name = vocab.span_names.intern
+    scache: Dict[bytes, int] = {}
+    ncache: Dict[bytes, int] = {}
+    kcache: Dict[Tuple[int, int], int] = {}
+    soff, slen = parsed.svc_off, parsed.svc_len
+    roff, rlen = parsed.rsvc_off, parsed.rsvc_len
+    noff, nlen = parsed.name_off, parsed.name_len
+
+    def sid_of(off: int, ln: int) -> int:
+        if ln == 0:
+            return 0
+        raw = bytes(mv[off : off + ln])
+        got = scache.get(raw)
+        if got is None:
+            got = scache[raw] = intern_svc(raw.decode("utf-8", "replace").lower())
+        return got
+
+    for i in range(n):
+        s = sid_of(soff[i], slen[i])
+        svc[i] = s
+        rsvc[i] = sid_of(roff[i], rlen[i])
+        nid = 0
+        if nlen[i]:
+            raw = bytes(mv[noff[i] : noff[i] + nlen[i]])
+            nid = ncache.get(raw)
+            if nid is None:
+                nid = ncache[raw] = intern_name(raw.decode("utf-8", "replace").lower())
+        kid = kcache.get((s, nid))
+        if kid is None:
+            kid = kcache[(s, nid)] = vocab.key_id(s, nid)
+        key[i] = kid
+    return _assemble(parsed, n, cap, svc, rsvc, key)
+
+
+def _assemble(parsed, n: int, cap: int, svc, rsvc, key) -> SpanColumns:
+    """The padded batch of a parse's first ``n`` lanes and its id lanes
+    (port of ``zipkin_tpu/tpu/columnar.py:351``)."""
+
+    def padded(a: np.ndarray, dtype) -> np.ndarray:
+        out = np.zeros(cap, dtype)
+        out[:n] = a[:n]
+        return out
+
+    hi32 = _hash2_np(parsed.th0[:n], parsed.th1[:n])
+    trace_h = np.zeros(cap, _U32)
+    trace_h[:n] = _hash2_np(_hash2_np(parsed.tl0[:n], parsed.tl1[:n]), hi32)
+    valid = np.zeros(cap, bool)
+    valid[:n] = True
+    return SpanColumns(
+        trace_h=trace_h,
+        tl0=padded(parsed.tl0, _U32), tl1=padded(parsed.tl1, _U32),
+        s0=padded(parsed.s0, _U32), s1=padded(parsed.s1, _U32),
+        p0=padded(parsed.p0, _U32), p1=padded(parsed.p1, _U32),
+        shared=padded(parsed.shared, bool),
+        kind=padded(parsed.kind, np.int32),
+        svc=svc, rsvc=rsvc, key=key,
+        err=padded(parsed.err, bool),
+        dur=padded(parsed.dur_us, _U32),
+        has_dur=padded(parsed.has_dur, bool),
+        ts_min=padded((parsed.ts_us // 60_000_000).astype(_U32), _U32),
+        valid=valid,
+    )
 
 
 def remap_fused(fused: np.ndarray, svc_map: np.ndarray, key_map: np.ndarray) -> None:

@@ -16,12 +16,20 @@ latency percentiles, trace cardinalities) from the device sketches of a
   windowed reads over any ``[endTs - lookback, endTs]`` range.
 
 Each aggregate read is one device read (one packed transfer) memoized by
-the aggregator's write version. Left out, against the reference: the
-epoch-published read mirror and its shared-memory segment (the reference
-falls back to the versioned cache when no epoch is published, which is
-what a library caller sees), the disk archive, the native parser's fast
-path, the flight recorder and query-trace stamps, the overload, shadow and
-accuracy hooks, the multi-process ingest tier and the resume adapter.
+the aggregator's write version.
+
+Two write paths: the object path (:meth:`TorchStorage.accept`, decoded
+Span objects) and the line-rate path (:meth:`TorchStorage.ingest_json_fast`,
+JSON v2 or proto3 bytes through the native parser, which interns in C and
+archives a trace-affine 1/N sample at full fidelity).
+
+Left out, against the reference: the epoch-published read mirror and its
+shared-memory segment (the reference falls back to the versioned cache
+when no epoch is published, which is what a library caller sees), the disk
+archive (so the fast path's trace reads serve the 1/N sample), the
+pipelined feeder's split of the fast path into stages, the flight recorder
+and query-trace stamps, the overload, shadow and accuracy hooks, the
+multi-process ingest tier and the resume adapter.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from zipkin_tpu_torch import readpack
+from zipkin_tpu_torch import native, readpack
 from zipkin_tpu_torch.internal.hex import epoch_minutes
 from zipkin_tpu_torch.model.span import DependencyLink, Span
 from zipkin_tpu_torch.ops import hll, ttmerge
@@ -42,13 +50,14 @@ from zipkin_tpu_torch.sampling import RATE_ONE, HostSampler, RateController
 from zipkin_tpu_torch.storage.memory import InMemoryStorage
 from zipkin_tpu_torch.storage.spi import (
     AutocompleteTags,
+    FastIngestError,
     QueryRequest,
     ServiceAndSpanNames,
     SpanConsumer,
     SpanStore,
     StorageComponent,
 )
-from zipkin_tpu_torch.tpu.columnar import Vocab, pack_spans
+from zipkin_tpu_torch.tpu.columnar import Vocab, _mix32, pack_parsed, pack_spans
 from zipkin_tpu_torch.tpu.state import AggConfig
 from zipkin_tpu_torch.tpu.timetier import TimeTier
 from zipkin_tpu_torch.utils.call import Call
@@ -65,6 +74,17 @@ MAX_DEVICE_BATCH = 65536
 DEPS_MAX_STALE_MS = 5000.0
 
 
+def _decode_raw_span(raw: bytes) -> Span:
+    """Decode one archived raw span slice: a JSON object starts with '{',
+    a proto3 Span message with a field tag byte (port of
+    ``zipkin_tpu/tpu/store.py:68``)."""
+    from zipkin_tpu_torch.model import json_v2, proto3
+
+    if raw[:1] == b"{":
+        return json_v2.decode_one_span(raw)
+    return proto3.decode_span(raw)
+
+
 class TorchStorage(
     StorageComponent, SpanConsumer, SpanStore, ServiceAndSpanNames, AutocompleteTags
 ):
@@ -78,6 +98,9 @@ class TorchStorage(
         autocomplete_keys: Sequence[str] = (),
         archive_max_span_count: int = 500_000,
         pad_to_multiple: int = 1024,
+        fast_archive_sample: int = 64,
+        max_device_batch: int = MAX_DEVICE_BATCH,
+        deps_max_stale_ms: float = DEPS_MAX_STALE_MS,
         sampling_budget: float = 0.0,
         sampling_interval_s: float = 5.0,
         sampling_min_rate: int = 256,
@@ -85,7 +108,12 @@ class TorchStorage(
         sampling_rare_min: Optional[int] = None,
     ) -> None:
         """``device``: where the aggregator's state lives — the card unless
-        the caller names another (``"cpu"`` runs the plain path)."""
+        the caller names another (``"cpu"`` runs the plain path).
+        ``fast_archive_sample``: the line-rate path archives 1 trace in N
+        at full fidelity (0: none). ``max_device_batch``: the largest
+        device batch before the state's own bounds. ``deps_max_stale_ms``:
+        how stale a cached dependency answer may be served under ingest
+        (0: always fresh)."""
         self.config = config or AggConfig()
         self.strict_trace_id = strict_trace_id
         self.search_enabled = search_enabled
@@ -123,15 +151,20 @@ class TorchStorage(
         # the rollup segment bound it (the port's pending append does not
         # clamp, so no chunk past this may reach the device); rounded down
         # to a pad multiple
-        bound = min(self.config.digest_buffer, self.config.rollup_segment, MAX_DEVICE_BATCH)
+        bound = min(self.config.digest_buffer, self.config.rollup_segment, max_device_batch)
         self.max_batch = (bound // pad_to_multiple) * pad_to_multiple
         if self.max_batch <= 0:
             raise ValueError(
                 f"digest_buffer ({self.config.digest_buffer}) must be >= "
                 f"pad_to_multiple ({pad_to_multiple})"
             )
-        # every interning pass holds this, so ids are assigned in one order
+        # every interning pass holds this, so ids are assigned in one order:
+        # the C tables of the fast path and the Python vocab of the object
+        # path both assign ids sequentially
         self._intern_lock = threading.RLock()
+        self._nvocab = None  # the C tables, made at the first fast ingest
+        # the fast path archives a trace-affine 1 in N sample (0: none)
+        self._fast_archive_every = fast_archive_sample
         # estimates past this are bias-dominated (see hll.envelope_max)
         self._hll_envelope_max = hll.envelope_max(self.config.hll_precision)
         self._hll_envelope_exceeded = 0  # reads that saw such a row
@@ -145,7 +178,7 @@ class TorchStorage(
         self._read_cache_age_max_ms = 0.0
         # cached dependency answers by window: (value, version, born
         # monotonic), served up to this stale (0: always fresh)
-        self._deps_max_stale_ms = DEPS_MAX_STALE_MS
+        self._deps_max_stale_ms = float(deps_max_stale_ms)
         self._deps_cache: dict = {}
         self.timetier = TimeTier(self.config) if self.config.timetier_enabled else None
 
@@ -213,6 +246,113 @@ class TorchStorage(
                 self.agg.ingest(cols)
 
         return Call.of(run)
+
+    def ingest_json_fast(self, data: bytes, sampler=None):
+        """Line-rate ingest (port of ``zipkin_tpu/tpu/store.py:605``): JSON
+        v2 or proto3 ``ListOfSpans`` bytes to the device aggregates through
+        the native columnar parser, with no Span objects. A trace-affine
+        1/N sample is archived at full fidelity (the parser records each
+        span's byte extent; sampled slices are decoded by the codec), so
+        trace reads and search keep answering for that sample.
+
+        ``sampler`` (a ``CollectorSampler``) drops spans at the boundary
+        before anything else sees them. Returns (accepted, sample_dropped),
+        or None when the native path cannot take this payload (the caller
+        falls back to the object path). A ``ValueError`` comes only from the
+        parse, before anything is stored; a failure after it raises
+        :class:`FastIngestError`, which the caller must not fall back on."""
+        work = self._fast_parse(data, sampler)
+        if work is None:
+            return None
+        accepted, dropped, chunks = work
+        try:
+            for parsed, cols in chunks:
+                self._fast_dispatch(parsed, cols)
+        except Exception as e:
+            raise FastIngestError(accepted + dropped, f"fast ingest failed after the parse: {e}") from e
+        return accepted, dropped
+
+    def _fast_parse(self, data: bytes, sampler=None):
+        """Host half of the fast path: native parse + intern, boundary
+        sample, chunk and pack, all under the intern lock (the C tables
+        are not thread-safe). Returns (accepted, dropped, [(parsed, cols),
+        ...]) or None for a payload the parser cannot take."""
+        if not native.available():
+            return None
+        with self._intern_lock:
+            if self._nvocab is None:
+                self._nvocab = native.NativeVocab(self.vocab)
+            self._nvocab.ensure_synced()
+            parsed = native.parse_spans(data, nvocab=self._nvocab)
+            if parsed is None:
+                return None
+            self._nvocab.sync()
+            n = parsed.n
+            dropped = 0
+            if sampler is not None and sampler.rate < 1.0 and n:
+                keep = native.sampler_keep(parsed, n, sampler._boundary)
+                dropped = int(n - keep.sum())
+                if dropped:
+                    parsed = parsed.select(np.nonzero(keep)[0])
+                    n = parsed.n
+            if n == 0:
+                return 0, dropped, []
+            chunks = []
+            for lo in range(0, n, self.max_batch):
+                sub = parsed if n <= self.max_batch else parsed.select(slice(lo, lo + self.max_batch))
+                chunks.append((sub, pack_parsed(sub, self.vocab, self._pad)))
+        return n, dropped, chunks
+
+    def _fast_dispatch(self, parsed, cols) -> None:
+        """Device half of the fast path: the archive sample, then the
+        device step. With the sampling tier armed, the archive sees only
+        the verdict-kept spans (the batch's lanes are the parse's lanes, so
+        one verdict gates both) while the device ingests the whole batch,
+        so the sketches stay unbiased."""
+        retained = parsed
+        if self.agg.sampler is not None:
+            keep = self.agg.sampler.verdict_cols(cols)[: parsed.n]
+            if not keep.all():
+                retained = parsed.select(np.nonzero(keep)[0])
+        self._archive_fast_sample(retained)
+        self.agg.ingest(cols)
+
+    def _archive_fast_sample(self, parsed) -> None:
+        """Archive a trace-affine 1/N sample of a fast batch at full
+        fidelity by decoding each sampled span's own slice of the payload
+        (its extent recorded by the parser)."""
+        every = self._fast_archive_every
+        n = parsed.n
+        if every <= 0 or n == 0:
+            return
+        tid = parsed.tl0[:n] ^ parsed.tl1[:n] ^ parsed.th0[:n] ^ parsed.th1[:n]
+        pick = np.nonzero(_mix32(tid) % np.uint32(every) == 0)[0]
+        data, off, ln = parsed.data, parsed.span_off, parsed.span_len
+        spans = []
+        for i in pick:
+            try:
+                spans.append(_decode_raw_span(bytes(data[off[i] : off[i] + ln[i]])))
+            except (ValueError, KeyError, TypeError):
+                continue  # a slice the strict codec rejects is not archived
+        if spans:
+            self._archive.accept(spans).execute()
+
+    def warm(self, data: bytes) -> None:
+        """Run every ingest-path program once on a real payload (the payload
+        is ingested: serving and benchmark warm-up only)."""
+        work = self._fast_parse(data)
+        if work is not None:
+            if work[2]:
+                self.agg.warm_programs(work[2][0][1])
+            return
+        # a payload the fast parser cannot take warms through the object path
+        from zipkin_tpu_torch.model import codec
+
+        spans = codec.decode_spans(data)
+        self._archive.accept(spans).execute()
+        with self._intern_lock:
+            cols = pack_spans(spans[: self.max_batch], self.vocab, self._pad)
+        self.agg.warm_programs(cols)
 
     # -- raw trace reads: the host archive --------------------------------
 
@@ -525,6 +665,9 @@ class TorchStorage(
             "hllBeyondEnvelopeRows": self._hll_beyond_envelope_rows,
             "serviceVocabOverflow": self.vocab.services.overflow,
             "keyVocabOverflow": self.vocab._overflow,
+            # the fast path interns in C; what C rejects never reaches the
+            # Python journal, so it is counted apart
+            "nativeVocabOverflow": self._nvocab.overflow if self._nvocab is not None else 0,
             **(self.sampling_controller.counters() if self.sampling_controller is not None else {}),
             "readCacheServeAgeMs": round(self._read_cache_age_ms, 3),
             "readCacheServeAgeMaxMs": round(self._read_cache_age_max_ms, 3),
