@@ -51,7 +51,19 @@ Builds the hand-written kernels from the sources in the checkout, then:
     route is checked against the generator and the store's direct answer
     and timed;
 (f3) ``python -m zipkin_tpu_torch.server --storage tpu`` as a subprocess:
-    /health UP, a trace POSTed and read back, SIGTERM -> exit code 0.
+    /health UP, a trace POSTed and read back, SIGTERM -> exit code 0;
+(g1) durable boot in process: the resume adapter
+    (zipkin_tpu_torch.storage.tpu.TorchStorage) with a checkpoint dir and a
+    WAL dir takes phase e's payloads through the line-rate path, snapshots
+    after payload 32 and crashes after payload 48; a new adapter on the same
+    dirs restores and replays to the victim's leaves, wal_seq and reads, with
+    one update_step launch per replayed device batch; a rotted newest
+    generation falls back one generation to the same leaves; times the
+    save, restore (and its crc share), replay and WAL append;
+(g2) ``python -m zipkin_tpu_torch.server --resume-dir D`` as a subprocess:
+    payloads, POST /api/v2/tpu/snapshot, more payloads, SIGKILL; restarted
+    on D it replays its WAL (/metrics) and answers the device-served routes
+    as before the kill; SIGTERM -> exit 0 with a new snapshot generation.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -1819,6 +1831,348 @@ def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> di
     return fig
 
 
+def store_reads(store, truth) -> dict:
+    """The device-served reads of a store, for comparing two stores: the
+    dependencies, histogram and digest percentile rows and cardinalities
+    over the generator's window, and the host counters. The digest read
+    flushes the pending points (a ttflush record with a WAL attached)."""
+    return dict(
+        dependencies=link_map(store.get_dependencies(truth.t_end, truth.lookback).execute()),
+        hist=store.latency_quantiles(QS, use_digest=False),
+        digest=store.latency_quantiles(QS),
+        cardinalities=store.trace_cardinalities(),
+        counters=dict(store.agg.host_counters),
+    )
+
+
+def assert_reads_equal(got: dict, want: dict, what: str) -> None:
+    """Integer answers and histogram rows exact; digest rows with equal
+    counts and quantiles within rtol 1e-4 (their means agree within the
+    leaves' rtol 1e-5: float atomics sum in a run-dependent order)."""
+    for name in ("dependencies", "hist", "cardinalities", "counters"):
+        if got[name] != want[name]:
+            raise AssertionError(f"{what}: {name} differs")
+    g, w = got["digest"], want["digest"]
+    if [(r["serviceName"], r["spanName"], r["count"]) for r in g] != \
+            [(r["serviceName"], r["spanName"], r["count"]) for r in w] or not g:
+        raise AssertionError(f"{what}: digest rows differ")
+    np.testing.assert_allclose([list(r["quantiles"].values()) for r in g],
+                               [list(r["quantiles"].values()) for r in w], rtol=1e-4,
+                               err_msg=f"{what} digest quantiles")
+
+
+def dir_bytes(path: str) -> dict:
+    import os
+
+    return {n: os.path.getsize(os.path.join(path, n)) for n in sorted(os.listdir(path))}
+
+
+def phase_durable(torch, card: str, stored: dict, fast: dict, cfg=None, device=None,
+                  snap_at: int = 32, crash_at: int = 48) -> dict:
+    """(g1) durable boot in process: the resume adapter
+    (``zipkin_tpu_torch.storage.tpu.TorchStorage``) at the default AggConfig
+    with a checkpoint dir and a WAL dir under a temp dir takes phase e's
+    payloads through ``Collector(fast_ingest=True)``, snapshots after
+    payload ``snap_at`` and "crashes" after payload ``crash_at`` (its reads
+    taken, nothing closed, flushed or snapshotted). A new adapter on the same
+    dirs restores and replays: its leaves (integer bit for bit, digests rtol
+    1e-5), wal_seq and reads equal the victim's, and update_step launches
+    once per replayed device batch. Then a fresh save rots at rest (the
+    ``snapshot.state`` corrupt site) and a third boot falls back one
+    generation to the same leaves. Times the save, the restore and its crc
+    share, the replay and the WAL append (and the append with fsync off and
+    on)."""
+    import os
+    import shutil
+    import tempfile
+
+    from zipkin_tpu_torch import faults
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.storage.tpu import TorchStorage
+    from zipkin_tpu_torch.tpu import snapshot as snap_mod
+    from zipkin_tpu_torch.tpu import wal as wal_mod
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    wire, traffic = stored["wire"], stored["traffic"]
+    truth = store_truth(traffic, cfg)
+    root = tempfile.mkdtemp(prefix="zt-durable-")
+    dirs = dict(checkpoint_dir=os.path.join(root, "snap"), wal_dir=os.path.join(root, "wal"))
+    boot = lambda: TorchStorage(config=cfg, device=device, deps_max_stale_ms=0.0, **dirs)  # noqa: E731
+    fig = dict(card=card, payloads=crash_at, snapshot_after=snap_at)
+    crc_ms = [0.0]
+    digests = snap_mod.leaf_digests
+
+    def timed_digests(arrays):
+        t = time.perf_counter()
+        out = digests(arrays)
+        crc_ms[0] += (time.perf_counter() - t) * 1e3
+        return out
+
+    try:
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        victim = boot()
+        agg = victim.agg
+        batches, append_s = [], [0.0]
+        ingest, append = agg.ingest, victim.wal.append
+
+        def count_batch(c):
+            batches.append(int(c.valid.sum()))
+            return ingest(c)
+
+        def timed_append(*a, **k):
+            t = time.perf_counter()
+            out = append(*a, **k)
+            append_s[0] += time.perf_counter() - t
+            return out
+
+        agg.ingest, victim.wal.append = count_batch, timed_append
+        collector = Collector(victim, fast_ingest=True)
+        ingest_s, per = 0.0, []
+        for i, p in enumerate(wire[:crash_at]):
+            t0 = time.perf_counter()
+            per.append(collector.accept_spans_bytes(p))
+            agg.block_until_ready()
+            ingest_s += time.perf_counter() - t0
+            if i + 1 == snap_at:
+                t0 = time.perf_counter()
+                if victim.snapshot() is None:
+                    raise AssertionError("phase g1: the snapshot was not taken")
+                fig["save_ms"] = (time.perf_counter() - t0) * 1e3
+        n_in = sum(per)
+        if sum(batches) != n_in or victim.ingest_counters()["spans"] != n_in:
+            raise AssertionError(f"phase g1: {sum(batches)} spans in device batches, want {n_in}")
+        fig["state_bytes"] = max(v for k, v in dir_bytes(dirs["checkpoint_dir"]).items()
+                                 if k.endswith(".npz"))
+        fig.update(ingest_spans_per_s=n_in / ingest_s, f1_spans_per_s=fast["spans_per_s"],
+                   append_us_per_batch=append_s[0] / len(batches) * 1e6, device_batches=len(batches))
+        # the victim's reads, then the crash: its leaves, wal_seq and log as
+        # they stand; nothing closed, flushed or snapshotted
+        want = store_reads(victim, truth)
+        want_leaves, want_seq = agg.state_arrays(), agg.wal_seq
+        del agg.ingest, victim.wal.append
+        left = dir_bytes(dirs["wal_dir"])
+        replayed = [f.shape[-1] for _, _, f in victim.wal.records(
+            snap_mod.retained_coverage(dirs["checkpoint_dir"]))]
+        replay_batches = sum(1 for n in replayed if n)
+        # the same records appended again to fresh logs, with TPU_WAL_FSYNC
+        # off and on, alternating, in this run
+        records = [(f, m) for _, m, f in victim.wal.records() if f.shape[-1]]
+        logs = {sync: wal_mod.WriteAheadLog(os.path.join(root, f"wal-fsync{int(sync)}"), fsync=sync)
+                for sync in (False, True)}
+        spent = {False: 0.0, True: 0.0}
+        for f, m in records:
+            for sync, w in logs.items():
+                t0 = time.perf_counter()
+                w.append(f, m)
+                spent[sync] += time.perf_counter() - t0
+        for w in logs.values():
+            w.close()
+        fig.update(append_us_nosync=spent[False] / len(records) * 1e6,
+                   append_us_fsync=spent[True] / len(records) * 1e6, append_records=len(records))
+        del victim, agg, collector
+        if dir_bytes(dirs["wal_dir"]) != left:
+            raise AssertionError("phase g1: the victim's WAL grew after the crash")
+
+        snap_mod.leaf_digests = timed_digests
+        launches0 = hll_kernel.update_step.launches
+        reborn = boot()
+        launches_replay = hll_kernel.update_step.launches - launches0
+        stats = dict(reborn.restore_stats)
+        if launches_replay != replay_batches or stats["walReplayBatches"] != len(replayed):
+            raise AssertionError(f"phase g1: replay launched update_step {launches_replay} times for "
+                                 f"{replay_batches} device batches ({stats})")
+        assert_leaves_equal(reborn.agg.state_arrays(), want_leaves, "phase g1 reborn vs victim")
+        if reborn.agg.wal_seq != want_seq or reborn.resume_offset != n_in:
+            raise AssertionError(f"phase g1: wal_seq {reborn.agg.wal_seq}, want {want_seq}")
+        assert_reads_equal(store_reads(reborn, truth), want, "phase g1 reborn")
+        replay_spans = sum(per[snap_at:])
+        fig.update(restore_ms=stats["restoreMs"], crc_ms=crc_ms[0],
+                   crc_share=crc_ms[0] / stats["restoreMs"], replay_ms=stats["walReplayMs"],
+                   replay_records=stats["walReplayBatches"], replay_batches=replay_batches,
+                   replay_batches_per_s=replay_batches / (stats["walReplayMs"] / 1e3),
+                   replay_spans_per_s=replay_spans / (stats["walReplayMs"] / 1e3))
+
+        # a fresh save that rots at rest: the next boot falls back a generation
+        faults.arm_corrupt("snapshot.state")
+        try:
+            if reborn.snapshot() is None:
+                raise AssertionError("phase g1: the second snapshot was not taken")
+        finally:
+            faults.disarm()
+        del reborn
+        launches0 = hll_kernel.update_step.launches
+        third = boot()
+        launches_fallback = hll_kernel.update_step.launches - launches0
+        stats3 = dict(third.restore_stats)
+        quarantined = [n for n in os.listdir(dirs["checkpoint_dir"])
+                       if n.endswith(snap_mod.QUARANTINE_SUFFIX)]
+        if stats3["restoreFallbacks"] != 1 or stats3["generationsQuarantined"] != 1 \
+                or len(quarantined) != 2 or launches_fallback != replay_batches:
+            raise AssertionError(f"phase g1: fallback boot {stats3}, quarantined {quarantined}, "
+                                 f"{launches_fallback} launches")
+        assert_leaves_equal(third.agg.state_arrays(), want_leaves, "phase g1 fallback vs victim")
+        if third.agg.wal_seq != want_seq or third.agg.host_counters != want["counters"]:
+            raise AssertionError("phase g1: the fallback boot's wal_seq or counters differ")
+        third.close()
+        launches = {"update": hll_kernel.update.launches, "update_step": hll_kernel.update_step.launches}
+    finally:
+        snap_mod.leaf_digests = digests
+        shutil.rmtree(root, ignore_errors=True)
+    want_launches = len(batches) + 2 * replay_batches
+    if launches["update"] or launches["update_step"] != want_launches:
+        raise AssertionError(f"phase g1: hll launches {launches}, want update_step {want_launches}")
+    fig.update(launches=launches["update_step"], update_launches=launches["update"],
+               fallback_restore_ms=stats3["restoreMs"], fallback_replay_ms=stats3["walReplayMs"])
+    log(f"phase g1 ({card}): resume adapter, {crash_at} payloads through Collector(fast_ingest) with "
+        f"the WAL on: {fig['ingest_spans_per_s']:.0f} spans/s (f1 without a WAL "
+        f"{fig['f1_spans_per_s']:.0f}); WAL append {fig['append_us_per_batch']:.1f} us per batch; "
+        f"the same {fig['append_records']} records appended again: {fig['append_us_nosync']:.1f} us "
+        f"each without fsync, {fig['append_us_fsync']:.1f} us with TPU_WAL_FSYNC; "
+        f"snapshot after payload {snap_at}: save {fig['save_ms']:.1f} ms, {fig['state_bytes']} bytes "
+        f"on disk; crash after payload {crash_at}")
+    log(f"phase g1 ({card}): boot: restore {fig['restore_ms']:.1f} ms (crc32 {fig['crc_ms']:.1f} ms, "
+        f"{100 * fig['crc_share']:.1f}%), WAL replay {fig['replay_records']} records "
+        f"({replay_batches} device batches) in {fig['replay_ms']:.1f} ms = "
+        f"{fig['replay_batches_per_s']:.1f} batches/s, {fig['replay_spans_per_s']:.0f} spans/s; "
+        f"update_step launches in replay {launches_replay}; leaves, wal_seq {want_seq} and reads equal "
+        f"the victim's; a rotted newest generation: restoreFallbacks 1, quarantined, restore "
+        f"{fig['fallback_restore_ms']:.1f} ms + replay {fig['fallback_replay_ms']:.1f} ms to the same "
+        f"leaves; update_step launches in phase g1 {launches['update_step']}")
+    return fig
+
+
+def phase_resume_entry(card: str, wire, cold_boot_s: float, timeout_s: float = 180.0,
+                       argv=None, env_extra=None, n_before: int = 8, n_after: int = 8) -> dict:
+    """(g2) ``python -m zipkin_tpu_torch.server --resume-dir D`` as a
+    subprocess (``STORAGE_TYPE`` left to its default, the card): POST
+    ``n_before`` payloads, ``POST /api/v2/tpu/snapshot``, POST ``n_after``
+    more, read the device-served routes, SIGKILL. Restarted on D: /metrics
+    shows walReplayBatches > 0 and the routes answer as before the kill
+    (the raw-span archive is in memory only, so trace reads start empty).
+    SIGTERM exits 0 and leaves a new snapshot generation. ``argv`` replaces
+    the module's command line (a rehearsal off the card)."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    root = tempfile.mkdtemp(prefix="zt-resume-")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k not in ("STORAGE_TYPE", "TPU_RESUME_DIR")}
+    env.update(TPU_FAST_INGEST="1", TPU_DEPS_MAX_STALE_MS="0", QUERY_HOST="127.0.0.1",
+               **(env_extra or {}))
+    cmd = (argv or [sys.executable, "-m", "zipkin_tpu_torch.server"]) + [
+        "--port", str(port), "--resume-dir", root]
+    base = f"http://127.0.0.1:{port}"
+    http = HttpStore(base)
+    cwd = os.path.dirname(os.path.abspath(__file__))
+
+    def post(path, body=b""):
+        req = urllib.request.Request(base + path, data=body, method="POST",
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, resp.read()
+
+    def start(out):
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=cwd, env=env, stdout=out, stderr=subprocess.STDOUT)
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"phase g2: the server exited {proc.returncode} before /health")
+            try:
+                if http.get("/health")["status"] == "UP":
+                    return proc, time.perf_counter() - t0
+            except (OSError, AssertionError):
+                pass
+            if time.perf_counter() - t0 > timeout_s:
+                raise AssertionError(f"phase g2: /health not UP within {timeout_s} s")
+            time.sleep(0.25)
+
+    def reads(window):
+        return dict(
+            dependencies=http.get("/api/v2/dependencies", window),
+            hist=http.get("/api/v2/tpu/percentiles", {"q": "0.5,0.9,0.99", "sketch": "hist"}),
+            digest=http.get("/api/v2/tpu/percentiles", {"q": "0.5,0.9,0.99"}),
+            cardinalities=http.get("/api/v2/tpu/cardinalities"),
+            spans=http.get("/api/v2/tpu/counters")["spans"],
+        )
+
+    def generations():
+        return sorted(n for n in os.listdir(os.path.join(root, "snap")) if n.endswith(".npz"))
+
+    fig = dict(card=card, cold_boot_s_f3=cold_boot_s)
+    procs = []
+    with tempfile.TemporaryFile() as out:
+        try:
+            proc, fig["boot_empty_s"] = start(out)
+            procs.append(proc)
+            from zipkin_tpu_torch.workload import BASE_MINUTE
+
+            window = {"endTs": (BASE_MINUTE + 60) * 60_000, "lookback": 2 * 60 * 60_000}
+            for p in wire[:n_before]:
+                if post("/api/v2/spans", p)[0] != 202:
+                    raise AssertionError("phase g2: POST refused")
+            status, body = post("/api/v2/tpu/snapshot")
+            if status != 200 or json.loads(body) != {"snapshot": os.path.join(root, "snap")}:
+                raise AssertionError(f"phase g2: snapshot route {status} {body!r}")
+            for p in wire[n_before:n_before + n_after]:
+                if post("/api/v2/spans", p)[0] != 202:
+                    raise AssertionError("phase g2: POST refused")
+            before = reads(window)
+            if not before["dependencies"] or not before["digest"]:
+                raise AssertionError("phase g2: nothing to compare")
+            proc.send_signal(signal.SIGKILL)
+            proc.wait(timeout=30)
+            gens = generations()
+            proc, fig["boot_resume_s"] = start(out)
+            procs.append(proc)
+            metrics = http.get("/metrics")
+            fig.update(replay_records=metrics["gauge.zipkin_tpu.walReplayBatches"],
+                       restore_ms=metrics["gauge.zipkin_tpu.restoreMs"],
+                       replay_ms=metrics["gauge.zipkin_tpu.walReplayMs"])
+            if fig["replay_records"] <= 0 or fig["restore_ms"] <= 0:
+                raise AssertionError(f"phase g2: /metrics after the restart {metrics}")
+            after = reads(window)
+            for name in ("dependencies", "hist", "cardinalities", "spans"):
+                if after[name] != before[name]:
+                    raise AssertionError(f"phase g2: {name} after the restart differs")
+            assert_reads_equal({**after, "counters": None}, {**before, "counters": None},
+                               "phase g2 restarted")
+            http.get(f"/api/v2/trace/{'1' * 16}", want=404)
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            fig["stop_s"] = time.perf_counter() - t1
+            if rc != 0 or generations() == gens or len(generations()) < 1:
+                raise AssertionError(f"phase g2: SIGTERM exit {rc}, generations {gens} -> {generations()}")
+        except BaseException:
+            out.seek(0)
+            log("phase g2: server output:\n" + out.read().decode(errors="replace")[-4000:])
+            raise
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+            import shutil
+
+            shutil.rmtree(root, ignore_errors=True)
+    log(f"phase g2 ({card}): python -m zipkin_tpu_torch.server --resume-dir D: /health UP in "
+        f"{fig['boot_empty_s']:.1f} s on an empty D (f3's cold boot {cold_boot_s:.1f} s); "
+        f"{n_before} payloads, POST /api/v2/tpu/snapshot 200, {n_after} more, SIGKILL; restarted "
+        f"with resume in {fig['boot_resume_s']:.1f} s (restoreMs {fig['restore_ms']:.1f}, "
+        f"walReplayBatches {fig['replay_records']}, walReplayMs {fig['replay_ms']:.1f}); dependencies, "
+        f"percentiles, cardinalities and counters answer as before the kill; SIGTERM -> exit 0 in "
+        f"{fig['stop_s']:.2f} s with a new snapshot generation")
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1883,17 +2237,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase f2 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_entry(card)
+    entry = phase_entry(card)
     log(f"phase f3 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    durable = phase_durable(torch, card, stored, fast)
+    torch.cuda.empty_cache()
+    log(f"phase g1 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_resume_entry(card, stored["wire"], entry["boot_s"])
+    log(f"phase g2 done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
     # fresh and filled. Each reports the mean over its cases, each case
     # beside it; launches are those of the main path's run (phase c),
     # launches_phase_d those of the sampled run (phase d),
-    # launches_phase_e those of the store's object path (phase e) and
+    # launches_phase_e those of the store's object path (phase e),
     # launches_phase_f those of the line-rate path (phase f1; f2 is checked
-    # against its own device batches and printed with it).
+    # against its own device batches and printed with it) and
+    # launches_phase_g those of durable boot in process (phase g1: the
+    # victim's batches and two boots' replays; g2's server is a subprocess,
+    # checked through its /metrics).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -1904,6 +2268,7 @@ def main() -> int:
              launches_phase_d=sampled["update_launches"],
              launches_phase_e=stored["update_launches"],
              launches_phase_f=fast["update_launches"],
+             launches_phase_g=durable["update_launches"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -1913,6 +2278,7 @@ def main() -> int:
              four_launch_ms=mean(step_cases, "four_launch_ms"),
              launches_phase_d=sum(sampled["launches"]), launches_phase_e=stored["launches"],
              launches_phase_f=fast["launches"],
+             launches_phase_g=durable["launches"],
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

@@ -314,6 +314,28 @@ def test_collector_never_reingests_after_a_device_failure(compiler):
     assert len(calls) == 3 and store.ingest_counters()["spans"] == 1024
 
 
+def test_an_undecodable_sampled_span_skips_only_itself(compiler):
+    """The native parser takes an annotation timestamp of 1e400, which the
+    codec then refuses (OverflowError) when the archive sample decodes the
+    span. As in the reference, that one span is not archived; the payload is
+    ingested whole and the collector drops nothing."""
+    import json
+
+    spans = json.loads(ref_json.encode_span_list(lots_of_spans(6, seed=3)))
+    spans[1]["annotations"] = [{"timestamp": 0, "value": "v"}]
+    body = json.dumps(spans).replace('"timestamp": 0, "value"', '"timestamp": 1e400, "value"')
+    body = body.encode()
+    assert b"1e400" in body
+    ref, port = ref_store(fast_archive_sample=1), small_store(fast_archive_sample=1)
+    assert port.ingest_json_fast(body) == ref.ingest_json_fast(body) == (6, 0)
+    assert retained(port) == retained(ref) and len(retained(port)) == 5
+    assert_leaves_equal(port, ref)
+    metrics = InMemoryCollectorMetrics()
+    collector = Collector(small_store(fast_archive_sample=1), metrics=metrics, fast_ingest=True)
+    assert collector.accept_spans_bytes(body) == 6
+    assert metrics.snapshot().get("spans_dropped", 0) == 0
+
+
 # -- the throttle (ports of tests/test_server.py TestThrottle and
 # tests/test_backpressure_and_edges.py TestThrottleDelegation) ----------------
 

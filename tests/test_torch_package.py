@@ -144,3 +144,43 @@ def test_server_entry_defaults_to_the_card_and_refuses_without_one(tmp_path):
     from zipkin_tpu_torch.server.config import ServerConfig
 
     assert ServerConfig().storage_type == "tpu"
+
+
+DURABLE = ("zipkin_tpu_torch.tpu.wal", "zipkin_tpu_torch.tpu.snapshot", "zipkin_tpu_torch.storage.tpu",
+           "zipkin_tpu_torch.faults")
+
+
+def test_durable_boot_modules_load_no_jax_and_no_aiohttp():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {DURABLE!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in "
+        f"{FORBIDDEN + ('aiohttp', 'grpc')!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_resume_adapter_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_path):
+    """The resume adapter builds, restores and replays on the card; with no
+    card it raises before touching its dirs unless the caller names the
+    CPU, as the core store does."""
+    from zipkin_tpu_torch.storage.tpu import TorchStorage
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    dirs = dict(checkpoint_dir=str(tmp_path / "snap"), wal_dir=str(tmp_path / "wal"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchStorage(config=_small_config(), batch_size=32, **dirs)
+    with pytest.raises(RuntimeError):
+        TorchStorage(config=_small_config(), batch_size=32, device="cuda", **dirs)
+    assert not (tmp_path / "wal").exists()
+    store = TorchStorage(config=_small_config(), batch_size=32, device="cpu", **dirs)
+    assert store.agg.state.hll.device.type == "cpu" and store.snapshot()
+    store.close()
+    again = TorchStorage(config=_small_config(), batch_size=32, device="cpu", **dirs)
+    assert again.agg.state.hll.device.type == "cpu"
+    again.close()

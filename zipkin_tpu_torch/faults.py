@@ -1,26 +1,40 @@
-"""Crashpoint and corruption fault injection (the port's copy of the part
-of ``zipkin_tpu/faults.py`` that its time tier calls).
+"""Crashpoint, corruption and resource-exhaustion fault injection (the
+port's copy of the part of ``zipkin_tpu/faults.py`` that its time tier, WAL
+and snapshots call: ``:96-125,152-310``).
 
 A crashpoint names an instant inside a write path where a crash is most
 likely to tear on-disk state; a corrupt site names an artifact the write
 path just made durable and, when armed, damages those bytes on disk (silent
-bit rot). The time tier's seal carries ``timetier.seal.pre_commit`` (the
-segment's tmp file written, not yet renamed), ``timetier.seal.post_commit``
-(renamed, ``sealed_through`` not yet advanced) and the corrupt site
-``timetier.segment``. The site catalogs are the reference's, so a test
-arms the same names against either package.
+bit rot); a resource site names a point where the disk can fill, and when
+armed raises ``OSError(ENOSPC)`` there. The WAL carries ``wal.append.mid`` (header and
+meta written, payload not), ``wal.append.pre_fsync``, the corrupt site
+``wal.record`` and the resource site ``wal.append``; a snapshot carries
+``snapshot.post_state`` / ``snapshot.post_meta``, the corrupt site
+``snapshot.state`` and the resource site ``snapshot``; the time tier's seal
+carries ``timetier.seal.pre_commit`` (the segment's tmp file written, not
+yet renamed), ``timetier.seal.post_commit`` (renamed, ``sealed_through``
+not yet advanced) and the corrupt site ``timetier.segment``. The crash
+and corrupt site catalogs are the reference's, so a test arms the same
+names against either package; of the reference's resource sites, only the
+two this package passes through are here (``archive``, ``feed.latency`` and
+``alloc`` come with the disk archive and the multi-process feeder).
 
-Arming is programmatic (:func:`arm`, :func:`arm_corrupt`) or through the
-environment, read once at import:
+Arming is programmatic (:func:`arm`, :func:`arm_corrupt`,
+:func:`arm_resource`) or through the environment, read once at import:
 ``ZT_CRASHPOINT=<site>[:nth][,...]`` with ``ZT_CRASHPOINT_ACTION`` one of
 ``kill`` (SIGKILL), ``exit`` (``os._exit(137)``) or ``raise``
-(:class:`CrashpointTriggered`), and ``ZT_CORRUPT=<site>[:mode[:nth]][,...]``
-with mode ``flip``, ``zero`` or ``truncate``. Every site is one-shot: it
-disarms itself as it fires. Disarmed, a hook is one dict probe.
+(:class:`CrashpointTriggered`), ``ZT_CORRUPT=<site>[:mode[:nth]][,...]``
+with mode ``flip``, ``zero`` or ``truncate``, and
+``ZT_RESOURCE=<site>[:nth[:count]][,...]``. Crash and corrupt sites
+are one-shot: they disarm as they fire. A resource site fails ``count``
+traversals in a row from its ``nth`` (0: until :func:`disarm`). Disarmed, a
+hook is one dict probe. The reference's tenant-scoped resource faults wait
+for the port's tenant admission (ROADMAP §1 item 6).
 """
 
 from __future__ import annotations
 
+import errno
 import logging
 import os
 import signal
@@ -44,10 +58,15 @@ CORRUPT_SITES = (
     "timetier.segment",
 )
 CORRUPT_MODES = ("flip", "truncate", "zero")
+RESOURCE_SITES = (
+    "wal.append",
+    "snapshot",
+)
 
 ENV_VAR = "ZT_CRASHPOINT"
 ENV_ACTION = "ZT_CRASHPOINT_ACTION"
 ENV_CORRUPT = "ZT_CORRUPT"
+ENV_RESOURCE = "ZT_RESOURCE"
 EXIT_CODE = 137  # what a SIGKILL'd child reports; `exit` mimics it
 
 _ACTIONS = ("kill", "exit", "raise")
@@ -62,6 +81,9 @@ class CrashpointTriggered(RuntimeError):
 _armed: Dict[str, List] = {}
 # site -> [remaining_nth, mode]; mutated in place by corrupt_point()
 _corrupt_armed: Dict[str, List] = {}
+# site -> [remaining_nth, remaining_count]; mutated in place by
+# resource_point()
+_resource_armed: Dict[str, List] = {}
 
 
 def arm(site: str, nth: int = 1, action: str = "kill") -> None:
@@ -82,9 +104,31 @@ def arm_corrupt(site: str, mode: str = "flip", nth: int = 1) -> None:
     _corrupt_armed[site] = [max(1, int(nth)), mode]
 
 
+def arm_resource(site: str, nth: int = 1, count: int = 1) -> None:
+    """Arm a resource site: it starts failing on its ``nth`` traversal and
+    fails ``count`` traversals in a row (0: until :func:`disarm`), a disk
+    that fills and later frees."""
+    if site not in RESOURCE_SITES:
+        raise ValueError(f"unknown resource site {site!r} (see faults.RESOURCE_SITES)")
+    _resource_armed[site] = [max(1, int(nth)), max(0, int(count))]
+
+
 def disarm() -> None:
     _armed.clear()
     _corrupt_armed.clear()
+    _resource_armed.clear()
+
+
+def is_armed(site: str) -> bool:
+    return site in _armed
+
+
+def is_corrupt_armed(site: str) -> bool:
+    return site in _corrupt_armed
+
+
+def is_resource_armed(site: str) -> bool:
+    return site in _resource_armed
 
 
 def crashpoint(site: str) -> None:
@@ -138,6 +182,24 @@ def corrupt_point(site: str, path: str, start: int, length: int) -> bool:
     return True
 
 
+def resource_point(site: str) -> None:
+    """Hot-path hook for disk-full sites: a no-op unless ``site`` is armed,
+    then ``OSError(ENOSPC)``; the caller's own error handling is what is
+    under test."""
+    spec = _resource_armed.get(site)
+    if spec is None:
+        return
+    if spec[0] > 1:
+        spec[0] -= 1  # not yet at the nth traversal
+        return
+    if spec[1] > 0:
+        spec[1] -= 1
+        if spec[1] == 0:
+            del _resource_armed[site]  # the disk has room again
+    logger.warning("resource fault %s firing", site)
+    raise OSError(errno.ENOSPC, f"injected ENOSPC at {site}")
+
+
 def _arm_from_env() -> None:
     raw = os.environ.get(ENV_VAR)
     if raw:
@@ -167,6 +229,18 @@ def _arm_from_env() -> None:
                 )
             except ValueError as e:
                 logger.warning("ignoring %s=%r: %s", ENV_CORRUPT, raw, e)
+    raw = os.environ.get(ENV_RESOURCE)
+    if raw:
+        for spec in raw.split(","):
+            spec = spec.strip()
+            if not spec:
+                continue
+            parts = [p.strip() for p in spec.split(":")]
+            try:
+                arm_resource(parts[0], int(parts[1]) if len(parts) > 1 and parts[1] else 1,
+                             int(parts[2]) if len(parts) > 2 and parts[2] else 1)
+            except ValueError as e:
+                logger.warning("ignoring %s=%r: %s", ENV_RESOURCE, raw, e)
 
 
 _arm_from_env()

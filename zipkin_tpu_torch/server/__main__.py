@@ -1,14 +1,17 @@
-"""``python -m zipkin_tpu_torch.server [--port P] [--storage mem|tpu]``:
-boot the server from the environment (the port's copy of
-``zipkin_tpu/server/__main__.py``). The flags beat ``QUERY_PORT`` and
-``STORAGE_TYPE``; the store is the card's unless ``mem`` is named, and
-with no card the server refuses to start. SIGTERM and SIGINT shut it
-down cleanly (exit code 0).
+"""``python -m zipkin_tpu_torch.server [--port P] [--storage mem|tpu]
+[--resume-dir D]``: boot the server from the environment (the port's copy
+of ``zipkin_tpu/server/__main__.py``). The flags beat ``QUERY_PORT``,
+``STORAGE_TYPE`` and ``TPU_RESUME_DIR``; the store is the card's unless
+``mem`` is named, and with no card the server refuses to start. With a
+resume dir, boot restores ``D/snap``, replays ``D/wal`` and logs new batches
+back under it. SIGTERM and SIGINT shut it down cleanly (a final snapshot,
+exit code 0).
 """
 
 import argparse
 import dataclasses
 import logging
+import os
 import signal
 import threading
 
@@ -20,7 +23,13 @@ def main(argv=None) -> int:
     parser.add_argument("--storage", choices=("mem", "tpu"), default=None,
                         help="storage backend: mem, or tpu for the device store on the card "
                              "(default: $STORAGE_TYPE or tpu)")
+    parser.add_argument("--resume-dir", default=None,
+                        help="durable state root: boot restores <dir>/snap, replays <dir>/wal and "
+                             "resumes; new batches persist back under it (default: $TPU_RESUME_DIR)")
     args = parser.parse_args(argv)
+    if args.resume_dir is not None:
+        # before the config is read: the dirs derive from it
+        os.environ["TPU_RESUME_DIR"] = args.resume_dir
 
     from zipkin_tpu_torch.server.app import run_server
     from zipkin_tpu_torch.server.config import ServerConfig

@@ -11,15 +11,22 @@ Routes and status codes follow the reference:
 - ``GET /api/v2/{traces,trace/{id},traceMany,services,spans,remoteServices,
   dependencies,autocompleteKeys,autocompleteValues}``;
 - ``GET /api/v2/tpu/{percentiles,cardinalities,counters,overview}`` when the
-  storage serves sketch reads;
+  storage serves sketch reads, and ``POST /api/v2/tpu/snapshot`` (200
+  ``{"snapshot": dir}``, 409 without a checkpoint dir, 501 on a store that
+  cannot snapshot);
 - ``GET /health``, ``/info`` and ``/metrics`` (the reference's
-  ``counter.zipkin_collector.<name>.<transport>`` taxonomy).
+  ``counter.zipkin_collector.<name>.<transport>`` taxonomy, with the boot's
+  restore figures as gauges).
 
 Each request runs on its own thread; a ticker thread seals the store's
-time tier every ``seal_interval_s``. Left out, against the reference:
-gRPC, scribe, the UI and ``/config.json``, ``/prometheus``, statusz, the
-snapshot route, deadlines, overload and tenant admission, self-tracing and
-the observability plane, and the multi-process tier.
+time tier every ``seal_interval_s``, and with a checkpoint dir another
+snapshots the store every ``TPU_SNAPSHOT_INTERVAL_S``. ``stop()`` answers
+new requests 503, waits for those in flight (the reference's
+``runner.cleanup()``), and takes a final snapshot after the listener and
+both tickers have stopped. Left out, against
+the reference: gRPC, scribe, the UI and ``/config.json``, ``/prometheus``,
+statusz, deadlines, overload and tenant admission, self-tracing and the
+observability plane, and the multi-process tier.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ logger = logging.getLogger(__name__)
 
 JSON = "application/json"
 MAX_BODY = 64 * 1024 * 1024  # compressed request bytes, as the reference's client_max_size
+DRAIN_TIMEOUT_S = 30.0  # how long stop() waits for the requests in flight
 # gauges of ingest_counters() that /metrics publishes as gauge.zipkin_tpu.<name>
 _METRIC_GAUGES = (
     "ctxDeltaLanes", "ctxAdvances", "ctxMaintenanceMs",
@@ -65,6 +73,10 @@ class PayloadTooLarge(ValueError):
     """The request body, or its inflated form, is past its cap."""
 
 
+class BadLength(ValueError):
+    """A Content-Length or chunk size that is negative or not a number."""
+
+
 class HttpError(Exception):
     """An error answer: status and plain-text body."""
 
@@ -74,9 +86,11 @@ class HttpError(Exception):
         self.text = text
 
 
-def build_storage(config: ServerConfig) -> StorageComponent:
+def build_storage(config: ServerConfig, device=None) -> StorageComponent:
     """STORAGE_TYPE -> StorageComponent: ``mem`` the in-memory store,
-    ``tpu`` a :class:`~zipkin_tpu_torch.tpu.store.TorchStorage` on the card."""
+    ``tpu`` the resume adapter :class:`zipkin_tpu_torch.storage.tpu.TorchStorage`,
+    on the card unless ``device`` names another. The adapter restores and
+    replays the durable dirs, and starts the sampling controller."""
     common = dict(
         strict_trace_id=config.strict_trace_id,
         search_enabled=config.search_enabled,
@@ -85,8 +99,8 @@ def build_storage(config: ServerConfig) -> StorageComponent:
     if config.storage_type == "mem":
         return InMemoryStorage(max_span_count=config.mem_max_spans, **common)
     if config.storage_type == "tpu":
+        from zipkin_tpu_torch.storage.tpu import TorchStorage
         from zipkin_tpu_torch.tpu.state import AggConfig
-        from zipkin_tpu_torch.tpu.store import TorchStorage
 
         agg_kwargs = dict(config.tpu_agg)
         if config.tpu_sampling:
@@ -95,7 +109,12 @@ def build_storage(config: ServerConfig) -> StorageComponent:
             agg_kwargs["sample_rare_min"] = config.tpu_sampling_rare_min
         return TorchStorage(
             config=AggConfig(**agg_kwargs),
-            archive_max_span_count=config.mem_max_spans,
+            device=device,
+            max_span_count=config.mem_max_spans,
+            checkpoint_dir=config.tpu_checkpoint_dir,
+            wal_dir=config.tpu_wal_dir,
+            wal_fsync=config.tpu_wal_fsync,
+            snapshot_keep=config.tpu_snapshot_keep,
             fast_archive_sample=config.tpu_fast_archive_sample,
             max_device_batch=config.tpu_max_device_batch,
             deps_max_stale_ms=config.tpu_deps_max_stale_ms,
@@ -140,14 +159,17 @@ class ZipkinServer:
 
     ``start()`` binds ``config.host:config.port`` (port 0: an ephemeral
     port, read back from ``self.port``) and serves on a thread;
-    ``stop()`` shuts the listener down and closes the storage."""
+    ``stop()`` shuts the listener down, takes the final snapshot and closes
+    the storage. ``device`` is where a store built here lives (the card
+    unless named)."""
 
     MAX_INFLATED = 256 * 1024 * 1024  # decompression-bomb guard
 
     def __init__(self, config: Optional[ServerConfig] = None, *,
-                 storage: Optional[StorageComponent] = None, seal_interval_s: float = 1.0) -> None:
+                 storage: Optional[StorageComponent] = None, seal_interval_s: float = 1.0,
+                 device=None) -> None:
         self.config = config or ServerConfig()
-        self.storage = storage if storage is not None else build_storage(self.config)
+        self.storage = storage if storage is not None else build_storage(self.config, device)
         if self.config.throttle_enabled:
             self.storage = ThrottledStorage(
                 self.storage, max_concurrency=self.config.throttle_max_concurrency)
@@ -164,6 +186,11 @@ class ZipkinServer:
         self._httpd: Optional[_HTTPServer] = None
         self._threads = []
         self._stopping = threading.Event()
+        # requests in flight, and whether stop() turns new ones away
+        # (draining) or stopped waiting for them (abandoned)
+        self._inflight = 0
+        self._idle = threading.Condition()
+        self._draining = self._abandoned = False
         routes = {
             "/api/v2/traces": self.get_traces,
             "/api/v2/traceMany": self.get_trace_many,
@@ -185,9 +212,16 @@ class ZipkinServer:
                 "/api/v2/tpu/overview": self.get_tpu_overview,
             })
         self.get_routes = routes
-        self.post_routes = {}
+        # path -> handler(body, content_type). The snapshot route is served
+        # on every store, so one that cannot snapshot answers 501 (the
+        # reference serves it only beside the sketch reads: 404 on mem)
+        self.post_routes = {"/api/v2/tpu/snapshot": lambda body, ctype: self.post_tpu_snapshot()}
         if self.config.http_collector_enabled:
-            self.post_routes = {"/api/v2/spans": False, "/api/v1/spans": True}  # path -> v1
+            self.post_routes.update({
+                "/api/v2/spans": lambda body, ctype: self.post_spans(body, ctype, False),
+                "/api/v1/spans": lambda body, ctype: self.post_spans(body, ctype, True),
+            })
+        self._snapshots = False  # a periodic snapshot thread runs
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -195,12 +229,22 @@ class ZipkinServer:
         self._httpd = _HTTPServer((self.config.host, self.config.port), _handler_for(self))
         self.port = self._httpd.server_address[1]
         self._stopping.clear()
+        self._draining = self._abandoned = False
         self._threads = [threading.Thread(target=self._httpd.serve_forever, name="zipkin-http",
                                           daemon=True)]
         core = getattr(self.storage, "delegate", self.storage)
         if getattr(core, "timetier", None) is not None and self.seal_interval_s > 0:
             self._threads.append(threading.Thread(target=self._seal_loop, args=(core,),
                                                   name="zipkin-tt-seal", daemon=True))
+        self._snapshots = (self.config.tpu_snapshot_interval_s > 0
+                           and bool(getattr(core, "checkpoint_dir", None))
+                           and hasattr(core, "snapshot"))
+        if self._snapshots:
+            # periodic snapshots bound the WAL (covered segments are deleted)
+            # and the replay after a crash
+            self._threads.append(threading.Thread(
+                target=self._snapshot_loop, args=(core, self.config.tpu_snapshot_interval_s),
+                name="zipkin-snapshot", daemon=True))
         for t in self._threads:
             t.start()
         logger.info("zipkin-tpu-torch listening on %s:%d", self.config.host, self.port)
@@ -215,15 +259,58 @@ class ZipkinServer:
             except Exception:  # keep the ticker alive; the next tick retries
                 logger.exception("time-tier seal failed")
 
+    def _snapshot_loop(self, core, interval_s: float) -> None:
+        while not self._stopping.wait(interval_s):
+            try:
+                logger.info("periodic snapshot -> %s", core.snapshot())
+            except Exception:  # keep the ticker alive; the next tick retries
+                logger.exception("periodic snapshot failed; will retry")
+
+    def admit(self) -> bool:
+        """A request starts; False once stop() has begun (answer 503)."""
+        with self._idle:
+            if self._draining:
+                return False
+            self._inflight += 1
+            return True
+
+    def release(self) -> None:
+        with self._idle:
+            self._inflight -= 1
+            self._idle.notify_all()
+
     def stop(self) -> None:
         self._stopping.set()
+        with self._idle:
+            self._draining = True  # a keep-alive connection's next request gets 503
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._httpd = None
+        # handler threads are daemons that server_close() does not join:
+        # wait for the requests in flight, so each 202 is in the store
+        # before the final snapshot
+        deadline = time.monotonic() + DRAIN_TIMEOUT_S
+        with self._idle:
+            while self._inflight and self._idle.wait(max(0.0, deadline - time.monotonic())):
+                pass
+            if self._inflight:
+                # a request that ends from now on answers 503, not 202
+                self._abandoned = True
+                logger.warning("stop: %d requests still in flight after %.0f s",
+                               self._inflight, DRAIN_TIMEOUT_S)
         for t in self._threads:
             t.join(timeout=30)
         self._threads = []
+        if self._snapshots:
+            # the final snapshot last: the listener and the tickers have
+            # stopped and the requests in flight have ended, so every
+            # 202-acked span is in the store
+            self._snapshots = False
+            try:
+                self.storage.snapshot()
+            except Exception:
+                logger.exception("shutdown snapshot failed")
         self.storage.close()
 
     # -- ingest ------------------------------------------------------------
@@ -369,6 +456,15 @@ class ZipkinServer:
     def get_tpu_counters(self, q):
         return 200, self.storage.ingest_counters()
 
+    def post_tpu_snapshot(self):
+        """Persist the device state now (``zipkin_tpu/server/app.py:1102-1108``)."""
+        if not hasattr(self.storage, "snapshot"):
+            raise HttpError(501, "storage does not snapshot")
+        path = self.storage.snapshot()
+        if path is None:
+            raise HttpError(409, "no checkpoint_dir configured")
+        return 200, {"snapshot": path}
+
     def get_tpu_overview(self, q):
         """Percentiles, cardinalities and counters from one device read."""
         if not hasattr(self.storage, "sketch_overview"):
@@ -401,6 +497,9 @@ class ZipkinServer:
         for key, value in self.metrics.snapshot().items():
             transport, _, name = key.partition(".")
             out[f"counter.zipkin_collector.{name}.{transport}"] = value
+        # what the last boot's restore and replay cost
+        for name, value in (getattr(self.storage, "restore_stats", None) or {}).items():
+            out[f"gauge.zipkin_tpu.{name}"] = value
         if hasattr(self.storage, "ingest_counters"):
             counters = self.storage.ingest_counters()
             names = _METRIC_GAUGES
@@ -441,16 +540,30 @@ def _handler_for(server: ZipkinServer):
                 logger.exception("%s %s failed", self.command, self.path)
                 self._send(500, f"{type(e).__name__}: {e}".encode())
                 return
+            with server._idle:
+                late = server._abandoned
+            if late:
+                # stop() snapshotted without this request: the sender retries
+                self._send(503, b"server stopped")
+                self.close_connection = True
+                return
             if body is None:
                 self._send(status)
             else:
                 self._send(status, json.dumps(body).encode(), "application/json; charset=utf-8")
 
         def _read_body(self) -> bytes:
+            """The request body; a length that is negative or not a number
+            raises BadLength, one past MAX_BODY PayloadTooLarge, before
+            anything past the headers is read."""
             if "chunked" in self.headers.get("Transfer-Encoding", "").lower():
                 parts, total = [], 0
                 while True:
-                    size = int(self.rfile.readline().split(b";")[0].strip() or b"0", 16)
+                    raw = self.rfile.readline(1024).split(b";")[0].strip() or b"0"
+                    # int(raw, 16) alone would take "-1", "+5" or "1_0"
+                    if raw.strip(b"0123456789abcdefABCDEF"):
+                        raise BadLength(f"malformed chunk size {raw[:32]!r}")
+                    size = int(raw, 16)
                     if size == 0:
                         while self.rfile.readline() not in (b"\r\n", b"\n", b""):
                             pass  # trailers
@@ -460,12 +573,31 @@ def _handler_for(server: ZipkinServer):
                         raise PayloadTooLarge(f"request body past {MAX_BODY} bytes")
                     parts.append(self.rfile.read(size))
                     self.rfile.readline()
-            length = int(self.headers.get("Content-Length") or 0)
+            raw = (self.headers.get("Content-Length") or "0").strip()
+            if not (raw.isascii() and raw.isdigit()):
+                raise BadLength(f"malformed Content-Length {raw[:32]!r}")
+            length = int(raw)
             if length > MAX_BODY:
                 raise PayloadTooLarge(f"request body past {MAX_BODY} bytes")
             return self.rfile.read(length)
 
+        def _gated(self, method) -> None:
+            if not server.admit():
+                self._send(503, b"server stopping")
+                self.close_connection = True
+                return
+            try:
+                method()
+            finally:
+                server.release()
+
         def do_GET(self):
+            self._gated(self._get)
+
+        def do_POST(self):
+            self._gated(self._post)
+
+        def _get(self):
             url = urlsplit(self.path)
             # the first value of a repeated parameter, as aiohttp's query.get
             query = {k: v[0] for k, v in parse_qs(url.query, keep_blank_values=True).items()}
@@ -477,20 +609,21 @@ def _handler_for(server: ZipkinServer):
             else:
                 self._send(404, b"404: Not Found")
 
-        def do_POST(self):
+        def _post(self):
             path = urlsplit(self.path).path
-            v1 = server.post_routes.get(path)
-            if v1 is None:
+            route = server.post_routes.get(path)
+            if route is None:
                 self._send(405 if path in server.get_routes else 404)
                 self.close_connection = True
                 return
             try:
                 body = self._read_body()
-            except PayloadTooLarge as e:
-                self._send(413, str(e).encode())
+            except (PayloadTooLarge, BadLength) as e:
+                # the rest of the body is left unread: the connection closes
+                self._send(413 if isinstance(e, PayloadTooLarge) else 400, str(e).encode())
                 self.close_connection = True
                 return
-            self._answer(server.post_spans, body, self.headers.get("Content-Type", ""), v1)
+            self._answer(route, body, self.headers.get("Content-Type", ""))
 
     return Handler
 

@@ -10,14 +10,19 @@ in-memory store, taken only when asked for by name. The others are
 ``COLLECTOR_SAMPLE_RATE``, ``QUERY_LOOKBACK``, ``QUERY_LIMIT``,
 ``MEM_MAX_SPANS``, ``STORAGE_THROTTLE_*``, ``TPU_FAST_INGEST``,
 ``TPU_FAST_ARCHIVE_SAMPLE``, ``TPU_SAMPLING*``, ``TPU_MAX_DEVICE_BATCH``,
-``TPU_DEPS_MAX_STALE_MS`` and the ``TPU_<AggConfig field>`` sizes.
+``TPU_DEPS_MAX_STALE_MS``, the ``TPU_<AggConfig field>`` sizes and the
+durable boot's ``TPU_RESUME_DIR``, ``TPU_CHECKPOINT_DIR``, ``TPU_WAL_DIR``,
+``TPU_WAL_FSYNC``, ``TPU_SNAPSHOT_INTERVAL_S`` and ``TPU_SNAPSHOT_KEEP``
+(``zipkin_tpu/server/config.py:235-262,294-304,411-425``). Unlike the
+reference, ``TPU_RESUME_DIR`` derives no ``<dir>/archive``: the port has no
+disk archive yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 DAY_MS = 86_400_000
 
@@ -94,11 +99,26 @@ class ServerConfig:
     tpu_sampling_min_rate: int = 256
     tpu_sampling_tail_quantile: float = 0.99
     tpu_sampling_rare_min: int = 4
+    # durable boot: TPU_RESUME_DIR=<dir> puts the snapshots under
+    # <dir>/snap and the WAL under <dir>/wal, so boot restores, replays and
+    # resumes; TPU_CHECKPOINT_DIR and TPU_WAL_DIR override their piece
+    tpu_checkpoint_dir: Optional[str] = None
+    tpu_wal_dir: Optional[str] = None
+    # fsync each WAL append: durable past a host or power failure, at a
+    # per-batch cost (off: past a process crash)
+    tpu_wal_fsync: bool = False
+    # periodic snapshots bound the WAL and the replay after a crash; only
+    # with a checkpoint dir, 0 = off
+    tpu_snapshot_interval_s: float = 300.0
+    # intact snapshot generations a commit retains (the fallback depth)
+    tpu_snapshot_keep: int = 2
     # device state shape (AggConfig fields); absent = AggConfig's default
     tpu_agg: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def from_env() -> "ServerConfig":
+        raw_resume = os.environ.get("TPU_RESUME_DIR") or None
+        resume_dir = os.path.abspath(raw_resume) if raw_resume else None
         return ServerConfig(
             host=os.environ.get("QUERY_HOST", "0.0.0.0"),
             port=_env_int("QUERY_PORT", 9411),
@@ -123,5 +143,12 @@ class ServerConfig:
             tpu_sampling_min_rate=_env_int("TPU_SAMPLING_MIN_RATE", 256),
             tpu_sampling_tail_quantile=_env_float("TPU_SAMPLING_TAIL_QUANTILE", 0.99),
             tpu_sampling_rare_min=_env_int("TPU_SAMPLING_RARE_MIN", 4),
+            tpu_checkpoint_dir=os.environ.get("TPU_CHECKPOINT_DIR")
+            or (os.path.join(resume_dir, "snap") if resume_dir else None),
+            tpu_wal_dir=os.environ.get("TPU_WAL_DIR")
+            or (os.path.join(resume_dir, "wal") if resume_dir else None),
+            tpu_wal_fsync=_env_bool("TPU_WAL_FSYNC", False),
+            tpu_snapshot_interval_s=_env_float("TPU_SNAPSHOT_INTERVAL_S", 300.0),
+            tpu_snapshot_keep=_env_int("TPU_SNAPSHOT_KEEP", 2),
             tpu_agg=_env_agg(),
         )

@@ -147,6 +147,24 @@ class Vocab:
             self._key_list.append(pair)
             return kid
 
+    def append_pair(self, service_id: int, span_name_id: int) -> int:
+        """Position-faithful append for replay (WAL, snapshots; port of
+        ``zipkin_tpu/tpu/columnar.py:153-170``): the pair takes the next id
+        with no catch-all reserved before it, so a recorded id assignment
+        comes back as it was. Live ingest uses :meth:`key_id`."""
+        pair = (service_id, span_name_id)
+        with self._lock:
+            got = self._keys.get(pair)
+            if got is not None:
+                return got
+            if len(self._key_list) >= self.max_keys:
+                self._overflow += 1
+                return 0
+            kid = len(self._key_list)
+            self._keys[pair] = kid
+            self._key_list.append(pair)
+            return kid
+
     def key_pair(self, key_id: int) -> Tuple[int, int]:
         return self._key_list[key_id] if 0 <= key_id < len(self._key_list) else (0, 0)
 

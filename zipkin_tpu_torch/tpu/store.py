@@ -28,8 +28,11 @@ shared-memory segment (the reference falls back to the versioned cache
 when no epoch is published, which is what a library caller sees), the disk
 archive (so the fast path's trace reads serve the 1/N sample), the
 pipelined feeder's split of the fast path into stages, the flight recorder
-and query-trace stamps, the overload, shadow and accuracy hooks, the
-multi-process ingest tier and the resume adapter.
+and query-trace stamps, the overload, shadow and accuracy hooks, and the
+multi-process ingest tier. Durable boot (snapshot restore, WAL replay) is
+the resume adapter's, :class:`zipkin_tpu_torch.storage.tpu.TorchStorage`;
+this class carries its hooks (:meth:`on_restored_leaves`,
+:meth:`apply_sctl`, ``restore_stats``).
 """
 
 from __future__ import annotations
@@ -181,8 +184,29 @@ class TorchStorage(
         self._deps_max_stale_ms = float(deps_max_stale_ms)
         self._deps_cache: dict = {}
         self.timetier = TimeTier(self.config) if self.config.timetier_enabled else None
+        self._closed = False
+        # boot restore figures (port of zipkin_tpu/tpu/store.py:184-195):
+        # zeros on a cold boot, set by the resume adapter, and folded into
+        # ingest_counters(); restoreFallbacks and generationsQuarantined
+        # count the snapshot generations the last boot passed over
+        self.restore_stats = {
+            "restoreMs": 0.0,
+            "walReplayBatches": 0,
+            "walReplayMs": 0.0,
+            "restoreFallbacks": 0,
+            "generationsQuarantined": 0,
+        }
 
     # -- sampling tier hooks ---------------------------------------------
+
+    def on_restored_leaves(self, leaves: dict) -> None:
+        """Snapshot-restore callback (port of ``zipkin_tpu/tpu/store.py:476-485``):
+        seed the sampling tier's host tables from the restored leaves.
+        ``leaves`` maps leaf names to numpy arrays without the shard axis
+        (the reference's callback gets the axis and takes shard 0)."""
+        if self.sampler is None or "s_rate" not in leaves:
+            return
+        self.sampler.restore_tables(leaves["s_rate"], leaves["s_tail"], leaves["s_link"])
 
     def apply_sctl(self, delta: dict) -> None:
         """WAL-replay callback: apply one replayed controller publish to the
@@ -332,8 +356,11 @@ class TorchStorage(
         for i in pick:
             try:
                 spans.append(_decode_raw_span(bytes(data[off[i] : off[i] + ln[i]])))
-            except (ValueError, KeyError, TypeError):
-                continue  # a slice the strict codec rejects is not archived
+            except Exception:
+                # a slice the strict codec rejects (a number past float64
+                # raises OverflowError) is not archived; the device batch
+                # still carries the span, as in the reference
+                continue
         if spans:
             self._archive.accept(spans).execute()
 
@@ -673,6 +700,7 @@ class TorchStorage(
             "readCacheServeAgeMaxMs": round(self._read_cache_age_max_ms, 3),
             "readCacheEntries": len(self._read_cache),
             **(self.timetier.export_counters() if self.timetier is not None else {}),
+            **self.restore_stats,
         }
 
     # -- lifecycle -------------------------------------------------------
@@ -685,6 +713,7 @@ class TorchStorage(
             return CheckResult.failed(e)
 
     def close(self) -> None:
+        self._closed = True
         if self.sampling_controller is not None:
             self.sampling_controller.stop()
         self._archive.close()
