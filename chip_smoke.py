@@ -62,8 +62,16 @@ Builds the hand-written kernels from the sources in the checkout, then:
     save, restore (and its crc share), replay and WAL append;
 (g2) ``python -m zipkin_tpu_torch.server --resume-dir D`` as a subprocess:
     payloads, POST /api/v2/tpu/snapshot, more payloads, SIGKILL; restarted
-    on D it replays its WAL (/metrics) and answers the device-served routes
-    as before the kill; SIGTERM -> exit 0 with a new snapshot generation.
+    on D it replays its WAL (/metrics), answers the device-served routes
+    as before the kill and every trace acked before it from D/archive;
+    SIGTERM -> exit 0 with a new snapshot generation;
+(h) the disk span archive: phase e's payloads through the line-rate path
+    into TorchStorage(archive_dir) on the card (h1: leaves equal phase e's,
+    every trace read back complete, queries and names equal phase e's host
+    archive), a reopen after a crash that recovers the unsealed tail (h2),
+    a rotted sealed segment quarantined by Scrubber.scan_once with later
+    reads partial and never an error (h3), and retention under a small byte
+    budget (h4); times the append, the reads, the recovery and the scan.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -1231,8 +1239,10 @@ def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload
         raise AssertionError(f"device batches carried {sum(batches)} spans, want {n_spans}")
     if launches["update"] or launches["update_step"] != len(batches) or not batches:
         raise AssertionError(f"hll launches {launches} over {len(batches)} device batches")
-    # the leaves as ingest left them (a digest read flushes into them)
-    fig.update(wire=wire, traffic=traffic, spans=spans, state=agg.state_arrays())
+    # the leaves as ingest left them (a digest read flushes into them); the
+    # host archive, which holds every span, is phase h's query oracle
+    fig.update(wire=wire, traffic=traffic, spans=spans, state=agg.state_arrays(),
+               archive=store._archive)
     fig.update(device_batches=len(batches), launches=launches["update_step"],
                update_launches=launches["update"], wall_ms=wall_ms,
                spans_per_s=n_spans / (wall_ms / 1e3),
@@ -1755,7 +1765,8 @@ def phase_server(seed: int, torch, card: str, stored: dict, cfg=None, device=Non
 
 def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> dict:
     """(f3) ``python -m zipkin_tpu_torch.server --port P --storage tpu``
-    with TPU_FAST_INGEST=1 and TPU_FAST_ARCHIVE_SAMPLE=1 as a subprocess:
+    with TPU_FAST_INGEST=1, TPU_FAST_ARCHIVE_SAMPLE=1 and TPU_ARCHIVE_DIR=off
+    as a subprocess:
     /health UP within ``timeout_s``, a small trace POSTed and read back
     through trace/{id}, dependencies and tpu/percentiles, then SIGTERM and
     exit code 0 within 30 s. ``storage="mem"`` rehearses it off the card
@@ -1772,7 +1783,9 @@ def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> di
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    env = dict(os.environ, TPU_FAST_INGEST="1", TPU_FAST_ARCHIVE_SAMPLE="1",
+    # the disk archive off: f3 reads the host archive's sample, as it did
+    # before the fast path's default turned the disk archive on
+    env = dict(os.environ, TPU_FAST_INGEST="1", TPU_FAST_ARCHIVE_SAMPLE="1", TPU_ARCHIVE_DIR="off",
                TPU_DEPS_MAX_STALE_MS="0", QUERY_HOST="127.0.0.1")
     root = os.path.dirname(os.path.abspath(__file__))
     http = HttpStore(f"http://127.0.0.1:{port}")
@@ -2043,16 +2056,18 @@ def phase_durable(torch, card: str, stored: dict, fast: dict, cfg=None, device=N
     return fig
 
 
-def phase_resume_entry(card: str, wire, cold_boot_s: float, timeout_s: float = 180.0,
+def phase_resume_entry(card: str, wire, spans, cold_boot_s: float, timeout_s: float = 180.0,
                        argv=None, env_extra=None, n_before: int = 8, n_after: int = 8) -> dict:
     """(g2) ``python -m zipkin_tpu_torch.server --resume-dir D`` as a
-    subprocess (``STORAGE_TYPE`` left to its default, the card): POST
-    ``n_before`` payloads, ``POST /api/v2/tpu/snapshot``, POST ``n_after``
-    more, read the device-served routes, SIGKILL. Restarted on D: /metrics
-    shows walReplayBatches > 0 and the routes answer as before the kill
-    (the raw-span archive is in memory only, so trace reads start empty).
-    SIGTERM exits 0 and leaves a new snapshot generation. ``argv`` replaces
-    the module's command line (a rehearsal off the card)."""
+    subprocess (``STORAGE_TYPE`` left to its default, the card; with
+    TPU_FAST_INGEST=1 the disk archive is ``D/archive``): POST ``n_before``
+    payloads, ``POST /api/v2/tpu/snapshot``, POST ``n_after`` more, read the
+    device-served routes, SIGKILL. Restarted on D: /metrics shows
+    walReplayBatches > 0, the routes answer as before the kill, and every
+    trace of the payloads (``spans``, 8 a trace) answers complete through
+    ``traceMany``, from the archive's recovered segments. SIGTERM exits 0
+    and leaves a new snapshot generation. ``argv`` replaces the module's
+    command line (a rehearsal off the card)."""
     import os
     import signal
     import socket
@@ -2064,7 +2079,8 @@ def phase_resume_entry(card: str, wire, cold_boot_s: float, timeout_s: float = 1
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
-    env = {k: v for k, v in os.environ.items() if k not in ("STORAGE_TYPE", "TPU_RESUME_DIR")}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("STORAGE_TYPE", "TPU_RESUME_DIR", "TPU_ARCHIVE_DIR")}
     env.update(TPU_FAST_INGEST="1", TPU_DEPS_MAX_STALE_MS="0", QUERY_HOST="127.0.0.1",
                **(env_extra or {}))
     cmd = (argv or [sys.executable, "-m", "zipkin_tpu_torch.server"]) + [
@@ -2144,6 +2160,20 @@ def phase_resume_entry(card: str, wire, cold_boot_s: float, timeout_s: float = 1
                     raise AssertionError(f"phase g2: {name} after the restart differs")
             assert_reads_equal({**after, "counters": None}, {**before, "counters": None},
                                "phase g2 restarted")
+            # every trace acked before the kill, complete, from D/archive
+            from zipkin_tpu_torch.model import json_v2
+
+            acked = spans[:(n_before + n_after) * (len(spans) // len(wire))]
+            t1 = time.perf_counter()
+            for lo in range(0, len(acked), 8 * 256):
+                part = acked[lo:lo + 8 * 256]
+                ids = [part[i].trace_id for i in range(0, len(part), 8)]
+                got = http.get("/api/v2/traceMany", {"traceIds": ",".join(ids)})
+                want = [sorted(json.dumps(json_v2.span_to_dict(s), sort_keys=True)
+                               for s in part[i:i + 8]) for i in range(0, len(part), 8)]
+                if [sorted(json.dumps(d, sort_keys=True) for d in t) for t in got] != want:
+                    raise AssertionError(f"phase g2: traces {ids[0]}.. after the restart differ")
+            fig.update(traces_read=len(acked) // 8, trace_reads_s=time.perf_counter() - t1)
             http.get(f"/api/v2/trace/{'1' * 16}", want=404)
             t1 = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
@@ -2168,8 +2198,333 @@ def phase_resume_entry(card: str, wire, cold_boot_s: float, timeout_s: float = 1
         f"{n_before} payloads, POST /api/v2/tpu/snapshot 200, {n_after} more, SIGKILL; restarted "
         f"with resume in {fig['boot_resume_s']:.1f} s (restoreMs {fig['restore_ms']:.1f}, "
         f"walReplayBatches {fig['replay_records']}, walReplayMs {fig['replay_ms']:.1f}); dependencies, "
-        f"percentiles, cardinalities and counters answer as before the kill; SIGTERM -> exit 0 in "
-        f"{fig['stop_s']:.2f} s with a new snapshot generation")
+        f"percentiles, cardinalities and counters answer as before the kill; all {fig['traces_read']} "
+        f"traces acked before it read back complete from D/archive through traceMany in "
+        f"{fig['trace_reads_s']:.2f} s; SIGTERM -> exit 0 in {fig['stop_s']:.2f} s with a new "
+        f"snapshot generation")
+    return fig
+
+
+def phase_archive(seed: int, torch, card: str, stored: dict, fast: dict, cfg=None, device=None,
+                  segment_bytes: int = 32 << 20, retention_payloads: int = 16,
+                  timed_ids: int = 256) -> dict:
+    """(h) the disk span archive and the at-rest scrubber, on phase e's
+    payloads at the default AggConfig:
+
+    (h1) ``Collector(fast_ingest=True)`` into ``TorchStorage(archive_dir=D)``
+         on the card, in segments of ``segment_bytes`` (half the default:
+         the 2**18 spans take ~50 MB, which would not fill one 64 MB
+         segment, and h2 and h3 need a sealed segment and a live tail): the leaves equal phase e's, update_step launches once
+         per device batch, every trace reads back complete through
+         ``get_traces`` (not the 1/64 sample: the host archive stays empty),
+         the getTraces queries equal those of phase e's host archive, which
+         holds every span (the oracle), and the name reads too. Times the
+         archive append, the ingest against f1's, get_trace (median over
+         ``timed_ids`` ids) and each query; counts bytes on disk and seals.
+    (h2) a new store on D after a crash (nothing closed or sealed, no
+         snapshot): times the recovery of the unsealed tail; names, vocab,
+         traces and queries equal h1's.
+    (h3) a byte of the first sealed segment's last frame flipped: one
+         ``Scrubber.scan_once()`` with pacing off detects it and quarantines
+         the segment, the counters show it, and every later read returns the
+         traces that remain, never an error (a read holding earlier views
+         still reads). Times the scan in MB/s.
+    (h4) a store whose byte budget is half of ``retention_payloads``
+         payloads, in segments of a quarter of it, takes those payloads: its oldest segments are deleted
+         whole, and its reads stay sound (the newest payload's traces
+         complete, the oldest's gone, a query's traces complete and matching).
+    """
+    import gc
+    import os
+    import shutil
+    import tempfile
+
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.runtime.scrub import Scrubber
+    from zipkin_tpu_torch.storage.spi import QueryRequest
+    from zipkin_tpu_torch.tpu import archive as archive_mod
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    wire, traffic, spans, oracle = stored["wire"], stored["traffic"], stored["spans"], stored["archive"]
+    n_spans, n_traces = len(spans), len(spans) // 8
+    truth = store_truth(traffic, cfg)
+    trace_ids = [spans[8 * t].trace_id for t in range(n_traces)]
+    root = tempfile.mkdtemp(prefix="zt-archive-")
+    fig = dict(card=card, spans=n_spans, traces=n_traces)
+    batches = []
+
+    def counting(agg):
+        ingest = agg.ingest
+
+        def count_batch(c):
+            batches.append(int(c.valid.sum()))
+            out = ingest(c)
+            agg.block_until_ready()  # as f1's stage timing syncs each step
+            return out
+        agg.ingest = count_batch
+
+    def timed_into(key, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            fig[key] = fig.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    def ingest(store, payloads):
+        collector = Collector(store, fast_ingest=True)
+        t0 = time.perf_counter()
+        for p in payloads:
+            collector.accept_spans_bytes(p)
+        store.agg.block_until_ready()
+        return time.perf_counter() - t0
+
+    def check_traces(got, idx, what):
+        """``got`` (get_traces of trace indices ``idx``) holds each trace
+        complete, its spans equal the generated ones."""
+        if len(got) != len(idx):
+            raise AssertionError(f"{what}: {len(got)} traces read back, want {len(idx)}")
+        for trace, t in zip(got, idx):
+            want = spans[8 * t:8 * t + 8]
+            if trace[0].trace_id != want[0].trace_id or \
+                    sorted(trace, key=lambda s: s.id) != sorted(want, key=lambda s: s.id):
+                raise AssertionError(f"{what}: trace {want[0].trace_id} read back differs")
+
+    keys = sorted(truth.key_durs)
+    svc, name = keys[len(keys) // 3]
+    edge = sorted(truth.edges)[len(truth.edges) // 2]
+    dur99 = int(np.quantile(truth.cols.dur[truth.cols.svc == truth.cols.svc[0]], 0.999))
+    # a limit past every query's matches: the disk archive's candidate scan
+    # is bounded (the reference's trade), so two stores agree on a query
+    # only when both return all of its traces
+    window = dict(end_ts=truth.t_end, lookback=truth.lookback, limit=1 << 20)
+    last_minutes = (int(truth.cols.ts_min.max()) + 1) * 60_000
+    queries = {
+        "service+spanName": dict(service_name=svc, span_name=name),
+        "service+remoteService": dict(service_name=edge[0], remote_service_name=edge[1]),
+        "service+minDuration": dict(service_name=truth.svc_of(int(truth.cols.svc[0])),
+                                    min_duration=dur99),
+        "service+error": dict(service_name=svc, annotation_query={"error": ""}),
+        # no indexed clause: every trace of the last 5 minutes is decoded
+        "error, last 5 min": dict(annotation_query={"error": ""}, end_ts=last_minutes,
+                                  lookback=5 * 60_000),
+    }
+
+    def query_answers(store, timings=None):
+        out = {}
+        for qname, q in queries.items():
+            t = time.perf_counter()
+            traces = store.get_traces_query(QueryRequest(**{**window, **q})).execute()
+            if timings is not None:
+                timings[qname] = (time.perf_counter() - t) * 1e3
+            out[qname] = {t[0].trace_id: sorted(t, key=lambda s: s.id) for t in traces}
+            ts = [max(s.timestamp for s in t) for t in traces]
+            if ts != sorted(ts, reverse=True):
+                raise AssertionError(f"phase h: {qname}: traces not newest first")
+        return out
+
+    def names(store):
+        services = store.get_service_names().execute()
+        return dict(services=services,
+                    spans={s: store.get_span_names(s).execute() for s in services},
+                    remote={s: store.get_remote_service_names(s).execute() for s in services})
+
+    try:
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        # (h1) ingest with the archive on
+        d1 = os.path.join(root, "h1")
+        store = TorchStorage(config=cfg, device=device, archive_dir=d1, deps_max_stale_ms=0.0,
+                             archive_segment_bytes=segment_bytes)
+        counting(store.agg)
+        store.disk_append_record = timed_into("append_s", store.disk_append_record)
+        # its two parts: the frame's write and the vocab sidecar's rewrite
+        store._disk.append_batch = timed_into("frame_s", store._disk.append_batch)
+        store._persist_archive_vocab = timed_into("sidecar_s", store._persist_archive_vocab)
+        n0 = len(batches)
+        wall = ingest(store, wire)
+        h1_batches = len(batches) - n0
+        if sum(batches) != n_spans or hll_kernel.update_step.launches != h1_batches:
+            raise AssertionError(f"phase h1: {sum(batches)} spans in {h1_batches} device batches, "
+                                 f"update_step launches {hll_kernel.update_step.launches}")
+        assert_leaves_equal(store.agg.state_arrays(), stored["state"], "phase h1 vs phase e")
+        counters = store.ingest_counters()
+        if counters["archiveSpansWritten"] != n_spans or store._archive.span_count:
+            raise AssertionError(f"phase h1: archive counters {counters}")
+        files = dir_bytes(d1)
+        disk = sum(v for k, v in files.items() if k.startswith("arc-") or k == "vocab.json")
+        seals = sum(1 for k in files if k.endswith(".ids.npy"))
+        if seals < 1 or not store._disk._live_rows:
+            raise AssertionError(f"phase h1: {seals} seals, live rows {len(store._disk._live_rows)}")
+        fig.update(ingest_spans_per_s=n_spans / wall, f1_spans_per_s=fast["spans_per_s"],
+                   append_us_per_batch=fig.pop("append_s") / h1_batches * 1e6,
+                   frame_us_per_batch=fig.pop("frame_s") / h1_batches * 1e6,
+                   sidecar_us_per_batch=fig.pop("sidecar_s") / h1_batches * 1e6,
+                   device_batches=h1_batches, disk_bytes=disk, bytes_per_span=disk / n_spans,
+                   raw_bytes=sum(len(p) for p in wire), seals=seals)
+        t0 = time.perf_counter()
+        got = store.get_traces(trace_ids).execute()
+        fig["read_all_s"] = time.perf_counter() - t0
+        check_traces(got, range(n_traces), "phase h1")
+        del got
+        rng = np.random.default_rng(seed + 3)
+        pick = rng.choice(n_traces, timed_ids, replace=False)
+        walls = []
+        for t in pick:
+            t0 = time.perf_counter()
+            store.get_trace(trace_ids[t]).execute()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        fig["get_trace_ms"] = statistics.median(walls)
+        fig["query_ms"], fig["oracle_ms"] = {}, {}
+        answers = query_answers(store, fig["query_ms"])
+        if answers != query_answers(oracle, fig["oracle_ms"]):
+            bad = [q for q in queries if answers[q] != query_answers(oracle)[q]]
+            raise AssertionError(f"phase h1: queries {bad} differ from phase e's host archive")
+        fig["query_traces"] = {q: len(a) for q, a in answers.items()}
+        if min(fig["query_traces"].values()) < 1:
+            raise AssertionError(f"phase h1: a query matched nothing {fig['query_traces']}")
+        h1_names = names(store)
+        if h1_names != names(oracle):
+            raise AssertionError("phase h1: name reads differ from phase e's host archive")
+        vocab = list(store.vocab._key_list)
+        log(f"phase h1 ({card}): {n_spans} spans through Collector(fast_ingest) -> TorchStorage("
+            f"archive_dir): {fig['ingest_spans_per_s']:.0f} spans/s (f1 without the archive "
+            f"{fig['f1_spans_per_s']:.0f}); archive append {fig['append_us_per_batch']:.1f} us per batch "
+            f"(frame write {fig['frame_us_per_batch']:.1f}, vocab sidecar {fig['sidecar_us_per_batch']:.1f}) "
+            f"over {h1_batches} device batches, update_step launches {h1_batches}; leaves equal phase "
+            f"e's; {disk} bytes on disk ({fig['bytes_per_span']:.1f} B a span; raw payloads "
+            f"{fig['raw_bytes']} B), {seals} seal(s)")
+        log(f"phase h1 ({card}): all {n_traces} traces read back complete through get_traces in "
+            f"{fig['read_all_s']:.2f} s; get_trace {fig['get_trace_ms']:.3f} ms (median of "
+            f"{timed_ids}); queries equal phase e's host archive, traces {json.dumps(fig['query_traces'])}, "
+            f"disk ms {json.dumps({k: round(v, 1) for k, v in fig['query_ms'].items()})}, host archive ms "
+            f"{json.dumps({k: round(v, 1) for k, v in fig['oracle_ms'].items()})}; "
+            f"{len(h1_names['services'])} services' names equal")
+
+        # (h2) a crash, then a new store on the same dir with no snapshot
+        tail = sum(int(r.shape[0]) for r in store._disk._live_rows)
+        before = dir_bytes(d1)
+        del store
+        gc.collect()
+        torch.cuda.empty_cache()
+        if dir_bytes(d1) != before:
+            raise AssertionError("phase h2: the abandoned store changed its archive")
+        recover = archive_mod.SpanArchive._recover
+        archive_mod.SpanArchive._recover = timed_into("recover_s", recover)
+        try:
+            t0 = time.perf_counter()
+            store = TorchStorage(config=cfg, device=device, archive_dir=d1,
+                                 archive_segment_bytes=segment_bytes)
+            fig["reopen_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            archive_mod.SpanArchive._recover = recover
+        fig["recover_ms"] = fig.pop("recover_s") * 1e3
+        recovered = store._disk.spans_written
+        if recovered != tail or list(store.vocab._key_list) != vocab or names(store) != h1_names:
+            raise AssertionError(f"phase h2: recovered {recovered} tail spans, want {tail}; "
+                                 "or the vocab or names differ")
+        sample = np.sort(rng.choice(n_traces, 2048, replace=False))
+        check_traces(store.get_traces([trace_ids[t] for t in sample]).execute(), sample, "phase h2")
+        if query_answers(store) != answers:
+            raise AssertionError("phase h2: queries differ from h1's")
+        fig.update(tail_spans=tail, tail_bytes=sum(v for k, v in before.items() if k.endswith(".dat")
+                                                   and k + ".ids.npy" not in before))
+        log(f"phase h2 ({card}): reopened on the same dir after a crash in {fig['reopen_ms']:.1f} ms, "
+            f"of which the archive's recovery {fig['recover_ms']:.1f} ms ({tail} spans, "
+            f"{fig['tail_bytes']} bytes of unsealed tail); vocab, names, 2048 traces and the queries "
+            f"equal h1's")
+
+        # (h3) a rotted sealed segment: detected, quarantined, reads partial
+        sealed = store._disk.sealed_segment_paths()
+        seg = store._disk._sealed[0]
+        lost_ids = {f"{int(x):016x}" for x in np.unique(np.asarray(seg.ids))}
+        lost = seg.n
+        held = store._disk.views()
+        with open(sealed[0], "r+b") as fh:
+            fh.seek(os.path.getsize(sealed[0]) - 3)  # inside the last frame's payload
+            b = fh.read(1)
+            fh.seek(-1, os.SEEK_CUR)
+            fh.write(bytes([b[0] ^ 0xFF]))
+        store.scrubber = Scrubber(store, bytes_per_sec=0)
+        t0 = time.perf_counter()
+        out = store.scrubber.scan_once()
+        scan_s = time.perf_counter() - t0
+        c = store.ingest_counters()
+        if (out["corrupt"], out["quarantined"], out["spans_quarantined"]) != (1, 1, lost) or \
+                (c["archiveSegmentsQuarantined"], c["archiveSpansQuarantined"], c["scrubPasses"],
+                 c["spansQuarantined"]) != (1, lost, 1, lost) or \
+                not os.path.exists(sealed[0] + ".quarantine"):
+            raise AssertionError(f"phase h3: scrub pass {out}, counters {c}")
+        t0 = time.perf_counter()
+        got = store.get_traces(trace_ids).execute()
+        fig["read_after_s"] = time.perf_counter() - t0
+        kept = [t for t in range(n_traces) if trace_ids[t] not in lost_ids]
+        check_traces(got, kept, "phase h3")
+        if sum(len(t) for t in got) != n_spans - lost:
+            raise AssertionError("phase h3: spans read back after the quarantine")
+        gone = sorted(lost_ids)[:64]
+        held_read = [len(store._disk_trace_spans(t, views=held)) for t in gone]
+        if sum(held_read) < 8 * len(gone) - 1:  # the flipped byte may spoil one span
+            raise AssertionError(f"phase h3: a read holding earlier views got {sum(held_read)} spans")
+        fig.update(scrub_ms=scan_s * 1e3, scrub_bytes=out["bytes"], scrub_files=out["files"],
+                   scrub_mb_per_s=out["bytes"] / 1e6 / scan_s, spans_quarantined=lost,
+                   traces_left=len(kept))
+        log(f"phase h3 ({card}): one byte flipped in {os.path.basename(sealed[0])}: Scrubber.scan_once "
+            f"(pacing off) verified {out['files']} file(s), {out['bytes']} bytes in {fig['scrub_ms']:.1f} ms "
+            f"({fig['scrub_mb_per_s']:.0f} MB/s), quarantined it ({lost} spans; counters "
+            f"archiveSpansQuarantined {c['archiveSpansQuarantined']}, scrubCorruptDetected "
+            f"{c['scrubCorruptDetected']}); get_traces of all ids then returned the {len(kept)} traces "
+            f"left, complete, in {fig['read_after_s']:.2f} s, no error; a read holding earlier views "
+            f"read {sum(held_read)} spans of {len(gone)} pulled traces")
+        store.close()
+        del store, got, held
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (h4) retention: a small byte budget drops the oldest segments whole
+        d4 = os.path.join(root, "h4")
+        # half the payloads' bytes, in segments of a quarter of that (8 MB
+        # and 2 MB at the default size)
+        budget = sum(len(p) for p in wire[:retention_payloads]) // 2
+        seg_bytes = budget // 4
+        store = TorchStorage(config=cfg, device=device, archive_dir=d4, archive_max_bytes=budget,
+                             archive_segment_bytes=seg_bytes)
+        counting(store.agg)
+        n0 = len(batches)
+        ingest(store, wire[:retention_payloads])
+        h4_batches = len(batches) - n0
+        c = store.ingest_counters()
+        per = n_spans // len(wire)
+        first, last = range(0, per // 8), range((retention_payloads - 1) * per // 8, retention_payloads * per // 8)
+        got_first = store.get_traces([trace_ids[t] for t in first]).execute()
+        check_traces(store.get_traces([trace_ids[t] for t in last]).execute(), last, "phase h4 newest")
+        q = QueryRequest(**window, service_name=svc)
+        traces = store.get_traces_query(q).execute()
+        index = {trace_ids[t]: t for t in range(retention_payloads * per // 8)}
+        check_traces(traces, [index[t[0].trace_id] for t in traces], "phase h4 query")
+        if c["archiveSpansDroppedRetention"] <= 0 or got_first or not traces \
+                or c["archiveBytes"] > budget + seg_bytes + max(len(p) for p in wire) + (1 << 20) \
+                or not all(q.test(t) for t in traces):
+            raise AssertionError(f"phase h4: counters {c}, oldest payload's traces {len(got_first)}, "
+                                 f"query {len(traces)}")
+        fig.update(retention_dropped=c["archiveSpansDroppedRetention"], retention_bytes=c["archiveBytes"],
+                   retention_segments=c["archiveSegments"], retention_batches=h4_batches,
+                   retention_query_traces=len(traces))
+        log(f"phase h4 ({card}): {retention_payloads} payloads into {seg_bytes} B segments under a "
+            f"{budget} B budget: "
+            f"{c['archiveSpansDroppedRetention']} spans dropped with their whole segments, "
+            f"{c['archiveBytes']} bytes in {c['archiveSegments']} segments kept; the oldest payload's "
+            f"traces gone, the newest's complete, a service query's {len(traces)} traces complete")
+        store.close()
+        del store
+        launches = {"update": hll_kernel.update.launches, "update_step": hll_kernel.update_step.launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if launches["update"] or launches["update_step"] != len(batches):
+        raise AssertionError(f"phase h: hll launches {launches} over {len(batches)} device batches")
+    fig.update(launches=launches["update_step"], update_launches=launches["update"])
     return fig
 
 
@@ -2244,8 +2599,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     log(f"phase g1 done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    phase_resume_entry(card, stored["wire"], entry["boot_s"])
+    phase_resume_entry(card, stored["wire"], stored["spans"], entry["boot_s"])
     log(f"phase g2 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    archived = phase_archive(args.seed, torch, card, stored, fast)
+    torch.cuda.empty_cache()
+    log(f"phase h done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -2257,7 +2616,8 @@ def main() -> int:
     # against its own device batches and printed with it) and
     # launches_phase_g those of durable boot in process (phase g1: the
     # victim's batches and two boots' replays; g2's server is a subprocess,
-    # checked through its /metrics).
+    # checked through its /metrics) and launches_phase_h those of the disk
+    # archive's phase (h1's and h4's device batches).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -2269,6 +2629,7 @@ def main() -> int:
              launches_phase_e=stored["update_launches"],
              launches_phase_f=fast["update_launches"],
              launches_phase_g=durable["update_launches"],
+             launches_phase_h=archived["update_launches"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -2279,6 +2640,7 @@ def main() -> int:
              launches_phase_d=sum(sampled["launches"]), launches_phase_e=stored["launches"],
              launches_phase_f=fast["launches"],
              launches_phase_g=durable["launches"],
+             launches_phase_h=archived["launches"],
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

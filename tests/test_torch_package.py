@@ -40,6 +40,16 @@ def test_no_jax_import_in_source(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_the_archive_and_scrubber_modules_are_checked():
+    """The disk archive and the scrubber are copies of modules the JAX
+    package holds: both are under the import checks above."""
+    mods = _modules()
+    for m in ("zipkin_tpu_torch.tpu.archive", "zipkin_tpu_torch.runtime.scrub"):
+        assert m in mods
+        bad = [r for r in _imported_roots(ROOT / (m.replace(".", "/") + ".py")) if r in FORBIDDEN]
+        assert not bad, f"{m} imports {bad}"
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"

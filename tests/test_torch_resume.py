@@ -240,13 +240,21 @@ def test_periodic_snapshot_bounds_the_wal(tmp_path):
         for b in batches(4):
             assert c.post("/api/v2/spans", ref_json.encode_span_list(b))[0] == 202
         segments = lambda: glob.glob(str(tmp_path / "wal" / "wal-*.log"))  # noqa: E731
+
+        def newest_seq():
+            try:
+                return json.loads((tmp_path / "snap" / "meta.json").read_text())["wal_seq"]
+            except (OSError, ValueError):
+                return None
+
         # four records, four segments: once both retained generations hold all four records, every
-        # segment but the newest (the seq watermark) is deleted
+        # segment but the newest (the seq watermark) is deleted. Wait for both: two generations
+        # at seq 3 already leave one segment, before the next snapshot takes seq 4
         deadline = time.monotonic() + 30
-        while len(segments()) > 1 and time.monotonic() < deadline:
+        while (len(segments()) > 1 or newest_seq() != 4) and time.monotonic() < deadline:
             time.sleep(0.05)
         assert len(segments()) == 1
-        assert json.loads((tmp_path / "snap" / "meta.json").read_text())["wal_seq"] == 4
+        assert newest_seq() == 4
         threads = list(server._threads)
     finally:
         server.stop()

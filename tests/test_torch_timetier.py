@@ -227,3 +227,28 @@ def test_env_arming_uses_the_reference_variables(monkeypatch):
     with pytest.raises(faults.CrashpointTriggered):
         faults.crashpoint("timetier.seal.post_commit")
     faults.crashpoint("timetier.seal.post_commit")  # one-shot: disarmed
+
+
+def test_a_seal_between_the_window_halves_drops_no_epoch():
+    """A seal that lands while a window is read (a server's seal ticker)
+    must not drop its epoch: the window reads ``sealed_through`` once, so
+    the epoch comes from the device. Reading it twice, as the reference
+    does, lost the newly sealed epochs from the answer."""
+    agg = TorchAggregator(CFG, device="cpu")
+    steps = list(_steps(_cols()))
+    for batch in steps[:8]:
+        agg.ingest(batch)
+    top = agg.tt_max_epoch
+    want = TimeTier(CFG).window(agg, top - 2, top)  # nothing sealed: one device read
+    tier = TimeTier(CFG)
+    cover = tier.cover
+
+    def cover_then_seal(*args, **kw):
+        out = cover(*args, **kw)
+        assert tier.seal_up_to(agg) >= 2  # the ticker's seal lands here
+        return out
+
+    tier.cover = cover_then_seal
+    got = tier.window(agg, top - 2, top)
+    assert tier.sealed_through == top - 1 and want.calls.sum() > 0
+    assert_windows_match(got, want, "a seal between the halves")

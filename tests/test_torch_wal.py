@@ -312,7 +312,7 @@ def test_resource_site_armed_from_the_environment(tmp_path):
         import numpy as np
         from zipkin_tpu_torch import faults
         from zipkin_tpu_torch.tpu.wal import WriteAheadLog
-        assert faults.RESOURCE_SITES == ("wal.append", "snapshot")
+        assert faults.RESOURCE_SITES == ("wal.append", "snapshot", "archive")
         assert faults.is_resource_armed("wal.append")
         log = WriteAheadLog(sys.argv[1])
         img = np.zeros((1, 11, 4), np.uint32)

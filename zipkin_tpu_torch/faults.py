@@ -1,6 +1,6 @@
 """Crashpoint, corruption and resource-exhaustion fault injection (the
-port's copy of the part of ``zipkin_tpu/faults.py`` that its time tier, WAL
-and snapshots call: ``:96-125,152-310``).
+port's copy of the part of ``zipkin_tpu/faults.py`` that its time tier, WAL,
+snapshots and span archive call: ``:96-125,152-310``).
 
 A crashpoint names an instant inside a write path where a crash is most
 likely to tear on-disk state; a corrupt site names an artifact the write
@@ -10,14 +10,17 @@ armed raises ``OSError(ENOSPC)`` there. The WAL carries ``wal.append.mid`` (head
 meta written, payload not), ``wal.append.pre_fsync``, the corrupt site
 ``wal.record`` and the resource site ``wal.append``; a snapshot carries
 ``snapshot.post_state`` / ``snapshot.post_meta``, the corrupt site
-``snapshot.state`` and the resource site ``snapshot``; the time tier's seal
+``snapshot.state`` and the resource site ``snapshot``; the span archive
+carries ``archive.mid_segment`` (a frame's header and rows written, its
+payload not), the corrupt site ``archive.frame`` and the resource site
+``archive``; the time tier's seal
 carries ``timetier.seal.pre_commit`` (the segment's tmp file written, not
 yet renamed), ``timetier.seal.post_commit`` (renamed, ``sealed_through``
 not yet advanced) and the corrupt site ``timetier.segment``. The crash
 and corrupt site catalogs are the reference's, so a test arms the same
 names against either package; of the reference's resource sites, only the
-two this package passes through are here (``archive``, ``feed.latency`` and
-``alloc`` come with the disk archive and the multi-process feeder).
+three this package passes through are here (``feed.latency`` and ``alloc``
+come with the multi-process feeder).
 
 Arming is programmatic (:func:`arm`, :func:`arm_corrupt`,
 :func:`arm_resource`) or through the environment, read once at import:
@@ -61,6 +64,7 @@ CORRUPT_MODES = ("flip", "truncate", "zero")
 RESOURCE_SITES = (
     "wal.append",
     "snapshot",
+    "archive",
 )
 
 ENV_VAR = "ZT_CRASHPOINT"

@@ -16,14 +16,16 @@ Routes and status codes follow the reference:
   cannot snapshot);
 - ``GET /health``, ``/info`` and ``/metrics`` (the reference's
   ``counter.zipkin_collector.<name>.<transport>`` taxonomy, with the boot's
-  restore figures as gauges).
+  restore figures and the scrubber's and archive's quarantine tallies as
+  gauges).
 
 Each request runs on its own thread; a ticker thread seals the store's
 time tier every ``seal_interval_s``, and with a checkpoint dir another
-snapshots the store every ``TPU_SNAPSHOT_INTERVAL_S``. ``stop()`` answers
-new requests 503, waits for those in flight (the reference's
-``runner.cleanup()``), and takes a final snapshot after the listener and
-both tickers have stopped. Left out, against
+snapshots the store every ``TPU_SNAPSHOT_INTERVAL_S``; the store's own
+scrubber thread re-verifies its files every ``TPU_SCRUB_INTERVAL_S``.
+``stop()`` answers new requests 503, waits for those in flight (the
+reference's ``runner.cleanup()``), stops the scrubber, and takes a final
+snapshot after the listener and both tickers have stopped. Left out, against
 the reference: gRPC, scribe, the UI and ``/config.json``, ``/prometheus``,
 statusz, deadlines, overload and tenant admission, self-tracing and the
 observability plane, and the multi-process tier.
@@ -62,6 +64,11 @@ _METRIC_GAUGES = (
 )
 _SAMPLER_GAUGES = ("sampledKept", "sampledDropped", "budgetUtilization",
                    "samplerPublishes", "samplerPressure")
+# the durability plane: what the scrubber verified and what it and the
+# archive pulled from service (zipkin_tpu/server/app.py:1288-1298)
+_DURABILITY_GAUGES = ("scrubBytes", "scrubPasses", "scrubCorruptDetected",
+                      "segmentsQuarantined", "spansQuarantined",
+                      "archiveSegmentsQuarantined", "archiveSpansQuarantined")
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -90,7 +97,10 @@ def build_storage(config: ServerConfig, device=None) -> StorageComponent:
     """STORAGE_TYPE -> StorageComponent: ``mem`` the in-memory store,
     ``tpu`` the resume adapter :class:`zipkin_tpu_torch.storage.tpu.TorchStorage`,
     on the card unless ``device`` names another. The adapter restores and
-    replays the durable dirs, and starts the sampling controller."""
+    replays the durable dirs, and starts the sampling controller and the
+    scrubber. An archive dir that cannot be used (a read-only cwd under the
+    fast path's default) degrades to a store without the disk archive, with
+    a warning, as the reference's does; nothing else is caught."""
     common = dict(
         strict_trace_id=config.strict_trace_id,
         search_enabled=config.search_enabled,
@@ -107,23 +117,40 @@ def build_storage(config: ServerConfig, device=None) -> StorageComponent:
             # sampling changes the ingest step, so it is an AggConfig field
             agg_kwargs["sampling"] = True
             agg_kwargs["sample_rare_min"] = config.tpu_sampling_rare_min
-        return TorchStorage(
-            config=AggConfig(**agg_kwargs),
-            device=device,
-            max_span_count=config.mem_max_spans,
-            checkpoint_dir=config.tpu_checkpoint_dir,
-            wal_dir=config.tpu_wal_dir,
-            wal_fsync=config.tpu_wal_fsync,
-            snapshot_keep=config.tpu_snapshot_keep,
-            fast_archive_sample=config.tpu_fast_archive_sample,
-            max_device_batch=config.tpu_max_device_batch,
-            deps_max_stale_ms=config.tpu_deps_max_stale_ms,
-            sampling_budget=config.tpu_sampling_budget if config.tpu_sampling else 0.0,
-            sampling_interval_s=config.tpu_sampling_interval_s,
-            sampling_min_rate=config.tpu_sampling_min_rate,
-            sampling_tail_quantile=config.tpu_sampling_tail_quantile,
-            **common,
-        )
+
+        def make(archive_dir):
+            return TorchStorage(
+                config=AggConfig(**agg_kwargs),
+                device=device,
+                max_span_count=config.mem_max_spans,
+                checkpoint_dir=config.tpu_checkpoint_dir,
+                wal_dir=config.tpu_wal_dir,
+                wal_fsync=config.tpu_wal_fsync,
+                archive_dir=archive_dir,
+                archive_max_bytes=config.tpu_archive_max_bytes,
+                archive_segment_bytes=config.tpu_archive_segment_bytes,
+                snapshot_keep=config.tpu_snapshot_keep,
+                scrub_interval_s=config.tpu_scrub_interval_s,
+                scrub_bytes_per_sec=config.tpu_scrub_bytes_per_sec,
+                fast_archive_sample=config.tpu_fast_archive_sample,
+                max_device_batch=config.tpu_max_device_batch,
+                deps_max_stale_ms=config.tpu_deps_max_stale_ms,
+                sampling_budget=config.tpu_sampling_budget if config.tpu_sampling else 0.0,
+                sampling_interval_s=config.tpu_sampling_interval_s,
+                sampling_min_rate=config.tpu_sampling_min_rate,
+                sampling_tail_quantile=config.tpu_sampling_tail_quantile,
+                **common,
+            )
+
+        if config.tpu_archive_dir:
+            logger.info("span archive: %s (budget %d bytes)", config.tpu_archive_dir,
+                        config.tpu_archive_max_bytes)
+            try:
+                return make(config.tpu_archive_dir)
+            except OSError as e:
+                logger.warning("span archive dir %s unusable (%s); serving without the disk "
+                               "archive", config.tpu_archive_dir, e)
+        return make(None)
     raise ValueError(f"unknown STORAGE_TYPE: {config.storage_type}")
 
 
@@ -302,6 +329,9 @@ class ZipkinServer:
         for t in self._threads:
             t.join(timeout=30)
         self._threads = []
+        scrubber = getattr(getattr(self.storage, "delegate", self.storage), "scrubber", None)
+        if scrubber is not None:
+            scrubber.stop()  # no pass reads the dirs the final snapshot writes
         if self._snapshots:
             # the final snapshot last: the listener and the tickers have
             # stopped and the requests in flight have ended, so every
@@ -507,7 +537,7 @@ class ZipkinServer:
                 names += _SAMPLER_GAUGES
                 for svc, rate in sorted(self.storage.sampler_rates().items()):
                     out[f"gauge.zipkin_tpu.samplerRate.{svc}"] = rate
-            for name in names:
+            for name in names + _DURABILITY_GAUGES:
                 if name in counters:
                     out[f"gauge.zipkin_tpu.{name}"] = counters[name]
         return 200, out

@@ -12,10 +12,16 @@ in-memory store, taken only when asked for by name. The others are
 ``TPU_FAST_ARCHIVE_SAMPLE``, ``TPU_SAMPLING*``, ``TPU_MAX_DEVICE_BATCH``,
 ``TPU_DEPS_MAX_STALE_MS``, the ``TPU_<AggConfig field>`` sizes and the
 durable boot's ``TPU_RESUME_DIR``, ``TPU_CHECKPOINT_DIR``, ``TPU_WAL_DIR``,
-``TPU_WAL_FSYNC``, ``TPU_SNAPSHOT_INTERVAL_S`` and ``TPU_SNAPSHOT_KEEP``
-(``zipkin_tpu/server/config.py:235-262,294-304,411-425``). Unlike the
-reference, ``TPU_RESUME_DIR`` derives no ``<dir>/archive``: the port has no
-disk archive yet.
+``TPU_WAL_FSYNC``, ``TPU_SNAPSHOT_INTERVAL_S`` and ``TPU_SNAPSHOT_KEEP``, the
+disk archive's ``TPU_ARCHIVE_DIR``, ``TPU_ARCHIVE_MAX_BYTES`` and
+``TPU_ARCHIVE_SEGMENT_BYTES``, and the scrubber's ``TPU_SCRUB_INTERVAL_S``
+and ``TPU_SCRUB_BYTES_PER_S``
+(``zipkin_tpu/server/config.py:236-264,280-313,411-428``).
+
+The disk archive's directory, as the reference resolves it: ``TPU_ARCHIVE_DIR``
+when set (``off``, ``none`` or ``0``: no archive), else ``<TPU_RESUME_DIR>/archive``,
+else ``./zipkin-tpu-archive`` (made absolute) when ``TPU_FAST_INGEST`` is on,
+else none: an object-path server keeps every span in its bounded host store.
 """
 
 from __future__ import annotations
@@ -100,8 +106,9 @@ class ServerConfig:
     tpu_sampling_tail_quantile: float = 0.99
     tpu_sampling_rare_min: int = 4
     # durable boot: TPU_RESUME_DIR=<dir> puts the snapshots under
-    # <dir>/snap and the WAL under <dir>/wal, so boot restores, replays and
-    # resumes; TPU_CHECKPOINT_DIR and TPU_WAL_DIR override their piece
+    # <dir>/snap, the WAL under <dir>/wal and the disk archive under
+    # <dir>/archive, so boot restores, replays and resumes;
+    # TPU_CHECKPOINT_DIR, TPU_WAL_DIR and TPU_ARCHIVE_DIR override their piece
     tpu_checkpoint_dir: Optional[str] = None
     tpu_wal_dir: Optional[str] = None
     # fsync each WAL append: durable past a host or power failure, at a
@@ -112,13 +119,36 @@ class ServerConfig:
     tpu_snapshot_interval_s: float = 300.0
     # intact snapshot generations a commit retains (the fallback depth)
     tpu_snapshot_keep: int = 2
+    # the disk archive: every ingested span's raw bytes behind a trace-id
+    # index, the oldest segments dropped whole past the byte budget
+    tpu_archive_dir: Optional[str] = None
+    tpu_archive_max_bytes: int = 2 << 30
+    tpu_archive_segment_bytes: int = 64 << 20
+    # the at-rest scrubber's gap between passes (0 = off) and read pacing
+    tpu_scrub_interval_s: float = 300.0
+    tpu_scrub_bytes_per_sec: int = 8 << 20
     # device state shape (AggConfig fields); absent = AggConfig's default
     tpu_agg: dict = dataclasses.field(default_factory=dict)
 
     @staticmethod
     def from_env() -> "ServerConfig":
+        fast_ingest = _env_bool("TPU_FAST_INGEST", False)
         raw_resume = os.environ.get("TPU_RESUME_DIR") or None
         resume_dir = os.path.abspath(raw_resume) if raw_resume else None
+        raw_archive = os.environ.get("TPU_ARCHIVE_DIR")
+        if raw_archive and raw_archive.lower() in ("off", "none", "0"):
+            archive_dir = None
+        elif raw_archive:
+            archive_dir = raw_archive
+        elif resume_dir:
+            # everything durable lives under the resume dir, so a restarted
+            # server serves complete traces of the ids acked before
+            archive_dir = os.path.join(resume_dir, "archive")
+        elif fast_ingest:
+            # absolute, so a restart from another cwd finds the same archive
+            archive_dir = os.path.abspath("zipkin-tpu-archive")
+        else:
+            archive_dir = None
         return ServerConfig(
             host=os.environ.get("QUERY_HOST", "0.0.0.0"),
             port=_env_int("QUERY_PORT", 9411),
@@ -133,7 +163,7 @@ class ServerConfig:
             http_collector_enabled=_env_bool("COLLECTOR_HTTP_ENABLED", True),
             throttle_enabled=_env_bool("STORAGE_THROTTLE_ENABLED", False),
             throttle_max_concurrency=_env_int("STORAGE_THROTTLE_MAX_CONCURRENCY", 8),
-            tpu_fast_ingest=_env_bool("TPU_FAST_INGEST", False),
+            tpu_fast_ingest=fast_ingest,
             tpu_fast_archive_sample=_env_int("TPU_FAST_ARCHIVE_SAMPLE", 64),
             tpu_max_device_batch=_env_int("TPU_MAX_DEVICE_BATCH", 65536),
             tpu_deps_max_stale_ms=_env_float("TPU_DEPS_MAX_STALE_MS", 5000.0),
@@ -150,5 +180,10 @@ class ServerConfig:
             tpu_wal_fsync=_env_bool("TPU_WAL_FSYNC", False),
             tpu_snapshot_interval_s=_env_float("TPU_SNAPSHOT_INTERVAL_S", 300.0),
             tpu_snapshot_keep=_env_int("TPU_SNAPSHOT_KEEP", 2),
+            tpu_archive_dir=archive_dir,
+            tpu_archive_max_bytes=_env_int("TPU_ARCHIVE_MAX_BYTES", 2 << 30),
+            tpu_archive_segment_bytes=_env_int("TPU_ARCHIVE_SEGMENT_BYTES", 64 << 20),
+            tpu_scrub_interval_s=_env_float("TPU_SCRUB_INTERVAL_S", 300.0),
+            tpu_scrub_bytes_per_sec=_env_int("TPU_SCRUB_BYTES_PER_S", 8 << 20),
             tpu_agg=_env_agg(),
         )

@@ -15,13 +15,20 @@ reference subclasses its core store, and owns durable boot:
    post-replay tallies;
 6. ``resume_offset``: the durable span count, where a transport that tracks
    offsets resumes;
-7. flush the pending digest points, as the reference's boot read does.
+7. flush the pending digest points, as the reference's boot read does;
+8. with ``scrub_interval_s`` > 0 and something durable to scrub, start the
+   at-rest scrubber (:mod:`zipkin_tpu_torch.runtime.scrub`).
+
+The disk archive (``archive_dir``) opens in the core store's constructor,
+before all this: it recovers its unsealed tail and loads its vocab sidecar,
+which the snapshot's vocab then replaces (the same id stream) and the WAL
+replay extends; the C interner of the line-rate path is rebuilt from the
+final vocab at the next fast ingest.
 
 ``snapshot()`` persists the state, truncates the WAL to the oldest retained
 generation's ``wal_seq``, and degrades on a full disk (the retained
 generations stay intact; the save is retried next cycle). Left out against
-the reference: the mesh (``num_devices``), the disk archive
-(``archive_dir``), the at-rest scrubber, the shared-memory mirror segment
+the reference: the mesh (``num_devices``), the shared-memory mirror segment
 and the multi-process ingest tier's drain.
 """
 
@@ -33,6 +40,7 @@ import threading
 import time
 from typing import Optional, Sequence
 
+from zipkin_tpu_torch.runtime.scrub import Scrubber
 from zipkin_tpu_torch.tpu import snapshot as snap
 from zipkin_tpu_torch.tpu import wal as wal_mod
 from zipkin_tpu_torch.tpu.state import AggConfig
@@ -59,18 +67,24 @@ class TorchStorage(_CoreStorage):
         deps_max_stale_ms: float = DEPS_MAX_STALE_MS,
         wal_dir: Optional[str] = None,
         wal_fsync: bool = False,
+        archive_dir: Optional[str] = None,
+        archive_max_bytes: int = 2 << 30,
+        archive_segment_bytes: int = 64 << 20,
         sampling_budget: float = 0.0,
         sampling_interval_s: float = 5.0,
         sampling_min_rate: int = 256,
         sampling_tail_quantile: float = 0.99,
         sampling_rare_min: Optional[int] = None,
         snapshot_keep: int = 2,
+        scrub_interval_s: float = 0.0,
+        scrub_bytes_per_sec: int = 8 << 20,
     ) -> None:
         """``device``: where the state lives and is restored to, the card
         unless the caller names another. ``wal_fsync``: fsync each append,
         so the log survives a host or power failure at a per-batch cost;
         without it the log survives a process crash (the page cache holds
-        it)."""
+        it). ``scrub_interval_s``: the gap between the scrubber's passes (0:
+        no scrubber), each read paced at ``scrub_bytes_per_sec``."""
         super().__init__(
             config=config,
             device=device,
@@ -82,6 +96,9 @@ class TorchStorage(_CoreStorage):
             fast_archive_sample=fast_archive_sample,
             max_device_batch=max_device_batch,
             deps_max_stale_ms=deps_max_stale_ms,
+            archive_dir=archive_dir,
+            archive_max_bytes=archive_max_bytes,
+            archive_segment_bytes=archive_segment_bytes,
             sampling_budget=sampling_budget,
             sampling_interval_s=sampling_interval_s,
             sampling_min_rate=sampling_min_rate,
@@ -132,6 +149,12 @@ class TorchStorage(_CoreStorage):
                 self.agg.flush_now()
         # boot's restore and replay pulls are not query transfers
         self.agg.read_stats["host_transfers"] = 0
+        # the first pass waits one interval: the boot just read what a
+        # restore verifies
+        if scrub_interval_s > 0 and (checkpoint_dir or wal_dir or self._disk is not None):
+            self.scrubber = Scrubber(self, interval_s=scrub_interval_s,
+                                     bytes_per_sec=scrub_bytes_per_sec)
+            self.scrubber.start()
 
     def snapshot(self) -> Optional[str]:
         """Persist the device state (:func:`snapshot.save`); returns the
@@ -182,6 +205,8 @@ class TorchStorage(_CoreStorage):
         return counters
 
     def close(self) -> None:
+        if self.scrubber is not None:
+            self.scrubber.stop()  # no pass reads a log or a segment being closed
         # serialized with snapshot(): one in flight finishes first, and any
         # later one sees _closed
         with self._snapshot_lock:

@@ -12,6 +12,11 @@ latency percentiles, trace cardinalities) from the device sketches of a
 - **host archive**: a bounded :class:`InMemoryStorage` keeps the raw spans
   for exact trace reads and search; past its eviction horizon the
   aggregates stay answerable from the device;
+- **disk archive** (``archive_dir``, :mod:`zipkin_tpu_torch.tpu.archive`):
+  every ingested span's raw bytes behind a trace-id index, bounded by a
+  byte budget, so trace reads, search and names answer for every span the
+  budget holds, across restarts (a ``vocab.json`` sidecar keeps the ids
+  of the archived columns);
 - **host time tier**: sealed time buckets (:class:`TimeTier`) answer
   windowed reads over any ``[endTs - lookback, endTs]`` range.
 
@@ -19,33 +24,41 @@ Each aggregate read is one device read (one packed transfer) memoized by
 the aggregator's write version.
 
 Two write paths: the object path (:meth:`TorchStorage.accept`, decoded
-Span objects) and the line-rate path (:meth:`TorchStorage.ingest_json_fast`,
-JSON v2 or proto3 bytes through the native parser, which interns in C and
-archives a trace-affine 1/N sample at full fidelity).
+Span objects, each encoded once as JSON v2 for the disk archive) and the
+line-rate path (:meth:`TorchStorage.ingest_json_fast`, JSON v2 or proto3
+bytes through the native parser, which interns in C; the disk archive takes
+the payload's raw slices, and without one a trace-affine 1/N sample is
+decoded into the host archive).
 
 Left out, against the reference: the epoch-published read mirror and its
 shared-memory segment (the reference falls back to the versioned cache
-when no epoch is published, which is what a library caller sees), the disk
-archive (so the fast path's trace reads serve the 1/N sample), the
+when no epoch is published, which is what a library caller sees), the
 pipelined feeder's split of the fast path into stages, the flight recorder
 and query-trace stamps, the overload, shadow and accuracy hooks, and the
-multi-process ingest tier. Durable boot (snapshot restore, WAL replay) is
-the resume adapter's, :class:`zipkin_tpu_torch.storage.tpu.TorchStorage`;
-this class carries its hooks (:meth:`on_restored_leaves`,
-:meth:`apply_sctl`, ``restore_stats``).
+multi-process ingest tier. :meth:`TorchStorage.get_traces` reads every id
+through one ``views()`` of the disk archive (the reference takes one per
+id, which sorts the live segment again for each). Durable boot (snapshot
+restore, WAL replay) is the resume adapter's,
+:class:`zipkin_tpu_torch.storage.tpu.TorchStorage`; this class carries its
+hooks (:meth:`on_restored_leaves`, :meth:`apply_sctl`, ``restore_stats``).
 """
 
 from __future__ import annotations
 
+import json
 import logging
+import os
+import tempfile
 import threading
 import time
-from typing import List, Optional, Sequence
+import zlib
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from zipkin_tpu_torch import native, readpack
-from zipkin_tpu_torch.internal.hex import epoch_minutes
+from zipkin_tpu_torch.internal.hex import epoch_minutes, normalize_trace_id
+from zipkin_tpu_torch.internal.span_node import merge_trace
 from zipkin_tpu_torch.model.span import DependencyLink, Span
 from zipkin_tpu_torch.ops import hll, ttmerge
 from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
@@ -59,7 +72,10 @@ from zipkin_tpu_torch.storage.spi import (
     SpanConsumer,
     SpanStore,
     StorageComponent,
+    group_by_trace_id,
+    trace_id_key,
 )
+from zipkin_tpu_torch.tpu.archive import SpanArchive, parsed_record
 from zipkin_tpu_torch.tpu.columnar import Vocab, _mix32, pack_parsed, pack_spans
 from zipkin_tpu_torch.tpu.state import AggConfig
 from zipkin_tpu_torch.tpu.timetier import TimeTier
@@ -104,6 +120,9 @@ class TorchStorage(
         fast_archive_sample: int = 64,
         max_device_batch: int = MAX_DEVICE_BATCH,
         deps_max_stale_ms: float = DEPS_MAX_STALE_MS,
+        archive_dir: Optional[str] = None,
+        archive_max_bytes: int = 2 << 30,
+        archive_segment_bytes: int = 64 << 20,
         sampling_budget: float = 0.0,
         sampling_interval_s: float = 5.0,
         sampling_min_rate: int = 256,
@@ -116,8 +135,14 @@ class TorchStorage(
         at full fidelity (0: none). ``max_device_batch``: the largest
         device batch before the state's own bounds. ``deps_max_stale_ms``:
         how stale a cached dependency answer may be served under ingest
-        (0: always fresh)."""
+        (0: always fresh). ``archive_dir``: the disk archive's directory
+        (None: none), holding at most ``archive_max_bytes`` in segments of
+        ``archive_segment_bytes``; the time tier's sealed segments persist
+        under its ``timetier/``."""
         self.config = config or AggConfig()
+        # the archive index packs svc and rsvc ids into 16 bits each;
+        # AggConfig refuses max_services past columnar.MAX_WIRE_SERVICES,
+        # the same bound, so no config can truncate them
         self.strict_trace_id = strict_trace_id
         self.search_enabled = search_enabled
         self.autocomplete_keys = tuple(autocomplete_keys)
@@ -183,7 +208,6 @@ class TorchStorage(
         # monotonic), served up to this stale (0: always fresh)
         self._deps_max_stale_ms = float(deps_max_stale_ms)
         self._deps_cache: dict = {}
-        self.timetier = TimeTier(self.config) if self.config.timetier_enabled else None
         self._closed = False
         # boot restore figures (port of zipkin_tpu/tpu/store.py:184-195):
         # zeros on a cold boot, set by the resume adapter, and folded into
@@ -196,6 +220,124 @@ class TorchStorage(
             "restoreFallbacks": 0,
             "generationsQuarantined": 0,
         }
+        # the at-rest scrubber (runtime/scrub.py), which the resume adapter
+        # installs; its counters join ingest_counters()
+        self.scrubber = None
+        # the disk archive (port of zipkin_tpu/tpu/store.py:198-226): every
+        # ingested span's raw bytes behind a trace-id index, so trace reads
+        # answer for every acked id the byte budget holds
+        self._disk = None
+        self._archive_vocab_path = None
+        self._archive_vocab_persisted = (0, 0)
+        if archive_dir:
+            self._disk = SpanArchive(archive_dir, max_bytes=archive_max_bytes,
+                                     segment_bytes=archive_segment_bytes)
+            self._archive_vocab_path = os.path.join(archive_dir, "vocab.json")
+        # ids seen as a local service, and the remote services of each: they
+        # answer the name reads without a segment scan (remote names intern
+        # into the same table, and only local ones list)
+        self._remote_by_svc: dict = {}
+        self._local_svc_ids: set = set()
+        self._names_count = 0  # entries in the two maps, which only grow
+        self._names_lock = threading.Lock()
+        # serializes the vocab sidecar's writes, so an older snapshot of the
+        # vocab never replaces a newer one
+        self._persist_lock = threading.Lock()
+        self.timetier = None
+        if self.config.timetier_enabled:
+            self.timetier = TimeTier(
+                self.config,
+                directory=os.path.join(archive_dir, "timetier") if archive_dir else None)
+        # the archived columns hold vocab ids: an archive-only restart takes
+        # them back from the sidecar; a snapshot restore (the resume
+        # adapter) then replaces the vocab with the same id stream, and WAL
+        # replay re-adds the tail
+        self._load_archive_vocab()
+
+    def _load_archive_vocab(self) -> None:
+        """Take the vocab and the name maps from the sidecar (port of
+        ``zipkin_tpu/tpu/store.py:350-413``); runs once from ``__init__``.
+        A sidecar whose crc32 does not match is quarantined and the boot
+        goes on as without one."""
+        path = self._archive_vocab_path
+        if path is None or not os.path.exists(path):
+            return
+        if len(self.vocab.services) > 1 or self.vocab.num_keys > 1:
+            return  # a live vocab wins
+        try:
+            with open(path) as f:
+                meta = json.load(f)
+        except (OSError, ValueError):
+            logger.warning("archive vocab sidecar unreadable; search over recovered segments "
+                           "will miss pre-restart spans")
+            return
+        want_crc = meta.pop("crc32", None)
+        if want_crc is not None:
+            got = zlib.crc32(json.dumps(meta, sort_keys=True, separators=(",", ":")).encode())
+            if got != int(want_crc):
+                logger.warning(
+                    "archive vocab sidecar digest mismatch (crc32 %08x != recorded %08x): bit "
+                    "rot; quarantining. Search over recovered segments will miss pre-restart "
+                    "spans", got, int(want_crc))
+                try:
+                    os.replace(path, path + ".quarantine")
+                except OSError:
+                    pass
+                return
+        v = self.vocab
+        v.services._names = list(meta["services"])
+        v.services._ids = {n: i for i, n in enumerate(meta["services"]) if i}
+        v.span_names._names = list(meta["span_names"])
+        v.span_names._ids = {n: i for i, n in enumerate(meta["span_names"]) if i}
+        v._key_list = [tuple(k) for k in meta["keys"]]
+        v._keys = {tuple(k): i for i, k in enumerate(meta["keys"]) if i}
+        with self._names_lock:
+            self._local_svc_ids = set(meta.get("local_svc_ids", ()))
+            self._remote_by_svc = {int(k): set(vv) for k, vv in meta.get("remote_by_svc", {}).items()}
+            self._names_count = len(self._local_svc_ids) + sum(map(len, self._remote_by_svc.values()))
+        self._archive_vocab_persisted = self._sidecar_state()
+
+    def _sidecar_state(self) -> Tuple[int, int]:
+        """(vocab entries, name-map entries): the sidecar is stale when
+        either grew since its last write."""
+        v = self.vocab
+        with self._names_lock:
+            names = self._names_count
+        return len(v._key_list) + len(v.services._names) + len(v.span_names._names), names
+
+    def _persist_archive_vocab(self) -> None:
+        """Write the vocab sidecar when the vocab or the name maps grew
+        since the last write (port of ``zipkin_tpu/tpu/store.py:415-472``,
+        which writes only when the vocab grew, so remote-service pairs and
+        local ids first seen later were lost at the next archive-only boot):
+        a snapshot under the intern lock, then an atomic replace under the
+        persist lock, with a crc32 over its canonical payload."""
+        if self._archive_vocab_path is None:
+            return
+        with self._intern_lock:
+            if self._sidecar_state() == self._archive_vocab_persisted:
+                return  # the common case: no write, no wait on a writer
+        v = self.vocab
+        with self._persist_lock:
+            with self._intern_lock:
+                size = self._sidecar_state()
+                if size == self._archive_vocab_persisted:
+                    return
+                with self._names_lock:
+                    meta = {
+                        "services": list(v.services._names),
+                        "span_names": list(v.span_names._names),
+                        "keys": [list(k) for k in v._key_list],
+                        "local_svc_ids": sorted(self._local_svc_ids),
+                        "remote_by_svc": {str(k): sorted(vv) for k, vv in self._remote_by_svc.items()},
+                    }
+                self._archive_vocab_persisted = size
+            meta["crc32"] = zlib.crc32(json.dumps(meta, sort_keys=True, separators=(",", ":")).encode())
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(self._archive_vocab_path),
+                                       suffix=".json.tmp")
+            with os.fdopen(fd, "w") as f:
+                f.write(json.dumps(meta))  # json.dump's bytes in one write
+            os.replace(tmp, self._archive_vocab_path)
 
     # -- sampling tier hooks ---------------------------------------------
 
@@ -267,17 +409,65 @@ class TorchStorage(
                     kept = [s for s, k in zip(chunk, keep) if k]
                 if kept:
                     self._archive.accept(kept).execute()
+                    if self._disk is not None:
+                        self._disk_append_spans(kept)
                 self.agg.ingest(cols)
 
         return Call.of(run)
 
+    def _disk_append_spans(self, spans: Sequence[Span]) -> None:
+        """The object path's disk append (port of
+        ``zipkin_tpu/tpu/store.py:552-603``): each span encoded once as JSON
+        v2, so the disk archive is complete whichever path ingested it. The
+        intern lock covers only the vocab pass; encoding and the write run
+        outside it."""
+        from zipkin_tpu_torch.model import json_v2
+
+        n = len(spans)
+        parts: List[bytes] = []
+        off = np.zeros(n, np.uint32)
+        ln = np.zeros(n, np.uint32)
+        lanes = np.zeros((n, 4), np.uint32)  # tl0 tl1 th0 th1
+        svc = np.zeros(n, np.uint32)
+        rsvc = np.zeros(n, np.uint32)
+        name = np.zeros(n, np.uint32)
+        key = np.zeros(n, np.uint32)
+        ts_min = np.zeros(n, np.uint32)
+        dur = np.zeros(n, np.uint64)
+        err = np.zeros(n, bool)
+        pos = 0
+        for i, s in enumerate(spans):
+            enc = json_v2.encode_span(s)
+            parts.append(enc)
+            off[i] = pos
+            ln[i] = len(enc)
+            pos += len(enc)
+            full = int(normalize_trace_id(s.trace_id), 16)
+            lo64, hi64 = full & ((1 << 64) - 1), full >> 64
+            lanes[i] = (lo64 & 0xFFFFFFFF, lo64 >> 32, hi64 & 0xFFFFFFFF, hi64 >> 32)
+            ts_min[i] = (s.timestamp or 0) // 60_000_000
+            dur[i] = s.duration or 0
+            err[i] = "error" in (s.tags or {})
+        with self._intern_lock:
+            for i, s in enumerate(spans):
+                sid = self.vocab.services.intern(s.local_service_name)
+                rid = self.vocab.services.intern(s.remote_service_name)
+                nid = self.vocab.span_names.intern(s.name)
+                svc[i], rsvc[i], name[i] = sid, rid, nid
+                key[i] = self.vocab.key_id(sid, nid)
+        self._track_remotes(svc, rsvc)
+        self._disk.append_batch(b"".join(parts), off, ln, lanes[:, 0], lanes[:, 1], lanes[:, 2],
+                                lanes[:, 3], svc, rsvc, name, key, ts_min, dur, err)
+        self._persist_archive_vocab()
+
     def ingest_json_fast(self, data: bytes, sampler=None):
         """Line-rate ingest (port of ``zipkin_tpu/tpu/store.py:605``): JSON
         v2 or proto3 ``ListOfSpans`` bytes to the device aggregates through
-        the native columnar parser, with no Span objects. A trace-affine
-        1/N sample is archived at full fidelity (the parser records each
-        span's byte extent; sampled slices are decoded by the codec), so
-        trace reads and search keep answering for that sample.
+        the native columnar parser, with no Span objects. The parser records
+        each span's byte extent: the disk archive, when there is one, takes
+        every span's raw slice, so trace reads and search answer for every
+        span; without it a trace-affine 1/N sample is decoded into the host
+        archive and they answer for that sample.
 
         ``sampler`` (a ``CollectorSampler``) drops spans at the boundary
         before anything else sees them. Returns (accepted, sample_dropped),
@@ -328,18 +518,46 @@ class TorchStorage(
         return n, dropped, chunks
 
     def _fast_dispatch(self, parsed, cols) -> None:
-        """Device half of the fast path: the archive sample, then the
-        device step. With the sampling tier armed, the archive sees only
-        the verdict-kept spans (the batch's lanes are the parse's lanes, so
-        one verdict gates both) while the device ingests the whole batch,
-        so the sketches stay unbiased."""
+        """Device half of the fast path: the archive, then the device step.
+        With the disk archive on, the payload's raw slices go to disk and
+        the host archive's sample is skipped, unless autocomplete keys are
+        set (their values come from the host archive only). With the
+        sampling tier armed, both archives see only the verdict-kept spans
+        (the batch's lanes are the parse's lanes, so one verdict gates
+        both) while the device ingests the whole batch, so the sketches
+        stay unbiased."""
         retained = parsed
         if self.agg.sampler is not None:
             keep = self.agg.sampler.verdict_cols(cols)[: parsed.n]
             if not keep.all():
                 retained = parsed.select(np.nonzero(keep)[0])
-        self._archive_fast_sample(retained)
+        if self._disk is not None:
+            rec = parsed_record(retained)
+            if rec is not None:
+                self.disk_append_record(rec)
+            if self.autocomplete_keys:
+                self._archive_fast_sample(retained)
+        else:
+            self._archive_fast_sample(retained)
         self.agg.ingest(cols)
+
+    def disk_append_record(self, rec: tuple) -> None:
+        """Append one ``archive.parsed_record`` tuple (ids in this store's
+        vocab) to the disk archive and persist the vocab if it grew."""
+        self._track_remotes(rec[7], rec[8])
+        self._disk.append_batch(*rec)
+        self._persist_archive_vocab()
+
+    def _track_remotes(self, svc: np.ndarray, rsvc: np.ndarray) -> None:
+        pairs = np.unique(svc.astype(np.uint64) << np.uint64(32) | rsvc.astype(np.uint64))
+        with self._names_lock:
+            for p in pairs.tolist():
+                s, r = p >> 32, p & 0xFFFFFFFF
+                if s:
+                    self._local_svc_ids.add(int(s))
+                if s and r:
+                    self._remote_by_svc.setdefault(int(s), set()).add(int(r))
+            self._names_count = len(self._local_svc_ids) + sum(map(len, self._remote_by_svc.values()))
 
     def _archive_fast_sample(self, parsed) -> None:
         """Archive a trace-affine 1/N sample of a fast batch at full
@@ -381,25 +599,180 @@ class TorchStorage(
             cols = pack_spans(spans[: self.max_batch], self.vocab, self._pad)
         self.agg.warm_programs(cols)
 
-    # -- raw trace reads: the host archive --------------------------------
+    # -- raw trace reads: the disk archive and the host archive ------------
+
+    def _disk_trace_spans(self, trace_id: str, views=None) -> List[Span]:
+        """Every archived span of ``trace_id`` under the store's strictness:
+        exact low-64 match, and with strict trace ids the high lanes and
+        the decoded id too. Pass ``views`` (one ``views()`` of the archive)
+        when reading many traces: each call without it sorts the live
+        segment again."""
+        normalized = normalize_trace_id(trace_id)
+        full = int(normalized, 16)
+        lo, hi = full & ((1 << 64) - 1), full >> 64
+        slices = self._disk.fetch_trace_raw(lo & 0xFFFFFFFF, lo >> 32, hi & 0xFFFFFFFF, hi >> 32,
+                                            strict=self.strict_trace_id, views=views)
+        spans = []
+        for raw in slices:
+            try:
+                s = _decode_raw_span(raw)
+            except Exception:
+                continue  # bytes that rotted under a read's retained fd
+            if self.strict_trace_id and normalize_trace_id(s.trace_id) != normalized:
+                continue
+            spans.append(s)
+        return spans
+
+    def _trace(self, trace_id: str, views=None) -> List[Span]:
+        spans = self._disk_trace_spans(trace_id, views)
+        spans += self._archive.get_trace(trace_id).execute()
+        return merge_trace(spans)
 
     def get_trace(self, trace_id: str) -> Call[List[Span]]:
-        return self._archive.get_trace(trace_id)
+        if self._disk is None:
+            return self._archive.get_trace(trace_id)
+        return Call.of(lambda: self._trace(trace_id))
 
     def get_traces(self, trace_ids: Sequence[str]) -> Call[List[List[Span]]]:
-        return self._archive.get_traces(trace_ids)
+        if self._disk is None:
+            return self._archive.get_traces(trace_ids)
+
+        def run() -> List[List[Span]]:
+            views = self._disk.views()
+            out, seen = [], set()
+            for tid in trace_ids:
+                key = trace_id_key(tid, self.strict_trace_id)
+                if key in seen:
+                    continue
+                seen.add(key)
+                spans = self._trace(tid, views)
+                if spans:
+                    out.append(spans)
+            return out
+
+        return Call.of(run)
 
     def get_traces_query(self, request: QueryRequest) -> Call[List[List[Span]]]:
-        return self._archive.get_traces_query(request)
+        if self._disk is None:
+            return self._archive.get_traces_query(request)
+        return Call.of(lambda: self._disk_query(request) if self.search_enabled else [])
+
+    def _disk_query(self, request: QueryRequest) -> List[List[Span]]:
+        """getTraces over the disk archive (port of
+        ``zipkin_tpu/tpu/store.py:892-999``): vectorized candidate masks on
+        the indexed columns (service, span name, remote service, duration,
+        window), then the candidate traces decoded and held to the exact
+        ``QueryRequest.test``, so annotationQuery and every other clause
+        not indexed are exact by post-filter. Candidates come newest
+        segment first and decoding stops once ``limit`` traces pass; when
+        the post-filter starves the limit the scan widens once."""
+        svc_id = rsvc_id = name_id = None
+        if request.service_name:
+            svc_id = self.vocab.services.get(request.service_name.lower())
+            if svc_id is None:
+                return []
+        if request.remote_service_name:
+            rsvc_id = self.vocab.services.get(request.remote_service_name.lower())
+            if rsvc_id is None:
+                return []
+        if request.span_name:
+            name_id = self.vocab.span_names.get(request.span_name.lower())
+            if name_id is None:
+                return []
+        lo_min = epoch_minutes(request.end_ts - request.lookback)
+        hi_min = epoch_minutes(request.end_ts)
+
+        def fetch(cand_limit: int) -> Tuple[List[List[Span]], bool]:
+            # one views() for the whole query: taking one sorts the live segment
+            views = self._disk.views()
+            cands = self._disk.candidate_trace_ids(
+                ts_lo_min=lo_min, ts_hi_min=hi_min, svc_id=svc_id, rsvc_id=rsvc_id,
+                name_id=name_id, min_dur=request.min_duration, max_dur=request.max_duration,
+                limit=cand_limit, views=views)
+            # the host archive's matches first: its spans of the same traces
+            # and traces only it holds
+            ram: dict = {}
+            for trace in self._archive.get_traces_query(request).execute():
+                ram.setdefault(trace_id_key(trace[0].trace_id, self.strict_trace_id), []).extend(trace)
+            out, seen_keys = [], set()
+            for id64, _ in cands:
+                if len(out) >= request.limit:
+                    break
+                spans = []
+                for r in self._disk.fetch_trace_raw(id64 & 0xFFFFFFFF, id64 >> 32, 0, 0,
+                                                    strict=False, views=views):
+                    try:
+                        spans.append(_decode_raw_span(r))
+                    except Exception:
+                        continue  # bytes that rotted under a read's retained fd
+                for group in group_by_trace_id(spans, self.strict_trace_id):
+                    key = trace_id_key(group[0].trace_id, self.strict_trace_id)
+                    if key in seen_keys:
+                        continue
+                    seen_keys.add(key)
+                    merged = merge_trace(group + ram.pop(key, []))
+                    if request.test(merged):
+                        out.append(merged)
+            # traces the host archive matched and the walk above did not
+            # reach may have spans on disk too: a trace returned is complete
+            for spans in ram.values():
+                merged = merge_trace(spans + self._disk_trace_spans(spans[0].trace_id, views))
+                if request.test(merged):
+                    out.append(merged)
+            out.sort(key=lambda t: max((s.timestamp or 0) for s in t), reverse=True)
+            return out[: request.limit], len(cands) >= cand_limit
+
+        results, capped = fetch(request.limit * 4 + 16)
+        if capped and len(results) < request.limit:
+            results, _ = fetch((request.limit * 4 + 16) * 8)
+        return results
 
     def get_service_names(self) -> Call[List[str]]:
-        return self._archive.get_service_names()
+        if self._disk is None:
+            return self._archive.get_service_names()
+
+        def run() -> List[str]:
+            if not self.search_enabled:
+                return []
+            # the ids seen as a local service, with no retention cutoff
+            with self._names_lock:
+                ids = list(self._local_svc_ids)
+            return sorted(n for n in {self.vocab.services.lookup(s) for s in ids} if n)
+
+        return Call.of(run)
 
     def get_remote_service_names(self, service_name: str) -> Call[List[str]]:
-        return self._archive.get_remote_service_names(service_name)
+        if self._disk is None:
+            return self._archive.get_remote_service_names(service_name)
+
+        def run() -> List[str]:
+            if not self.search_enabled:
+                return []
+            sid = self.vocab.services.get(service_name.lower())
+            with self._names_lock:
+                rids = list(self._remote_by_svc.get(sid or -1, ()))
+            names = {self.vocab.services.lookup(r) for r in rids}
+            names |= set(self._archive.get_remote_service_names(service_name).execute())
+            return sorted(n for n in names if n)
+
+        return Call.of(run)
 
     def get_span_names(self, service_name: str) -> Call[List[str]]:
-        return self._archive.get_span_names(service_name)
+        if self._disk is None:
+            return self._archive.get_span_names(service_name)
+
+        def run() -> List[str]:
+            if not self.search_enabled:
+                return []
+            sid = self.vocab.services.get(service_name.lower())
+            if sid is None:
+                return []
+            with self.vocab._lock:
+                pairs = list(self.vocab._key_list)
+            return sorted(n for n in {self.vocab.span_names.lookup(nid) for s, nid in pairs if s == sid}
+                          if n)
+
+        return Call.of(run)
 
     def get_keys(self) -> Call[List[str]]:
         return self._archive.get_keys()
@@ -701,6 +1074,10 @@ class TorchStorage(
             "readCacheEntries": len(self._read_cache),
             **(self.timetier.export_counters() if self.timetier is not None else {}),
             **self.restore_stats,
+            # what the disk archive holds, dropped, skipped and quarantined
+            **(self._disk.counters() if self._disk is not None else {}),
+            # what the scrubber verified and pulled from service
+            **(self.scrubber.counters() if self.scrubber is not None else {}),
         }
 
     # -- lifecycle -------------------------------------------------------
@@ -714,12 +1091,17 @@ class TorchStorage(
 
     def close(self) -> None:
         self._closed = True
+        if self.scrubber is not None:
+            self.scrubber.stop()
         if self.sampling_controller is not None:
             self.sampling_controller.stop()
+        if self._disk is not None:
+            self._disk.close()  # seals the live segment
         self._archive.close()
 
     def clear(self) -> None:
-        """Drop the archive and reset the device state, on the same device."""
+        """Drop the host archive and reset the device state, on the same
+        device; the disk archive stays, as in the reference."""
         self._archive.clear()
         self.agg = TorchAggregator(self.config, device=self.agg.device)
         # sealed segments were cut from the old aggregator's buckets

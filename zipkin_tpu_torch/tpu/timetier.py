@@ -394,21 +394,24 @@ class TimeTier:
     # -- query side ------------------------------------------------------
 
     def cover(
-        self, lo_ep: int, hi_ep: int
+        self, lo_ep: int, hi_ep: int, sealed_through: Optional[int] = None
     ) -> Tuple[List[Segment], int, int]:
         """(segments, covered, missing) for the SEALED epochs of
         ``[lo_ep, hi_ep]``: coarse blocks where one fits entirely inside
         the range, fine/memory segments next, disk loads last. Epochs
-        with no surviving segment count as missing."""
-        hi = min(hi_ep, self.sealed_through)
+        with no surviving segment count as missing. ``sealed_through``:
+        the caller's reading of it (default: the tier's own)."""
         parts: List[Segment] = []
         covered = 0
         missing = 0
         with self._lock:
+            if sealed_through is None:
+                sealed_through = self.sealed_through
+            hi = min(hi_ep, sealed_through)
             # everything below the tier's oldest reachable epoch is
             # missing by arithmetic — a multi-year lookback must not
             # turn into a per-epoch scan of epochs nothing retains
-            floor = self.sealed_through + 1
+            floor = sealed_through + 1
             if self._disk_epochs:
                 floor = min(floor, min(self._disk_epochs))
             if self._fine:
@@ -449,10 +452,16 @@ class TimeTier:
         compute behind the mirror's demand-registered ``ttq:`` keys —
         a sealed-only window never touches the aggregator lock."""
         t0 = time.perf_counter()
-        parts, covered, missing = self.cover(lo_ep, hi_ep)
-        unsealed = hi_ep > self.sealed_through
+        # one reading of sealed_through for both halves: a seal that lands
+        # between them must not drop its epoch from the answer (the
+        # reference reads it twice, ``zipkin_tpu/tpu/timetier.py:window``);
+        # an epoch sealed after this reading is still on the device
+        with self._lock:
+            sealed = self.sealed_through
+        parts, covered, missing = self.cover(lo_ep, hi_ep, sealed)
+        unsealed = hi_ep > sealed
         if unsealed:
-            u_lo = max(lo_ep, self.sealed_through + 1)
+            u_lo = max(lo_ep, sealed + 1)
             ep, regs, digest, calls, errs = agg.tt_read(u_lo, hi_ep)
             parts = parts + [Segment(
                 lo_ep=u_lo, hi_ep=hi_ep,
