@@ -71,7 +71,16 @@ Builds the hand-written kernels from the sources in the checkout, then:
     archive), a reopen after a crash that recovers the unsealed tail (h2),
     a rotted sealed segment quarantined by Scrubber.scan_once with later
     reads partial and never an error (h3), and retention under a small byte
-    budget (h4); times the append, the reads, the recovery and the scan.
+    budget (h4); times the append, the reads, the recovery and the scan;
+(i) the parse fan-out on phase e's payloads: the multi-process tier behind
+    Collector(mp_ingester=...) with one worker and no coalescing (i1: every
+    leaf equals phase e's, 64 update_step launches), with up to 4 workers
+    coalescing 8 chunks a step (i2: launches equal the dispatcher's groups,
+    fewer than 64; planes by name and reads equal i1's), over a WAL with a
+    worker SIGKILLed (i3: no acked span lost, the replay equals the live
+    leaves), behind the server with TPU_MP_WORKERS=2 (i4: 202s, 429s on a
+    full tier, stop() drains before its final snapshot), and the threaded
+    AsyncIngestFeeder (i5); times each against f1.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -2528,6 +2537,536 @@ def phase_archive(seed: int, torch, card: str, stored: dict, fast: dict, cfg=Non
     return fig
 
 
+def planes_by_name(store) -> dict:
+    """The integer planes of a store keyed by name, not by vocab id (several
+    parse workers assign global ids in arrival order): histograms and
+    all-time HLL registers by (service, span name) and service, dependency
+    links over the whole window by service pair, and the host counters but
+    ``batches``."""
+    hist, hll_regs, _ = store.agg.merged_sketches()
+    svc, names = store.vocab.services.lookup, store.vocab.span_names.lookup
+    keys = {(svc(s), names(n)): kid for kid, (s, n) in enumerate(store.vocab._key_list) if kid}
+    calls, errs = store.agg.dependency_matrices(0, 1 << 31)
+    counters = dict(store.agg.host_counters)
+    counters.pop("batches")
+    return dict(
+        hist={k: hist[kid].tobytes() for k, kid in keys.items() if hist[kid].any()},
+        hll={svc(i): hll_regs[i].tobytes() for i in range(1, len(store.vocab.services))},
+        hll_global=hll_regs[store.config.global_hll_row].tobytes(),
+        links={(svc(int(p)), svc(int(c))): (int(calls[p, c]), int(errs[p, c]))
+               for p, c in zip(*np.nonzero(calls))},
+        counters=counters,
+    )
+
+
+def entry_with_tier(card: str, wire, per: int, argv=None, env_extra=None,
+                    timeout_s: float = 180.0) -> dict:
+    """``TPU_FAST_INGEST=1 TPU_MP_WORKERS=2 TPU_MP_QUEUE_DEPTH=1 python -m
+    zipkin_tpu_torch.server --storage tpu`` as a subprocess (archive off):
+    /health UP, the first quarter of ``wire`` POSTed by a client that backs
+    off on 429 all 202, the rest flooded from 4 threads without backoff (at
+    least one 429), /metrics accounting for every 202'd span once the tier
+    drains, then SIGTERM -> exit code 0. ``argv`` and ``env_extra`` replace
+    the command and add to its environment (a rehearsal off the card)."""
+    import concurrent.futures
+    import os
+    import signal
+    import socket
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, TPU_FAST_INGEST="1", TPU_MP_WORKERS="2", TPU_MP_QUEUE_DEPTH="1",
+               TPU_ARCHIVE_DIR="off", QUERY_HOST="127.0.0.1", **(env_extra or {}))
+    root = os.path.dirname(os.path.abspath(__file__))
+    base = f"http://127.0.0.1:{port}"
+    cmd = (argv or [sys.executable, "-m", "zipkin_tpu_torch.server"]) + [
+        "--port", str(port), "--storage", "tpu"]
+
+    def post(body):
+        req = urllib.request.Request(base + "/api/v2/spans", data=body, method="POST",
+                                     headers={"Content-Type": "application/x-protobuf"
+                                              if body[:1] == b"\n" else "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=120) as resp:
+                return resp.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    def metrics():
+        return json.loads(urllib.request.urlopen(base + "/metrics", timeout=60).read())
+
+    fig = dict(card=card)
+    with tempfile.TemporaryFile() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"phase i6: the server exited {proc.returncode} early")
+                try:
+                    if json.loads(urllib.request.urlopen(base + "/health", timeout=5).read())[
+                            "status"] == "UP":
+                        break
+                except OSError:
+                    pass
+                if time.perf_counter() - t0 > timeout_s:
+                    raise AssertionError(f"phase i6: /health not UP within {timeout_s} s")
+                time.sleep(0.25)
+            fig["boot_s"] = time.perf_counter() - t0
+            quarter = len(wire) // 4
+            accepted = backoffs = 0
+            for p in wire[:quarter]:
+                while (status := post(p)) == 429:
+                    backoffs += 1
+                    time.sleep(0.005)
+                if status != 202:
+                    raise AssertionError(f"phase i6: POST answered {status}")
+                accepted += 1
+            with concurrent.futures.ThreadPoolExecutor(4) as pool:
+                flood = list(pool.map(post, wire[quarter:]))
+            if set(flood) - {202, 429} or 429 not in flood:
+                raise AssertionError(f"phase i6: the flood got {sorted(set(flood))}")
+            accepted += flood.count(202)
+            deadline = time.monotonic() + 60
+            while True:
+                m = metrics()
+                if m.get("gauge.zipkin_tpu.mpInflight") == 0 and \
+                        m.get("gauge.zipkin_tpu.mpAccepted") == per * accepted:
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase i6: /metrics {m} after the tier drained, want "
+                                         f"{per * accepted} spans")
+                time.sleep(0.1)
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            fig["stop_s"] = time.perf_counter() - t1
+            if rc != 0:
+                raise AssertionError(f"phase i6: exit code {rc} after SIGTERM")
+        except BaseException:
+            out.seek(0)
+            log("phase i6: server output:\n" + out.read().decode(errors="replace")[-4000:])
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    fig.update(accepted=accepted, backoffs=backoffs, flood=len(flood), flood_429=flood.count(429),
+               workers_alive=m["gauge.zipkin_tpu.mpWorkersAlive"])
+    log(f"phase i6 ({card}): TPU_MP_WORKERS=2 TPU_MP_QUEUE_DEPTH=1 python -m zipkin_tpu_torch.server "
+        f"--storage tpu: /health UP in {fig['boot_s']:.1f} s; {quarter} POSTs 202 ({backoffs} "
+        f"backoffs on 429), a flood of {len(flood)} got {flood.count(429)} x 429; /metrics "
+        f"mpAccepted {per * accepted} = every 202'd span; SIGTERM -> exit 0 in {fig['stop_s']:.2f} s")
+    return fig
+
+
+def phase_fanout(seed: int, torch, card: str, stored: dict, fast: dict, cfg=None, device=None,
+                 workers=None, entry_argv=None, entry_env=None) -> dict:
+    """(i) the parse fan-out, on phase e's 64 payloads at the default
+    AggConfig, each sub-phase with its update_step launches counted from 0:
+
+    (i1) ``Collector(fast_ingest=True, mp_ingester=MultiProcessIngester(
+         TorchStorage(), workers=1, coalesce_max=1))``, then ``drain()``:
+         every state leaf equals phase e's (and so f1's), one update_step
+         launch a payload (64);
+    (i2) ``workers`` parse workers (``max(1, min(4, cpu_count - 2))``),
+         ``coalesce_max=8``: fewer device steps than payloads, update_step
+         launches equal to the dispatcher's groups; the integer planes, by
+         name, and the reads (dependencies, histogram rows, cardinalities)
+         equal i1's; the digest p99s inside their rank band and the rest of
+         the store's answers as the generator says; times spans/s, the
+         dispatcher's device-feed share and the workers' stage seconds
+         against f1's; then once more through the tier's blocking
+         ``submit`` (no refusals), timed only;
+    (i3) the resume adapter with a WAL dir under the tier (at least two
+         workers), one worker SIGKILLed after a quarter of the payloads: no
+         acked span lost (2**18 spans counted), and a new adapter on the WAL
+         dir replays to the live leaves (the replay's launches printed);
+    (i4) an in-process ZipkinServer with ``TPU_MP_WORKERS=2`` and
+         ``TPU_MP_QUEUE_DEPTH=1``: 16 payloads POSTed by a client that backs
+         off on 429 all get 202; a flood from 4 threads without backoff gets
+         at least one 429; ``stop()`` drains and closes the tier before its
+         final snapshot, and every 202'd span is in the counters then;
+    (i5) ``AsyncIngestFeeder`` over the 64 payloads: every span lands, the
+         histogram rows, links and cardinalities equal i1's, and the 1/64
+         archive sample reads back; timed against f1;
+    (i6) ``python -m zipkin_tpu_torch.server --storage tpu`` with
+         ``TPU_MP_WORKERS=2`` as a subprocess (:func:`entry_with_tier`).
+    ``entry_argv`` / ``entry_env`` go to i6 (a rehearsal off the card).
+    """
+    import concurrent.futures
+    import dataclasses
+    import gc
+    import os
+    import shutil
+    import signal
+    import tempfile
+    import urllib.error
+    import urllib.request
+
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.server.app import ZipkinServer
+    from zipkin_tpu_torch.server.config import ServerConfig
+    from zipkin_tpu_torch.storage.tpu import TorchStorage as Adapter
+    from zipkin_tpu_torch.tpu.feeder import AsyncIngestFeeder
+    from zipkin_tpu_torch.tpu.mp_ingest import IngestBackpressure, MultiProcessIngester
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    wire, traffic, spans = stored["wire"], stored["traffic"], stored["spans"]
+    n_spans, n_payloads = len(spans), len(wire)
+    per = n_spans // n_payloads
+    truth = store_truth(traffic, cfg)
+    picked = sampled_traces(traffic)
+    archived = [s for t in picked for s in spans[8 * t:8 * t + 8]]
+    cpus = os.cpu_count() or 1
+    workers = workers or max(1, min(4, cpus - 2))
+    fig = dict(card=card, spans=n_spans, payloads=n_payloads, cpu_count=cpus, workers=workers,
+               f1_spans_per_s=fast["spans_per_s"])
+    log(f"phase i ({card}): host cpu_count {cpus}; i2 runs {workers} parse workers")
+
+    def reset():
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+
+    def read_launches(what):
+        if hll_kernel.update.launches:
+            raise AssertionError(f"phase {what}: {hll_kernel.update.launches} single-target launches")
+        return hll_kernel.update_step.launches
+
+    def through_collector(collector):
+        """Every payload through the collector, backing off 5 ms on the
+        tier's backpressure as i4's HTTP client backs off on 429 (a tighter
+        in-process retry loop holds the GIL the dispatcher needs); returns
+        the refusals."""
+        refused = 0
+        for p in wire:
+            while True:
+                try:
+                    if collector.accept_spans_bytes(p) != 0:
+                        raise AssertionError("the collector did not hand the payload to the tier")
+                    break
+                except IngestBackpressure:
+                    refused += 1
+                    time.sleep(0.005)
+        return refused
+
+    def wait_ready(ing):
+        """The pool's start is set-up: a worker is ready once it has loaded
+        the native parser's library, which it does before its first get."""
+        deadline = time.monotonic() + 120
+        for p in ing._procs:
+            while True:
+                with open(f"/proc/{p.pid}/maps") as f:
+                    if "span_json" in f.read():
+                        break
+                if time.monotonic() > deadline or not p.is_alive():
+                    raise AssertionError("phase i: a parse worker did not start")
+                time.sleep(0.01)
+
+    def tier_run(store, what, blocking=False, **kw):
+        """The payloads through the collector into a new tier, or with
+        ``blocking`` through the tier's own blocking ``submit`` (the
+        library caller's mode, no refusals)."""
+        warm = time.perf_counter()
+        ing = MultiProcessIngester(store, **kw)
+        try:
+            collector = Collector(store, fast_ingest=True, mp_ingester=ing)
+            wait_ready(ing)
+            reset()
+            t0 = time.perf_counter()
+            if blocking:
+                refused = 0
+                for p in wire:
+                    ing.submit(p)
+            else:
+                refused = through_collector(collector)
+            ing.drain()
+            wall = time.perf_counter() - t0
+            launches = read_launches(what)
+            stats = ing.stats()
+        finally:
+            ing.close()
+        if stats["mpFallbacks"] or stats["mpAccepted"] != n_spans \
+                or store.agg.host_counters["spans"] != n_spans:
+            raise AssertionError(f"phase {what}: {stats['mpAccepted']} spans accepted, "
+                                 f"{stats['mpFallbacks']} fallbacks, want {n_spans} and 0")
+        out = dict(wall_ms=wall * 1e3, spans_per_s=n_spans / wall, launches=launches,
+                   groups=stats["mpGroups"], coalesced_chunks=stats["mpCoalescedChunks"],
+                   refused=refused, spawn_s=t0 - warm,
+                   device_feed_share=stats["mpDeviceFeedUs"] / 1e6 / wall,
+                   flush_share=stats["mpFlushUs"] / 1e6 / wall,
+                   stage_s={k: stats[f"mp{k}Us"] / 1e6
+                            for k in ("Parse", "Pack", "Route", "VocabReplay", "DeviceFeed", "Flush")},
+                   ring_high_water=stats["mpRingHighWater"])
+        if launches != out["groups"]:
+            raise AssertionError(f"phase {what}: update_step launches {launches} != "
+                                 f"{out['groups']} dispatcher groups")
+        return out
+
+    # (i1) one worker, no coalescing: the synchronous path's batches exactly
+    s1 = TorchStorage(config=cfg, device=device)
+    s1._deps_max_stale_ms = 0.0
+    i1 = tier_run(s1, "i1", workers=1, coalesce_max=1)
+    if i1["launches"] != n_payloads:
+        raise AssertionError(f"phase i1: update_step launches {i1['launches']}, want {n_payloads}")
+    assert_leaves_equal(s1.agg.state_arrays(), stored["state"], "phase i1 vs phase e (= f1)")
+    if s1._archive.span_count != 8 * len(picked):
+        raise AssertionError(f"phase i1: archive holds {s1._archive.span_count} spans, want "
+                             f"the 1/64 sample's {8 * len(picked)}")
+    planes1 = planes_by_name(s1)
+    reads1 = store_reads(s1, truth)
+    fig["i1"] = i1
+    log(f"phase i1: {n_spans} spans in {n_payloads} payloads through Collector(mp_ingester="
+        f"MultiProcessIngester(workers=1, coalesce_max=1)): {i1['spans_per_s']:.0f} spans/s "
+        f"({i1['wall_ms']:.0f} ms; f1 {fast['spans_per_s']:.0f}); update_step launches "
+        f"{i1['launches']} = groups {i1['groups']}; every state leaf equals phase e's; "
+        f"{i1['refused']} backpressure refusals; worker stage s "
+        f"{json.dumps({k: round(v, 3) for k, v in i1['stage_s'].items()})}")
+
+    # (i2) coalesced, several workers
+    s2 = TorchStorage(config=cfg, device=device)
+    s2._deps_max_stale_ms = 0.0
+    i2 = tier_run(s2, "i2", workers=workers, coalesce_max=8)
+    if not i2["launches"] < n_payloads:
+        raise AssertionError(f"phase i2: {i2['launches']} device steps for {n_payloads} payloads: "
+                             "nothing coalesced")
+    # the store's answers against the generator first: its first
+    # dependency read must be a fresh one (one transfer)
+    rng = np.random.default_rng(seed)
+    checked = check_store_answers(s2, s2.agg, truth, spans,
+                                  rng.choice(picked, min(64, len(picked)), replace=False),
+                                  "phase i2", archived=archived)
+    planes2 = planes_by_name(s2)
+    for name in planes1:
+        if planes2[name] != planes1[name]:
+            raise AssertionError(f"phase i2: the {name} plane differs from i1's (by name)")
+    reads2 = store_reads(s2, truth)
+    by_row = lambda rows: {(r["serviceName"], r["spanName"]): r for r in rows}  # noqa: E731
+    for name in ("dependencies", "cardinalities"):
+        if reads2[name] != reads1[name]:
+            raise AssertionError(f"phase i2: the {name} read differs from i1's")
+    if by_row(reads2["hist"]) != by_row(reads1["hist"]):
+        raise AssertionError("phase i2: histogram rows differ from i1's")
+    if {k: r["count"] for k, r in by_row(reads2["digest"]).items()} != \
+            {k: r["count"] for k, r in by_row(reads1["digest"]).items()}:
+        raise AssertionError("phase i2: digest row counts differ from i1's")
+    i2["digest_checked"] = checked["digest_checked"]
+    fig["i2"] = i2
+    log(f"phase i2: {workers} workers, coalesce_max=8: {i2['spans_per_s']:.0f} spans/s "
+        f"({i2['wall_ms']:.0f} ms; {i2['spans_per_s'] / fast['spans_per_s']:.2f}x f1, "
+        f"{i2['spans_per_s'] / i1['spans_per_s']:.2f}x i1); {i2['groups']} device steps "
+        f"({i2['coalesced_chunks']} chunks in coalesced groups) = update_step launches "
+        f"{i2['launches']}; device feed {100 * i2['device_feed_share']:.1f}% of the wall, group "
+        f"flush {100 * i2['flush_share']:.1f}%; worker stage s "
+        f"{json.dumps({k: round(v, 3) for k, v in i2['stage_s'].items()})}; ring high water "
+        f"{i2['ring_high_water']}; {i2['refused']} refusals; integer planes by name and the "
+        f"reads equal i1's; {checked['digest_checked']} digest p99s in their rank band")
+    del s1, s2, planes1, planes2
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the same tier fed through its blocking submit: no refusals to retry
+    s2b = TorchStorage(config=cfg, device=device)
+    i2b = tier_run(s2b, "i2 blocking", blocking=True, workers=workers, coalesce_max=8)
+    if s2b.agg.host_counters["spans"] != n_spans:
+        raise AssertionError(f"phase i2 blocking: {s2b.agg.host_counters['spans']} spans")
+    fig["i2_blocking"] = i2b
+    del s2b
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase i2, the tier's blocking submit: {i2b['spans_per_s']:.0f} spans/s "
+        f"({i2b['wall_ms']:.0f} ms; {i2b['spans_per_s'] / fast['spans_per_s']:.2f}x f1); "
+        f"{i2b['groups']} device steps = update_step launches {i2b['launches']}; device feed "
+        f"{100 * i2b['device_feed_share']:.1f}% of the wall, group flush "
+        f"{100 * i2b['flush_share']:.1f}%")
+
+    # (i3) a WAL under the tier and a worker SIGKILLed mid-run
+    root = tempfile.mkdtemp(prefix="zt-fanout-")
+    try:
+        adapter = Adapter(config=cfg, device=device, wal_dir=os.path.join(root, "wal"))
+        w3 = max(2, workers)
+        blocks = []
+        batched = adapter.wal.batched
+
+        def counted_batched():
+            blocks.append(1)
+            return batched()
+
+        adapter.wal.batched = counted_batched  # a pass with several groups logs them in one block
+        ing = MultiProcessIngester(adapter, workers=w3, coalesce_max=8)
+        wait_ready(ing)
+        reset()
+        t0 = time.perf_counter()
+        try:
+            for k, p in enumerate(wire):
+                if k == n_payloads // 4:
+                    os.kill(ing._procs[0].pid, signal.SIGKILL)
+                ing.submit(p)
+            ing.drain()
+            wall = time.perf_counter() - t0
+            launches = read_launches("i3")
+            stats = ing.stats()
+        finally:
+            ing.close()
+        if adapter.agg.host_counters["spans"] != n_spans or stats["mpWorkersAlive"] != w3 - 1:
+            raise AssertionError(f"phase i3: {adapter.agg.host_counters['spans']} spans counted "
+                                 f"after the kill, want {n_spans}; {stats['mpWorkersAlive']} alive")
+        adapter.agg.flush_now()  # a logged marker, so the replay ends flushed too
+        leaves = adapter.agg.state_arrays()
+        adapter.close()
+        del adapter
+        reset()
+        t1 = time.perf_counter()
+        revived = Adapter(config=cfg, device=device, wal_dir=os.path.join(root, "wal"))
+        boot_s = time.perf_counter() - t1
+        replay_launches = read_launches("i3 replay")
+        assert_leaves_equal(revived.agg.state_arrays(), leaves, "phase i3 replay vs live")
+        if revived.agg.host_counters["spans"] != n_spans:
+            raise AssertionError(f"phase i3: the replay counts {revived.agg.host_counters['spans']}")
+        records = revived.restore_stats["walReplayBatches"]
+        revived.close()
+        del revived, leaves
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fig["i3"] = dict(wall_ms=wall * 1e3, workers=w3, launches=launches, groups=stats["mpGroups"],
+                     fallbacks=stats["mpFallbacks"], ring_discarded=stats["mpRingDiscarded"],
+                     ring_torn=stats["mpRingTorn"], wal_batched_blocks=len(blocks),
+                     replay_records=records,
+                     replay_launches=replay_launches, boot_s=boot_s)
+    log(f"phase i3: {w3} workers over a WAL, worker 0 SIGKILLed after {n_payloads // 4} payloads: "
+        f"{n_spans} spans counted, none lost ({stats['mpFallbacks']} payloads re-ingested on the "
+        f"object path, {stats['mpRingDiscarded']} ring slots discarded, {stats['mpRingTorn']} torn); "
+        f"{stats['mpGroups']} groups ({len(blocks)} passes logged several groups in one "
+        f"wal.batched() block), update_step launches {launches}; a new adapter replays "
+        f"{records} records in {boot_s:.2f} s with {replay_launches} update_step launches to "
+        f"the live leaves")
+
+    # (i4) the server, its backpressure and its stop
+    root = tempfile.mkdtemp(prefix="zt-fanout-srv-")
+    config = ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", tpu_fast_ingest=True,
+                          tpu_mp_workers=2, tpu_mp_queue_depth=1, tpu_archive_dir=None,
+                          tpu_checkpoint_dir=os.path.join(root, "snap"),
+                          tpu_snapshot_interval_s=3600.0, tpu_scrub_interval_s=0.0,
+                          tpu_agg=dataclasses.asdict(cfg))
+    storage = None
+    if device is not None:  # a rehearsal off the card
+        storage = Adapter(config=cfg, device=device, checkpoint_dir=os.path.join(root, "snap"))
+    try:
+        reset()
+        server = ZipkinServer(config, storage=storage, seal_interval_s=0).start()
+        store, base = server.storage, f"http://127.0.0.1:{server.port}"
+        ing = server._mp_ingester
+        if ing is None or store.mp_ingester is not ing:
+            raise AssertionError("phase i4: the server did not build the tier")
+        calls = []
+
+        def spy(name, fn):
+            def run(*a, **k):
+                calls.append((name, store.agg.host_counters["spans"]))
+                return fn(*a, **k)
+            return run
+
+        ing.drain, ing.close = spy("drain", ing.drain), spy("close", ing.close)
+        store.snapshot = spy("snapshot", store.snapshot)
+        wait_ready(ing)
+
+        def post(body):
+            req = urllib.request.Request(base + "/api/v2/spans", data=body, method="POST",
+                                         headers={"Content-Type": "application/x-protobuf"
+                                                  if body[:1] == b"\n" else "application/json"})
+            try:
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    return resp.status
+            except urllib.error.HTTPError as e:
+                return e.code
+
+        accepted = backoffs = 0
+        t0 = time.perf_counter()
+        for p in wire[:16]:
+            while (status := post(p)) == 429:
+                backoffs += 1
+                time.sleep(0.005)
+            if status != 202:
+                raise AssertionError(f"phase i4: POST answered {status}")
+            accepted += 1
+        post_s = time.perf_counter() - t0
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            flood = list(pool.map(post, wire[16:48]))
+        if set(flood) - {202, 429} or 429 not in flood:
+            raise AssertionError(f"phase i4: the flood got {sorted(set(flood))}, want 202s and 429s")
+        accepted += flood.count(202)
+        m = json.loads(urllib.request.urlopen(base + "/metrics", timeout=60).read())
+        t1 = time.perf_counter()
+        server.stop()
+        stop_s = time.perf_counter() - t1
+        order = [n for n, _ in calls]
+        if order != ["drain", "close", "snapshot"] or dict(calls)["snapshot"] != per * accepted:
+            raise AssertionError(f"phase i4: stop() ran {calls}, want drain, close, snapshot "
+                                 f"with {per * accepted} spans")
+        launches = read_launches("i4")
+        if launches != ing.counters["groups"]:
+            raise AssertionError(f"phase i4: update_step launches {launches} != "
+                                 f"{ing.counters['groups']} dispatcher groups")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fig["i4"] = dict(posted=16, backoffs=backoffs, post_s=post_s, flood=len(flood),
+                     flood_429=flood.count(429), accepted=accepted, stop_s=stop_s, launches=launches,
+                     mp_rejected=m.get("gauge.zipkin_tpu.mpRejected"))
+    del server, store, storage, ing
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase i4: server with TPU_MP_WORKERS=2, TPU_MP_QUEUE_DEPTH=1: 16 POSTs all 202 "
+        f"({backoffs} backoffs on 429, {post_s:.2f} s); a flood of {len(flood)} from 4 threads got "
+        f"{flood.count(429)} x 429 and {flood.count(202)} x 202 (mpRejected "
+        f"{fig['i4']['mp_rejected']}); stop() in {stop_s:.2f} s ran drain, close, then the final "
+        f"snapshot with all {per * accepted} accepted spans; update_step launches {launches}")
+
+    # (i6) the entry point with the tier, as a subprocess
+    fig["i6"] = entry_with_tier(card, wire[:32], per, argv=entry_argv, env_extra=entry_env)
+
+    # (i5) the threaded feeder
+    s5 = TorchStorage(config=cfg, device=device)
+    s5._deps_max_stale_ms = 0.0
+    reset()
+    t0 = time.perf_counter()
+    with AsyncIngestFeeder(s5, depth=4) as feeder:
+        for p in wire:
+            feeder.submit(p)
+    wall = time.perf_counter() - t0
+    launches = read_launches("i5")
+    if feeder._accepted != n_spans or s5.agg.host_counters["spans"] != n_spans or feeder._fallback:
+        raise AssertionError(f"phase i5: the feeder accepted {feeder._accepted}, "
+                             f"fell back {feeder._fallback}")
+    if launches != n_payloads:
+        raise AssertionError(f"phase i5: update_step launches {launches}, want {n_payloads}")
+    reads5 = store_reads(s5, truth)
+    if reads5["dependencies"] != reads1["dependencies"] or \
+            reads5["cardinalities"] != reads1["cardinalities"] or \
+            by_row(reads5["hist"]) != by_row(reads1["hist"]):
+        raise AssertionError("phase i5: the feeder's reads differ from i1's")
+    t = int(picked[0])
+    want = sorted(s.id for s in spans[8 * t:8 * t + 8])
+    if sorted(s.id for s in s5.get_trace(spans[8 * t].trace_id).execute()) != want:
+        raise AssertionError("phase i5: a sampled trace did not read back")
+    fig["i5"] = dict(wall_ms=wall * 1e3, spans_per_s=n_spans / wall, launches=launches)
+    del s5
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase i5: AsyncIngestFeeder(depth=4): {fig['i5']['spans_per_s']:.0f} spans/s "
+        f"({wall * 1e3:.0f} ms; {fig['i5']['spans_per_s'] / fast['spans_per_s']:.2f}x f1); "
+        f"update_step launches {launches}; the reads equal i1's; a sampled trace reads back")
+    fig["launches"] = (i1["launches"] + i2["launches"] + i2b["launches"] + fig["i3"]["launches"]
+                       + fig["i3"]["replay_launches"] + fig["i4"]["launches"] + fig["i5"]["launches"])
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2605,6 +3144,10 @@ def main() -> int:
     archived = phase_archive(args.seed, torch, card, stored, fast)
     torch.cuda.empty_cache()
     log(f"phase h done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fanned = phase_fanout(args.seed, torch, card, stored, fast)
+    torch.cuda.empty_cache()
+    log(f"phase i done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -2616,8 +3159,10 @@ def main() -> int:
     # against its own device batches and printed with it) and
     # launches_phase_g those of durable boot in process (phase g1: the
     # victim's batches and two boots' replays; g2's server is a subprocess,
-    # checked through its /metrics) and launches_phase_h those of the disk
-    # archive's phase (h1's and h4's device batches).
+    # checked through its /metrics), launches_phase_h those of the disk
+    # archive's phase (h1's and h4's device batches) and launches_phase_i
+    # those of the parse fan-out's (i1-i5, the i3 replay included; each
+    # part's count is in launches_phase_i_parts).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -2630,6 +3175,7 @@ def main() -> int:
              launches_phase_f=fast["update_launches"],
              launches_phase_g=durable["update_launches"],
              launches_phase_h=archived["update_launches"],
+             launches_phase_i=0,
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -2641,6 +3187,12 @@ def main() -> int:
              launches_phase_f=fast["launches"],
              launches_phase_g=durable["launches"],
              launches_phase_h=archived["launches"],
+             launches_phase_i=fanned["launches"],
+             launches_phase_i_parts={"i1": fanned["i1"]["launches"], "i2": fanned["i2"]["launches"],
+                                     "i2_blocking": fanned["i2_blocking"]["launches"],
+                                     "i3": fanned["i3"]["launches"],
+                                     "i3_replay": fanned["i3"]["replay_launches"],
+                                     "i4": fanned["i4"]["launches"], "i5": fanned["i5"]["launches"]},
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

@@ -36,6 +36,7 @@ import pytest
 from tests.fixtures import TRACE, lots_of_spans
 from tests.storage_contract import QUERY_TS, StorageContract
 from tests.test_torch_store import JSMALL, SMALL, WireStorage, to_port
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu import native as ref_native
 from zipkin_tpu.model import json_v2 as ref_json
 from zipkin_tpu.model import proto3 as ref_proto3

@@ -18,6 +18,7 @@ import threading
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from tests.fixtures import TRACE, lots_of_spans
 from tests.test_torch_store import (
     JSMALL, QS, SMALL, WEEK_MS, assert_cards_match, assert_rows_match, links, ref_store,

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu.ops import hll as jhll
 from zipkin_tpu.ops import pallas_hll
 from zipkin_tpu_torch import kernels, u32

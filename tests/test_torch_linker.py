@@ -23,6 +23,7 @@ import torch
 
 import tests.test_ops_linker as ref_linker_tests
 from tests.fixtures import lots_of_spans
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu.ops import linker as jlinker
 from zipkin_tpu.tpu import ingest as jing
 from zipkin_tpu.tpu.columnar import Vocab, pack_spans

@@ -16,6 +16,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from tests.fixtures import TRACE, lots_of_spans
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu.internal import hex as ref_hex
 from zipkin_tpu.internal.dependency_linker import DependencyLinker as RefLinker
 from zipkin_tpu.internal.span_node import merge_trace as ref_merge_trace

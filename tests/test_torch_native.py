@@ -17,6 +17,7 @@ from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from tests.fixtures import TRACE, TODAY_US, lots_of_spans
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu import native as ref_native
 from zipkin_tpu.model import json_v2 as ref_json
 from zipkin_tpu.model import proto3 as ref_proto3

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu.ops import hashing as jhash
 from zipkin_tpu.ops import histogram as jhist
 from zipkin_tpu.ops import hll as jhll

@@ -11,6 +11,7 @@ import sys
 
 import pytest
 import torch
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "zipkin_tpu_torch"
@@ -194,3 +195,60 @@ def test_resume_adapter_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_
     again = TorchStorage(config=_small_config(), batch_size=32, device="cpu", **dirs)
     assert again.agg.state.hll.device.type == "cpu"
     again.close()
+
+
+def test_the_fan_out_modules_are_checked():
+    """The span ring, the multi-process tier and the feeder are ports of
+    modules the JAX package holds: all are under the import checks above."""
+    mods = _modules()
+    for m in ("zipkin_tpu_torch.tpu.ring", "zipkin_tpu_torch.tpu.mp_ingest",
+              "zipkin_tpu_torch.tpu.feeder"):
+        assert m in mods
+        bad = [r for r in _imported_roots(ROOT / (m.replace(".", "/") + ".py")) if r in FORBIDDEN]
+        assert not bad, f"{m} imports {bad}"
+
+
+def test_fault_catalogs_equal_the_reference():
+    """The crash, corrupt and resource site catalogs are the reference's
+    (the resource sites now include ``feed.latency`` and ``alloc``)."""
+    from zipkin_tpu import faults as ref_faults
+    from zipkin_tpu_torch import faults
+
+    assert faults.SITES == ref_faults.SITES
+    assert faults.CORRUPT_SITES == ref_faults.CORRUPT_SITES
+    assert faults.RESOURCE_SITES == ref_faults.RESOURCE_SITES
+    assert faults.RESOURCE_SITES == ("wal.append", "snapshot", "archive", "feed.latency", "alloc")
+
+
+@pytest.mark.parametrize("site", ["feed.latency", "alloc", "wal.append"])
+def test_resource_sites_behave_as_the_reference(site):
+    """Armed for two traversals: ``feed.latency`` sleeps its latency and
+    returns, ``alloc`` raises MemoryError, a disk site raises ENOSPC, in
+    both packages alike; the third traversal passes."""
+    import time as _time
+
+    from zipkin_tpu import faults as ref_faults
+    from zipkin_tpu_torch import faults
+
+    outcomes = []
+    for mod in (faults, ref_faults):
+        mod.arm_resource(site, nth=1, count=2, latency_ms=50.0)
+        try:
+            got = []
+            for _ in range(3):
+                t0 = _time.perf_counter()
+                try:
+                    mod.resource_point(site)
+                    got.append(("ok", _time.perf_counter() - t0 >= 0.045))
+                except MemoryError:
+                    got.append(("MemoryError", None))
+                except OSError as e:
+                    got.append((f"OSError {e.errno}", None))
+            outcomes.append(got)
+            assert not mod.is_resource_armed(site)
+        finally:
+            mod.disarm()
+    assert outcomes[0] == outcomes[1]
+    want_first = {"feed.latency": ("ok", True), "alloc": ("MemoryError", None)}.get(
+        site, ("OSError 28", None))
+    assert outcomes[0][:2] == [want_first] * 2 and outcomes[0][2] == ("ok", False)

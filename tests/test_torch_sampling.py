@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu.parallel.mesh import make_mesh
 from zipkin_tpu.parallel.sharded import ShardedAggregator
 from zipkin_tpu.sampling import RateController as JRateController

@@ -32,6 +32,7 @@ from tests.fixtures import lots_of_spans
 from tests.test_torch_server import Client
 from tests.test_torch_store import SMALL, to_port
 from tests.test_torch_wal import port_adapter
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu import faults as ref_faults
 from zipkin_tpu import native as ref_native
 from zipkin_tpu.model import json_v2 as ref_json

@@ -12,6 +12,12 @@ only) driven over real sockets on an ephemeral port.
   rtol 1e-6 (the tolerances of ``tests/test_torch_store.py``).
 - Concurrency, the entry point's ``--help``, and that the server loads no
   aiohttp.
+- The multi-process ingest tier behind the server: the ``TPU_MP_*``
+  settings, the tier refused with the reference's warning off the device
+  store or the line-rate path, 202 and every span landed, 429 on a full
+  tier beside the throttle's 503, the ``alloc`` site's 429, and ``stop()``
+  (or the resume adapter's ``close()``) draining and closing the tier
+  before the final snapshot.
 """
 
 from __future__ import annotations
@@ -19,9 +25,12 @@ from __future__ import annotations
 import asyncio
 import gzip
 import json
+import os
+import signal
 import subprocess
 import sys
 import threading
+import time
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -31,6 +40,7 @@ import pytest
 
 from tests.fixtures import TRACE, TODAY, lots_of_spans
 from tests.test_torch_store import JSMALL, SMALL, ref_store, small_store, to_port
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu.model import json_v1 as ref_json_v1
 from zipkin_tpu.model import json_v2 as ref_json
 from zipkin_tpu.model import proto3 as ref_proto3
@@ -600,3 +610,292 @@ def test_server_modules_load_no_aiohttp():
             "print('ok')\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+# -- the multi-process ingest tier ----------------------------------------------
+
+
+def test_mp_settings_parse_from_the_environment(monkeypatch):
+    """``TPU_MP_WORKERS`` (0: off), ``TPU_MP_QUEUE_DEPTH``, ``TPU_MP_RING_SLOTS``
+    and ``TPU_MP_COALESCE_MAX``: the reference's names and defaults."""
+    for name in ("TPU_MP_WORKERS", "TPU_MP_QUEUE_DEPTH", "TPU_MP_RING_SLOTS", "TPU_MP_COALESCE_MAX"):
+        monkeypatch.delenv(name, raising=False)
+    cfg = ServerConfig.from_env()
+    assert (cfg.tpu_mp_workers, cfg.tpu_mp_queue_depth, cfg.tpu_mp_ring_slots,
+            cfg.tpu_mp_coalesce_max) == (0, 2, 0, 8)
+    monkeypatch.setenv("TPU_MP_WORKERS", "3")
+    monkeypatch.setenv("TPU_MP_QUEUE_DEPTH", "5")
+    monkeypatch.setenv("TPU_MP_RING_SLOTS", "6")
+    monkeypatch.setenv("TPU_MP_COALESCE_MAX", "4")
+    cfg = ServerConfig.from_env()
+    assert (cfg.tpu_mp_workers, cfg.tpu_mp_queue_depth, cfg.tpu_mp_ring_slots,
+            cfg.tpu_mp_coalesce_max) == (3, 5, 6, 4)
+
+
+@pytest.mark.parametrize("why", ["mem", "no_fast_ingest"])
+def test_mp_tier_refused_with_the_reference_warning(served, caplog, why):
+    """The tier is the line-rate path's scale-out over the device store: on
+    ``mem``, or with fast ingest off, it is not built, with the reference's
+    warning, and POSTs take the synchronous path."""
+    if why == "mem":
+        c = served(storage_type="mem", tpu_fast_ingest=True, tpu_mp_workers=2)
+    else:
+        c = served(small_store(), storage_type="tpu", tpu_mp_workers=2)
+    assert "TPU_MP_WORKERS=2 ignored: requires STORAGE_TYPE=tpu" in caplog.text
+    assert c.post("/api/v2/spans", TRACE_BODY)[0] == 202
+    assert len(c.json(f"/api/v2/trace/{TRACE[0].trace_id}")) == len(TRACE)
+    assert "gauge.zipkin_tpu.mpWorkers" not in c.json("/metrics")
+
+
+def _mp_payloads(n, per=500):
+    spans = lots_of_spans(n * per, seed=71, services=5, span_names=6)
+    return [(ref_proto3 if i % 2 else ref_json).encode_span_list(spans[i * per:(i + 1) * per])
+            for i in range(n)]
+
+
+def _post_until_accepted(c, body, headers=None, limit_s=60.0):
+    """POST as a client that backs off on 429 (the tier refuses while every
+    worker's queue is full, as it is while the workers start); the final
+    status and the 429s seen."""
+    refused = 0
+    deadline = time.monotonic() + limit_s
+    while True:
+        status = c.post("/api/v2/spans", body, headers)[0]
+        if status != 429 or time.monotonic() > deadline:
+            return status, refused
+        refused += 1
+        time.sleep(0.02)
+
+
+def _mp_server(storage, **config):
+    config.setdefault("tpu_mp_workers", 2)
+    return serve(storage, storage_type="tpu", tpu_fast_ingest=True, **config)
+
+
+def test_mp_tier_answers_202_and_lands_every_span():
+    """JSON v2 and proto3 POSTs go to the workers and are answered 202; after
+    a drain every span is in the store, and /metrics carries the tier's
+    gauges; stop() closes the tier and unhooks it from the store."""
+    if not native.available():
+        pytest.skip("no C compiler for the native parser")
+    store = small_store()
+    server = _mp_server(store)
+    c = Client(server)
+    try:
+        ing = server._mp_ingester
+        assert ing is not None and store.mp_ingester is ing and server.collector.mp_ingester is ing
+        ps = _mp_payloads(6)
+        refused = 0
+        for p in ps:
+            ctype = "application/x-protobuf" if p[:1] == b"\n" else "application/json"
+            status, n = _post_until_accepted(c, p, {"Content-Type": ctype})
+            assert status == 202
+            refused += n
+        ing.drain()
+        assert store.agg.host_counters["spans"] == 3000
+        m = c.json("/metrics")
+        assert m["gauge.zipkin_tpu.mpWorkers"] == m["gauge.zipkin_tpu.mpWorkersAlive"] == 2
+        assert m["gauge.zipkin_tpu.mpAccepted"] == m["counter.zipkin_collector.spans.http"] == 3000
+        assert m["gauge.zipkin_tpu.mpInflight"] == 0
+        assert m["gauge.zipkin_tpu.mpRejected"] == refused
+        assert m["counter.zipkin_collector.messages_dropped.http"] == refused
+    finally:
+        server.stop()
+    assert ing._closed and store.mp_ingester is None
+
+
+def test_full_tier_answers_429_and_the_throttle_keeps_503():
+    """A frozen lone worker with a queue of one: the first POST is queued
+    (202), the next finds every queue full (429, no Retry-After: the tier
+    gives no backoff guidance), while a throttle shed on the object path
+    stays 503. Unfrozen, the 202'd payload lands at stop()."""
+    if not native.available():
+        pytest.skip("no C compiler for the native parser")
+    store = small_store()
+    server = _mp_server(store, tpu_mp_workers=1, tpu_mp_queue_depth=1)
+    c = Client(server)
+    ing = server._mp_ingester
+    pid = ing._procs[0].pid
+    os.kill(pid, signal.SIGSTOP)
+    try:
+        ps = _mp_payloads(3, per=100)
+        assert c.post("/api/v2/spans", ps[0])[0] == 202
+        url = f"{c.base}/api/v2/spans"
+        with pytest.raises(urllib.error.HTTPError) as e:
+            urllib.request.urlopen(urllib.request.Request(url, data=ps[2], method="POST"),
+                                   timeout=60)
+        assert e.value.code == 429 and "saturated" in e.value.read().decode()
+        assert e.value.headers.get("Retry-After") is None
+        assert ing.counters["rejected"] == 1
+
+        class Shedding(SpanConsumer):
+            def accept(self, spans):
+                raise RejectedExecutionError("throttle full")
+
+        server.collector._consumer = Shedding()
+        v1 = ref_json_v1.encode_v1_span_list(TRACE)
+        assert c.post("/api/v1/spans", v1, {"Content-Type": "application/json"})[0] == 503
+        m = c.json("/metrics")
+        assert m["counter.zipkin_collector.messages_dropped.http"] == 1
+        assert m["gauge.zipkin_tpu.mpRejected"] == 1
+    finally:
+        os.kill(pid, signal.SIGCONT)
+        server.stop()
+    assert store.agg.host_counters["spans"] == 100
+
+
+def test_alloc_fault_answers_429_and_counts_the_message_dropped(served):
+    """The ``alloc`` resource site at the collector boundary: an injected
+    allocation failure is answered 429, not 500, and counted dropped."""
+    from zipkin_tpu_torch import faults
+
+    c = served()
+    faults.arm_resource("alloc", nth=1, count=1)
+    try:
+        assert c.post("/api/v2/spans", TRACE_BODY)[0] == 429
+    finally:
+        faults.disarm()
+    assert c.post("/api/v2/spans", TRACE_BODY)[0] == 202
+    m = c.json("/metrics")
+    assert m["counter.zipkin_collector.messages_dropped.http"] == 1
+    assert m["counter.zipkin_collector.messages.http"] == 2
+
+
+def test_stop_drains_then_closes_the_tier_before_the_final_snapshot(tmp_path):
+    """stop() drains the tier, always closes it, and only then takes the
+    final snapshot and closes the store: every 202'd span is in the
+    snapshot's counters."""
+    if not native.available():
+        pytest.skip("no C compiler for the native parser")
+    from zipkin_tpu_torch.storage.tpu import TorchStorage as Adapter
+
+    store = Adapter(config=SMALL, device="cpu", batch_size=256,
+                    checkpoint_dir=str(tmp_path / "ckpt"), wal_dir=str(tmp_path / "wal"))
+    server = _mp_server(store, tpu_snapshot_interval_s=3600.0)
+    ing = server._mp_ingester
+    calls = []
+
+    def spy(name, fn):
+        def run(*a, **k):
+            calls.append((name, store.agg.host_counters["spans"]))
+            return fn(*a, **k)
+        return run
+
+    ing.drain = spy("drain", ing.drain)
+    ing.close = spy("close", ing.close)
+    store.snapshot = spy("snapshot", store.snapshot)
+    store.close = spy("store.close", store.close)
+    c = Client(server)
+    for p in _mp_payloads(4):
+        assert _post_until_accepted(c, p)[0] == 202
+    server.stop()
+    assert [n for n, _ in calls] == ["drain", "close", "snapshot", "store.close"]
+    assert dict(calls)["snapshot"] == 2000
+    assert ing._closed and store.mp_ingester is None
+    revived = Adapter(config=SMALL, device="cpu", batch_size=256,
+                      checkpoint_dir=str(tmp_path / "ckpt"))
+    assert revived.agg.host_counters["spans"] == 2000
+    revived.close()
+
+
+def test_adapter_close_drains_and_closes_an_attached_tier(tmp_path):
+    """A caller that only closes the storage: the resume adapter drains the
+    attached tier before its WAL detaches, so the log holds every span."""
+    if not native.available():
+        pytest.skip("no C compiler for the native parser")
+    from zipkin_tpu_torch.storage.tpu import TorchStorage as Adapter
+    from zipkin_tpu_torch.tpu.mp_ingest import MultiProcessIngester
+
+    store = Adapter(config=SMALL, device="cpu", batch_size=256, wal_dir=str(tmp_path / "wal"))
+    ing = MultiProcessIngester(store, workers=1)
+    store.mp_ingester = ing
+    for p in _mp_payloads(3):
+        ing.submit(p)
+    store.close()
+    assert ing._closed and store.mp_ingester is None
+    revived = Adapter(config=SMALL, device="cpu", batch_size=256, wal_dir=str(tmp_path / "wal"))
+    assert revived.agg.host_counters["spans"] == 1500
+    revived.close()
+
+
+def test_entry_point_with_mp_workers_answers_202_429_and_drains_on_sigterm(tmp_path):
+    """``TPU_FAST_INGEST=1 TPU_MP_WORKERS=2 TPU_MP_QUEUE_DEPTH=1 python -m
+    zipkin_tpu_torch.server --storage tpu`` (the store on the CPU here): a
+    backing-off client's POSTs are all 202, a flood from 4 threads meets
+    429, /metrics accounts for every 202'd span once the tier drains, and
+    SIGTERM ends it with exit code 0."""
+    if not native.available():
+        pytest.skip("no C compiler for the native parser")
+    import concurrent.futures
+    import socket
+
+    code = ("import sys\n"
+            "from zipkin_tpu_torch.server import app\n"
+            "build = app.build_storage\n"
+            "app.build_storage = lambda config, device=None: build(config, device='cpu')\n"
+            "from zipkin_tpu_torch.server.__main__ import main\n"
+            "sys.exit(main(sys.argv[1:]))\n")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, QUERY_HOST="127.0.0.1", TPU_FAST_INGEST="1",
+               TPU_MP_WORKERS="2", TPU_MP_QUEUE_DEPTH="1", TPU_ARCHIVE_DIR="off",
+               TPU_MAX_SERVICES="128", TPU_MAX_KEYS="512", TPU_HLL_PRECISION="10",
+               TPU_DIGEST_CENTROIDS="32", TPU_RING_CAPACITY="16384")
+    proc = subprocess.Popen([sys.executable, "-c", code, "--port", str(port), "--storage", "tpu"],
+                            cwd=str(tmp_path), env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE)
+    base = f"http://127.0.0.1:{port}"
+
+    def post(body):
+        req = urllib.request.Request(base + "/api/v2/spans", data=body, method="POST")
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    try:
+        deadline = time.monotonic() + 120
+        while True:
+            assert proc.poll() is None, proc.stderr.read().decode()
+            try:
+                with urllib.request.urlopen(base + "/health", timeout=5) as resp:
+                    if json.loads(resp.read())["status"] == "UP":
+                        break
+            except OSError:
+                pass
+            assert time.monotonic() < deadline, "no /health"
+            time.sleep(0.2)
+        ps = _mp_payloads(16, per=200)
+        accepted = refused = 0
+        for p in ps[:4]:
+            while (status := post(p)) == 429:
+                refused += 1
+                time.sleep(0.005)
+            assert status == 202
+            accepted += 1
+        with concurrent.futures.ThreadPoolExecutor(4) as pool:
+            flood = list(pool.map(post, ps[4:]))
+        assert set(flood) <= {202, 429} and 429 in flood
+        accepted += flood.count(202)
+        deadline = time.monotonic() + 60
+        while True:
+            with urllib.request.urlopen(base + "/metrics", timeout=30) as resp:
+                m = json.loads(resp.read())
+            if m["gauge.zipkin_tpu.mpInflight"] == 0 and \
+                    m["gauge.zipkin_tpu.mpAccepted"] == 200 * accepted:
+                break
+            assert time.monotonic() < deadline, m
+            time.sleep(0.1)
+        assert m["gauge.zipkin_tpu.mpWorkersAlive"] == 2
+        refused += flood.count(429)
+        assert m["gauge.zipkin_tpu.mpRejected"] == refused
+        assert m["counter.zipkin_collector.messages_dropped.http"] == refused
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=60) == 0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)

@@ -27,6 +27,7 @@ import shutil
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from tests.fixtures import lots_of_spans
 from tests.test_torch_store import JSMALL, links, ref_store, small_store, to_port
 from tests.test_torch_wal import (

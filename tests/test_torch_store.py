@@ -26,6 +26,7 @@ import pytest
 
 from tests.fixtures import TODAY_US, lots_of_spans
 from tests.storage_contract import StorageContract
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu.model import json_v2 as ref_json
 from zipkin_tpu.model.span import Endpoint, Kind, Span
 from zipkin_tpu.parallel.mesh import make_mesh

@@ -23,6 +23,7 @@ import os
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from zipkin_tpu.parallel.mesh import make_mesh
 from zipkin_tpu.parallel.sharded import ShardedAggregator
 from zipkin_tpu.tpu.state import AggConfig as JConfig

@@ -35,6 +35,7 @@ import textwrap
 import numpy as np
 import pytest
 
+import tests.torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from tests.fixtures import lots_of_spans
 from tests.test_torch_fastpath import assert_leaves_equal
 from tests.test_torch_store import (
@@ -305,14 +306,14 @@ def test_enospc_puts_durability_at_risk_until_a_snapshot(tmp_path):
 
 def test_resource_site_armed_from_the_environment(tmp_path):
     """``ZT_RESOURCE=wal.append:2`` arms the site at import: the second
-    append misses its record and puts the log at risk; a site the package
-    does not pass through is ignored with a warning."""
+    append misses its record and puts the log at risk; a site outside the
+    catalog (the reference's five) is ignored with a warning."""
     code = textwrap.dedent("""
         import sys
         import numpy as np
         from zipkin_tpu_torch import faults
         from zipkin_tpu_torch.tpu.wal import WriteAheadLog
-        assert faults.RESOURCE_SITES == ("wal.append", "snapshot", "archive")
+        assert faults.RESOURCE_SITES == ("wal.append", "snapshot", "archive", "feed.latency", "alloc")
         assert faults.is_resource_armed("wal.append")
         log = WriteAheadLog(sys.argv[1])
         img = np.zeros((1, 11, 4), np.uint32)
@@ -321,7 +322,7 @@ def test_resource_site_armed_from_the_environment(tmp_path):
         print(out)
     """)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    env = dict(os.environ, ZT_RESOURCE="wal.append:2,feed.latency", PYTHONPATH=root)
+    env = dict(os.environ, ZT_RESOURCE="wal.append:2,no.such.site", PYTHONPATH=root)
     done = subprocess.run([sys.executable, "-c", code, str(tmp_path / "wal")], env=env, cwd=root,
                           capture_output=True, text=True, timeout=120)
     assert done.returncode == 0, done.stderr

@@ -11,9 +11,16 @@ Sampling is boundary sampling: the decision is a pure function of the
 trace id's low 64 bits, so every collector makes the same call for every
 span of a trace without coordination.
 
+With a multi-process tier (``mp_ingester``, :mod:`zipkin_tpu_torch.tpu.mp_ingest`)
+and the line-rate path on, JSON v2 and proto3 payloads are handed to the
+tier's parse workers without blocking and acknowledged on hand-off (the
+reference's 202-on-enqueue); a full tier raises
+:class:`~zipkin_tpu_torch.tpu.mp_ingest.IngestBackpressure`, counted as a
+dropped message. The ``alloc`` resource site sits at the boundary: an
+injected allocation failure is answered as the same backpressure.
+
 Left out, against the reference: overload and tenant admission, the
-multi-process parse tier, the ingest critical-path stamps, the accuracy
-shadow tap and the resource-exhaustion fault point.
+ingest critical-path stamps and the accuracy shadow tap.
 """
 
 from __future__ import annotations
@@ -22,10 +29,12 @@ import logging
 import threading
 from typing import Dict, List, Optional, Sequence
 
+from zipkin_tpu_torch import faults
 from zipkin_tpu_torch.model import codec
 from zipkin_tpu_torch.model.span import Span
 from zipkin_tpu_torch.storage.spi import FastIngestError, StorageComponent
 from zipkin_tpu_torch.storage.throttle import RejectedExecutionError
+from zipkin_tpu_torch.tpu.mp_ingest import IngestBackpressure
 
 logger = logging.getLogger(__name__)
 
@@ -129,32 +138,58 @@ class Collector:
     turns into backpressure (HTTP 503)."""
 
     def __init__(self, storage: StorageComponent, *, sampler: Optional[CollectorSampler] = None,
-                 metrics: Optional[CollectorMetrics] = None, fast_ingest: bool = False) -> None:
+                 metrics: Optional[CollectorMetrics] = None, fast_ingest: bool = False,
+                 mp_ingester=None) -> None:
         self.storage = storage
         self.sampler = sampler or CollectorSampler(1.0)
         self.metrics = metrics or CollectorMetrics()
         # opt-in line-rate path: JSON v2 and proto3 bytes go straight to the
         # device store's native parser, without Span objects
         self.fast_ingest = fast_ingest and hasattr(storage, "ingest_json_fast")
+        # the multi-process tier (tpu/mp_ingest.py): payloads go to its
+        # parse workers and are acknowledged on hand-off; the tier counts
+        # their spans through its own metrics as they land
+        self.mp_ingester = mp_ingester
         self._consumer = storage.span_consumer()
 
     def accept_spans_bytes(self, data: bytes, encoding: Optional[codec.Encoding] = None) -> int:
         """Decode one transport message and ingest it; returns the spans
-        accepted (after sampling). Raises ``ValueError`` on a malformed
-        payload, after counting the dropped message, and
-        ``RejectedExecutionError`` when the throttle sheds it."""
+        accepted (after sampling); 0 for a payload the multi-process tier
+        took, which accepts it asynchronously. Raises ``ValueError`` on a
+        malformed payload, after counting the dropped message,
+        ``RejectedExecutionError`` when the throttle sheds it and
+        ``IngestBackpressure`` when the multi-process tier is full (or the
+        ``alloc`` site fires), both counted as dropped messages."""
         self.metrics.increment_messages()
         self.metrics.increment_bytes(len(data))
-        if self.fast_ingest and (encoding is None or encoding in _FAST):
+        try:
+            # an allocation failure at the boundary is answered as
+            # backpressure: the sender retries instead of the server failing
+            faults.resource_point("alloc")
+        except MemoryError as e:
+            self.metrics.increment_messages_dropped()
+            raise IngestBackpressure(f"allocation failure: {e}") from e
+        fast = self.fast_ingest and self._for_fast(data, encoding)
+        if fast and self.mp_ingester is not None:
+            # the tier is the line-rate path's scale-out, so it never takes
+            # a payload when that path is off. Non-blocking: a full tier
+            # answers at once. A malformed payload is counted and dropped
+            # by the dispatcher, as an at-least-once transport would
             try:
-                if encoding is not None or codec.detect(data) in _FAST:
-                    result = self.storage.ingest_json_fast(data, self.sampler)
-                    if result is not None:
-                        accepted, sample_dropped = result
-                        self.metrics.increment_spans(accepted + sample_dropped)
-                        if sample_dropped:
-                            self.metrics.increment_spans_dropped(sample_dropped)
-                        return accepted
+                self.mp_ingester.submit(data, block=False)
+            except IngestBackpressure:
+                self.metrics.increment_messages_dropped()
+                raise
+            return 0
+        if fast:
+            try:
+                result = self.storage.ingest_json_fast(data, self.sampler)
+                if result is not None:
+                    accepted, sample_dropped = result
+                    self.metrics.increment_spans(accepted + sample_dropped)
+                    if sample_dropped:
+                        self.metrics.increment_spans_dropped(sample_dropped)
+                    return accepted
             except RejectedExecutionError:
                 # a shed on the fast path shows on the object path's counters
                 self.metrics.increment_messages_dropped()
@@ -174,6 +209,17 @@ class Collector:
             self.metrics.increment_messages_dropped()
             raise ValueError(f"cannot decode spans: {e}") from e
         return self.accept(spans)
+
+    @staticmethod
+    def _for_fast(data: bytes, encoding: Optional[codec.Encoding]) -> bool:
+        """Whether the native parser's formats include this payload's; an
+        unrecognized one is left to the object path's error reporting."""
+        if encoding is not None:
+            return encoding in _FAST
+        try:
+            return codec.detect(data) in _FAST
+        except ValueError:
+            return False
 
     def accept(self, spans: Sequence[Span]) -> int:
         """Sample and store decoded spans; returns the count accepted."""

@@ -1,13 +1,16 @@
 """Crashpoint, corruption and resource-exhaustion fault injection (the
 port's copy of the part of ``zipkin_tpu/faults.py`` that its time tier, WAL,
-snapshots and span archive call: ``:96-125,152-310``).
+snapshots, span archive, collector and multi-process ingest tier call:
+``:96-125,152-310``).
 
 A crashpoint names an instant inside a write path where a crash is most
 likely to tear on-disk state; a corrupt site names an artifact the write
 path just made durable and, when armed, damages those bytes on disk (silent
-bit rot); a resource site names a point where the disk can fill, and when
-armed raises ``OSError(ENOSPC)`` there. The WAL carries ``wal.append.mid`` (header and
-meta written, payload not), ``wal.append.pre_fsync``, the corrupt site
+bit rot); a resource site names a point where a resource can run out, and
+when armed raises ``OSError(ENOSPC)`` there (``alloc`` raises
+``MemoryError``; ``feed.latency`` sleeps ``latency_ms`` and returns). The
+WAL carries ``wal.append.mid`` (header and meta written, payload not),
+``wal.append.pre_fsync``, the corrupt site
 ``wal.record`` and the resource site ``wal.append``; a snapshot carries
 ``snapshot.post_state`` / ``snapshot.post_meta``, the corrupt site
 ``snapshot.state`` and the resource site ``snapshot``; the span archive
@@ -16,11 +19,11 @@ payload not), the corrupt site ``archive.frame`` and the resource site
 ``archive``; the time tier's seal
 carries ``timetier.seal.pre_commit`` (the segment's tmp file written, not
 yet renamed), ``timetier.seal.post_commit`` (renamed, ``sealed_through``
-not yet advanced) and the corrupt site ``timetier.segment``. The crash
-and corrupt site catalogs are the reference's, so a test arms the same
-names against either package; of the reference's resource sites, only the
-three this package passes through are here (``feed.latency`` and ``alloc``
-come with the multi-process feeder).
+not yet advanced) and the corrupt site ``timetier.segment``; the
+collector's boundary carries the resource site ``alloc`` (an allocation
+failure, answered as backpressure) and the multi-process ingest tier's
+group flush ``feed.latency`` (a slow device feed). The three catalogs are
+the reference's, so a test arms the same names against either package.
 
 Arming is programmatic (:func:`arm`, :func:`arm_corrupt`,
 :func:`arm_resource`) or through the environment, read once at import:
@@ -28,7 +31,8 @@ Arming is programmatic (:func:`arm`, :func:`arm_corrupt`,
 ``kill`` (SIGKILL), ``exit`` (``os._exit(137)``) or ``raise``
 (:class:`CrashpointTriggered`), ``ZT_CORRUPT=<site>[:mode[:nth]][,...]``
 with mode ``flip``, ``zero`` or ``truncate``, and
-``ZT_RESOURCE=<site>[:nth[:count]][,...]``. Crash and corrupt sites
+``ZT_RESOURCE=<site>[:nth[:count]][,...]`` with ``ZT_RESOURCE_LATENCY_MS``
+the ``feed.latency`` sleep (25 ms by default). Crash and corrupt sites
 are one-shot: they disarm as they fire. A resource site fails ``count``
 traversals in a row from its ``nth`` (0: until :func:`disarm`). Disarmed, a
 hook is one dict probe. The reference's tenant-scoped resource faults wait
@@ -41,6 +45,7 @@ import errno
 import logging
 import os
 import signal
+import time
 from typing import Dict, List
 
 logger = logging.getLogger(__name__)
@@ -65,12 +70,15 @@ RESOURCE_SITES = (
     "wal.append",
     "snapshot",
     "archive",
+    "feed.latency",
+    "alloc",
 )
 
 ENV_VAR = "ZT_CRASHPOINT"
 ENV_ACTION = "ZT_CRASHPOINT_ACTION"
 ENV_CORRUPT = "ZT_CORRUPT"
 ENV_RESOURCE = "ZT_RESOURCE"
+ENV_RESOURCE_LATENCY = "ZT_RESOURCE_LATENCY_MS"
 EXIT_CODE = 137  # what a SIGKILL'd child reports; `exit` mimics it
 
 _ACTIONS = ("kill", "exit", "raise")
@@ -85,7 +93,7 @@ class CrashpointTriggered(RuntimeError):
 _armed: Dict[str, List] = {}
 # site -> [remaining_nth, mode]; mutated in place by corrupt_point()
 _corrupt_armed: Dict[str, List] = {}
-# site -> [remaining_nth, remaining_count]; mutated in place by
+# site -> [remaining_nth, remaining_count, latency_s]; mutated in place by
 # resource_point()
 _resource_armed: Dict[str, List] = {}
 
@@ -108,13 +116,14 @@ def arm_corrupt(site: str, mode: str = "flip", nth: int = 1) -> None:
     _corrupt_armed[site] = [max(1, int(nth)), mode]
 
 
-def arm_resource(site: str, nth: int = 1, count: int = 1) -> None:
+def arm_resource(site: str, nth: int = 1, count: int = 1, latency_ms: float = 25.0) -> None:
     """Arm a resource site: it starts failing on its ``nth`` traversal and
     fails ``count`` traversals in a row (0: until :func:`disarm`), a disk
-    that fills and later frees."""
+    that fills and later frees; ``feed.latency`` sleeps ``latency_ms`` a
+    traversal instead of failing."""
     if site not in RESOURCE_SITES:
         raise ValueError(f"unknown resource site {site!r} (see faults.RESOURCE_SITES)")
-    _resource_armed[site] = [max(1, int(nth)), max(0, int(count))]
+    _resource_armed[site] = [max(1, int(nth)), max(0, int(count)), max(0.0, latency_ms) / 1000.0]
 
 
 def disarm() -> None:
@@ -187,9 +196,10 @@ def corrupt_point(site: str, path: str, start: int, length: int) -> bool:
 
 
 def resource_point(site: str) -> None:
-    """Hot-path hook for disk-full sites: a no-op unless ``site`` is armed,
-    then ``OSError(ENOSPC)``; the caller's own error handling is what is
-    under test."""
+    """Hot-path hook for exhaustion sites: a no-op unless ``site`` is armed.
+    Disk sites raise ``OSError(ENOSPC)``, ``alloc`` raises ``MemoryError``,
+    ``feed.latency`` sleeps and returns; the caller's own handling is what
+    is under test."""
     spec = _resource_armed.get(site)
     if spec is None:
         return
@@ -200,7 +210,13 @@ def resource_point(site: str) -> None:
         spec[1] -= 1
         if spec[1] == 0:
             del _resource_armed[site]  # the disk has room again
+    if site == "feed.latency":
+        logger.warning("resource fault %s firing (sleep %.1f ms)", site, spec[2] * 1000.0)
+        time.sleep(spec[2])
+        return
     logger.warning("resource fault %s firing", site)
+    if site == "alloc":
+        raise MemoryError(f"injected allocation failure at {site}")
     raise OSError(errno.ENOSPC, f"injected ENOSPC at {site}")
 
 
@@ -235,6 +251,10 @@ def _arm_from_env() -> None:
                 logger.warning("ignoring %s=%r: %s", ENV_CORRUPT, raw, e)
     raw = os.environ.get(ENV_RESOURCE)
     if raw:
+        try:
+            lat_ms = float(os.environ.get(ENV_RESOURCE_LATENCY, "25"))
+        except ValueError:
+            lat_ms = 25.0
         for spec in raw.split(","):
             spec = spec.strip()
             if not spec:
@@ -242,7 +262,7 @@ def _arm_from_env() -> None:
             parts = [p.strip() for p in spec.split(":")]
             try:
                 arm_resource(parts[0], int(parts[1]) if len(parts) > 1 and parts[1] else 1,
-                             int(parts[2]) if len(parts) > 2 and parts[2] else 1)
+                             int(parts[2]) if len(parts) > 2 and parts[2] else 1, latency_ms=lat_ms)
             except ValueError as e:
                 logger.warning("ignoring %s=%r: %s", ENV_RESOURCE, raw, e)
 

@@ -7,7 +7,8 @@ Routes and status codes follow the reference:
 
 - ``POST /api/v2/spans``, ``POST /api/v1/spans``: gzip (by its magic, with
   a 256 MiB inflation cap -> 413), Content-Type -> encoding, else sniffed;
-  malformed -> 400, throttle shed -> 503, accepted -> 202;
+  malformed -> 400, throttle shed -> 503, a full multi-process tier -> 429,
+  accepted -> 202;
 - ``GET /api/v2/{traces,trace/{id},traceMany,services,spans,remoteServices,
   dependencies,autocompleteKeys,autocompleteValues}``;
 - ``GET /api/v2/tpu/{percentiles,cardinalities,counters,overview}`` when the
@@ -16,19 +17,26 @@ Routes and status codes follow the reference:
   cannot snapshot);
 - ``GET /health``, ``/info`` and ``/metrics`` (the reference's
   ``counter.zipkin_collector.<name>.<transport>`` taxonomy, with the boot's
-  restore figures and the scrubber's and archive's quarantine tallies as
-  gauges).
+  restore figures, the scrubber's and archive's quarantine tallies and the
+  multi-process tier's pool and acked-span accounting as gauges).
+
+With ``TPU_MP_WORKERS`` > 0, the line-rate path on and the device store,
+the server builds the multi-process ingest tier
+(:mod:`zipkin_tpu_torch.tpu.mp_ingest`): POSTed JSON v2 and proto3 payloads
+go to its parse workers and are answered 202 on hand-off.
 
 Each request runs on its own thread; a ticker thread seals the store's
 time tier every ``seal_interval_s``, and with a checkpoint dir another
 snapshots the store every ``TPU_SNAPSHOT_INTERVAL_S``; the store's own
 scrubber thread re-verifies its files every ``TPU_SCRUB_INTERVAL_S``.
 ``stop()`` answers new requests 503, waits for those in flight (the
-reference's ``runner.cleanup()``), stops the scrubber, and takes a final
-snapshot after the listener and both tickers have stopped. Left out, against
-the reference: gRPC, scribe, the UI and ``/config.json``, ``/prometheus``,
-statusz, deadlines, overload and tenant admission, self-tracing and the
-observability plane, and the multi-process tier.
+reference's ``runner.cleanup()``), drains and closes the multi-process tier
+within the same limit, stops the scrubber, and takes a final snapshot after
+the listener and both tickers have stopped. Left out, against the
+reference: gRPC, scribe, the UI and ``/config.json``, ``/prometheus``,
+statusz, deadlines, overload and tenant admission (so a 429 carries no
+``Retry-After`` unless its exception does), self-tracing and the
+observability plane.
 """
 
 from __future__ import annotations
@@ -51,6 +59,7 @@ from zipkin_tpu_torch.server.config import ServerConfig
 from zipkin_tpu_torch.storage.memory import InMemoryStorage
 from zipkin_tpu_torch.storage.spi import QueryRequest, StorageComponent
 from zipkin_tpu_torch.storage.throttle import RejectedExecutionError, ThrottledStorage
+from zipkin_tpu_torch.tpu.mp_ingest import IngestBackpressure
 
 logger = logging.getLogger(__name__)
 
@@ -69,6 +78,10 @@ _SAMPLER_GAUGES = ("sampledKept", "sampledDropped", "budgetUtilization",
 _DURABILITY_GAUGES = ("scrubBytes", "scrubPasses", "scrubCorruptDetected",
                       "segmentsQuarantined", "spansQuarantined",
                       "archiveSegmentsQuarantined", "archiveSpansQuarantined")
+# the multi-process tier: pool health, queue posture and the acked-span
+# accounting that shows no loss (zipkin_tpu/server/app.py:1212-1219)
+_MP_GAUGES = ("mpWorkers", "mpWorkersAlive", "mpQueueDepth", "mpInflight",
+              "mpAccepted", "mpSampleDropped", "mpFallbacks", "mpRejected")
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -85,12 +98,13 @@ class BadLength(ValueError):
 
 
 class HttpError(Exception):
-    """An error answer: status and plain-text body."""
+    """An error answer: status, plain-text body and extra headers."""
 
-    def __init__(self, status: int, text: str) -> None:
+    def __init__(self, status: int, text: str, headers: Optional[Dict[str, str]] = None) -> None:
         super().__init__(text)
         self.status = status
         self.text = text
+        self.headers = headers or {}
 
 
 def build_storage(config: ServerConfig, device=None) -> StorageComponent:
@@ -201,11 +215,15 @@ class ZipkinServer:
             self.storage = ThrottledStorage(
                 self.storage, max_concurrency=self.config.throttle_max_concurrency)
         self.metrics = InMemoryCollectorMetrics()
+        sampler = CollectorSampler(self.config.sample_rate)
+        http_metrics = self.metrics.for_transport("http")
+        self._mp_ingester = self._build_mp_ingester(sampler, http_metrics)
         self.collector = Collector(
             self.storage,
-            sampler=CollectorSampler(self.config.sample_rate),
-            metrics=self.metrics.for_transport("http"),
+            sampler=sampler,
+            metrics=http_metrics,
             fast_ingest=self.config.tpu_fast_ingest,
+            mp_ingester=self._mp_ingester,
         )
         self.components = {self.config.storage_type: self.storage}
         self.seal_interval_s = seal_interval_s
@@ -249,6 +267,53 @@ class ZipkinServer:
                 "/api/v1/spans": lambda body, ctype: self.post_spans(body, ctype, True),
             })
         self._snapshots = False  # a periodic snapshot thread runs
+
+    def _build_mp_ingester(self, sampler, metrics):
+        """The multi-process tier for ``TPU_MP_WORKERS`` > 0, over the core
+        device store (behind a throttle, its ``delegate``) with the native
+        codec and the line-rate path on; otherwise None, with the
+        reference's warning. The store then carries the tier as
+        ``mp_ingester``: its gauges join ``ingest_counters()``, and the
+        resume adapter's ``close()`` drains and closes it if ``stop()`` did
+        not."""
+        cfg = self.config
+        if cfg.tpu_mp_workers <= 0:
+            return None
+        from zipkin_tpu_torch import native
+        from zipkin_tpu_torch.tpu.store import TorchStorage as _CoreStorage
+
+        core = getattr(self.storage, "delegate", self.storage)
+        if not (isinstance(core, _CoreStorage) and native.available() and cfg.tpu_fast_ingest):
+            logger.warning(
+                "TPU_MP_WORKERS=%d ignored: requires STORAGE_TYPE=tpu, the native codec, and "
+                "TPU_FAST_INGEST=true (the MP tier is the fast path's scale-out)",
+                cfg.tpu_mp_workers)
+            return None
+        from zipkin_tpu_torch.tpu.mp_ingest import MultiProcessIngester
+
+        ing = MultiProcessIngester(
+            core, workers=cfg.tpu_mp_workers, sampler=sampler,
+            queue_depth=cfg.tpu_mp_queue_depth, ring_slots=cfg.tpu_mp_ring_slots,
+            coalesce_max=cfg.tpu_mp_coalesce_max, metrics=metrics)
+        core.mp_ingester = ing
+        return ing
+
+    def _close_mp_ingester(self, deadline: float) -> None:
+        """Drain the tier until ``deadline`` (monotonic), so every 202 it
+        answered is in the store, then close it whatever the drain did: the
+        close joins the workers and unlinks the shared segment."""
+        ing, self._mp_ingester = self._mp_ingester, None
+        if ing is None:
+            return
+        try:
+            ing.drain(timeout=max(0.0, deadline - time.monotonic()))
+        except Exception:
+            logger.exception("mp-ingest drain failed during stop")
+        finally:
+            ing.close()
+            core = getattr(self.storage, "delegate", self.storage)
+            if getattr(core, "mp_ingester", None) is ing:
+                core.mp_ingester = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -326,6 +391,9 @@ class ZipkinServer:
                 self._abandoned = True
                 logger.warning("stop: %d requests still in flight after %.0f s",
                                self._inflight, DRAIN_TIMEOUT_S)
+        # the tier's queued payloads were answered 202: they land before the
+        # final snapshot, within what is left of the same limit
+        self._close_mp_ingester(deadline)
         for t in self._threads:
             t.join(timeout=30)
         self._threads = []
@@ -387,6 +455,14 @@ class ZipkinServer:
         except RejectedExecutionError as e:
             # the storage throttle shed the write: the sender backs off
             raise HttpError(503, str(e))
+        except IngestBackpressure as e:
+            # every parse worker's queue is full (or an allocation failed):
+            # 429, retryable and distinct from the throttle's 503
+            delay = e.retry_after_s
+            headers = {} if delay is None else {
+                "Retry-After": str(max(1, int(-(-delay // 1)))),
+                "X-Retry-After-Ms": str(int(delay * 1000.0))}
+            raise HttpError(429, str(e), headers)
         return 202, None
 
     # -- query -------------------------------------------------------------
@@ -537,7 +613,7 @@ class ZipkinServer:
                 names += _SAMPLER_GAUGES
                 for svc, rate in sorted(self.storage.sampler_rates().items()):
                     out[f"gauge.zipkin_tpu.samplerRate.{svc}"] = rate
-            for name in names + _DURABILITY_GAUGES:
+            for name in names + _DURABILITY_GAUGES + _MP_GAUGES:
                 if name in counters:
                     out[f"gauge.zipkin_tpu.{name}"] = counters[name]
         return 200, out
@@ -551,8 +627,11 @@ def _handler_for(server: ZipkinServer):
         def log_message(self, fmt, *args):  # requests are not logged
             pass
 
-        def _send(self, status: int, body: bytes = b"", ctype: str = "text/plain; charset=utf-8"):
+        def _send(self, status: int, body: bytes = b"", ctype: str = "text/plain; charset=utf-8",
+                  headers: Optional[Dict[str, str]] = None):
             self.send_response(status)
+            for name, value in (headers or {}).items():
+                self.send_header(name, value)
             if body:
                 self.send_header("Content-Type", ctype)
             self.send_header("Content-Length", str(len(body)))
@@ -564,7 +643,7 @@ def _handler_for(server: ZipkinServer):
             try:
                 status, body = fn(*args)
             except HttpError as e:
-                self._send(e.status, e.text.encode())
+                self._send(e.status, e.text.encode(), headers=e.headers)
                 return
             except Exception as e:  # the request fails, the server keeps serving
                 logger.exception("%s %s failed", self.command, self.path)

@@ -14,9 +14,11 @@ in-memory store, taken only when asked for by name. The others are
 durable boot's ``TPU_RESUME_DIR``, ``TPU_CHECKPOINT_DIR``, ``TPU_WAL_DIR``,
 ``TPU_WAL_FSYNC``, ``TPU_SNAPSHOT_INTERVAL_S`` and ``TPU_SNAPSHOT_KEEP``, the
 disk archive's ``TPU_ARCHIVE_DIR``, ``TPU_ARCHIVE_MAX_BYTES`` and
-``TPU_ARCHIVE_SEGMENT_BYTES``, and the scrubber's ``TPU_SCRUB_INTERVAL_S``
-and ``TPU_SCRUB_BYTES_PER_S``
-(``zipkin_tpu/server/config.py:236-264,280-313,411-428``).
+``TPU_ARCHIVE_SEGMENT_BYTES``, the scrubber's ``TPU_SCRUB_INTERVAL_S``
+and ``TPU_SCRUB_BYTES_PER_S``, and the multi-process ingest tier's
+``TPU_MP_WORKERS`` (0: off), ``TPU_MP_QUEUE_DEPTH``, ``TPU_MP_RING_SLOTS``
+and ``TPU_MP_COALESCE_MAX``
+(``zipkin_tpu/server/config.py:151,236-264,280-313,362-365,411-428``).
 
 The disk archive's directory, as the reference resolves it: ``TPU_ARCHIVE_DIR``
 when set (``off``, ``none`` or ``0``: no archive), else ``<TPU_RESUME_DIR>/archive``,
@@ -93,6 +95,14 @@ class ServerConfig:
     # with a trace-affine 1/N archive sample (0: none)
     tpu_fast_ingest: bool = False
     tpu_fast_archive_sample: int = 64
+    # the multi-process ingest tier (tpu/mp_ingest.py), the line-rate
+    # path's scale-out: parse workers (0: off), the payloads each worker's
+    # queue holds before the boundary answers 429, ring slots a worker
+    # (0: the tier's default) and the chunks one device step may coalesce
+    tpu_mp_workers: int = 0
+    tpu_mp_queue_depth: int = 2
+    tpu_mp_ring_slots: int = 0
+    tpu_mp_coalesce_max: int = 8
     # largest device batch before the state's own bounds, and how stale a
     # cached dependency answer may be served under ingest (0: always fresh)
     tpu_max_device_batch: int = 65536
@@ -165,6 +175,10 @@ class ServerConfig:
             throttle_max_concurrency=_env_int("STORAGE_THROTTLE_MAX_CONCURRENCY", 8),
             tpu_fast_ingest=fast_ingest,
             tpu_fast_archive_sample=_env_int("TPU_FAST_ARCHIVE_SAMPLE", 64),
+            tpu_mp_workers=_env_int("TPU_MP_WORKERS", 0),
+            tpu_mp_queue_depth=_env_int("TPU_MP_QUEUE_DEPTH", 2),
+            tpu_mp_ring_slots=_env_int("TPU_MP_RING_SLOTS", 0),
+            tpu_mp_coalesce_max=_env_int("TPU_MP_COALESCE_MAX", 8),
             tpu_max_device_batch=_env_int("TPU_MAX_DEVICE_BATCH", 65536),
             tpu_deps_max_stale_ms=_env_float("TPU_DEPS_MAX_STALE_MS", 5000.0),
             tpu_sampling=_env_bool("TPU_SAMPLING", False),

@@ -27,9 +27,11 @@ final vocab at the next fast ingest.
 
 ``snapshot()`` persists the state, truncates the WAL to the oldest retained
 generation's ``wal_seq``, and degrades on a full disk (the retained
-generations stay intact; the save is retried next cycle). Left out against
-the reference: the mesh (``num_devices``), the shared-memory mirror segment
-and the multi-process ingest tier's drain.
+generations stay intact; the save is retried next cycle). ``close()``
+drains and closes an attached multi-process tier (``mp_ingester``) before
+the WAL detaches, when the server's ``stop()`` has not. Left out against
+the reference: the mesh (``num_devices``) and the shared-memory mirror
+segment.
 """
 
 from __future__ import annotations
@@ -205,6 +207,21 @@ class TorchStorage(_CoreStorage):
         return counters
 
     def close(self) -> None:
+        # an attached multi-process tier is drained and closed before the
+        # WAL detaches: its dispatcher logs through the aggregator's
+        # wal_hook, and a log closed under it would strand 202-acked spans.
+        # The server's stop() does this first; this covers callers that
+        # only close the storage
+        ing = self.mp_ingester
+        if ing is not None:
+            try:
+                if ing._dispatch_error is None and not ing._closed:
+                    ing.drain()
+            except Exception:
+                logger.exception("mp-ingest drain failed during close")
+            finally:
+                ing.close()
+                self.mp_ingester = None
         if self.scrubber is not None:
             self.scrubber.stop()  # no pass reads a log or a segment being closed
         # serialized with snapshot(): one in flight finishes first, and any

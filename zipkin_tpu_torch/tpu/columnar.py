@@ -339,6 +339,21 @@ def pack_parsed(parsed, vocab: Vocab, pad_to_multiple: int = 1024) -> SpanColumn
     return _assemble(parsed, n, cap, svc, rsvc, key)
 
 
+def sample_slices(parsed, every: int) -> List[bytes]:
+    """The raw byte extents of the trace-affine 1 in ``every`` sample of a
+    native parse (0: none): the spans whose xor-folded trace id hashes to 0
+    mod ``every``, so a trace is sampled whole whatever parsed it (the
+    line-rate path's host archive sample, and the parse workers' half of
+    it)."""
+    n = parsed.n
+    if every <= 0 or n == 0:
+        return []
+    tid = parsed.tl0[:n] ^ parsed.tl1[:n] ^ parsed.th0[:n] ^ parsed.th1[:n]
+    pick = np.nonzero(_mix32(tid) % np.uint32(every) == 0)[0]
+    data, off, ln = parsed.data, parsed.span_off, parsed.span_len
+    return [bytes(data[off[i] : off[i] + ln[i]]) for i in pick]
+
+
 def _assemble(parsed, n: int, cap: int, svc, rsvc, key) -> SpanColumns:
     """The padded batch of a parse's first ``n`` lanes and its id lanes
     (port of ``zipkin_tpu/tpu/columnar.py:351``)."""
@@ -367,6 +382,44 @@ def _assemble(parsed, n: int, cap: int, svc, rsvc, key) -> SpanColumns:
         ts_min=padded((parsed.ts_us // 60_000_000).astype(_U32), _U32),
         valid=valid,
     )
+
+
+def _route_order(shard_of: np.ndarray, n_shards: int, pad_to_multiple: int):
+    """(order, counts, starts, per): lanes stably sorted by shard id, so
+    shard ``s`` owns ``order[starts[s] : starts[s] + counts[s]]`` in
+    insertion order; ``per`` is the largest count rounded up to
+    ``pad_to_multiple`` (port of ``zipkin_tpu/tpu/columnar.py:429``)."""
+    key_dtype = np.uint8 if n_shards < 255 else np.uint16
+    order = np.argsort(shard_of.astype(key_dtype), kind="stable")
+    counts = np.bincount(shard_of, minlength=n_shards + 1)[:n_shards]
+    per = max(int(counts.max()), 1)
+    per = ((per + pad_to_multiple - 1) // pad_to_multiple) * pad_to_multiple
+    starts = np.zeros(n_shards, np.int64)
+    np.cumsum(counts[:-1], out=starts[1:])
+    return order, counts, starts, per
+
+
+def _shard_of(cols: SpanColumns, n_shards: int) -> np.ndarray:
+    """Trace-affine shard id per lane; invalid lanes go to the sink
+    ``n_shards`` (all spans of a trace land on one shard)."""
+    return np.where(cols.valid, cols.trace_h % np.uint32(n_shards), n_shards).astype(np.int32)
+
+
+def route_fused(cols: SpanColumns, n_shards: int, pad_to_multiple: int = 256) -> np.ndarray:
+    """Fuse and route in one pass: the ``[shards, 11, per]`` u32 wire image
+    (port of ``zipkin_tpu/tpu/columnar.py:462``). With one shard it is the
+    fused image with a leading axis; with more, each shard's lanes are one
+    contiguous gather and ``per`` is rounded up to ``pad_to_multiple``."""
+    fz = fuse_columns(cols)
+    if n_shards == 1:
+        return fz[None]
+    order, counts, starts, per = _route_order(_shard_of(cols, n_shards), n_shards, pad_to_multiple)
+    out = np.zeros((n_shards, fz.shape[0], per), np.uint32)
+    for s in range(n_shards):
+        c = int(counts[s])
+        if c:
+            np.take(fz, order[starts[s] : starts[s] + c], axis=1, out=out[s, :, :c])
+    return out
 
 
 def remap_fused(fused: np.ndarray, svc_map: np.ndarray, key_map: np.ndarray) -> None:

@@ -30,12 +30,20 @@ bytes through the native parser, which interns in C; the disk archive takes
 the payload's raw slices, and without one a trace-affine 1/N sample is
 decoded into the host archive).
 
+The line-rate path's two halves, :meth:`TorchStorage._fast_parse` and
+:meth:`TorchStorage._fast_dispatch`, are also driven apart by the threaded
+feeder (:mod:`zipkin_tpu_torch.tpu.feeder`); the multi-process tier
+(:mod:`zipkin_tpu_torch.tpu.mp_ingest`) parses in worker processes and
+feeds coalesced groups through :meth:`TorchAggregator.ingest_fused_multi`
+and :meth:`TorchStorage.disk_append_record`. An attached tier (the
+``mp_ingester`` attribute, which the server sets) adds its gauges to
+:meth:`TorchStorage.ingest_counters`.
+
 Left out, against the reference: the epoch-published read mirror and its
 shared-memory segment (the reference falls back to the versioned cache
 when no epoch is published, which is what a library caller sees), the
-pipelined feeder's split of the fast path into stages, the flight recorder
-and query-trace stamps, the overload, shadow and accuracy hooks, and the
-multi-process ingest tier. :meth:`TorchStorage.get_traces` reads every id
+flight recorder and query-trace stamps, and the overload, shadow and
+accuracy hooks. :meth:`TorchStorage.get_traces` reads every id
 through one ``views()`` of the disk archive (the reference takes one per
 id, which sorts the live segment again for each). Durable boot (snapshot
 restore, WAL replay) is the resume adapter's,
@@ -76,7 +84,7 @@ from zipkin_tpu_torch.storage.spi import (
     trace_id_key,
 )
 from zipkin_tpu_torch.tpu.archive import SpanArchive, parsed_record
-from zipkin_tpu_torch.tpu.columnar import Vocab, _mix32, pack_parsed, pack_spans
+from zipkin_tpu_torch.tpu.columnar import Vocab, pack_parsed, pack_spans, sample_slices
 from zipkin_tpu_torch.tpu.state import AggConfig
 from zipkin_tpu_torch.tpu.timetier import TimeTier
 from zipkin_tpu_torch.utils.call import Call
@@ -102,6 +110,19 @@ def _decode_raw_span(raw: bytes) -> Span:
     if raw[:1] == b"{":
         return json_v2.decode_one_span(raw)
     return proto3.decode_span(raw)
+
+
+def decode_raw_spans(slices) -> List[Span]:
+    """The spans of raw span slices, skipping a slice the strict codec
+    rejects (a number past float64 raises OverflowError): the device batch
+    still carries that span, as in the reference."""
+    spans = []
+    for raw in slices:
+        try:
+            spans.append(_decode_raw_span(raw))
+        except Exception:
+            continue
+    return spans
 
 
 class TorchStorage(
@@ -223,6 +244,10 @@ class TorchStorage(
         # the at-rest scrubber (runtime/scrub.py), which the resume adapter
         # installs; its counters join ingest_counters()
         self.scrubber = None
+        # the multi-process ingest tier (tpu/mp_ingest.py) when one feeds
+        # this store: its gauges join ingest_counters(), and the resume
+        # adapter drains and closes it on close() if the server did not
+        self.mp_ingester = None
         # the disk archive (port of zipkin_tpu/tpu/store.py:198-226): every
         # ingested span's raw bytes behind a trace-id index, so trace reads
         # answer for every acked id the byte budget holds
@@ -542,8 +567,12 @@ class TorchStorage(
         self.agg.ingest(cols)
 
     def disk_append_record(self, rec: tuple) -> None:
-        """Append one ``archive.parsed_record`` tuple (ids in this store's
-        vocab) to the disk archive and persist the vocab if it grew."""
+        """Append one ``archive.parsed_record`` tuple, its ids in this
+        store's vocab, to the disk archive and persist the vocab sidecar if
+        the vocab or the name maps grew. The line-rate path passes its own
+        chunks; the multi-process tier's dispatcher passes records the
+        workers parsed, their worker-local ids already remapped to global
+        ones."""
         self._track_remotes(rec[7], rec[8])
         self._disk.append_batch(*rec)
         self._persist_archive_vocab()
@@ -563,22 +592,7 @@ class TorchStorage(
         """Archive a trace-affine 1/N sample of a fast batch at full
         fidelity by decoding each sampled span's own slice of the payload
         (its extent recorded by the parser)."""
-        every = self._fast_archive_every
-        n = parsed.n
-        if every <= 0 or n == 0:
-            return
-        tid = parsed.tl0[:n] ^ parsed.tl1[:n] ^ parsed.th0[:n] ^ parsed.th1[:n]
-        pick = np.nonzero(_mix32(tid) % np.uint32(every) == 0)[0]
-        data, off, ln = parsed.data, parsed.span_off, parsed.span_len
-        spans = []
-        for i in pick:
-            try:
-                spans.append(_decode_raw_span(bytes(data[off[i] : off[i] + ln[i]])))
-            except Exception:
-                # a slice the strict codec rejects (a number past float64
-                # raises OverflowError) is not archived; the device batch
-                # still carries the span, as in the reference
-                continue
+        spans = decode_raw_spans(sample_slices(parsed, self._fast_archive_every))
         if spans:
             self._archive.accept(spans).execute()
 
@@ -1078,6 +1092,8 @@ class TorchStorage(
             **(self._disk.counters() if self._disk is not None else {}),
             # what the scrubber verified and pulled from service
             **(self.scrubber.counters() if self.scrubber is not None else {}),
+            # the multi-process tier's gauges, when one feeds this store
+            **(self.mp_ingester.stats() if self.mp_ingester is not None else {}),
         }
 
     # -- lifecycle -------------------------------------------------------
