@@ -80,7 +80,16 @@ Builds the hand-written kernels from the sources in the checkout, then:
     worker SIGKILLed (i3: no acked span lost, the replay equals the live
     leaves), behind the server with TPU_MP_WORKERS=2 (i4: 202s, 429s on a
     full tier, stop() drains before its final snapshot), and the threaded
-    AsyncIngestFeeder (i5); times each against f1.
+    AsyncIngestFeeder (i5); times each against f1;
+(j) the observability plane: f1's path with the plane on and off in turns
+    (j1: spans/s and their ratio, the recorder's ns a record, the device
+    observatory's hll_update_step calls equal to the kernel's launches and
+    its CUDA-event ms beside a2's), an in-process server with every plane on
+    (j2: statusz's stage table, device, windows, SLO, accuracy and query
+    sections, self-spans under a posted B3 trace, /prometheus), the same
+    server over TPU_MP_WORKERS=2 (j3: relayed and mp_* stages, the workers'
+    rows, the shadow's fused taps) and the entry point's /prometheus (j4).
+    Phases a and a2 time the kernels with the device observatory off.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -1622,9 +1631,10 @@ def phase_server(seed: int, torch, card: str, stored: dict, cfg=None, device=Non
     n_spans = len(spans)
     config = ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", tpu_fast_ingest=True,
                           tpu_deps_max_stale_ms=0.0, autocomplete_keys=("env",),
-                          tpu_agg=dataclasses.asdict(cfg))
-    # no seal ticker here: its device reads would mix into the counted
-    # transfers of the checks (phase f3 runs the entry point with it)
+                          obs_shadow_enabled=False, tpu_agg=dataclasses.asdict(cfg))
+    # no seal and no accuracy rollup on the ticker here: their device reads
+    # would mix into the counted transfers of the checks (phase f3 runs the
+    # entry point with them, phase j2 checks them)
     storage = None
     if device is not None:  # a rehearsal off the card
         from zipkin_tpu_torch.tpu.store import TorchStorage
@@ -2664,6 +2674,20 @@ def entry_with_tier(card: str, wire, per: int, argv=None, env_extra=None,
     return fig
 
 
+def wait_ready(ing, what: str = "phase i") -> None:
+    """A tier's start is set-up: a worker is ready once it has loaded the
+    native parser's library, which it does before its first get."""
+    deadline = time.monotonic() + 120
+    for p in ing._procs:
+        while True:
+            with open(f"/proc/{p.pid}/maps") as f:
+                if "span_json" in f.read():
+                    break
+            if time.monotonic() > deadline or not p.is_alive():
+                raise AssertionError(f"{what}: a parse worker did not start")
+            time.sleep(0.01)
+
+
 def phase_fanout(seed: int, torch, card: str, stored: dict, fast: dict, cfg=None, device=None,
                  workers=None, entry_argv=None, entry_env=None) -> dict:
     """(i) the parse fan-out, on phase e's 64 payloads at the default
@@ -2755,19 +2779,6 @@ def phase_fanout(seed: int, torch, card: str, stored: dict, fast: dict, cfg=None
                     refused += 1
                     time.sleep(0.005)
         return refused
-
-    def wait_ready(ing):
-        """The pool's start is set-up: a worker is ready once it has loaded
-        the native parser's library, which it does before its first get."""
-        deadline = time.monotonic() + 120
-        for p in ing._procs:
-            while True:
-                with open(f"/proc/{p.pid}/maps") as f:
-                    if "span_json" in f.read():
-                        break
-                if time.monotonic() > deadline or not p.is_alive():
-                    raise AssertionError("phase i: a parse worker did not start")
-                time.sleep(0.01)
 
     def tier_run(store, what, blocking=False, **kw):
         """The payloads through the collector into a new tier, or with
@@ -2954,7 +2965,7 @@ def phase_fanout(seed: int, torch, card: str, stored: dict, fast: dict, cfg=None
                           tpu_mp_workers=2, tpu_mp_queue_depth=1, tpu_archive_dir=None,
                           tpu_checkpoint_dir=os.path.join(root, "snap"),
                           tpu_snapshot_interval_s=3600.0, tpu_scrub_interval_s=0.0,
-                          tpu_agg=dataclasses.asdict(cfg))
+                          obs_shadow_enabled=False, tpu_agg=dataclasses.asdict(cfg))
     storage = None
     if device is not None:  # a rehearsal off the card
         storage = Adapter(config=cfg, device=device, checkpoint_dir=os.path.join(root, "snap"))
@@ -3067,6 +3078,431 @@ def phase_fanout(seed: int, torch, card: str, stored: dict, fast: dict, cfg=None
     return fig
 
 
+def obs_switch(on: bool, store=None) -> None:
+    """The observability plane on or off as ``TPU_OBS`` sets it at boot:
+    the flight recorder, the device observatory and, for ``store``, its
+    query plane (traces and the lock ledger)."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.obs.device import OBSERVATORY
+
+    obs.RECORDER.set_enabled(on)
+    OBSERVATORY.set_enabled(on)
+    if store is not None:
+        store.set_query_observatory(on)
+
+
+def phase_obs_cost(torch, card: str, stored: dict, a2_ms: float, cfg=None, device=None) -> dict:
+    """(j1) the recorder's cost on the line-rate path: phase e's payloads
+    through ``Collector(fast_ingest=True)`` into a fresh TorchStorage four
+    times, in turns: with the plane on (the recorder, the device
+    observatory, the query plane and a shadow tap on the store) and with
+    all of it off. Prints spans/s of each run, the on/off ratio and the
+    recorder's own ns a record; then, over the on runs, holds the device
+    observatory's ``hll_update_step`` calls to the launches
+    ``update_step.launches`` counted, every CUDA event pair resolved and
+    positive, and prints the mean event ms a call beside phase a2's
+    profiler ms."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.obs.device import OBSERVATORY
+    from zipkin_tpu_torch.obs.shadow import HostShadow
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    wire, n_spans = stored["wire"], len(stored["spans"])
+    OBSERVATORY.reset_counters()
+    runs, launches_on = [], 0
+    try:
+        for on in (True, False, True, False):
+            store = TorchStorage(config=cfg, device=device)
+            obs_switch(on, store)
+            if on:
+                store.shadow = HostShadow(max_services=cfg.max_services,
+                                          svc_resolver=store.vocab.services.get,
+                                          pending_max=len(wire))
+            collector = Collector(store, fast_ingest=True)
+            hll_kernel.update_step.launches = 0
+            t0 = time.perf_counter()
+            for p in wire:
+                collector.accept_spans_bytes(p)
+            store.agg.block_until_ready()
+            wall = time.perf_counter() - t0
+            if store.agg.host_counters["spans"] != n_spans:
+                raise AssertionError(f"phase j1: {store.agg.host_counters['spans']} spans landed")
+            if on:
+                launches_on += hll_kernel.update_step.launches
+                if store.shadow.counters()["shadowOfferedBatches"] != hll_kernel.update_step.launches:
+                    raise AssertionError("phase j1: the shadow tap missed a device batch")
+            runs.append(dict(on=on, spans_per_s=n_spans / wall, wall_ms=wall * 1e3,
+                             launches=hll_kernel.update_step.launches))
+            del store, collector
+            torch.cuda.empty_cache()
+    finally:
+        obs_switch(True)
+    torch.cuda.synchronize()
+    prog = OBSERVATORY.programs()["hll_update_step"]
+    if prog["calls"] != launches_on or prog["deviceCalls"] != launches_on or prog["eventsDropped"]:
+        raise AssertionError(f"phase j1: the observatory saw {prog}, update_step launched "
+                             f"{launches_on} times in the on runs")
+    if prog["minDeviceMs"] <= 0.0:
+        raise AssertionError(f"phase j1: a CUDA event pair resolved to {prog['minDeviceMs']} ms")
+    on_rate = statistics.mean(r["spans_per_s"] for r in runs if r["on"])
+    off_rate = statistics.mean(r["spans_per_s"] for r in runs if not r["on"])
+    fig = dict(card=card, runs=runs, on_off_ratio=on_rate / off_rate,
+               overhead_ns_per_record=obs.RECORDER.measure_overhead(),
+               kernel_calls=prog["calls"], kernel_event_ms=prog["meanDeviceMs"],
+               kernel_event_min_ms=prog["minDeviceMs"], kernel_event_max_ms=prog["maxDeviceMs"],
+               a2_profiler_ms=a2_ms, launches=sum(r["launches"] for r in runs))
+    log(f"phase j1 ({card}): f1's path, plane on/off/on/off: spans/s "
+        + ", ".join(f"{'on' if r['on'] else 'off'} {r['spans_per_s']:.0f}" for r in runs)
+        + f"; on/off {fig['on_off_ratio']:.3f}; recorder {fig['overhead_ns_per_record']:.0f} ns a "
+        f"record; hll_update_step observed {prog['calls']} calls = {launches_on} launches, every "
+        f"event pair resolved: {prog['meanDeviceMs']:.5f} ms a call on CUDA events (min "
+        f"{prog['minDeviceMs']:.5f}, max {prog['maxDeviceMs']:.5f}) beside phase a2's profiler "
+        f"{a2_ms:.5f} ms")
+    return fig
+
+
+def obs_server_config(cfg, **extra):
+    """The in-process server of phase j: the line-rate path, no disk
+    archive, windows every 0.5 s, the accuracy rollup every second with an
+    exact distinct shadow, slow-stage self-spans and self-tracing at a
+    budget scale that puts stages over budget."""
+    import dataclasses
+
+    from zipkin_tpu_torch.server.config import ServerConfig
+
+    return ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", tpu_fast_ingest=True,
+                        tpu_archive_dir=None, tpu_deps_max_stale_ms=0.0,
+                        obs_windows_tick_s=0.5, obs_shadow_rollup_s=1.0,
+                        obs_shadow_distinct_k=1 << 16, obs_selfspans_enabled=True,
+                        self_tracing_enabled=True, obs_budget_scale=1e-4,
+                        tpu_agg=dataclasses.asdict(cfg), **extra)
+
+
+def post_body(base: str, body: bytes, headers=None) -> int:
+    import urllib.error
+    import urllib.request
+
+    ctype = "application/x-protobuf" if body[:1] == b"\n" else "application/json"
+    req = urllib.request.Request(base + "/api/v2/spans", data=body, method="POST",
+                                 headers={"Content-Type": ctype, **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def phase_obs_server(seed: int, torch, card: str, stored: dict, cfg=None, device=None) -> dict:
+    """(j2) the planes through an in-process server (:func:`obs_server_config`):
+    phase e's payloads POSTed with B3 headers, fresh and cached reads of
+    dependencies, percentiles, cardinalities and the overview, then, after
+    at least 3 ticks and a rollup, statusz and /prometheus: the stage table,
+    the device section (the kernel's calls = its launches, live device
+    memory), the windows, every default SLO with a verdict, the accuracy
+    plane (the HLL error within 3 standard errors plus the bias of the exact
+    distinct count), a query trace of each read kind, the self-spans under
+    the posted trace, and the exposition's families."""
+    import tempfile
+    import urllib.request
+
+    from zipkin_tpu_torch.obs.device import OBSERVATORY
+    from zipkin_tpu_torch.obs.slo import default_specs
+    from zipkin_tpu_torch.ops import hll, hll_kernel
+    from zipkin_tpu_torch.server.app import ZipkinServer
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    wire, traffic = stored["wire"], stored["traffic"]
+    truth = store_truth(traffic, cfg)
+    incidents = tempfile.mkdtemp(prefix="zt-incidents-")
+    storage = None
+    if device is not None:  # a rehearsal off the card
+        from zipkin_tpu_torch.tpu.store import TorchStorage
+
+        storage = TorchStorage(config=cfg, device=device, deps_max_stale_ms=0.0)
+    OBSERVATORY.reset_counters()
+    hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+    server = ZipkinServer(obs_server_config(cfg, obs_incident_dir=incidents), storage=storage,
+                          seal_interval_s=1.0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    http = HttpStore(base)
+    trace_id = "00000000feedface"
+    b3 = {"X-B3-TraceId": trace_id, "X-B3-SpanId": "00000000000000b3"}
+    try:
+        t0 = time.perf_counter()
+        statuses = [post_body(base, p, b3) for p in wire]
+        post_s = time.perf_counter() - t0
+        if statuses != [202] * len(wire):
+            raise AssertionError(f"phase j2: POST statuses {sorted(set(statuses))}")
+        window = {"endTs": truth.t_end, "lookback": truth.lookback}
+        reads = {"dependencies": ("/api/v2/dependencies", window),
+                 "quantiles": ("/api/v2/tpu/percentiles", {"q": "0.5,0.99"}),
+                 "cardinalities": ("/api/v2/tpu/cardinalities", None),
+                 "overview": ("/api/v2/tpu/overview", {"q": "0.5"})}
+        # each kind's fresh and cached read, then statusz: its stitch folds
+        # what the ticker has not, so the slowest query folded since the
+        # last read of the page is of this kind (a sealed-only window reads
+        # no device and takes no lock: its waterfall has no device segment)
+        waterfalls = {}
+        queries = http.get("/api/v2/tpu/statusz")["queries"]["queries"]
+        for kind, (path, params) in reads.items():
+            http.get(path, params)  # fresh
+            http.get(path, params)  # cached
+            wf = http.get("/api/v2/tpu/statusz")["queries"]
+            waterfalls[kind] = (wf["queries"] - queries, wf["slowest"])
+            queries = wf["queries"]
+        ticks0 = http.get("/api/v2/tpu/statusz")["windows"]["ticks"]
+        deadline = time.monotonic() + 60
+        while True:
+            # the self-span emitter's thread may launch the kernel at any
+            # time: statusz's count lies between the launches around it
+            seen_before = hll_kernel.update_step.launches
+            st = http.get("/api/v2/tpu/statusz")
+            seen_after = hll_kernel.update_step.launches
+            acc = st["accuracy"]
+            if (st["windows"]["ticks"] >= ticks0 + 3 and acc["gauges"]["accuracyRollups"] >= 1
+                    and acc["shadow"]["shadowPending"] == 0 and acc["shadow"]["shadowSpans"] > 0):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(f"phase j2: no 3 ticks and a rollup within 60 s: "
+                                     f"{st['windows']['ticks']} ticks, {acc['gauges']}")
+            time.sleep(0.1)
+        prom = urllib.request.urlopen(base + "/prometheus", timeout=60).read().decode()
+        trace = http.get(f"/api/v2/trace/{trace_id}")
+    finally:
+        server.stop()
+    torch.cuda.synchronize()
+    # stopped: the emitter flushed its last spans, so the counts are final
+    launches = hll_kernel.update_step.launches
+    final = OBSERVATORY.programs()["hll_update_step"]
+
+    stages = st["stages"]
+    want = ("http_boundary", "parse", "pack", "device_dispatch", "archive_write", "query_fresh",
+            "query_cached", "readpack_transfer")
+    if [s for s in want if not stages[s]["count"]]:
+        raise AssertionError(f"phase j2: stages without a count: {[s for s in want if not stages[s]['count']]}")
+    progs = st["device"]["programs"]
+    if not any(k.startswith("spmd_step") and v["calls"] for k, v in progs.items()):
+        raise AssertionError("phase j2: no spmd_step program in the device section")
+    kern = progs.get("hll_update_step", {})
+    if not seen_before <= kern.get("calls", -1) <= seen_after or final["calls"] != launches \
+            or final["deviceCalls"] != launches or not launches or final["minDeviceMs"] <= 0.0:
+        raise AssertionError(f"phase j2: statusz shows {kern.get('calls')} hll_update_step calls "
+                             f"(launches {seen_before}..{seen_after} around it), {final['calls']} at "
+                             f"the end against {launches} launches")
+    if st["device"]["hbm"].get("bytesInUse", 0) <= 0:
+        raise AssertionError(f"phase j2: device memory {st['device']['hbm']}")
+    rates = st["windows"]["lookbacks"]["60s"]["rates"]
+    if rates.get("spansPerSec", 0.0) <= 0.0:
+        raise AssertionError(f"phase j2: windowed rates {rates}")
+    names = [v["name"] for v in st["slo"]["specs"]]
+    if names != [s.name for s in default_specs()] or any(
+            not isinstance(v["alert"], bool) for v in st["slo"]["specs"]):
+        raise AssertionError(f"phase j2: SLO verdicts {names}")
+    g = acc["gauges"]
+    band = 3.0 * hll.standard_error(cfg.hll_precision) + hll.bias_fraction(truth.n_traces)
+    if acc["suppressed"] or acc["shadow"]["shadowDistinctTheta"] != 1.0 or not (
+            0.0 <= g["accuracyHllRelErr"] <= band):
+        raise AssertionError(f"phase j2: accuracy {g}, band {band}, shadow {acc['shadow']}")
+    bad = {k: v for k, v in waterfalls.items()
+           if v[0] != 2 or v[1]["name"] != k or "cache_probe" not in v[1]["segments"]}
+    if bad:
+        raise AssertionError(f"phase j2: the waterfalls of {sorted(bad)}: {bad}")
+    services = {s["localEndpoint"]["serviceName"] for s in trace}
+    if not {"zipkin-server", "zipkin-tpu-pipeline"} <= services:
+        raise AssertionError(f"phase j2: trace {trace_id} holds {services}")
+    families = {line.split()[2] for line in prom.splitlines() if line.startswith("# TYPE")}
+    for fam in ("zipkin_tpu_stage_latency_seconds", "zipkin_tpu_host_transfer_bytes",
+                "zipkin_tpu_slo_alert", "zipkin_tpu_slo_burn_rate"):
+        if fam not in families:
+            raise AssertionError(f"phase j2: /prometheus lacks {fam}")
+    if not [f for f in families if f.startswith("zipkin_tpu_device_")]:
+        raise AssertionError("phase j2: /prometheus lacks zipkin_tpu_device_*")
+    fig = dict(card=card, post_s=post_s, post_spans_per_s=len(stored["spans"]) / post_s,
+               launches=launches, kernel_event_ms=final["meanDeviceMs"],
+               hll_rel_err=g["accuracyHllRelErr"], hll_band=band,
+               digest_p99_rel_err=g["accuracyDigestP99RelErr"], link_recall=g["accuracyLinkRecall"],
+               rollup_ms=g["accuracyRollupMs"], ticks=st["windows"]["ticks"],
+               spans_per_s_60s=rates["spansPerSec"], hbm_bytes=st["device"]["hbm"]["bytesInUse"],
+               slo_alerts=[v["name"] for v in st["slo"]["specs"] if v["alert"]],
+               incidents=st["incidents"]["incidentsCaptured"],
+               stage_p50_us={s: stages[s]["p50Us"] for s in want},
+               self_spans=st["recorder"]["selfSpansEmitted"], families=len(families),
+               waterfalls={k: v[1] for k, v in waterfalls.items()})
+    log(f"phase j2 ({card}): {len(wire)} POSTs with B3 ({fig['post_spans_per_s']:.0f} spans/s), "
+        f"fresh and cached reads, {fig['ticks']} ticks: stages p50 us "
+        f"{json.dumps(fig['stage_p50_us'])}; hll_update_step {launches} calls = launches, "
+        f"{final['meanDeviceMs']:.5f} ms a call on events; device memory {fig['hbm_bytes']} B; "
+        f"spans/s over 60 s {rates['spansPerSec']:.0f}; {len(names)} SLOs (alerting "
+        f"{fig['slo_alerts']}, {fig['incidents']} incident bundles); accuracy: HLL rel err "
+        f"{g['accuracyHllRelErr']:.5f} within {band:.5f}, digest p99 rel err "
+        f"{g['accuracyDigestP99RelErr']:.4f}, link recall {g['accuracyLinkRecall']:.3f}, rollup "
+        f"{g['accuracyRollupMs']:.1f} ms; slowest query of each kind, us: "
+        f"{json.dumps({k: v[1]['wallUs'] for k, v in waterfalls.items()})}; "
+        f"{fig['self_spans']} self-spans, the pipeline's and the request's under {trace_id}; "
+        f"/prometheus {len(families)} families")
+    return fig
+
+
+def phase_obs_tier(torch, card: str, stored: dict, cfg=None, device=None, workers: int = 2) -> dict:
+    """(j3) the server of j2 with ``TPU_MP_WORKERS=2``: 16 of phase e's
+    payloads (a client that backs off on 429): the workers' ``parse``,
+    ``pack`` and ``route`` relayed into the recorder, the dispatcher's
+    ``mp_*`` stages counted, the shadow offered the dispatcher's images,
+    and statusz's ``workers`` rows holding every span."""
+    from zipkin_tpu_torch import obs
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.server.app import ZipkinServer
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    wire = stored["wire"][:16]
+    per = len(stored["spans"]) // len(stored["wire"])
+    storage = None
+    if device is not None:  # a rehearsal off the card
+        from zipkin_tpu_torch.tpu.store import TorchStorage
+
+        storage = TorchStorage(config=cfg, device=device, deps_max_stale_ms=0.0)
+    before = obs.RECORDER.snapshot()
+    hll_kernel.update_step.launches = 0
+    server = ZipkinServer(obs_server_config(cfg, tpu_mp_workers=workers), storage=storage,
+                          seal_interval_s=1.0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        ing = server._mp_ingester
+        if ing is None:
+            raise AssertionError("phase j3: the server did not build the tier")
+        wait_ready(ing, "phase j3")
+        backoffs = 0
+        for p in wire:
+            while (status := post_body(base, p)) == 429:
+                backoffs += 1
+                time.sleep(0.005)
+            if status != 202:
+                raise AssertionError(f"phase j3: POST answered {status}")
+        ing.drain()
+        st = HttpStore(base).get("/api/v2/tpu/statusz")
+        shadow = server._obs_shadow.counters()
+        groups = ing.counters["groups"]
+    finally:
+        server.stop()
+    launches = hll_kernel.update_step.launches
+    after = obs.RECORDER.snapshot()
+    ran = {s: after.stage(s).count - before.stage(s).count
+           for s in ("parse", "pack", "route", "mp_vocab_replay", "mp_device_feed", "mp_record",
+                     "mp_lut_remap", "coalesce", "mp_shm_copy")}
+    if not all(ran[s] for s in ("parse", "pack", "route", "mp_vocab_replay", "mp_device_feed")) \
+            or ran["mp_record"] != len(wire) or ran["mp_lut_remap"] + ran["coalesce"] != groups:
+        raise AssertionError(f"phase j3: stage counts {ran}, {groups} groups")
+    if shadow["shadowOfferedBatches"] < groups:
+        raise AssertionError(f"phase j3: the shadow was offered {shadow['shadowOfferedBatches']} images")
+    rows = st.get("workers", [])
+    if [w["widx"] for w in rows] != list(range(workers)) or sum(w["spans"] for w in rows) != per * len(wire):
+        raise AssertionError(f"phase j3: workers {rows}")
+    fig = dict(card=card, stages=ran, groups=groups, launches=launches, backoffs=backoffs,
+               shadow_offered=shadow["shadowOfferedBatches"],
+               worker_spans=[w["spans"] for w in rows])
+    log(f"phase j3 ({card}): TPU_MP_WORKERS={workers}, {len(wire)} POSTs ({backoffs} backoffs): "
+        f"stage counts {json.dumps(ran)}; {groups} groups, update_step launches {launches}; the "
+        f"shadow offered {shadow['shadowOfferedBatches']} dispatcher images; workers' spans "
+        f"{fig['worker_spans']}")
+    return fig
+
+
+def phase_obs_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu",
+                    argv=None, env_extra=None) -> dict:
+    """(j4) ``python -m zipkin_tpu_torch.server`` as a subprocess: one
+    trace POSTed, /prometheus scraped (the stage histogram, the device
+    totals and the SLO families), SIGTERM -> exit 0."""
+    import os
+    import signal
+    import socket
+    import tempfile
+    import urllib.request
+
+    from zipkin_tpu_torch.model import json_v2
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(os.environ, TPU_FAST_INGEST="1", TPU_ARCHIVE_DIR="off", QUERY_HOST="127.0.0.1",
+               QUERY_PORT=str(port), STORAGE_TYPE=storage, **(env_extra or {}))
+    root = os.path.dirname(os.path.abspath(__file__))
+    http = HttpStore(f"http://127.0.0.1:{port}")
+    cmd = argv or [sys.executable, "-m", "zipkin_tpu_torch.server"]
+    with tempfile.TemporaryFile() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while True:
+                if proc.poll() is not None:
+                    raise AssertionError(f"phase j4: the server exited {proc.returncode} before /health")
+                try:
+                    if http.get("/health")["status"] == "UP":
+                        break
+                except (OSError, AssertionError):
+                    pass
+                if time.perf_counter() - t0 > timeout_s:
+                    raise AssertionError(f"phase j4: /health not UP within {timeout_s} s")
+                time.sleep(0.25)
+            boot_s = time.perf_counter() - t0
+            now_ms = int(time.time() * 1000)
+            trace = small_trace(0x0B5E7E1D0B5E7E1D, "obs-entry", (now_ms - 60_000) * 1000)
+            if post_body(http.base, json_v2.encode_span_list(trace)) != 202:
+                raise AssertionError("phase j4: POST was not answered 202")
+            prom = urllib.request.urlopen(http.base + "/prometheus", timeout=60).read().decode()
+            families = {line.split()[2] for line in prom.splitlines() if line.startswith("# TYPE")}
+            want = {"zipkin_tpu_stage_latency_seconds", "zipkin_collector_spans_total",
+                    "zipkin_tpu_slo_alert"}
+            if storage == "tpu":
+                want |= {"zipkin_tpu_device_program_calls", "zipkin_tpu_host_transfer_bytes"}
+            if not want <= families or "zipkin_collector_spans_total{transport=\"http\"} 2" not in prom:
+                raise AssertionError(f"phase j4: /prometheus lacks {sorted(want - families)}")
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=30)
+            stop_s = time.perf_counter() - t1
+            if rc != 0:
+                raise AssertionError(f"phase j4: exit code {rc} after SIGTERM")
+        except BaseException:
+            out.seek(0)
+            log("phase j4: server output:\n" + out.read().decode(errors="replace")[-4000:])
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    log(f"phase j4 ({card}): python -m zipkin_tpu_torch.server: /health UP in {boot_s:.1f} s, a "
+        f"trace POSTed, /prometheus has {len(families)} families, SIGTERM -> exit 0 in {stop_s:.2f} s")
+    return dict(card=card, boot_s=boot_s, stop_s=stop_s, families=len(families))
+
+
+def phase_obs(seed: int, torch, card: str, stored: dict, a2_ms: float, cfg=None, device=None,
+              entry_argv=None, entry_env=None, entry_storage: str = "tpu") -> dict:
+    """(j) the observability plane on the card: j1 (:func:`phase_obs_cost`),
+    j2 (:func:`phase_obs_server`), j3 (:func:`phase_obs_tier`) and j4
+    (:func:`phase_obs_entry`). Returns each part's figures and the phase's
+    ``update_step`` and ``update`` launches."""
+    from zipkin_tpu_torch.ops import hll_kernel
+
+    fig = {"j1": phase_obs_cost(torch, card, stored, a2_ms, cfg=cfg, device=device)}
+    torch.cuda.empty_cache()
+    update_launches = hll_kernel.update.launches
+    fig["j2"] = phase_obs_server(seed, torch, card, stored, cfg=cfg, device=device)
+    update_launches += hll_kernel.update.launches
+    torch.cuda.empty_cache()
+    fig["j3"] = phase_obs_tier(torch, card, stored, cfg=cfg, device=device)
+    torch.cuda.empty_cache()
+    fig["j4"] = phase_obs_entry(card, storage=entry_storage, argv=entry_argv, env_extra=entry_env)
+    fig["launches"] = fig["j1"]["launches"] + fig["j2"]["launches"] + fig["j3"]["launches"]
+    fig["update_launches"] = update_launches
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3100,8 +3536,14 @@ def main() -> int:
     for name, out in kernels.BUILD_LOGS.items():  # -Xptxas=-v: registers, shared memory, spills
         log(f"nvcc {name}: " + " | ".join(ln.strip() for ln in out.splitlines() if "ptxas info" in ln))
 
+    # the kernels are timed without the device observatory's event pairs
+    # around each launch; phase j1 measures what the plane costs
+    from zipkin_tpu_torch.obs.device import OBSERVATORY
+
+    OBSERVATORY.set_enabled(False)
     t0 = time.perf_counter()
     cases = phase_kernels(args.seed, torch)
+    OBSERVATORY.set_enabled(True)
     log(f"phase a done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     phase_gpu_vs_cpu(args.seed, torch)
@@ -3110,7 +3552,9 @@ def main() -> int:
     launches, agg, traffic = phase_main(args.seed, args.spans, torch)
     log(f"phase c done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
+    OBSERVATORY.set_enabled(False)
     step_cases = phase_step(torch, agg, traffic, 8192)
+    OBSERVATORY.set_enabled(True)
     log(f"phase a2 done in {time.perf_counter() - t0:.1f} s")
     del agg, traffic
     torch.cuda.empty_cache()
@@ -3148,6 +3592,11 @@ def main() -> int:
     fanned = phase_fanout(args.seed, torch, card, stored, fast)
     torch.cuda.empty_cache()
     log(f"phase i done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    a2_ms = sum(c["ms"] for c in step_cases) / len(step_cases)
+    observed = phase_obs(args.seed, torch, card, stored, a2_ms)
+    torch.cuda.empty_cache()
+    log(f"phase j done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -3162,7 +3611,9 @@ def main() -> int:
     # checked through its /metrics), launches_phase_h those of the disk
     # archive's phase (h1's and h4's device batches) and launches_phase_i
     # those of the parse fan-out's (i1-i5, the i3 replay included; each
-    # part's count is in launches_phase_i_parts).
+    # part's count is in launches_phase_i_parts) and launches_phase_j those
+    # of the observability plane's (j1's four runs, j2's and j3's servers;
+    # each part's count is in launches_phase_j_parts).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -3176,6 +3627,7 @@ def main() -> int:
              launches_phase_g=durable["update_launches"],
              launches_phase_h=archived["update_launches"],
              launches_phase_i=0,
+             launches_phase_j=observed["update_launches"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -3193,6 +3645,10 @@ def main() -> int:
                                      "i3": fanned["i3"]["launches"],
                                      "i3_replay": fanned["i3"]["replay_launches"],
                                      "i4": fanned["i4"]["launches"], "i5": fanned["i5"]["launches"]},
+             launches_phase_j=observed["launches"],
+             launches_phase_j_parts={"j1": observed["j1"]["launches"], "j2": observed["j2"]["launches"],
+                                     "j3": observed["j3"]["launches"]},
+             event_ms_phase_j1=observed["j1"]["kernel_event_ms"],
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

@@ -199,11 +199,13 @@ def test_sketch_overview_matches(loaded):
     got, want = port.sketch_overview(QS), ref.sketch_overview(QS)
     assert_rows_match(got["percentiles"], want["percentiles"], rtol=1e-5)
     assert_cards_match(got["cardinalities"], want["cardinalities"])
-    # the store's own counters; transfer bytes are process-wide and the
-    # timing and cache-age gauges are wall clock
+    # the store's own counters; transfer bytes and the device observatory's
+    # totals are process-wide, and the timing, cache-age and query-plane
+    # (lock ledger, query walls) gauges are wall clock
     skip = {"hostTransferBytes", "ctxMaintenanceMs", "readCacheServeAgeMs",
             "readCacheServeAgeMaxMs", "ttWindowMergeMsLast", "ttSealWallMsLast"}
-    shared = (set(got["counters"]) & set(want["counters"])) - skip
+    shared = {k for k in (set(got["counters"]) & set(want["counters"])) - skip
+              if not k.startswith(("device", "query"))}
     assert {"spans", "batches", "hostTransfers", "ctxAdvances", "keyVocabOverflow"} <= shared
     assert {k: got["counters"][k] for k in shared} == {k: want["counters"][k] for k in shared}
 

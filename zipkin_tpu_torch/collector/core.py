@@ -19,17 +19,20 @@ reference's 202-on-enqueue); a full tier raises
 dropped message. The ``alloc`` resource site sits at the boundary: an
 injected allocation failure is answered as the same backpressure.
 
-Left out, against the reference: overload and tenant admission, the
-ingest critical-path stamps and the accuracy shadow tap.
+An object-path decode is the flight recorder's ``parse`` stage, and a
+``shadow`` (:class:`~zipkin_tpu_torch.obs.shadow.HostShadow`) is offered
+the object path's sampled spans. Left out, against the reference:
+overload and tenant admission and the ingest critical-path stamps.
 """
 
 from __future__ import annotations
 
 import logging
 import threading
+import time
 from typing import Dict, List, Optional, Sequence
 
-from zipkin_tpu_torch import faults
+from zipkin_tpu_torch import faults, obs
 from zipkin_tpu_torch.model import codec
 from zipkin_tpu_torch.model.span import Span
 from zipkin_tpu_torch.storage.spi import FastIngestError, StorageComponent
@@ -139,7 +142,7 @@ class Collector:
 
     def __init__(self, storage: StorageComponent, *, sampler: Optional[CollectorSampler] = None,
                  metrics: Optional[CollectorMetrics] = None, fast_ingest: bool = False,
-                 mp_ingester=None) -> None:
+                 mp_ingester=None, shadow=None) -> None:
         self.storage = storage
         self.sampler = sampler or CollectorSampler(1.0)
         self.metrics = metrics or CollectorMetrics()
@@ -150,6 +153,9 @@ class Collector:
         # parse workers and are acknowledged on hand-off; the tier counts
         # their spans through its own metrics as they land
         self.mp_ingester = mp_ingester
+        # the accuracy plane's tap: the object path offers its sampled
+        # spans, so the shadow sees what the device sketches see
+        self.shadow = shadow
         self._consumer = storage.span_consumer()
 
     def accept_spans_bytes(self, data: bytes, encoding: Optional[codec.Encoding] = None) -> int:
@@ -204,7 +210,9 @@ class Collector:
             except ValueError:
                 pass  # the parse refused it: the Python codec owns error reporting
         try:
+            t0 = time.perf_counter()
             spans = codec.decode_spans(data, encoding)
+            obs.record("parse", time.perf_counter() - t0)
         except Exception as e:
             self.metrics.increment_messages_dropped()
             raise ValueError(f"cannot decode spans: {e}") from e
@@ -232,6 +240,8 @@ class Collector:
             self.metrics.increment_spans_dropped(dropped)
         if not sampled:
             return 0
+        if self.shadow is not None:
+            self.shadow.offer_spans(sampled)
         try:
             self._consumer.accept(sampled).execute()
         except RejectedExecutionError:

@@ -29,6 +29,9 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc runs of each source in this process (the device observatory's
+# ``compiles`` of the kernel's row)
+BUILDS: Dict[str, int] = {}
 # compiler output of each source built by this process (``-Xptxas=-v``:
 # registers, shared memory and spills of every kernel)
 BUILD_LOGS: Dict[str, str] = {}
@@ -64,6 +67,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
             continue
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        BUILDS[name] = BUILDS.get(name, 0) + 1
         procs.append((name, so, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

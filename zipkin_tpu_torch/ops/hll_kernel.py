@@ -16,7 +16,10 @@ Each launches the kernel for a CUDA tensor and runs its plain twin
 (:func:`update_plain`, :func:`update_step_plain`) for a CPU tensor — the
 CPU is the only reason it takes the plain path; there is no switch and no
 fallback. All update the registers in place. ``update.launches`` and
-``update_step.launches`` count kernel launches.
+``update_step.launches`` count kernel launches. Each launch runs inside
+the device observatory's wrapper (:mod:`zipkin_tpu_torch.obs.device`) under
+``hll_update`` or ``hll_update_step``, which counts the same launches and
+times each on the card with a pair of CUDA events.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import threading
 
 import torch
 
-from zipkin_tpu_torch import u32
+from zipkin_tpu_torch import kernels, u32
+from zipkin_tpu_torch.obs.device import OBSERVATORY
 from zipkin_tpu_torch.ops.hashing import floor_log2
 
 # update_step's scratch, as csrc/hll_update.cu lays it out: kScratchHeader
@@ -91,8 +95,6 @@ _launch_lock = threading.Lock()
 
 def _entry(name: str):
     if name not in _fn:
-        from zipkin_tpu_torch import kernels
-
         lib = kernels.load("hll_update")
         fn = getattr(lib, name)
         if name == "hll_update":
@@ -150,17 +152,28 @@ def update(registers, row_ids, hashes, valid) -> torch.Tensor:
         ("valid", valid, torch.bool)))
     if n == 0:
         return registers
+    _launch_update_observed(registers, row_ids, hashes, valid, n, p)
+    update.launches += 1
+    return registers
+
+
+update.launches = 0
+
+
+def _builds() -> int:
+    return kernels.BUILDS.get("hll_update", 0)
+
+
+def _launch_update(registers, row_ids, hashes, valid, n: int, p: int) -> None:
     err = _entry("hll_update")(
         registers.data_ptr(), row_ids.data_ptr(), hashes.data_ptr(), valid.data_ptr(),
         n, registers.shape[0], p, torch.cuda.current_stream(registers.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"hll_update kernel launch failed: CUDA error {err}")
-    update.launches += 1
-    return registers
 
 
-update.launches = 0
+_launch_update_observed = OBSERVATORY.wrap("hll_update", _launch_update, compile_probe=_builds)
 
 
 def _scratch_and_tag(hll, tb_flat, stream: int):
@@ -233,6 +246,16 @@ def update_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
     n = hashes.shape[0]
     if n == 0:
         return hll, tb_flat
+    _launch_step_observed(hll, tb_flat, hashes, svc, valid, tb_keep, slot, n, slots, **kw)
+    update_step.launches += 1
+    return hll, tb_flat
+
+
+update_step.launches = 0
+
+
+def _launch_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, n: int, slots: int, *,
+                 max_services: int, hll_rows: int, global_row: int) -> None:
     fn = _entry("hll_update_step")
     stream = torch.cuda.current_stream(hll.device).cuda_stream
     ptr = lambda t: 0 if t is None else t.data_ptr()
@@ -247,8 +270,6 @@ def update_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
             del _scratch[key]
     if err != 0:
         raise RuntimeError(f"hll_update_step kernel launch failed: CUDA error {err}")
-    update_step.launches += 1
-    return hll, tb_flat
 
 
-update_step.launches = 0
+_launch_step_observed = OBSERVATORY.wrap("hll_update_step", _launch_step, compile_probe=_builds)

@@ -14,14 +14,23 @@ the digest all-gather + recluster) are the identity and are left out.
 With a :class:`zipkin_tpu_torch.sampling.HostSampler` installed as
 ``sampler``, every batch is also scored on the host over the same
 published tables, and ``wal_hook`` (when set) receives the kept lanes;
-without a sampler it receives every batch. The lock is a plain
-``threading.RLock``; the reference's instrumented lock and flight-recorder
-stages (``obs``) are not ported yet.
+without a sampler it receives every batch.
+
+The lock is the query plane's :class:`~zipkin_tpu_torch.obs.querytrace.InstrumentedRLock`
+(every outermost wait lands in the ``query_lock_wait`` stage). The host
+paths stamp the flight recorder's ``route``, ``device_dispatch``,
+``rollup``, ``mp_lut_remap``, ``coalesce`` and ``ctx_advance`` stages where
+the reference does, and every device entry point runs inside a device
+observatory wrapper under the reference's ``spmd_*`` name
+(:mod:`zipkin_tpu_torch.obs.device`): the step variants, the flush and the
+rollup, and each read's program, which ends in the packed buffer that
+``_pull`` carries to the host. ``device_dispatch`` here is the host wall of
+the whole step under the lock: the due flush and rollup, the step's host
+work and its asynchronous launches.
 """
 
 from __future__ import annotations
 
-import threading
 import time
 from collections import deque
 from typing import Optional, Tuple
@@ -29,8 +38,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from zipkin_tpu_torch import convert, readpack, u32
+from zipkin_tpu_torch import convert, obs, readpack, u32
 from zipkin_tpu_torch.device import resolve_device
+from zipkin_tpu_torch.obs import querytrace
+from zipkin_tpu_torch.obs.device import OBSERVATORY
 from zipkin_tpu_torch.ops import histogram
 from zipkin_tpu_torch.tpu import ingest as ing
 from zipkin_tpu_torch.tpu.columnar import SpanColumns, concat_remap, fuse_columns, remap_fused
@@ -65,7 +76,8 @@ class TorchAggregator:
     def __init__(self, config: AggConfig = AggConfig(), device=None) -> None:
         self.device = resolve_device(device)
         self.config = config
-        self.state: AggState = init_state(config, self.device)
+        self._wrap_programs()
+        self.state: AggState = self._p["spmd_init"](config, self.device)
         # device LinkContext of the current write_version
         self._ctx_cache = (-1, None)
         # exact host counters (the device counters are u32 and wrap)
@@ -73,8 +85,9 @@ class TorchAggregator:
             "spans": 0, "spansWithDuration": 0, "spansWithError": 0,
             "batches": 0, "sampledKept": 0, "sampledDropped": 0,
         }
-        # guards every touch of self.state; reentrant (reads nest)
-        self.lock = threading.RLock()
+        # guards every touch of self.state; reentrant (reads nest); its
+        # contention ledger feeds the query plane
+        self.lock = querytrace.InstrumentedRLock(name="agg")
         # host mirror of pend_pos: the flush runs before a batch that
         # would overflow the pending buffer
         self._pend_lanes = 0
@@ -103,13 +116,95 @@ class TorchAggregator:
         # compacts what the WAL keeps
         self.sampler = None
 
+    def _wrap_programs(self) -> None:
+        """Every device entry point of this aggregator, wrapped in the
+        device observatory under the reference's program name."""
+        cfg = self.config
+
+        def step(need_flush, need_rollup):
+            def run(s, batch, live):
+                if need_flush:
+                    s = ing.flush_digest(cfg, s)
+                if need_rollup:
+                    s = ing.rollup_step(cfg, s)
+                return ing.ingest_step(cfg, s, batch, live=live)
+            return run
+
+        def quant_digest(s, qarr):
+            return readpack.pack((ing.key_quantiles_digest(s, qarr), histogram.total_count(s.hist)),
+                                 (np.float32, np.uint32))
+
+        def quant_hist(s, qarr):
+            return readpack.pack((ing.key_quantiles(s, qarr), histogram.total_count(s.hist)),
+                                 (np.float32, np.uint32))
+
+        def quant_whist(s, qarr, lo, hi):
+            merged = ing.windowed_hist(cfg, s, lo, hi)
+            return readpack.pack((histogram.quantile(merged, qarr), histogram.total_count(merged)),
+                                 (np.float32, np.uint32))
+
+        def whist(s, lo, hi):
+            return readpack.pack((ing.windowed_hist(cfg, s, lo, hi),), (np.uint32,))
+
+        def card(s):
+            return readpack.pack((ing.cardinalities(s),), (np.float32,))
+
+        def overview(s, qarr):
+            return readpack.pack(
+                (ing.key_quantiles_digest(s, qarr), histogram.total_count(s.hist),
+                 ing.cardinalities(s)), (np.float32, np.uint32, np.float32))
+
+        def digest_read(s):
+            return readpack.pack(
+                (ing._flush_pending_digest(cfg, s.digest, s.pend_key, s.pend_val),), (np.float32,))
+
+        def links(s, ctx, lo, hi):
+            return readpack.pack(ing.dependency_links(cfg, s, lo, hi, ctx=ctx), (np.uint32, np.uint32))
+
+        def edges_rolled(s, lo, hi):
+            return readpack.pack(self._edge_topk(*ing.rolled_links(cfg, s, lo, hi)),
+                                 (np.int32, np.uint32, np.uint32))
+
+        def edges_fresh(s, ctx, lo, hi):
+            return readpack.pack(self._edge_topk(*ing.dependency_links(cfg, s, lo, hi, ctx=ctx)),
+                                 (np.int32, np.uint32, np.uint32))
+
+        def ttread(s, ctx, lo_ep, hi_ep):
+            return readpack.pack(ing.tt_sketches(cfg, s, lo_ep, hi_ep, ctx=ctx),
+                                 (np.int32, np.uint8, np.float32, np.uint32, np.uint32))
+
+        programs = {
+            "spmd_init": init_state,
+            "spmd_flush": lambda s: ing.flush_digest(cfg, s),
+            "spmd_rollup": lambda s: ing.rollup_step(cfg, s),
+            "spmd_link_ctx": lambda s: ing.fresh_link_context(cfg, s),
+            "spmd_snap_copy": lambda s: AggState(*(t.clone() for t in s)),
+            "spmd_quant_digest": quant_digest, "spmd_quant_hist": quant_hist,
+            "spmd_quant_whist": quant_whist, "spmd_whist": whist, "spmd_card": card,
+            "spmd_overview": overview, "spmd_digest_read": digest_read, "spmd_links": links,
+            "spmd_edges_rolled": edges_rolled, "spmd_edges_fresh": edges_fresh,
+            "spmd_ttread": ttread,
+        }
+        self._p = {name: OBSERVATORY.wrap(name, fn, device=self.device)
+                   for name, fn in programs.items()}
+        # the step's variants by (flush due, rollup due), as the reference's
+        self._step = {
+            (f, r): OBSERVATORY.wrap("spmd_step" + ("_flush" if f else "") + ("_rollup" if r else ""),
+                                     step(f, r), device=self.device)
+            for f in (False, True) for r in (False, True)
+        }
+
     # -- write path ------------------------------------------------------
 
     def ingest(self, cols: SpanColumns) -> None:
-        """Fold one host batch (one shard: no routing)."""
+        """Fold one host batch (one shard: the wire image is the batch's
+        packing, which the reference's ``route`` stage times)."""
         live_ts = cols.ts_min[cols.valid]
+        t0 = time.perf_counter()
+        routed = fuse_columns(cols)[None]
+        obs.record("route", time.perf_counter() - t0)
         self.ingest_fused(
-            fuse_columns(cols)[None],
+            routed,
             n_spans=int(cols.valid.sum()),
             n_dur=int((cols.valid & cols.has_dur).sum()),
             n_err=int((cols.valid & cols.err).sum()),
@@ -137,22 +232,26 @@ class TorchAggregator:
         live_per_shard = (fused[:, 10, :] & 1).sum(axis=1, dtype=np.int64)
         batch = unfuse_columns(u32.from_numpy(fused[0], self.device))
         with self.lock:
+            # the contention ledger's holder: this hold is the write path
+            self.lock.relabel("ingest_fused")
             need_flush = self._pend_lanes + lanes > self.config.digest_buffer
             need_rollup = self._lanes_since_rollup + lanes > self.config.rollup_segment
-            t0 = time.perf_counter()
-            s = self.state
-            if need_flush:
-                s = ing.flush_digest(self.config, s)
-                self._pend_lanes = 0
-            if need_rollup:
-                s = ing.rollup_step(self.config, s)
-            if self._pend_lanes + lanes > self.config.digest_buffer:
+            if (0 if need_flush else self._pend_lanes) + lanes > self.config.digest_buffer:
                 raise AssertionError("pending digest buffer would overflow")
-            self.state = ing.ingest_step(self.config, s, batch, live=int(live_per_shard[0]))
+            t0 = time.perf_counter()
+            self.state = self._step[(need_flush, need_rollup)](self.state, batch,
+                                                               int(live_per_shard[0]))
+            # the host wall of the step: its host work and its launches
+            # (the device runs them after this returns)
+            step_wall = time.perf_counter() - t0
+            obs.record("device_dispatch", step_wall)
+            if need_flush:
+                self._pend_lanes = 0
             if need_rollup:
                 self._lanes_since_rollup = 0
                 self.ctx_stats["ctx_advances"] += 1
-                self.ctx_stats["ctx_maintenance_ms"] = (time.perf_counter() - t0) * 1000.0
+                self.ctx_stats["ctx_maintenance_ms"] = step_wall * 1000.0
+                obs.record("rollup", step_wall)
             self._pend_lanes += lanes
             self._lanes_since_rollup += lanes
             self.write_version += 1
@@ -199,7 +298,9 @@ class TorchAggregator:
         few) and fold it with one step."""
         if len(parts) == 1:
             fused, svc_map, key_map = parts[0]
+            t0 = time.perf_counter()
             remap_fused(fused, svc_map, key_map)
+            obs.record("mp_lut_remap", time.perf_counter() - t0)
             self.ingest_fused(fused, n_spans, n_dur, n_err, ts_range)
             return
         total = sum(int(p[0].shape[-1]) for p in parts)
@@ -211,8 +312,10 @@ class TorchAggregator:
             )
         bucket = ing.lane_bucket(total, pad_to_multiple, cap)
         shards, rows = parts[0][0].shape[0], parts[0][0].shape[1]
+        t0 = time.perf_counter()
         out = np.zeros((shards, rows, bucket), np.uint32)
         concat_remap(parts, out)
+        obs.record("coalesce", time.perf_counter() - t0)
         self.ingest_fused(out, n_spans, n_dur, n_err, ts_range)
 
     def set_sampler_tables(self, rate: np.ndarray, tail: np.ndarray, link: np.ndarray) -> None:
@@ -231,7 +334,7 @@ class TorchAggregator:
     def _flush_now(self) -> None:
         """Flush the pending digest buffer (callers hold the lock). Query
         invisible, so write_version stays."""
-        self.state = ing.flush_digest(self.config, self.state)
+        self.state = self._p["spmd_flush"](self.state)
         self._pend_lanes = 0
         self._wal_marker("ttflush")
 
@@ -251,7 +354,7 @@ class TorchAggregator:
         """Run the link rollup (which also advances the link ctx)."""
         with self.lock:
             t0 = time.perf_counter()
-            self.state = ing.rollup_step(self.config, self.state)
+            self.state = self._p["spmd_rollup"](self.state)
             self._lanes_since_rollup = 0
             self.ctx_stats["ctx_advances"] += 1
             self.ctx_stats["ctx_maintenance_ms"] = (time.perf_counter() - t0) * 1000.0
@@ -279,15 +382,24 @@ class TorchAggregator:
     # -- reads -----------------------------------------------------------
     #
     # Every read below ends in exactly one device->host transfer: its
-    # outputs are packed on the device into one buffer (readpack.pack) and
-    # self._pull makes the one counted readpack.device_get.
+    # program packs its outputs on the device into one buffer
+    # (readpack.pack) and self._pull makes the one counted
+    # readpack.device_get.
 
-    def _pull(self, tensors, dtypes) -> list:
-        """THE read path's device->host pull (callers hold the lock): pack
-        ``tensors`` as the reference ``dtypes``, one counted transfer,
-        then zero-copy numpy views of the sections."""
+    def _pull(self, packed) -> list:
+        """THE read path's device->host pull (callers hold the lock): one
+        counted transfer of a read program's packed buffer, then zero-copy
+        numpy views of the sections."""
         self.read_stats["host_transfers"] += 1
-        return readpack.pull(readpack.pack(tensors, dtypes))
+        if querytrace.active() is not None:
+            # a traced query splits its device wall (launches done -> the
+            # buffer ready) from the transfer; the pull below would wait
+            # for the same work (a CPU tensor is ready when made)
+            t0 = time.perf_counter_ns()
+            if packed.device.type == "cuda":
+                torch.cuda.current_stream(packed.device).synchronize()
+            querytrace.stamp_active(querytrace.QSEG_DEVICE_WALL, t0, time.perf_counter_ns())
+        return readpack.pull(packed)
 
     def quantiles(self, qs, source: str = "digest", ts_lo_min: Optional[int] = None,
                   ts_hi_min: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -301,29 +413,25 @@ class TorchAggregator:
         qarr = torch.as_tensor(np.asarray(qs, np.float32), device=self.device)
         with self.lock:
             if ts_lo_min is not None:
-                merged = ing.windowed_hist(self.config, self.state, ts_lo_min, ts_hi_min)
-                q, n = histogram.quantile(merged, qarr), histogram.total_count(merged)
+                packed = self._p["spmd_quant_whist"](self.state, qarr, ts_lo_min, ts_hi_min)
             elif source == "digest":
                 if self._pend_lanes:
                     self._flush_now()  # flush-then-read
-                q = ing.key_quantiles_digest(self.state, qarr)
-                n = histogram.total_count(self.state.hist)
+                packed = self._p["spmd_quant_digest"](self.state, qarr)
             else:
-                q = ing.key_quantiles(self.state, qarr)
-                n = histogram.total_count(self.state.hist)
-            q, n = self._pull((q, n), (np.float32, np.uint32))
+                packed = self._p["spmd_quant_hist"](self.state, qarr)
+            q, n = self._pull(packed)
             return q, n
 
     def windowed_histograms(self, ts_lo_min: int, ts_hi_min: int) -> np.ndarray:
         with self.lock:
-            (out,) = self._pull(
-                (ing.windowed_hist(self.config, self.state, ts_lo_min, ts_hi_min),), (np.uint32,))
+            (out,) = self._pull(self._p["spmd_whist"](self.state, ts_lo_min, ts_hi_min))
             return out
 
     def cardinalities(self) -> np.ndarray:
         """[S+1] HLL distinct-trace estimates (last row global)."""
         with self.lock:
-            (est,) = self._pull((ing.cardinalities(self.state),), (np.float32,))
+            (est,) = self._pull(self._p["spmd_card"](self.state))
             return est
 
     def sketch_overview(self, qs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -332,44 +440,36 @@ class TorchAggregator:
         with self.lock:
             if self._pend_lanes:
                 self._flush_now()
-            q, n, est = self._pull(
-                (ing.key_quantiles_digest(self.state, qarr),
-                 histogram.total_count(self.state.hist),
-                 ing.cardinalities(self.state)),
-                (np.float32, np.uint32, np.float32),
-            )
+            q, n, est = self._pull(self._p["spmd_overview"](self.state, qarr))
             return q, n, est
 
     def merged_digest(self) -> np.ndarray:
         """[K, C, 2] digest with the pending points folded in — a pure
         read: the state is left untouched."""
         with self.lock:
-            s = self.state
-            (out,) = self._pull(
-                (ing._flush_pending_digest(self.config, s.digest, s.pend_key, s.pend_val),),
-                (np.float32,))
+            (out,) = self._pull(self._p["spmd_digest_read"](self.state))
             return out
 
     def merged_sketches(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(hist [K, B] u32, hll [S+1, m] u8, counters u32) in one pull."""
         with self.lock:
             s = self.state
-            hist, hll_regs, counters = self._pull(
-                (s.hist, s.hll, s.counters), (np.uint32, np.uint8, np.uint32))
+            hist, hll_regs, counters = self._pull(readpack.pack(
+                (s.hist, s.hll, s.counters), (np.uint32, np.uint8, np.uint32)))
             return hist, hll_regs, counters
 
     def _link_context_cached(self):
         """Device LinkContext for the current state (callers hold lock)."""
         if self._ctx_cache[0] != self.write_version:
-            self._ctx_cache = (self.write_version, ing.fresh_link_context(self.config, self.state))
+            t0 = time.perf_counter()
+            self._ctx_cache = (self.write_version, self._p["spmd_link_ctx"](self.state))
+            obs.record("ctx_advance", time.perf_counter() - t0)
         return self._ctx_cache[1]
 
     def dependency_matrices(self, ts_lo_min: int, ts_hi_min: int) -> Tuple[np.ndarray, np.ndarray]:
         with self.lock:
-            calls, errors = self._pull(
-                ing.dependency_links(self.config, self.state, ts_lo_min, ts_hi_min,
-                                     ctx=self._link_context_cached()),
-                (np.uint32, np.uint32))
+            calls, errors = self._pull(self._p["spmd_links"](
+                self.state, self._link_context_cached(), ts_lo_min, ts_hi_min))
             return calls, errors
 
     def window_fully_rolled(self, ts_lo_min: int, ts_hi_min: int) -> bool:
@@ -402,13 +502,12 @@ class TorchAggregator:
         with self.lock:
             if self.window_fully_rolled(ts_lo_min, ts_hi_min):
                 self.read_stats["rolled_only_reads"] += 1
-                calls, errors = ing.rolled_links(self.config, self.state, ts_lo_min, ts_hi_min)
+                packed = self._p["spmd_edges_rolled"](self.state, ts_lo_min, ts_hi_min)
             else:
                 self.read_stats["ctx_reads"] += 1
-                calls, errors = ing.dependency_links(
-                    self.config, self.state, ts_lo_min, ts_hi_min,
-                    ctx=self._link_context_cached())
-            idx, c, e = self._pull(self._edge_topk(calls, errors), (np.int32, np.uint32, np.uint32))
+                packed = self._p["spmd_edges_fresh"](
+                    self.state, self._link_context_cached(), ts_lo_min, ts_hi_min)
+            idx, c, e = self._pull(packed)
             return idx, c, e
 
     def tt_read(self, lo_ep: int, hi_ep: int):
@@ -420,10 +519,8 @@ class TorchAggregator:
         with self.lock:
             if self._pend_lanes:
                 self._flush_now()
-            ep, regs, digest, calls, errs = self._pull(
-                ing.tt_sketches(self.config, self.state, int(lo_ep), int(hi_ep),
-                                ctx=self._link_context_cached()),
-                (np.int32, np.uint8, np.float32, np.uint32, np.uint32))
+            ep, regs, digest, calls, errs = self._pull(self._p["spmd_ttread"](
+                self.state, self._link_context_cached(), int(lo_ep), int(hi_ep)))
             return ep, regs, digest, calls, errs
 
     @property
@@ -460,8 +557,7 @@ class TorchAggregator:
         taken under the lock: one instant for a snapshot. Callers copy the
         clone to the host without the lock while ingest goes on."""
         with self.lock:
-            return (AggState(*(t.clone() for t in self.state)), self.wal_seq,
-                    dict(self.host_counters))
+            return self._p["spmd_snap_copy"](self.state), self.wal_seq, dict(self.host_counters)
 
     def state_arrays(self) -> list:
         """Host copy of every state leaf with the reference's dtypes and

@@ -8,7 +8,9 @@ ends in exactly one device->host copy:
   the dtype the reference returns for it and flattened into 32-bit words
   behind a fixed header, and the whole answer is one ``torch.cat``;
 - :func:`device_get` is the one counted pull (one ``.cpu()`` per call),
-  so transfers per read can be read off :func:`transfer_count`;
+  so transfers per read can be read off :func:`transfer_count`; its wall
+  is the flight recorder's ``readpack_transfer`` stage and a traced
+  query's transfer segment;
 - :func:`unpack` splits the pulled buffer into zero-copy numpy views.
 
 The wire format is the reference's ZPK1, word for word, so a buffer
@@ -30,12 +32,14 @@ to a word. The buffer travels as int32 and is viewed as uint32 on the host.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from zipkin_tpu_torch import u32
+from zipkin_tpu_torch import obs, u32
+from zipkin_tpu_torch.obs import querytrace
 
 MAGIC = 0x5A504B31  # "ZPK1"
 _SECTION_WORDS = 8
@@ -68,7 +72,11 @@ def device_get(buf: torch.Tensor) -> np.ndarray:
     global _transfers, _transfer_bytes
     with _counter_lock:
         _transfers += 1
+    t0 = time.perf_counter_ns()
     out = buf.cpu().numpy().view(np.uint32)
+    t1 = time.perf_counter_ns()
+    obs.record("readpack_transfer", (t1 - t0) / 1e9)
+    querytrace.stamp_active(querytrace.QSEG_READPACK_TRANSFER, t0, t1)
     with _counter_lock:
         _transfer_bytes += out.nbytes
     return out
@@ -186,7 +194,13 @@ def unpack(buf: np.ndarray) -> List[np.ndarray]:
 
 def pull(packed: torch.Tensor) -> List[np.ndarray]:
     """One transfer + unpack: the host half of a packed read."""
-    return unpack(device_get(packed))
+    buf = device_get(packed)
+    if querytrace.active() is None:
+        return unpack(buf)
+    t0 = time.perf_counter_ns()
+    out = unpack(buf)
+    querytrace.stamp_active(querytrace.QSEG_UNPACK, t0, time.perf_counter_ns())
+    return out
 
 
 def describe(buf: np.ndarray) -> List[Tuple[str, tuple, int]]:

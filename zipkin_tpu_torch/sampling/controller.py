@@ -1,6 +1,6 @@
 """Adaptive per-service rate controller for the sampling tier (port of
-``zipkin_tpu/sampling/controller.py``, numpy only; the reference's
-flight-recorder stamp of each tick is left to the port's obs slice).
+``zipkin_tpu/sampling/controller.py``, numpy only; each tick that
+publishes is the flight recorder's ``sampler_tick`` stage).
 
 Closes the loop on a retained-spans/sec budget: each interval it reads
 the host-exact seen/kept tallies, nudges every service's hash-keep rate
@@ -40,6 +40,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from zipkin_tpu_torch import obs
 from zipkin_tpu_torch.sampling import RATE_ONE
 
 logger = logging.getLogger(__name__)
@@ -197,6 +198,7 @@ class RateController:
         sampler = self.store.agg.sampler
         if sampler is None or dt_s <= 0:
             return False
+        t0 = time.perf_counter()
         seen, kept = sampler.take_tallies()
         total_seen = int(seen.sum())
         total_kept = int(kept.sum())
@@ -228,6 +230,7 @@ class RateController:
         new_tail = self._tail_thresholds(sampler)
         new_link = sampler.link_snapshot()
         self._publish(sampler, new_rate, new_tail, new_link)
+        obs.record("sampler_tick", time.perf_counter() - t0)
         return True
 
     def _tail_thresholds(self, sampler) -> np.ndarray:

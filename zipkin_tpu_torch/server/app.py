@@ -17,26 +17,41 @@ Routes and status codes follow the reference:
   cannot snapshot);
 - ``GET /health``, ``/info`` and ``/metrics`` (the reference's
   ``counter.zipkin_collector.<name>.<transport>`` taxonomy, with the boot's
-  restore figures, the scrubber's and archive's quarantine tallies and the
-  multi-process tier's pool and acked-span accounting as gauges).
+  restore figures, the scrubber's and archive's quarantine tallies, the
+  multi-process tier's pool and acked-span accounting, the query plane's,
+  the accuracy plane's, each stage's quantiles and each SLO's verdict as
+  gauges);
+- ``GET /api/v2/tpu/statusz`` (the observability plane's debug page: the
+  flight recorder's stage table, its slow-event ring and its own cost, the
+  sampler, durability, windows, SLO, accuracy, device, workers, queries and
+  incidents sections) and ``GET /prometheus`` (the exposition format: the
+  collector's counters, the store's flat gauges, the stage latency
+  histogram with exemplars, and the worker, query-lock, query-segment,
+  accuracy and SLO families).
 
 With ``TPU_MP_WORKERS`` > 0, the line-rate path on and the device store,
 the server builds the multi-process ingest tier
 (:mod:`zipkin_tpu_torch.tpu.mp_ingest`): POSTed JSON v2 and proto3 payloads
 go to its parse workers and are answered 202 on hand-off.
 
-Each request runs on its own thread; a ticker thread seals the store's
-time tier every ``seal_interval_s``, and with a checkpoint dir another
-snapshots the store every ``TPU_SNAPSHOT_INTERVAL_S``; the store's own
-scrubber thread re-verifies its files every ``TPU_SCRUB_INTERVAL_S``.
+Each request runs on its own thread. The observability plane's ticker
+(``TPU_OBS_WINDOWS``, every ``TPU_OBS_TICK_S``) takes the windowed deltas
+and, in the reference's order, rolls up the accuracy plane, folds the
+query traces, seals the store's time tier and evaluates the SLOs; with the
+windows off a thread of its own seals the time tier every
+``seal_interval_s`` (0: no seal on either). With a checkpoint dir another
+thread snapshots the store every ``TPU_SNAPSHOT_INTERVAL_S``; the store's
+own scrubber thread re-verifies its files every ``TPU_SCRUB_INTERVAL_S``.
+``SELF_TRACING_ENABLED`` traces each request into the store, and
+``TPU_OBS_SELFSPANS`` publishes over-budget stages as spans.
 ``stop()`` answers new requests 503, waits for those in flight (the
 reference's ``runner.cleanup()``), drains and closes the multi-process tier
 within the same limit, stops the scrubber, and takes a final snapshot after
 the listener and both tickers have stopped. Left out, against the
-reference: gRPC, scribe, the UI and ``/config.json``, ``/prometheus``,
-statusz, deadlines, overload and tenant admission (so a 429 carries no
-``Retry-After`` unless its exception does), self-tracing and the
-observability plane.
+reference: gRPC, scribe, the UI and ``/config.json``, deadlines, overload
+and tenant admission (so a 429 carries no ``Retry-After`` unless its
+exception does), and statusz's ``critpath``, ``mirror``, ``serving`` and
+``overload`` sections with their gauges and families.
 """
 
 from __future__ import annotations
@@ -47,10 +62,11 @@ import threading
 import time
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 from urllib.parse import parse_qs, unquote, urlsplit
 
 import zipkin_tpu_torch
+from zipkin_tpu_torch import obs
 from zipkin_tpu_torch.collector.core import Collector, CollectorSampler, InMemoryCollectorMetrics
 from zipkin_tpu_torch.internal.hex import normalize_trace_id
 from zipkin_tpu_torch.model import json_v2
@@ -82,6 +98,13 @@ _DURABILITY_GAUGES = ("scrubBytes", "scrubPasses", "scrubCorruptDetected",
 # accounting that shows no loss (zipkin_tpu/server/app.py:1212-1219)
 _MP_GAUGES = ("mpWorkers", "mpWorkersAlive", "mpQueueDepth", "mpInflight",
               "mpAccepted", "mpSampleDropped", "mpFallbacks", "mpRejected")
+# the query plane: stitched query walls and the aggregator lock's ledger
+# (zipkin_tpu/server/app.py:1252-1268; the cache-age gauges are above)
+_QUERY_GAUGES = ("queryTraces", "queryWallP50Us", "queryWallP99Us", "queryWallMaxUs",
+                 "queryConservationP50Milli", "queryLockAcquisitions", "queryLockContended",
+                 "queryLockReentries", "queryLockWaiters", "queryLockWaitersHighWater",
+                 "queryLockWaitP50Us", "queryLockWaitP99Us", "queryLockWaitMaxUs",
+                 "queryLockHoldP50Us", "queryLockHoldP99Us", "queryLockHoldMaxUs")
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -227,6 +250,7 @@ class ZipkinServer:
         )
         self.components = {self.config.storage_type: self.storage}
         self.seal_interval_s = seal_interval_s
+        self._build_obs_plane()
         self.port: Optional[int] = None
         self._httpd: Optional[_HTTPServer] = None
         self._threads = []
@@ -248,6 +272,9 @@ class ZipkinServer:
             "/health": self.get_health,
             "/info": self.get_info,
             "/metrics": self.get_metrics,
+            "/prometheus": self.get_prometheus,
+            # the recorder is process-global: served whatever the store
+            "/api/v2/tpu/statusz": self.get_tpu_statusz,
         }
         if hasattr(self.storage, "latency_quantiles"):
             routes.update({
@@ -257,14 +284,16 @@ class ZipkinServer:
                 "/api/v2/tpu/overview": self.get_tpu_overview,
             })
         self.get_routes = routes
-        # path -> handler(body, content_type). The snapshot route is served
+        # path -> handler(body, content_type, t0), t0 the perf_counter at
+        # which the request's body read began. The snapshot route is served
         # on every store, so one that cannot snapshot answers 501 (the
         # reference serves it only beside the sketch reads: 404 on mem)
-        self.post_routes = {"/api/v2/tpu/snapshot": lambda body, ctype: self.post_tpu_snapshot()}
+        self.post_routes = {
+            "/api/v2/tpu/snapshot": lambda body, ctype, t0: self.post_tpu_snapshot()}
         if self.config.http_collector_enabled:
             self.post_routes.update({
-                "/api/v2/spans": lambda body, ctype: self.post_spans(body, ctype, False),
-                "/api/v1/spans": lambda body, ctype: self.post_spans(body, ctype, True),
+                "/api/v2/spans": lambda body, ctype, t0: self.post_spans(body, ctype, False, t0),
+                "/api/v1/spans": lambda body, ctype, t0: self.post_spans(body, ctype, True, t0),
             })
         self._snapshots = False  # a periodic snapshot thread runs
 
@@ -298,6 +327,139 @@ class ZipkinServer:
         core.mp_ingester = ing
         return ing
 
+    def _build_obs_plane(self) -> None:
+        """The observability plane over this server's store (the reference
+        builds it in ``ZipkinServer.__init__``): self-tracing, slow-stage
+        self-spans, the query plane's setting, and with the windows on the
+        ticker's subscribers in the reference's order (accuracy rollup,
+        query stitch, time-tier seal, then the SLO watchdog, whose trips
+        write incident bundles)."""
+        cfg = self.config
+        core = getattr(self.storage, "delegate", self.storage)
+        self._self_tracer = None
+        if cfg.self_tracing_enabled:
+            from zipkin_tpu_torch.server.self_tracing import SelfTracer
+
+            self._self_tracer = SelfTracer(
+                Collector(self.storage, metrics=self.metrics.for_transport("self")),
+                sample_rate=cfg.self_tracing_sample_rate)
+        self._obs_emitter = None
+        if cfg.obs_selfspans_enabled:
+            from zipkin_tpu_torch.obs.selfspans import SelfSpanEmitter
+
+            # over-budget stages become spans of zipkin-tpu-pipeline through
+            # the object path: the tracer tracing itself
+            self._obs_emitter = SelfSpanEmitter(
+                Collector(self.storage, metrics=self.metrics.for_transport("obs")),
+                budget_scale=cfg.obs_budget_scale)
+            self._obs_emitter.install(obs.RECORDER)
+        self._querytrace = getattr(core, "querytrace", None)
+        if hasattr(core, "set_query_observatory"):
+            core.set_query_observatory(cfg.obs_query_enabled)
+        if self._querytrace is not None and self._obs_emitter is not None:
+            self._querytrace.emitter = self._obs_emitter
+        self._obs_windows = self._obs_slo = self._obs_shadow = None
+        self._accuracy = self._obs_incidents = None
+        self._seal_on_ticker = False
+        if not cfg.obs_windows_enabled:
+            return
+        from zipkin_tpu_torch.obs.windows import WindowedTelemetry
+
+        self._obs_windows = windows = WindowedTelemetry(
+            obs.RECORDER, self._window_counter_source, tick_s=cfg.obs_windows_tick_s)
+        if cfg.obs_shadow_enabled and hasattr(core, "agg") and hasattr(core, "vocab"):
+            from zipkin_tpu_torch.obs.accuracy import AccuracyEstimator
+            from zipkin_tpu_torch.obs.shadow import HostShadow
+
+            self._obs_shadow = shadow = HostShadow(
+                reservoir_k=cfg.obs_shadow_reservoir_k,
+                distinct_k=cfg.obs_shadow_distinct_k,
+                link_rate=cfg.obs_shadow_link_rate,
+                pending_max=cfg.obs_shadow_pending_max,
+                max_services=core.config.max_services,
+                # read through core.agg at call time: clear() replaces it
+                sampler_ref=lambda: core.agg.sampler,
+                # get, never intern: a read-side plane must not move the ids
+                svc_resolver=core.vocab.services.get,
+                bucket_minutes=(core.config.time_bucket_minutes
+                                if getattr(core, "timetier", None) is not None else 0),
+            )
+            self._accuracy = accuracy = AccuracyEstimator(
+                core, shadow, rollup_s=cfg.obs_shadow_rollup_s)
+            core.shadow = shadow
+            core.accuracy = accuracy
+            self.collector.shadow = shadow
+            if self._mp_ingester is not None:
+                self._mp_ingester.shadow = shadow
+            windows.on_tick(lambda _w: accuracy.maybe_rollup())
+        if self._querytrace is not None and cfg.obs_query_enabled:
+            windows.on_tick(self._querytrace.on_tick)
+        if getattr(core, "timetier", None) is not None and self.seal_interval_s > 0:
+            # one ticker thread touches the card for the seal, as the
+            # reference's; the plain seal loop runs only with the windows off
+            self._seal_on_ticker = True
+            windows.on_tick(lambda _w: self._seal(core))
+        if cfg.obs_slo_enabled:
+            from zipkin_tpu_torch.obs.slo import SloWatchdog, default_specs
+
+            self._obs_slo = SloWatchdog(windows, default_specs(
+                short_s=cfg.obs_slo_short_s, long_s=cfg.obs_slo_long_s,
+                burn_threshold=cfg.obs_slo_burn_threshold))
+            if cfg.obs_incident_dir:
+                from zipkin_tpu_torch.obs.incidents import IncidentRecorder
+
+                # an SLO trip keeps the volatile planes before they rotate
+                self._obs_incidents = IncidentRecorder(
+                    cfg.obs_incident_dir, retention=cfg.obs_incident_retention)
+                self._wire_incident_sources(core)
+                self._obs_slo.on_trip.append(self._obs_incidents.on_slo_trip)
+
+    def _window_counter_source(self) -> dict:
+        """What the windowed plane samples each tick: the collector's
+        tallies summed over transports (the wire-to-ack SLO's numerators)
+        and the store's flat ingest counters."""
+        sums = {"messages": 0, "messages_dropped": 0, "spans": 0, "spans_dropped": 0}
+        for key, value in self.metrics.snapshot().items():
+            _, _, name = key.partition(".")
+            if name in sums:
+                sums[name] += value
+        out = {
+            "collectorMessages": sums["messages"],
+            "collectorMessagesDropped": sums["messages_dropped"],
+            "collectorSpans": sums["spans"],
+            "collectorSpansDropped": sums["spans_dropped"],
+        }
+        if hasattr(self.storage, "ingest_counters"):
+            try:
+                out.update(self.storage.ingest_counters())
+            except Exception:  # a counter source must not stop the tick
+                logger.exception("ingest_counters failed in the windows tick")
+        return out
+
+    def _windows_catch_up(self) -> None:
+        """Keep the windows and SLOs fresh on a server whose ticker is not
+        running (one that was never started)."""
+        w = self._obs_windows
+        if w is not None and not w.ticker_running:
+            w.tick_if_due()
+
+    def _wire_incident_sources(self, core) -> None:
+        """What an incident bundle keeps: statusz-like dicts, each built in
+        its own try by the recorder."""
+        rec = self._obs_incidents
+        rec.add_source("slo", self._obs_slo.status)
+        rec.add_source("windows", self._obs_windows.status)
+        rec.add_source("stages", lambda: {
+            st.stage: {"count": st.count, "p50Us": st.p50_us, "p99Us": st.p99_us,
+                       "maxUs": st.max_us}
+            for st in obs.RECORDER.snapshot().nonzero()
+        })
+        rec.add_source("slowRing", obs.RECORDER.slow_events)
+        if hasattr(core, "ingest_counters"):
+            rec.add_source("counters", core.ingest_counters)
+        if self._querytrace is not None:
+            rec.add_source("queries", self._querytrace.waterfall)
+
     def _close_mp_ingester(self, deadline: float) -> None:
         """Drain the tier until ``deadline`` (monotonic), so every 202 it
         answered is in the store, then close it whatever the drain did: the
@@ -325,7 +487,8 @@ class ZipkinServer:
         self._threads = [threading.Thread(target=self._httpd.serve_forever, name="zipkin-http",
                                           daemon=True)]
         core = getattr(self.storage, "delegate", self.storage)
-        if getattr(core, "timetier", None) is not None and self.seal_interval_s > 0:
+        if (getattr(core, "timetier", None) is not None and self.seal_interval_s > 0
+                and not self._seal_on_ticker):
             self._threads.append(threading.Thread(target=self._seal_loop, args=(core,),
                                                   name="zipkin-tt-seal", daemon=True))
         self._snapshots = (self.config.tpu_snapshot_interval_s > 0
@@ -339,17 +502,23 @@ class ZipkinServer:
                 name="zipkin-snapshot", daemon=True))
         for t in self._threads:
             t.start()
+        if self._obs_windows is not None:
+            self._obs_windows.start_ticker()
         logger.info("zipkin-tpu-torch listening on %s:%d", self.config.host, self.port)
         return self
 
+    @staticmethod
+    def _seal(core) -> None:
+        try:
+            core.tt_seal()
+        except Exception:  # keep the ticker alive; the next tick retries
+            logger.exception("time-tier seal failed")
+
     def _seal_loop(self, core) -> None:
-        """Seal finished time buckets into the host time tier, as the
-        reference's ticker does, until ``stop()``."""
+        """Seal finished time buckets into the host time tier every
+        ``seal_interval_s`` until ``stop()`` (with the windows off)."""
         while not self._stopping.wait(self.seal_interval_s):
-            try:
-                core.tt_seal()
-            except Exception:  # keep the ticker alive; the next tick retries
-                logger.exception("time-tier seal failed")
+            self._seal(core)
 
     def _snapshot_loop(self, core, interval_s: float) -> None:
         while not self._stopping.wait(interval_s):
@@ -372,6 +541,9 @@ class ZipkinServer:
             self._idle.notify_all()
 
     def stop(self) -> None:
+        if self._obs_windows is not None:
+            # first: the ticker reads the store, which the end closes
+            self._obs_windows.stop_ticker()
         self._stopping.set()
         with self._idle:
             self._draining = True  # a keep-alive connection's next request gets 503
@@ -400,6 +572,14 @@ class ZipkinServer:
         scrubber = getattr(getattr(self.storage, "delegate", self.storage), "scrubber", None)
         if scrubber is not None:
             scrubber.stop()  # no pass reads the dirs the final snapshot writes
+        # before the final snapshot: both store their last queued spans, and
+        # the emitter's stop disarms the process-wide recorder's hook
+        if self._self_tracer is not None:
+            self._self_tracer.stop()
+            self._self_tracer = None
+        if self._obs_emitter is not None:
+            self._obs_emitter.stop()
+            self._obs_emitter = None
         if self._snapshots:
             # the final snapshot last: the listener and the tickers have
             # stopped and the requests in flight have ended, so every
@@ -433,7 +613,7 @@ class ZipkinServer:
             remaining = d.unused_data
         return b"".join(chunks)
 
-    def post_spans(self, body: bytes, content_type: str, v1: bool):
+    def post_spans(self, body: bytes, content_type: str, v1: bool, t0: float):
         try:
             body = self._inflate(body)
         except PayloadTooLarge as e:
@@ -463,6 +643,8 @@ class ZipkinServer:
                 "Retry-After": str(max(1, int(-(-delay // 1)))),
                 "X-Retry-After-Ms": str(int(delay * 1000.0))}
             raise HttpError(429, str(e), headers)
+        # body read -> collector hand-off done; the 202 follows
+        obs.record("http_boundary", time.perf_counter() - t0)
         return 202, None
 
     # -- query -------------------------------------------------------------
@@ -613,10 +795,149 @@ class ZipkinServer:
                 names += _SAMPLER_GAUGES
                 for svc, rate in sorted(self.storage.sampler_rates().items()):
                     out[f"gauge.zipkin_tpu.samplerRate.{svc}"] = rate
-            for name in names + _DURABILITY_GAUGES + _MP_GAUGES:
+            for name in names + _DURABILITY_GAUGES + _MP_GAUGES + _QUERY_GAUGES:
                 if name in counters:
                     out[f"gauge.zipkin_tpu.{name}"] = counters[name]
+        # the accuracy plane's gauges and the shadow's occupancy
+        if self._accuracy is not None:
+            for name, value in sorted(self._accuracy.export_counters().items()):
+                out[f"gauge.zipkin_tpu.{name}"] = value
+        for st in obs.RECORDER.snapshot().nonzero():
+            out[f"gauge.zipkin_tpu.stage.{st.stage}.p50Us"] = st.p50_us
+            out[f"gauge.zipkin_tpu.stage.{st.stage}.p99Us"] = st.p99_us
+            out[f"gauge.zipkin_tpu.stage.{st.stage}.maxUs"] = st.max_us
+        if self._obs_slo is not None:
+            self._windows_catch_up()
+            for v in self._obs_slo.verdicts():
+                base = f"gauge.zipkin_tpu.slo.{v['name']}"
+                out[f"{base}.alert"] = int(v["alert"])
+                for wname, wv in v["windows"].items():
+                    out[f"{base}.burn.{wname}"] = wv["burn"]
         return 200, out
+
+    def get_prometheus(self, q):
+        """The exposition format (``zipkin_tpu/server/app.py:1325-1407``):
+        the collector's counters by transport, the store's flat gauges, the
+        worker, query-lock and query-segment families, the sampler's rates,
+        the stage latency histogram, the accuracy and the SLO families."""
+        lines: List[str] = []
+        by_name: Dict[str, List[Tuple[str, float]]] = {}
+        for key, value in sorted(self.metrics.snapshot().items()):
+            transport, _, name = key.partition(".")
+            by_name.setdefault(name, []).append((transport, value))
+        for name, rows in sorted(by_name.items()):
+            fam = _prom_name(f"zipkin_collector_{name}_total")
+            lines.append(f"# HELP {fam} Collector {name.replace('_', ' ')} by transport.")
+            lines.append(f"# TYPE {fam} counter")
+            for transport, value in rows:
+                lines.append(f'{fam}{{transport="{_prom_label(transport)}"}} {value}')
+        if hasattr(self.storage, "ingest_counters"):
+            counters = self.storage.ingest_counters()
+            for name, value in sorted(counters.items()):
+                if isinstance(value, bool) or not isinstance(value, (int, float)):
+                    continue  # nested tables ride statusz or their own families
+                fam = _prom_name(f"zipkin_tpu_{_snake(name)}")
+                lines.append(f"# HELP {fam} Device-tier gauge {name}.")
+                lines.append(f"# TYPE {fam} gauge")
+                lines.append(f"{fam} {value}")
+            lines.extend(_prom_mp_workers(counters.get("mpWorkerTable")))
+            lines.extend(_prom_query_lock(counters.get("queryLock")))
+            lines.extend(_prom_query_segments(counters.get("querySegments")))
+        if getattr(self.storage, "sampler", None) is not None:
+            rates = self.storage.sampler_rates()
+            if rates:
+                lines.append("# HELP zipkin_tpu_sampler_rate Live per-service keep "
+                             "probability (1.0 = keep everything).")
+                lines.append("# TYPE zipkin_tpu_sampler_rate gauge")
+                for svc, rate in sorted(rates.items()):
+                    lines.append(f'zipkin_tpu_sampler_rate{{service="{_prom_label(svc)}"}} {rate}')
+        lines.extend(_prom_stage_histograms(obs.RECORDER.snapshot(), obs.RECORDER.slow_events()))
+        if self._accuracy is not None:
+            lines.extend(_prom_accuracy(self._accuracy.status()))
+        if self._obs_slo is not None:
+            self._windows_catch_up()
+            lines.extend(_prom_slo(self._obs_slo.verdicts()))
+        return 200, "\n".join(lines) + "\n"
+
+    def get_tpu_statusz(self, q):
+        """The observability plane's debug page
+        (``zipkin_tpu/server/app.py:1408-1511``, less the critical-path,
+        mirror, serving and overload sections)."""
+        from zipkin_tpu_torch.obs.device import OBSERVATORY
+
+        rec = obs.RECORDER
+        snap = rec.snapshot()
+        stages = {}
+        for st in snap.stages():
+            budget = rec.budget_us(st.stage)
+            stages[st.stage] = {
+                "count": st.count, "p50Us": st.p50_us, "p99Us": st.p99_us,
+                "maxUs": st.max_us, "sumUs": st.sum_us,
+                "budgetUs": int(budget) if budget != float("inf") else -1,
+            }
+        body = {
+            "stages": stages,
+            "slow": rec.slow_events(),
+            "recorder": {
+                "enabled": rec.enabled,
+                "budgetScale": rec.budget_scale,
+                "writerThreads": snap.locals_seen,
+                "generation": snap.generation,
+                "overheadNsPerRecord": rec.measure_overhead(),
+                "selfSpans": self._obs_emitter is not None,
+                "selfSpansEmitted": self._obs_emitter.emitted if self._obs_emitter else 0,
+            },
+        }
+        if getattr(self.storage, "sampler", None) is not None and hasattr(self.storage, "ingest_counters"):
+            counters = self.storage.ingest_counters()
+            body["sampler"] = {name: counters[name] for name in _SAMPLER_GAUGES if name in counters}
+        durability = self._durability_status()
+        if durability:
+            body["durability"] = durability
+        if self._obs_windows is not None:
+            self._windows_catch_up()
+            body["windows"] = self._obs_windows.status()
+        if self._obs_slo is not None:
+            body["slo"] = self._obs_slo.status()
+        if self._accuracy is not None:
+            body["accuracy"] = self._accuracy.status()
+        body["device"] = OBSERVATORY.status()
+        ing = getattr(getattr(self.storage, "delegate", self.storage), "mp_ingester", None)
+        if ing is not None:
+            stats = ing.stats()
+            if "mpWorkerTable" in stats:
+                body["workers"] = stats["mpWorkerTable"]
+        if self._querytrace is not None:
+            body["queries"] = self._querytrace.waterfall()
+        if self._obs_incidents is not None:
+            body["incidents"] = self._obs_incidents.counters()
+        return 200, body
+
+    def _durability_status(self) -> Optional[dict]:
+        """The durability section: retained snapshot generations
+        (quarantined ones included), the WAL's coverage window, the boot's
+        restore fallbacks and the scrubber's last pass."""
+        core = getattr(self.storage, "delegate", self.storage)
+        ckpt = getattr(core, "checkpoint_dir", None)
+        scrubber = getattr(core, "scrubber", None)
+        wal = getattr(core, "wal", None)
+        if not ckpt and scrubber is None and wal is None:
+            return None
+        out: dict = {}
+        if ckpt:
+            from zipkin_tpu_torch.tpu import snapshot as snap_mod
+
+            out["generations"] = snap_mod.generation_status(ckpt)
+            out["walCoverage"] = {"floor": snap_mod.retained_coverage(ckpt),
+                                  "head": int(getattr(core.agg, "wal_seq", 0))}
+        restore = getattr(core, "restore_stats", None)
+        if restore:
+            out["restore"] = {name: restore[name] for name in (
+                "restoreFallbacks", "generationsQuarantined", "walReplayBatches", "restoreMs")
+                if name in restore}
+        if scrubber is not None:
+            out["scrub"] = scrubber.status()
+        return out
 
 
 def _handler_for(server: ZipkinServer):
@@ -629,6 +950,7 @@ def _handler_for(server: ZipkinServer):
 
         def _send(self, status: int, body: bytes = b"", ctype: str = "text/plain; charset=utf-8",
                   headers: Optional[Dict[str, str]] = None):
+            self._status = status  # what self-tracing tags the request with
             self.send_response(status)
             for name, value in (headers or {}).items():
                 self.send_header(name, value)
@@ -658,6 +980,8 @@ def _handler_for(server: ZipkinServer):
                 return
             if body is None:
                 self._send(status)
+            elif isinstance(body, str):  # the exposition format
+                self._send(status, body.encode(), "text/plain; version=0.0.4; charset=utf-8")
             else:
                 self._send(status, json.dumps(body).encode(), "application/json; charset=utf-8")
 
@@ -696,7 +1020,17 @@ def _handler_for(server: ZipkinServer):
                 self.close_connection = True
                 return
             try:
-                method()
+                tracer = server._self_tracer
+                if tracer is None:
+                    method()
+                    return
+                self._status = 500
+
+                def handle() -> int:
+                    method()
+                    return self._status
+
+                tracer.trace(self.command, urlsplit(self.path).path, self.headers, handle)
             finally:
                 server.release()
 
@@ -725,6 +1059,7 @@ def _handler_for(server: ZipkinServer):
                 self._send(405 if path in server.get_routes else 404)
                 self.close_connection = True
                 return
+            t0 = time.perf_counter()
             try:
                 body = self._read_body()
             except (PayloadTooLarge, BadLength) as e:
@@ -732,9 +1067,279 @@ def _handler_for(server: ZipkinServer):
                 self._send(413 if isinstance(e, PayloadTooLarge) else 400, str(e).encode())
                 self.close_connection = True
                 return
-            self._answer(route, body, self.headers.get("Content-Type", ""))
+            self._answer(route, body, self.headers.get("Content-Type", ""), t0)
 
     return Handler
+
+
+# -- the exposition format (zipkin_tpu/server/app.py:1560-1954, less the
+# critical-path, overload and tenant families) --------------------------
+
+
+def _snake(name: str) -> str:
+    out = []
+    for ch in name:
+        if ch.isupper():
+            out.append("_")
+            out.append(ch.lower())
+        else:
+            out.append(ch)
+    return "".join(out)
+
+
+def _prom_name(name: str) -> str:
+    """Sanitize to the Prometheus metric-name charset ``[a-zA-Z0-9_:]``,
+    mapping every other rune (dots included) to ``_`` — real scrapers
+    reject the exposition otherwise."""
+    out = "".join(
+        ch if (ch.isascii() and (ch.isalnum() or ch in "_:")) else "_"
+        for ch in name
+    )
+    if not out or out[0].isdigit():
+        out = "_" + out
+    return out
+
+
+def _prom_label(value) -> str:
+    """Escape a label value per the exposition format."""
+    return (
+        str(value)
+        .replace("\\", "\\\\")
+        .replace("\n", "\\n")
+        .replace('"', '\\"')
+    )
+
+
+def _prom_stage_histograms(snap, slow_events=None) -> List[str]:
+    """Flight-recorder stage latencies as one native histogram family.
+
+    Log2-µs buckets become cumulative ``le`` bounds in seconds (the
+    exact inclusive bucket bound, ``(2^b - 1)/1e6``); only non-empty
+    buckets are emitted — cumulative series stay valid when sparse.
+
+    When the slow-event ring is passed, bucket lines carry OpenMetrics
+    exemplars pointing at the self-span trace id of an over-budget
+    observation that landed in that bucket — a burning latency SLO
+    links straight to a retrievable pipeline trace. Exemplar syntax
+    (``# {trace_id="..."} <seconds>``) is an OpenMetrics extension that
+    classic text-format parsers treat as a comment, so the exposition
+    stays valid for both.
+    """
+    stats = snap.nonzero()
+    if not stats:
+        return []
+    # newest exemplar per (stage, bucket): the ring is oldest-first and
+    # only self-span-enriched events carry a trace id worth linking
+    by_bucket: Dict[Tuple[str, int], Tuple[str, float]] = {}
+    for ev in slow_events or ():
+        trace_id = ev.get("traceId")
+        if not trace_id:
+            continue
+        dur_us = int(ev.get("durUs", 0))
+        by_bucket[(ev["stage"], max(dur_us, 0).bit_length())] = (
+            trace_id, dur_us / 1e6,
+        )
+    fam = "zipkin_tpu_stage_latency_seconds"
+    lines = [
+        f"# HELP {fam} Pipeline stage latency (log2 microsecond buckets).",
+        f"# TYPE {fam} histogram",
+    ]
+    for st in stats:
+        cum = 0
+        for b, count in enumerate(st.buckets[:-1]):
+            if not count:
+                continue
+            cum += count
+            le = obs.bucket_le_us(b) / 1e6
+            line = f'{fam}_bucket{{stage="{st.stage}",le="{le}"}} {cum}'
+            ex = by_bucket.get((st.stage, b))
+            if ex is not None:
+                line += f' # {{trace_id="{_prom_label(ex[0])}"}} {ex[1]}'
+            lines.append(line)
+        lines.append(f'{fam}_bucket{{stage="{st.stage}",le="+Inf"}} {st.count}')
+        lines.append(f'{fam}_sum{{stage="{st.stage}"}} {st.sum_us / 1e6}')
+        lines.append(f'{fam}_count{{stage="{st.stage}"}} {st.count}')
+    return lines
+
+
+def _prom_accuracy(status) -> List[str]:
+    """Per-service digest-error families from the accuracy observatory.
+    The scalar gauges (worst-service, HLL, recall, retention bias) ride
+    the flat ``zipkin_tpu_accuracy_*`` render in ``get_prometheus``;
+    only the service-labelled detail needs its own exposition."""
+    rows = status.get("services") or []
+    if not rows:
+        return []
+    lines: List[str] = []
+    fields = (
+        ("p50RelErr", "p50_relerr", "digest p50 relative error"),
+        ("p99RelErr", "p99_relerr", "digest p99 relative error"),
+        ("p99Bound", "p99_bound", "stated p99 confidence bound"),
+    )
+    for field, suffix, help_text in fields:
+        fam = f"zipkin_tpu_accuracy_service_{suffix}"
+        lines.append(
+            f"# HELP {fam} Per-service {help_text} (device vs shadow)."
+        )
+        lines.append(f"# TYPE {fam} gauge")
+        for row in rows:
+            lines.append(
+                f'{fam}{{service="{_prom_label(row["service"])}"}} '
+                f'{row[field]}'
+            )
+    return lines
+
+
+def _prom_mp_workers(table) -> List[str]:
+    """Fan-out tier per-worker attribution as labelled counter families
+    (``worker="<widx>"``). The nested ``mpWorkerTable`` is skipped by the
+    flat-gauge loop; this is its exposition-format rendering."""
+    if not table:
+        return []
+    lines: List[str] = []
+    fields = (
+        ("chunks", "chunks dispatched"),
+        ("spans", "spans parsed"),
+        ("payloads", "payloads completed"),
+        ("parseUs", "parse wall microseconds"),
+        ("packUs", "pack wall microseconds"),
+        ("routeUs", "route wall microseconds"),
+        ("fallbacks", "inline-fallback payloads"),
+    )
+    for field, help_text in fields:
+        fam = _prom_name(f"zipkin_tpu_mp_worker_{_snake(field)}_total")
+        lines.append(f"# HELP {fam} Ingest worker {help_text}.")
+        lines.append(f"# TYPE {fam} counter")
+        for row in table:
+            lines.append(
+                f'{fam}{{worker="{_prom_label(row["widx"])}"}} {row[field]}'
+            )
+    # instantaneous queue posture: depth is live
+    # occupancy, high-water the worst since boot — gauges, not counters
+    gauges = (
+        ("queueDepth", "live bounded-queue depth (payloads in flight)"),
+        ("queueHighWater", "bounded-queue depth high-water mark"),
+    )
+    for field, help_text in gauges:
+        fam = _prom_name(f"zipkin_tpu_mp_worker_{_snake(field)}")
+        lines.append(f"# HELP {fam} Ingest worker {help_text}.")
+        lines.append(f"# TYPE {fam} gauge")
+        for row in table:
+            lines.append(
+                f'{fam}{{worker="{_prom_label(row["widx"])}"}} '
+                f'{row.get(field, 0)}'
+            )
+    return lines
+
+
+def _prom_query_lock(table) -> List[str]:
+    """Aggregator-lock contention ledger : native wait/hold
+    histogram families plus per-label holder attribution. The scalar
+    ``zipkin_tpu_query_lock_*`` gauges (acquisitions, waiters,
+    high-water, p50/p99) ride the flat render; the histograms and the
+    holder table need their own families."""
+    if not table:
+        return []
+    lines: List[str] = []
+    hists = (
+        ("wait", table.get("waitHist"), table.get("waitSumUs", 0),
+         "time a thread waited to acquire the aggregator lock"),
+        ("hold", table.get("holdHist"), table.get("holdSumUs", 0),
+         "time an outermost acquire held the aggregator lock"),
+    )
+    for which, hist, sum_us, help_text in hists:
+        if not hist or not sum(hist):
+            continue
+        fam = f"zipkin_tpu_query_lock_{which}_seconds"
+        lines.append(f"# HELP {fam} Lock ledger: {help_text}.")
+        lines.append(f"# TYPE {fam} histogram")
+        total = sum(hist)
+        cum = 0
+        for b, count in enumerate(hist[:-1]):
+            if not count:
+                continue
+            cum += count
+            le = obs.bucket_le_us(b) / 1e6
+            lines.append(f'{fam}_bucket{{le="{le}"}} {cum}')
+        lines.append(f'{fam}_bucket{{le="+Inf"}} {total}')
+        lines.append(f'{fam}_sum {sum_us / 1e6}')
+        lines.append(f'{fam}_count {total}')
+    holders = table.get("holders") or {}
+    if holders:
+        count_fam = "zipkin_tpu_query_lock_holds_total"
+        sum_fam = "zipkin_tpu_query_lock_hold_sum_us_total"
+        lines.append(
+            f"# HELP {count_fam} Outermost lock holds by holder label."
+        )
+        lines.append(f"# TYPE {count_fam} counter")
+        for label, row in sorted(holders.items()):
+            lines.append(
+                f'{count_fam}{{holder="{_prom_label(label)}"}} '
+                f'{row["count"]}'
+            )
+        lines.append(
+            f"# HELP {sum_fam} Cumulative hold microseconds by holder "
+            "label."
+        )
+        lines.append(f"# TYPE {sum_fam} counter")
+        for label, row in sorted(holders.items()):
+            lines.append(
+                f'{sum_fam}{{holder="{_prom_label(label)}"}} '
+                f'{row["holdSumUs"]}'
+            )
+    return lines
+
+
+def _prom_query_segments(segments) -> List[str]:
+    """Per-segment query critical-path aggregates, with segment and kind
+    labels."""
+    if not segments:
+        return []
+    lines: List[str] = []
+    fields = (
+        ("count", "folded occurrences", "counter", "_total"),
+        ("sumUs", "cumulative wall microseconds", "counter", "_total"),
+        ("maxUs", "worst single occurrence microseconds", "gauge", ""),
+    )
+    for field, help_text, typ, suffix in fields:
+        fam = _prom_name(f"zipkin_tpu_query_segment_{_snake(field)}{suffix}")
+        lines.append(f"# HELP {fam} Query critical-path segment "
+                     f"{help_text}.")
+        lines.append(f"# TYPE {fam} {typ}")
+        for seg, row in sorted(segments.items()):
+            lines.append(
+                f'{fam}{{segment="{_prom_label(seg)}",'
+                f'kind="{_prom_label(row["kind"])}"}} {row[field]}'
+            )
+    return lines
+
+
+def _prom_slo(verdicts) -> List[str]:
+    """SLO watchdog families: one boolean alert gauge per SLO plus the
+    multi-window burn rates it was computed from."""
+    if not verdicts:
+        return []
+    alert_fam = "zipkin_tpu_slo_alert"
+    burn_fam = "zipkin_tpu_slo_burn_rate"
+    lines = [
+        f"# HELP {alert_fam} SLO burn-rate alert (1 = burning).",
+        f"# TYPE {alert_fam} gauge",
+    ]
+    for v in verdicts:
+        lines.append(
+            f'{alert_fam}{{slo="{_prom_label(v["name"])}"}} {int(v["alert"])}'
+        )
+    lines.append(
+        f"# HELP {burn_fam} Error-budget burn rate per evaluation window."
+    )
+    lines.append(f"# TYPE {burn_fam} gauge")
+    for v in verdicts:
+        for wname, wv in sorted(v["windows"].items()):
+            lines.append(
+                f'{burn_fam}{{slo="{_prom_label(v["name"])}",'
+                f'window="{_prom_label(wname)}"}} {wv["burn"]}'
+            )
+    return lines
 
 
 def run_server(config: Optional[ServerConfig] = None, stop: Optional[threading.Event] = None) -> None:

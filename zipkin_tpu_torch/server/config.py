@@ -17,8 +17,15 @@ disk archive's ``TPU_ARCHIVE_DIR``, ``TPU_ARCHIVE_MAX_BYTES`` and
 ``TPU_ARCHIVE_SEGMENT_BYTES``, the scrubber's ``TPU_SCRUB_INTERVAL_S``
 and ``TPU_SCRUB_BYTES_PER_S``, and the multi-process ingest tier's
 ``TPU_MP_WORKERS`` (0: off), ``TPU_MP_QUEUE_DEPTH``, ``TPU_MP_RING_SLOTS``
-and ``TPU_MP_COALESCE_MAX``
-(``zipkin_tpu/server/config.py:151,236-264,280-313,362-365,411-428``).
+and ``TPU_MP_COALESCE_MAX``, and the observability plane's
+``SELF_TRACING_ENABLED``, ``SELF_TRACING_SAMPLE_RATE``, ``TPU_OBS_SELFSPANS``,
+``TPU_OBS_BUDGET_SCALE``, ``TPU_OBS_WINDOWS``, ``TPU_OBS_TICK_S``,
+``TPU_SLO``, ``TPU_SLO_SHORT_S``, ``TPU_SLO_LONG_S``, ``TPU_SLO_BURN``,
+``TPU_OBS_SHADOW*``, ``TPU_OBS_QUERY`` and ``TPU_OBS_INCIDENT_*``
+(``zipkin_tpu/server/config.py:78-145,151,236-264,280-313,332-357,362-365,411-428``;
+the critical-path tracer's ``TPU_OBS_CRITPATH*`` are not ported yet).
+``TPU_OBS``, ``TPU_OBS_DEVICE`` and ``TPU_OBS_QUERY`` are also read where
+the recorder, the device observatory and the query plane are made.
 
 The disk archive's directory, as the reference resolves it: ``TPU_ARCHIVE_DIR``
 when set (``off``, ``none`` or ``0``: no archive), else ``<TPU_RESUME_DIR>/archive``,
@@ -91,6 +98,37 @@ class ServerConfig:
     http_collector_enabled: bool = True
     throttle_enabled: bool = False
     throttle_max_concurrency: int = 8
+    # self-tracing: one SERVER span per request, stored through the
+    # collector (B3 headers join the caller's trace)
+    self_tracing_enabled: bool = False
+    self_tracing_sample_rate: float = 1.0
+    # slow-stage self-spans: over-budget recorder stages become spans of
+    # service zipkin-tpu-pipeline; TPU_OBS_BUDGET_SCALE scales every
+    # stage budget (0.0: every observation is slow)
+    obs_selfspans_enabled: bool = False
+    obs_budget_scale: float = 1.0
+    # the windowed plane: a ticker takes per-tick deltas of the recorder
+    # and the store's counters (the time tier's seal rides it)
+    obs_windows_enabled: bool = True
+    obs_windows_tick_s: float = 1.0
+    # the SLO burn-rate watchdog over the windowed plane
+    obs_slo_enabled: bool = True
+    obs_slo_short_s: float = 60.0
+    obs_slo_long_s: float = 300.0
+    obs_slo_burn_threshold: float = 2.0
+    # the accuracy plane: a bounded host shadow of the ingest stream and
+    # its estimator, rolled up on the ticker at most every rollup_s
+    obs_shadow_enabled: bool = True
+    obs_shadow_reservoir_k: int = 512
+    obs_shadow_distinct_k: int = 4096
+    obs_shadow_link_rate: float = 0.125
+    obs_shadow_rollup_s: float = 5.0
+    obs_shadow_pending_max: int = 512
+    # per-query traces and the aggregator lock's ledger; an SLO trip writes
+    # an incident bundle into obs_incident_dir ("" = off), newest N kept
+    obs_query_enabled: bool = True
+    obs_incident_dir: str = ""
+    obs_incident_retention: int = 16
     # line-rate path: JSON v2 and proto3 bytes through the native parser,
     # with a trace-affine 1/N archive sample (0: none)
     tpu_fast_ingest: bool = False
@@ -173,6 +211,25 @@ class ServerConfig:
             http_collector_enabled=_env_bool("COLLECTOR_HTTP_ENABLED", True),
             throttle_enabled=_env_bool("STORAGE_THROTTLE_ENABLED", False),
             throttle_max_concurrency=_env_int("STORAGE_THROTTLE_MAX_CONCURRENCY", 8),
+            self_tracing_enabled=_env_bool("SELF_TRACING_ENABLED", False),
+            self_tracing_sample_rate=_env_float("SELF_TRACING_SAMPLE_RATE", 1.0),
+            obs_selfspans_enabled=_env_bool("TPU_OBS_SELFSPANS", False),
+            obs_budget_scale=_env_float("TPU_OBS_BUDGET_SCALE", 1.0),
+            obs_windows_enabled=_env_bool("TPU_OBS_WINDOWS", True),
+            obs_windows_tick_s=_env_float("TPU_OBS_TICK_S", 1.0),
+            obs_slo_enabled=_env_bool("TPU_SLO", True),
+            obs_slo_short_s=_env_float("TPU_SLO_SHORT_S", 60.0),
+            obs_slo_long_s=_env_float("TPU_SLO_LONG_S", 300.0),
+            obs_slo_burn_threshold=_env_float("TPU_SLO_BURN", 2.0),
+            obs_shadow_enabled=_env_bool("TPU_OBS_SHADOW", True),
+            obs_shadow_reservoir_k=_env_int("TPU_OBS_SHADOW_RESERVOIR", 512),
+            obs_shadow_distinct_k=_env_int("TPU_OBS_SHADOW_DISTINCT", 4096),
+            obs_shadow_link_rate=_env_float("TPU_OBS_SHADOW_LINK_RATE", 0.125),
+            obs_shadow_rollup_s=_env_float("TPU_OBS_SHADOW_ROLLUP_S", 5.0),
+            obs_shadow_pending_max=_env_int("TPU_OBS_SHADOW_PENDING", 512),
+            obs_query_enabled=_env_bool("TPU_OBS_QUERY", True),
+            obs_incident_dir=os.environ.get("TPU_OBS_INCIDENT_DIR", ""),
+            obs_incident_retention=_env_int("TPU_OBS_INCIDENT_RETENTION", 16),
             tpu_fast_ingest=fast_ingest,
             tpu_fast_archive_sample=_env_int("TPU_FAST_ARCHIVE_SAMPLE", 64),
             tpu_mp_workers=_env_int("TPU_MP_WORKERS", 0),

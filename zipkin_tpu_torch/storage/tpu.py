@@ -42,6 +42,8 @@ import threading
 import time
 from typing import Optional, Sequence
 
+from zipkin_tpu_torch import obs
+from zipkin_tpu_torch.obs import querytrace
 from zipkin_tpu_torch.runtime.scrub import Scrubber
 from zipkin_tpu_torch.tpu import snapshot as snap
 from zipkin_tpu_torch.tpu import wal as wal_mod
@@ -126,7 +128,9 @@ class TorchStorage(_CoreStorage):
         if wal_dir:
             wal = wal_mod.WriteAheadLog(wal_dir, fsync=wal_fsync)
             t0 = time.perf_counter()
-            applied = wal_mod.replay(self, wal, from_seq=self.agg.wal_seq)
+            # the contention ledger names the boot's replay holds
+            with querytrace.lock_label("wal_replay"):
+                applied = wal_mod.replay(self, wal, from_seq=self.agg.wal_seq)
             self.agg.block_until_ready()  # the replayed steps count in walReplayMs
             self.restore_stats["walReplayBatches"] = applied
             self.restore_stats["walReplayMs"] = round((time.perf_counter() - t0) * 1000.0, 3)
@@ -169,8 +173,11 @@ class TorchStorage(_CoreStorage):
         with self._snapshot_lock:
             if self._closed:
                 return None  # close() holds this lock, so the check is race-free
+            t0 = time.perf_counter()
             try:
-                path = snap.save(self, self.checkpoint_dir, keep=self.snapshot_keep)
+                # the contention ledger names the save's hold
+                with querytrace.lock_label("snapshot"):
+                    path = snap.save(self, self.checkpoint_dir, keep=self.snapshot_keep)
             except OSError as e:
                 if e.errno != errno.ENOSPC:
                     raise
@@ -190,6 +197,7 @@ class TorchStorage(_CoreStorage):
                 # threatens acked spans
                 self.wal.clear_at_risk()
             self._snapshot_at_risk = False
+            obs.record("snapshot", time.perf_counter() - t0)
             self._last_snapshot_mono = time.monotonic()
         return path
 

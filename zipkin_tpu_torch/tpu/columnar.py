@@ -30,6 +30,7 @@ KIND_TO_ID = {
     Kind.PRODUCER: 3,
     Kind.CONSUMER: 4,
 }
+ID_TO_KIND = {v: k for k, v in KIND_TO_ID.items()}
 
 _U32 = np.uint32
 _MASK32 = 0xFFFFFFFF

@@ -49,11 +49,15 @@ slices the synchronous line-rate path archives, which the dispatcher
 decodes into the host archive; with a disk archive the workers ship
 per-chunk records whose ids the dispatcher remaps to global ones.
 
-Left out, against the reference: the observability plane's stamps
-(``obs.record*``, the critical-path ledger, stitcher and worker view; the
-workers' parse, pack and route seconds are plain counters in
-:meth:`MultiProcessIngester.stats`), the tenant plumbing and the shadow
-tap.
+The flight recorder: the dispatcher stamps ``mp_vocab_replay``,
+``mp_shm_copy``, ``mp_device_feed`` and, at each payload's ack,
+``mp_record`` (its consume time plus its span-weighted share of the group
+flushes); the workers' ``parse``, ``pack`` and ``route`` seconds ride each
+chunk and are relayed into the recorder (histogram only), besides the
+plain counters of :meth:`MultiProcessIngester.stats`. An attached
+``shadow`` is offered every flushed chunk image. Left out, against the
+reference: the critical-path ledger, stitcher and worker view (the
+critical-path tracer) and the tenant plumbing.
 """
 
 from __future__ import annotations
@@ -67,7 +71,7 @@ from typing import Dict, List, Optional, Set
 
 import numpy as np
 
-from zipkin_tpu_torch import faults
+from zipkin_tpu_torch import faults, obs
 from zipkin_tpu_torch.tpu import ring as ring_mod
 
 logger = logging.getLogger(__name__)
@@ -313,6 +317,8 @@ class MultiProcessIngester:
         for p in self._procs:
             p.start()
         self.metrics = metrics
+        # the accuracy plane's tap (obs/shadow.py), set by the server
+        self.shadow = None
         self.counters = {
             "accepted": 0, "sampleDropped": 0, "fallbacks": 0, "rejected": 0,
             "coalescedBatches": 0, "coalescedChunks": 0, "groups": 0,
@@ -677,6 +683,7 @@ class MultiProcessIngester:
 
     def _consume_ring_chunk(self, w: int, hdr: np.ndarray, seq: int, ready: List[tuple]) -> None:
         """Decode a slot's header and sidecar; the image stays a view."""
+        t0 = time.perf_counter()
         pid = int(hdr[ring_mod._S_PIDX])
         if pid not in self._pending:
             # a late chunk of a payload a reap already re-ingested: the
@@ -694,7 +701,7 @@ class MultiProcessIngester:
             svc_new, name_new, pairs_new, arch,
             (int(hdr[ring_mod._S_TS_MIN]), int(hdr[ring_mod._S_TS_MAX])), rec,
             int(hdr[ring_mod._S_PARSE_NS]) / 1e9, int(hdr[ring_mod._S_PACK_NS]) / 1e9,
-            int(hdr[ring_mod._S_ROUTE_NS]) / 1e9, True, ready)
+            int(hdr[ring_mod._S_ROUTE_NS]) / 1e9, True, time.perf_counter() - t0, ready)
 
     def _apply_queue_msg(self, msg, ready: List[tuple]) -> None:
         if msg[0] == _KIND_FALLBACK:
@@ -715,13 +722,16 @@ class MultiProcessIngester:
             return
         self._apply_chunk(widx, pid, fused, n_spans, n_dur, n_err, dropped,
                           svc_new, name_new, pairs_new, arch, ts_range, rec,
-                          parse_s, pack_s, route_s, False, ready)
+                          parse_s, pack_s, route_s, False, 0.0, ready)
 
     def _apply_chunk(self, widx, pid, fused, n_spans, n_dur, n_err, dropped,
                      svc_new, name_new, pairs_new, arch, ts_range, rec,
-                     parse_s, pack_s, route_s, is_view, ready) -> None:
+                     parse_s, pack_s, route_s, is_view, consume_s, ready) -> None:
         """Replay the chunk's vocab journal into the global vocab and buffer
-        the chunk until its payload's last chunk arrives."""
+        the chunk until its payload's last chunk arrives. ``consume_s`` is
+        the time the slot's decode took, billed to the payload's
+        ``mp_record``."""
+        t0 = time.perf_counter()
         store = self.store
         vocab = store.vocab
         m = self._maps[widx]
@@ -732,7 +742,17 @@ class MultiProcessIngester:
                 m.name = _IdMaps._append(m.name, [vocab.span_names.intern(s) for s in name_new])
                 m.key = _IdMaps._append(
                     m.key, [vocab.key_id(int(m.svc[sl]), int(m.name[nl])) for sl, nl in pairs_new])
-            self.stage_us["vocabReplay"] += int((time.perf_counter() - tv0) * 1e6 + 0.5)
+            tv1 = time.perf_counter()
+            obs.record("mp_vocab_replay", tv1 - tv0)
+            self.stage_us["vocabReplay"] += int((tv1 - tv0) * 1e6 + 0.5)
+        # the workers' stage walls, relayed (histogram only: the time was
+        # spent in another process, not under this thread's request)
+        if parse_s > 0.0:
+            obs.record_relayed("parse", parse_s)
+        if pack_s > 0.0:
+            obs.record_relayed("pack", pack_s)
+        if route_s > 0.0:
+            obs.record_relayed("route", route_s)
         ws = self._wstats[widx]
         ws["chunks"] += 1
         ws["spans"] += n_spans
@@ -754,7 +774,8 @@ class MultiProcessIngester:
                 rec[10] = m.key[rec[10]]
                 rec = tuple(rec)
             self._buffered.setdefault(pid, []).append(
-                [fused, n_spans, n_dur, n_err, ts_range, arch, rec, is_view, widx])
+                [fused, n_spans, n_dur, n_err, ts_range, arch, rec, is_view, widx,
+                 consume_s + time.perf_counter() - t0])
         # dropped == -1 marks a continuation chunk; the payload applies as a
         # whole once its last chunk is in
         if dropped >= 0:
@@ -767,8 +788,10 @@ class MultiProcessIngester:
         for entries in self._buffered.values():
             for e in entries:
                 if e[7]:
+                    t0 = time.perf_counter()
                     e[0] = np.array(e[0])
                     e[7] = False
+                    obs.record("mp_shm_copy", time.perf_counter() - t0)
 
     # -- coalesced flush --------------------------------------------------
 
@@ -787,7 +810,8 @@ class MultiProcessIngester:
         for pid, dropped in ready:
             entries = self._buffered.pop(pid, [])
             plans[pid] = {"dropped": dropped, "left": len(entries),
-                          "spans": sum(e[1] for e in entries)}
+                          "spans": sum(e[1] for e in entries),
+                          "consume_s": sum(e[9] for e in entries), "flush_s": 0.0}
             flat.extend((e, pid) for e in entries)
         cap = store.agg.lane_cap
         groups: List[List[tuple]] = []
@@ -828,7 +852,7 @@ class MultiProcessIngester:
         lo = hi = None
         parts = []
         for e, pid in group:
-            fused, c_spans, c_dur, c_err, ts_range, arch, rec, _view, widx = e
+            fused, c_spans, c_dur, c_err, ts_range, arch, rec, is_view, widx, _ = e
             if arch:
                 self._archive(arch)
             if rec is not None and getattr(store, "_disk", None) is not None:
@@ -840,6 +864,9 @@ class MultiProcessIngester:
                     rec = sampler.gate_record(rec)
                 if rec is not None:
                     store.disk_append_record(rec)
+            if self.shadow is not None:
+                # the tap may keep its argument: never a live ring-slot view
+                self.shadow.offer_fused(np.array(fused) if is_view else fused)
             m = self._maps[widx]
             parts.append((fused, m.svc, m.key))
             n_spans += c_spans
@@ -859,18 +886,24 @@ class MultiProcessIngester:
         store.agg.ingest_fused_multi(parts, n_spans=n_spans, n_dur=n_dur, n_err=n_err,
                                      ts_range=ts, pad_to_multiple=store._pad)
         tf1 = time.perf_counter()
+        obs.record("mp_device_feed", tf1 - tf0)
         self.stage_us["deviceFeed"] += int((tf1 - tf0) * 1e6 + 0.5)
         self.counters["groups"] += 1
         if len(group) > 1:
             self.counters["coalescedBatches"] += 1
             self.counters["coalescedChunks"] += len(group)
+        # the group's wall is billed to its chunks by span weight, so
+        # mp_record stays a per-payload handling time
+        g_wall = time.perf_counter() - t_g0
+        g_spans = sum(e[1] for e, _ in group) or len(group)
         done = []
-        for _e, pid in group:
+        for e, pid in group:
             p = plans[pid]
+            p["flush_s"] += g_wall * (e[1] or 1) / g_spans
             p["left"] -= 1
             if p["left"] == 0:
                 done.append(pid)
-        self.stage_us["flush"] += int((time.perf_counter() - t_g0) * 1e6 + 0.5)
+        self.stage_us["flush"] += int(g_wall * 1e6 + 0.5)
         return done
 
     def _ack_done(self, pids: List[int], plans: Dict[int, dict]) -> None:
@@ -882,6 +915,7 @@ class MultiProcessIngester:
                 continue
             p["acked"] = True
             total, dropped = p["spans"], p["dropped"]
+            obs.record("mp_record", p["consume_s"] + p["flush_s"])
             self.counters["accepted"] += total
             self.counters["sampleDropped"] += max(dropped, 0)
             if self.metrics is not None:

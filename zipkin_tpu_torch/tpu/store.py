@@ -39,11 +39,20 @@ and :meth:`TorchStorage.disk_append_record`. An attached tier (the
 ``mp_ingester`` attribute, which the server sets) adds its gauges to
 :meth:`TorchStorage.ingest_counters`.
 
+The observability plane (:mod:`zipkin_tpu_torch.obs`): the flight
+recorder's ``parse``, ``pack``, ``archive_write``, ``query_fresh`` and
+``query_cached`` stages are stamped where the reference stamps them; the
+dependencies, quantiles, cardinalities and overview reads run under a
+:class:`~zipkin_tpu_torch.obs.querytrace.QueryObservatory` trace with the
+cache-probe, link-resolve and serialize segments; an attached ``shadow``
+(:class:`~zipkin_tpu_torch.obs.shadow.HostShadow`) is offered every batch
+of the line-rate path, and ``ingest_counters()`` carries the device
+observatory's totals, the ``accuracy`` gauges and the query plane's.
+
 Left out, against the reference: the epoch-published read mirror and its
 shared-memory segment (the reference falls back to the versioned cache
-when no epoch is published, which is what a library caller sees), the
-flight recorder and query-trace stamps, and the overload, shadow and
-accuracy hooks. :meth:`TorchStorage.get_traces` reads every id
+when no epoch is published, which is what a library caller sees) and the
+overload hooks. :meth:`TorchStorage.get_traces` reads every id
 through one ``views()`` of the disk archive (the reference takes one per
 id, which sorts the live segment again for each). Durable boot (snapshot
 restore, WAL replay) is the resume adapter's,
@@ -64,10 +73,12 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from zipkin_tpu_torch import native, readpack
+from zipkin_tpu_torch import native, obs, readpack
 from zipkin_tpu_torch.internal.hex import epoch_minutes, normalize_trace_id
 from zipkin_tpu_torch.internal.span_node import merge_trace
 from zipkin_tpu_torch.model.span import DependencyLink, Span
+from zipkin_tpu_torch.obs import querytrace
+from zipkin_tpu_torch.obs.device import OBSERVATORY
 from zipkin_tpu_torch.ops import hll, ttmerge
 from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
 from zipkin_tpu_torch.sampling import RATE_ONE, HostSampler, RateController
@@ -230,6 +241,16 @@ class TorchStorage(
         self._deps_max_stale_ms = float(deps_max_stale_ms)
         self._deps_cache: dict = {}
         self._closed = False
+        # the query plane: per-query traces folded at tick cadence, and the
+        # aggregator lock's contention ledger, found through self.agg at
+        # read time (clear() replaces the aggregator)
+        self.querytrace = querytrace.QueryObservatory()
+        self.querytrace.lock_provider = lambda: getattr(self.agg, "lock", None)
+        self._query_obs_enabled: Optional[bool] = None
+        # the accuracy plane, attached by the server: the host shadow the
+        # ingest paths offer their batches to, and its estimator
+        self.shadow = None
+        self.accuracy = None
         # boot restore figures (port of zipkin_tpu/tpu/store.py:184-195):
         # zeros on a cold boot, set by the resume adapter, and folded into
         # ingest_counters(); restoreFallbacks and generationsQuarantined
@@ -426,16 +447,20 @@ class TorchStorage(
             # device ingests the whole chunk
             for lo in range(0, len(spans), self.max_batch):
                 chunk = spans[lo : lo + self.max_batch]
+                t0 = time.perf_counter()
                 with self._intern_lock:
                     cols = pack_spans(chunk, self.vocab, self._pad)
+                obs.record("pack", time.perf_counter() - t0)
                 kept = chunk
                 if self.agg.sampler is not None:
                     keep = self.agg.sampler.verdict_cols(cols)[: len(chunk)]
                     kept = [s for s, k in zip(chunk, keep) if k]
                 if kept:
+                    t0 = time.perf_counter()
                     self._archive.accept(kept).execute()
                     if self._disk is not None:
                         self._disk_append_spans(kept)
+                    obs.record("archive_write", time.perf_counter() - t0)
                 self.agg.ingest(cols)
 
         return Call.of(run)
@@ -521,11 +546,13 @@ class TorchStorage(
         with self._intern_lock:
             if self._nvocab is None:
                 self._nvocab = native.NativeVocab(self.vocab)
+            t0 = time.perf_counter()
             self._nvocab.ensure_synced()
             parsed = native.parse_spans(data, nvocab=self._nvocab)
             if parsed is None:
                 return None
             self._nvocab.sync()
+            obs.record("parse", time.perf_counter() - t0)
             n = parsed.n
             dropped = 0
             if sampler is not None and sampler.rate < 1.0 and n:
@@ -537,9 +564,11 @@ class TorchStorage(
             if n == 0:
                 return 0, dropped, []
             chunks = []
+            t0 = time.perf_counter()
             for lo in range(0, n, self.max_batch):
                 sub = parsed if n <= self.max_batch else parsed.select(slice(lo, lo + self.max_batch))
                 chunks.append((sub, pack_parsed(sub, self.vocab, self._pad)))
+            obs.record("pack", time.perf_counter() - t0)
         return n, dropped, chunks
 
     def _fast_dispatch(self, parsed, cols) -> None:
@@ -550,12 +579,13 @@ class TorchStorage(
         sampling tier armed, both archives see only the verdict-kept spans
         (the batch's lanes are the parse's lanes, so one verdict gates
         both) while the device ingests the whole batch, so the sketches
-        stay unbiased."""
+        stay unbiased. An attached shadow is offered the whole batch too."""
         retained = parsed
         if self.agg.sampler is not None:
             keep = self.agg.sampler.verdict_cols(cols)[: parsed.n]
             if not keep.all():
                 retained = parsed.select(np.nonzero(keep)[0])
+        t0 = time.perf_counter()
         if self._disk is not None:
             rec = parsed_record(retained)
             if rec is not None:
@@ -564,6 +594,11 @@ class TorchStorage(
                 self._archive_fast_sample(retained)
         else:
             self._archive_fast_sample(retained)
+        obs.record("archive_write", time.perf_counter() - t0)
+        if self.shadow is not None:
+            # the ground-truth tap: the batch the device sketches see, an
+            # O(1) append
+            self.shadow.offer_cols(cols)
         self.agg.ingest(cols)
 
     def disk_append_record(self, rec: tuple) -> None:
@@ -800,7 +835,11 @@ class TorchStorage(
         """Memoize a device read until the next query-visible state change:
         the aggregator bumps write_version on a step and a rollup, not on a
         digest flush (which changes no answer). The whole cache drops when
-        the version moves, so keys holding windows cannot pile up."""
+        the version moves, so keys holding windows cannot pile up. A hit
+        is the ``query_cached`` stage, a miss ``query_fresh``; the probe is
+        a traced query's cache-probe segment."""
+        t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
         version = self.agg.write_version
         with self._read_cache_lock:
             if self._read_cache_version != version:
@@ -812,8 +851,14 @@ class TorchStorage(
                 age_ms = (time.monotonic() - born) * 1000.0
                 self._read_cache_age_ms = age_ms
                 self._read_cache_age_max_ms = max(self._read_cache_age_max_ms, age_ms)
+                obs.record("query_cached", time.perf_counter() - t0)
+                querytrace.stamp_active(querytrace.QSEG_CACHE_PROBE, t0_ns, time.perf_counter_ns())
                 return value
+        # the probe ends where compute() begins: the rest of a miss belongs
+        # to the dispatch, device-wall, transfer and unpack segments
+        querytrace.stamp_active(querytrace.QSEG_CACHE_PROBE, t0_ns, time.perf_counter_ns())
         value = compute()
+        obs.record("query_fresh", time.perf_counter() - t0)
         with self._read_cache_lock:
             if self._read_cache_version == version:
                 self._read_cache[key] = (value, time.monotonic())
@@ -857,6 +902,7 @@ class TorchStorage(
         )
 
     def _tt_dependency_links(self, ans) -> List[DependencyLink]:
+        t0_ns = time.perf_counter_ns()
         dense_c = np.asarray(ans.calls)
         dense_e = np.asarray(ans.errs)
         out: List[DependencyLink] = []
@@ -868,6 +914,7 @@ class TorchStorage(
             out.append(DependencyLink(parent=parent, child=child,
                                       call_count=int(dense_c[p, c]),
                                       error_count=int(dense_e[p, c])))
+        querytrace.stamp_active(querytrace.QSEG_LINK_RESOLVE, t0_ns, time.perf_counter_ns())
         return out
 
     # -- dependencies ----------------------------------------------------
@@ -878,7 +925,14 @@ class TorchStorage(
         """``staleness_ms`` is the reference's bound on a mirror serve; the
         port has no mirror, so it changes nothing. Set
         ``_deps_max_stale_ms`` to 0 for answers that are never stale."""
-        return Call.of(lambda: self._get_dependencies(end_ts, lookback))
+        def run() -> List[DependencyLink]:
+            qt = self.querytrace.begin("dependencies")
+            try:
+                return self._get_dependencies(end_ts, lookback)
+            finally:
+                self.querytrace.finish(qt)
+
+        return Call.of(run)
 
     def _get_dependencies(self, end_ts: int, lookback: int) -> List[DependencyLink]:
         tt = self.timetier
@@ -893,6 +947,8 @@ class TorchStorage(
         hi_min = epoch_minutes(end_ts)
         fresh = self.agg.write_version
         now = time.monotonic()
+        t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
         with self._read_cache_lock:
             hit = self._deps_cache.get((lo_min, hi_min))
             if hit is not None:
@@ -901,7 +957,11 @@ class TorchStorage(
                 if version == fresh or age_ms < self._deps_max_stale_ms:
                     self._read_cache_age_ms = age_ms
                     self._read_cache_age_max_ms = max(self._read_cache_age_max_ms, age_ms)
+                    obs.record("query_cached", time.perf_counter() - t0)
+                    querytrace.stamp_active(querytrace.QSEG_CACHE_PROBE, t0_ns,
+                                            time.perf_counter_ns())
                     return value
+        querytrace.stamp_active(querytrace.QSEG_CACHE_PROBE, t0_ns, time.perf_counter_ns())
         value = self._dependency_links(lo_min, hi_min)
         with self._read_cache_lock:
             self._deps_cache[(lo_min, hi_min)] = (value, fresh, now)
@@ -927,6 +987,7 @@ class TorchStorage(
             p_idx, c_idx = np.nonzero(dense_c)
             idx, calls, errors = p_idx * s + c_idx, dense_c[p_idx, c_idx], dense_e[p_idx, c_idx]
             live = calls > 0
+        t0_ns = time.perf_counter_ns()
         out: List[DependencyLink] = []
         for flat, n_calls, n_errs in zip(idx[live], calls[live], errors[live]):
             parent = self.vocab.services.lookup(int(flat) // s)
@@ -935,6 +996,7 @@ class TorchStorage(
                 continue
             out.append(DependencyLink(parent=parent, child=child,
                                       call_count=int(n_calls), error_count=int(n_errs)))
+        querytrace.stamp_active(querytrace.QSEG_LINK_RESOLVE, t0_ns, time.perf_counter_ns())
         return out
 
     # -- latency percentiles and cardinalities -----------------------------
@@ -958,6 +1020,13 @@ class TorchStorage(
         the time-sliced histograms (``use_digest=False`` forces these).
         ``staleness_ms`` is accepted for the reference's signature and
         changes nothing here (no mirror)."""
+        qt = self.querytrace.begin("quantiles")
+        try:
+            return self._latency_quantiles(qs, service_name, span_name, use_digest, end_ts, lookback)
+        finally:
+            self.querytrace.finish(qt)
+
+    def _latency_quantiles(self, qs, service_name, span_name, use_digest, end_ts, lookback):
         if end_ts is None and lookback is not None:
             end_ts = int(time.time() * 1000)  # endTs defaults to now
         qkey = ",".join(f"{q:.6g}" for q in qs)
@@ -985,7 +1054,15 @@ class TorchStorage(
     def _quantile_rows(self, qs, source_q: np.ndarray, counts: np.ndarray,
                        service_name: Optional[str], span_name: Optional[str]) -> List[dict]:
         """Shape ([K, Q] quantiles, [K] counts) into API rows over the key
-        vocab, keys with no count left out."""
+        vocab, keys with no count left out (a traced query's serialize
+        segment)."""
+        t0_ns = time.perf_counter_ns()
+        try:
+            return self._quantile_rows_inner(qs, source_q, counts, service_name, span_name)
+        finally:
+            querytrace.stamp_active(querytrace.QSEG_SERIALIZE, t0_ns, time.perf_counter_ns())
+
+    def _quantile_rows_inner(self, qs, source_q, counts, service_name, span_name) -> List[dict]:
         want_svc = self.vocab.services.get(service_name.lower()) if service_name else None
         if service_name and want_svc is None:
             return []
@@ -1036,12 +1113,16 @@ class TorchStorage(
         """Estimated distinct traces: ``{"_global": n, service: n, ...}``;
         with ``end_ts``/``lookback`` (epoch ms) over the time tier's
         covering buckets, else over all time."""
-        if end_ts is None and lookback is not None:
-            end_ts = int(time.time() * 1000)
-        if end_ts is not None and self.timetier is not None:
-            ans = self._tt_window(*self._tt_epochs(end_ts, lookback))
-            return self._cardinality_rows(ttmerge.hll_estimate(ans.hll))
-        return self._cardinality_rows(self._cached_read("card", lambda: self.agg.cardinalities()))
+        qt = self.querytrace.begin("cardinalities")
+        try:
+            if end_ts is None and lookback is not None:
+                end_ts = int(time.time() * 1000)
+            if end_ts is not None and self.timetier is not None:
+                ans = self._tt_window(*self._tt_epochs(end_ts, lookback))
+                return self._cardinality_rows(ttmerge.hll_estimate(ans.hll))
+            return self._cardinality_rows(self._cached_read("card", lambda: self.agg.cardinalities()))
+        finally:
+            self.querytrace.finish(qt)
 
     def sketch_overview(
         self, qs: Sequence[float], service_name: Optional[str] = None,
@@ -1049,19 +1130,27 @@ class TorchStorage(
     ) -> dict:
         """The sketch page from one device read: ``{"percentiles": rows,
         "cardinalities": dict, "counters": ingest_counters()}``."""
-        qkey = ",".join(f"{q:.6g}" for q in qs)
-        source_q, counts, est = self._cached_read(
-            f"overview:{qkey}", lambda: self.agg.sketch_overview(qs))
-        return {
-            "percentiles": self._quantile_rows(qs, source_q, counts, service_name, span_name),
-            "cardinalities": self._cardinality_rows(est),
-            "counters": self.ingest_counters(),
-        }
+        qt = self.querytrace.begin("overview")
+        try:
+            qkey = ",".join(f"{q:.6g}" for q in qs)
+            source_q, counts, est = self._cached_read(
+                f"overview:{qkey}", lambda: self.agg.sketch_overview(qs))
+            return {
+                "percentiles": self._quantile_rows(qs, source_q, counts, service_name, span_name),
+                "cardinalities": self._cardinality_rows(est),
+                "counters": self.ingest_counters(),
+            }
+        finally:
+            self.querytrace.finish(qt)
 
     def ingest_counters(self) -> dict:
         """The store's and the aggregator's own counters (host counters are
-        exact and do not wrap, unlike the device's u32 counters)."""
+        exact and do not wrap, unlike the device's u32 counters), the device
+        observatory's process-wide totals, the accuracy plane's gauges and
+        the query plane's aggregates (its nested ``queryLock`` and
+        ``querySegments`` tables are skipped by flat consumers)."""
         agg = self.agg
+        dev_totals = OBSERVATORY.totals()
         return {
             **agg.host_counters,
             # hostTransfers / reads ~ 1 is the one-transfer rule
@@ -1070,6 +1159,9 @@ class TorchStorage(
             "ctxReads": agg.read_stats["ctx_reads"],
             # process-wide bytes through the readpack chokepoint
             "hostTransferBytes": readpack.transfer_bytes(),
+            "deviceProgramCalls": dev_totals["calls"],
+            "deviceCompiles": dev_totals["compiles"],
+            "deviceRecompiles": dev_totals["recompiles"],
             # lanes the next fresh link read must merge, ctx advances, and
             # the wall of the last one
             "ctxDeltaLanes": agg._lanes_since_rollup,
@@ -1094,7 +1186,19 @@ class TorchStorage(
             **(self.scrubber.counters() if self.scrubber is not None else {}),
             # the multi-process tier's gauges, when one feeds this store
             **(self.mp_ingester.stats() if self.mp_ingester is not None else {}),
+            # relative-error gauges and the shadow's occupancy, when the
+            # accuracy plane is attached
+            **(self.accuracy.export_counters() if self.accuracy is not None else {}),
+            **self.querytrace.counters(),
         }
+
+    def set_query_observatory(self, on: bool) -> None:
+        """Turn per-query tracing and the lock ledger on or off together;
+        remembered, so :meth:`clear`'s new aggregator (and its new lock)
+        gets the same setting."""
+        self._query_obs_enabled = bool(on)
+        self.querytrace.enabled = bool(on)
+        self.agg.lock.set_enabled(on)
 
     # -- lifecycle -------------------------------------------------------
 
@@ -1127,3 +1231,8 @@ class TorchStorage(
         # cached at version v would serve the new state's version v
         self.invalidate_read_cache()
         self._read_cache_version = -1
+        # the swap replaced the instrumented lock: drop what was stitched
+        # against the old aggregator and reapply the configured setting
+        self.querytrace.reset()
+        if self._query_obs_enabled is not None:
+            self.set_query_observatory(self._query_obs_enabled)

@@ -20,8 +20,9 @@ log holds every batch in between:
 The on-disk format is the reference's (the same magic, ``<IQII I`` header,
 meta keys and payload), so a log written by either package replays in the
 other. The archive sample is not logged: it is a bounded, lossy cache by
-design. The reference's flight-recorder and critical-path stamps of each
-append are left to the port's obs slice.
+design. Each append is the flight recorder's ``wal_append`` stage (the
+fsync included) and each fsync its ``wal_fsync``; the reference's
+critical-path segments of an append come with the critical-path tracer.
 """
 
 from __future__ import annotations
@@ -32,12 +33,13 @@ import json
 import logging
 import os
 import struct
+import time
 import zlib
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from zipkin_tpu_torch import faults
+from zipkin_tpu_torch import faults, obs
 
 logger = logging.getLogger(__name__)
 
@@ -107,6 +109,7 @@ class WriteAheadLog:
         head = _HEADER.pack(_MAGIC, self._seq, len(meta_b), len(payload), zlib.crc32(payload))
         rec_len = len(head) + len(meta_b) + len(payload)
         deferred = self._batch_depth > 0
+        t0 = time.perf_counter()
         try:
             faults.resource_point("wal.append")
             fh = self._file_for(rec_len)
@@ -121,7 +124,9 @@ class WriteAheadLog:
                 fh.flush()
             faults.crashpoint("wal.append.pre_fsync")
             if self.fsync and not deferred:
+                t1 = time.perf_counter()
                 os.fsync(fh.fileno())
+                obs.record("wal_fsync", time.perf_counter() - t1)
         except OSError as e:
             if e.errno != errno.ENOSPC:
                 raise
@@ -133,6 +138,7 @@ class WriteAheadLog:
         faults.corrupt_point("wal.record", self._path,
                              self._fh_bytes + _HEADER.size + len(meta_b), len(payload))
         self._fh_bytes += rec_len
+        obs.record("wal_append", time.perf_counter() - t0)
         return self._seq
 
     @contextlib.contextmanager
@@ -157,7 +163,9 @@ class WriteAheadLog:
         try:
             fh.flush()
             if self.fsync:
+                t1 = time.perf_counter()
                 os.fsync(fh.fileno())
+                obs.record("wal_fsync", time.perf_counter() - t1)
         except OSError as e:
             if e.errno != errno.ENOSPC:
                 raise
