@@ -81,15 +81,16 @@ Builds the hand-written kernels from the sources in the checkout, then:
     leaves), behind the server with TPU_MP_WORKERS=2 (i4: 202s, 429s on a
     full tier, stop() drains before its final snapshot), and the threaded
     AsyncIngestFeeder (i5); times each against f1;
-(j) the observability plane: f1's path with the plane on and off in turns
-    (j1: spans/s and their ratio, the recorder's ns a record, the device
-    observatory's hll_update_step calls equal to the kernel's launches and
-    its CUDA-event ms beside a2's), an in-process server with every plane on
+(j) the observability plane: f1's path with the plane on and off in
+    pairs after a warm-up (j1: spans/s, each pair's ratio and their median,
+    the plane's own host cost a payload, the device observatory's
+    hll_update_step calls equal to the kernel's launches and its CUDA-event
+    ms beside a2's), an in-process server with every plane on
     (j2: statusz's stage table, device, windows, SLO, accuracy and query
     sections, self-spans under a posted B3 trace, /prometheus), the same
     server over TPU_MP_WORKERS=2 (j3: relayed and mp_* stages, the workers'
-    rows, the shadow's fused taps) and the entry point's /prometheus (j4).
-    Phases a and a2 time the kernels with the device observatory off.
+    rows, the shadow's fused taps), the entry point's /prometheus (j4) and
+    i2's fan-out tier with the plane on and off in pairs (j5). Phases a and a2 time the kernels with the device observatory off.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -3091,14 +3092,75 @@ def obs_switch(on: bool, store=None) -> None:
         store.set_query_observatory(on)
 
 
+def paired_runs(run, pairs: int = 5) -> list:
+    """One warm-up ``run(True)``, marked and left out of the timing, then
+    ``pairs`` pairs of ``run(on)``, the side that goes first alternating
+    (on, off), (off, on), ..."""
+    runs = [dict(run(True), warmup=True)]
+    for k in range(pairs):
+        for on in ((True, False) if k % 2 == 0 else (False, True)):
+            runs.append(dict(run(on), warmup=False))
+    return runs
+
+
+def on_off_verdict(runs) -> dict:
+    """The plane's cost from :func:`paired_runs`: each pair's on/off
+    spans/s, their median and range. The cost is resolved only where the
+    range lies on one side of 1; where it spans 1, the run-to-run spread is
+    wider than the effect."""
+    timed = [r for r in runs if not r["warmup"]]
+    ratios = []
+    for a, b in zip(timed[::2], timed[1::2]):
+        on, off = (a, b) if a["on"] else (b, a)
+        ratios.append(on["spans_per_s"] / off["spans_per_s"])
+    lo, hi = min(ratios), max(ratios)
+    return dict(pair_ratios=ratios, median_ratio=statistics.median(ratios), ratio_lo=lo,
+                ratio_hi=hi, resolved=hi < 1.0 or lo > 1.0)
+
+
+def verdict_text(v: dict) -> str:
+    return (f"on/off by pair {', '.join(f'{r:.3f}' for r in v['pair_ratios'])}: median "
+            f"{v['median_ratio']:.3f}, range {v['ratio_lo']:.3f}-{v['ratio_hi']:.3f} "
+            + ("(unresolved: the range spans 1)" if not v["resolved"] else
+               "(resolved: on slower in every pair)" if v["ratio_hi"] < 1.0 else
+               "(resolved: on faster in every pair, which the plane cannot cause)"))
+
+
+def wrap_cost_ns(torch, device, n: int = 2000) -> float:
+    """The device observatory's own host ns a wrapped call: a no-op on a
+    tensor of ``device`` through a private observatory's wrapper (two CUDA
+    events recorded on the card, none off it, and the query-trace stamp),
+    less the bare call."""
+    from zipkin_tpu_torch.obs.device import DeviceObservatory
+
+    x = torch.zeros(1, device=device)
+    noop = lambda t: t  # noqa: E731
+    wrapped = DeviceObservatory().wrap("probe", noop)
+
+    def loop(fn):
+        t0 = time.perf_counter_ns()
+        for _ in range(n):
+            fn(x)
+        return time.perf_counter_ns() - t0
+
+    loop(wrapped)
+    loop(noop)
+    return (loop(wrapped) - loop(noop)) / n
+
+
 def phase_obs_cost(torch, card: str, stored: dict, a2_ms: float, cfg=None, device=None) -> dict:
     """(j1) the recorder's cost on the line-rate path: phase e's payloads
-    through ``Collector(fast_ingest=True)`` into a fresh TorchStorage four
-    times, in turns: with the plane on (the recorder, the device
-    observatory, the query plane and a shadow tap on the store) and with
-    all of it off. Prints spans/s of each run, the on/off ratio and the
-    recorder's own ns a record; then, over the on runs, holds the device
-    observatory's ``hll_update_step`` calls to the launches
+    through ``Collector(fast_ingest=True)`` into a fresh TorchStorage a run,
+    with the plane on (the recorder, the device observatory, the query
+    plane and a shadow tap on the store) and with all of it off: one
+    warm-up run, then five pairs, the side that goes first alternating
+    (:func:`paired_runs`). Prints spans/s of each run, each pair's on/off
+    ratio with their median and range (:func:`on_off_verdict`), and the
+    plane's own host cost: the recorder's ns a record and the observatory
+    wrapper's ns a call (:func:`wrap_cost_ns`), times the records and
+    wrapped calls a payload made, against a payload's wall, and the
+    wrapped programs' host wall a call. Then, over the on runs, holds the
+    device observatory's ``hll_update_step`` calls to the launches
     ``update_step.launches`` counted, every CUDA event pair resolved and
     positive, and prints the mean event ms a call beside phase a2's
     profiler ms."""
@@ -3113,55 +3175,86 @@ def phase_obs_cost(torch, card: str, stored: dict, a2_ms: float, cfg=None, devic
     cfg = cfg or AggConfig()
     wire, n_spans = stored["wire"], len(stored["spans"])
     OBSERVATORY.reset_counters()
-    runs, launches_on = [], 0
+    on_totals = dict(launches=0, records=0, calls=0, payloads=0, wall_s=0.0)
+
+    def run(on):
+        store = TorchStorage(config=cfg, device=device)
+        obs_switch(on, store)
+        if on:
+            store.shadow = HostShadow(max_services=cfg.max_services,
+                                      svc_resolver=store.vocab.services.get,
+                                      pending_max=len(wire))
+        collector = Collector(store, fast_ingest=True)
+        mem_gb = torch.cuda.memory_allocated() / 1e9  # what earlier runs left on the card
+        records0 = obs.RECORDER.snapshot().total_count
+        calls0 = OBSERVATORY.totals()["calls"]
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        for p in wire:
+            collector.accept_spans_bytes(p)
+        store.agg.block_until_ready()
+        wall = time.perf_counter() - t0
+        launches = hll_kernel.update_step.launches
+        if store.agg.host_counters["spans"] != n_spans:
+            raise AssertionError(f"phase j1: {store.agg.host_counters['spans']} spans landed")
+        if on:
+            if store.shadow.counters()["shadowOfferedBatches"] != launches:
+                raise AssertionError("phase j1: the shadow tap missed a device batch")
+            on_totals["launches"] += launches
+            on_totals["records"] += obs.RECORDER.snapshot().total_count - records0
+            on_totals["calls"] += OBSERVATORY.totals()["calls"] - calls0
+            on_totals["payloads"] += len(wire)
+            on_totals["wall_s"] += wall
+        out = dict(on=on, spans_per_s=n_spans / wall, wall_ms=wall * 1e3, launches=launches,
+                   update_launches=hll_kernel.update.launches, mem_gb=mem_gb)
+        del store, collector
+        torch.cuda.empty_cache()
+        return out
+
     try:
-        for on in (True, False, True, False):
-            store = TorchStorage(config=cfg, device=device)
-            obs_switch(on, store)
-            if on:
-                store.shadow = HostShadow(max_services=cfg.max_services,
-                                          svc_resolver=store.vocab.services.get,
-                                          pending_max=len(wire))
-            collector = Collector(store, fast_ingest=True)
-            hll_kernel.update_step.launches = 0
-            t0 = time.perf_counter()
-            for p in wire:
-                collector.accept_spans_bytes(p)
-            store.agg.block_until_ready()
-            wall = time.perf_counter() - t0
-            if store.agg.host_counters["spans"] != n_spans:
-                raise AssertionError(f"phase j1: {store.agg.host_counters['spans']} spans landed")
-            if on:
-                launches_on += hll_kernel.update_step.launches
-                if store.shadow.counters()["shadowOfferedBatches"] != hll_kernel.update_step.launches:
-                    raise AssertionError("phase j1: the shadow tap missed a device batch")
-            runs.append(dict(on=on, spans_per_s=n_spans / wall, wall_ms=wall * 1e3,
-                             launches=hll_kernel.update_step.launches))
-            del store, collector
-            torch.cuda.empty_cache()
+        runs = paired_runs(run)
     finally:
         obs_switch(True)
     torch.cuda.synchronize()
-    prog = OBSERVATORY.programs()["hll_update_step"]
+    progs = OBSERVATORY.programs()
+    prog = progs["hll_update_step"]
+    launches_on = on_totals["launches"]
     if prog["calls"] != launches_on or prog["deviceCalls"] != launches_on or prog["eventsDropped"]:
         raise AssertionError(f"phase j1: the observatory saw {prog}, update_step launched "
                              f"{launches_on} times in the on runs")
     if prog["minDeviceMs"] <= 0.0:
         raise AssertionError(f"phase j1: a CUDA event pair resolved to {prog['minDeviceMs']} ms")
-    on_rate = statistics.mean(r["spans_per_s"] for r in runs if r["on"])
-    off_rate = statistics.mean(r["spans_per_s"] for r in runs if not r["on"])
-    fig = dict(card=card, runs=runs, on_off_ratio=on_rate / off_rate,
-               overhead_ns_per_record=obs.RECORDER.measure_overhead(),
+    verdict = on_off_verdict(runs)
+    rec_ns = obs.RECORDER.measure_overhead()
+    wrap_ns = wrap_cost_ns(torch, device or "cuda")
+    payloads = on_totals["payloads"]
+    records_pp = on_totals["records"] / payloads
+    calls_pp = on_totals["calls"] / payloads
+    plane_us_pp = (rec_ns * records_pp + wrap_ns * calls_pp) / 1e3
+    wall_us_pp = on_totals["wall_s"] * 1e6 / payloads
+    call_wall_ms = {k: v["callWallMs"] / v["calls"] for k, v in progs.items()
+                    if v["calls"] and (k.startswith("spmd_step") or k == "hll_update_step")}
+    fig = dict(card=card, runs=runs, **verdict, overhead_ns_per_record=rec_ns,
+               wrap_ns_per_call=wrap_ns, records_per_payload=records_pp,
+               wrapped_calls_per_payload=calls_pp, plane_host_us_per_payload=plane_us_pp,
+               wall_us_per_payload=wall_us_pp, call_wall_ms=call_wall_ms,
                kernel_calls=prog["calls"], kernel_event_ms=prog["meanDeviceMs"],
                kernel_event_min_ms=prog["minDeviceMs"], kernel_event_max_ms=prog["maxDeviceMs"],
-               a2_profiler_ms=a2_ms, launches=sum(r["launches"] for r in runs))
-    log(f"phase j1 ({card}): f1's path, plane on/off/on/off: spans/s "
-        + ", ".join(f"{'on' if r['on'] else 'off'} {r['spans_per_s']:.0f}" for r in runs)
-        + f"; on/off {fig['on_off_ratio']:.3f}; recorder {fig['overhead_ns_per_record']:.0f} ns a "
-        f"record; hll_update_step observed {prog['calls']} calls = {launches_on} launches, every "
-        f"event pair resolved: {prog['meanDeviceMs']:.5f} ms a call on CUDA events (min "
-        f"{prog['minDeviceMs']:.5f}, max {prog['maxDeviceMs']:.5f}) beside phase a2's profiler "
-        f"{a2_ms:.5f} ms")
+               a2_profiler_ms=a2_ms, launches=sum(r["launches"] for r in runs),
+               update_launches=sum(r["update_launches"] for r in runs))
+    log(f"phase j1 ({card}): f1's path, a warm-up and five pairs, plane on/off: spans/s "
+        + ", ".join(f"{'warm-up ' if r['warmup'] else ''}{'on' if r['on'] else 'off'} "
+                    f"{r['spans_per_s']:.0f}" for r in runs)
+        + "; GB allocated at each run's start "
+        + ", ".join(f"{r['mem_gb']:.2f}" for r in runs)
+        + f"; {verdict_text(verdict)}; the plane's own host cost: recorder {rec_ns:.0f} ns a "
+        f"record x {records_pp:.1f} records a payload + observatory wrapper {wrap_ns:.0f} ns a "
+        f"call x {calls_pp:.1f} wrapped calls a payload = {plane_us_pp:.1f} us of a payload's "
+        f"{wall_us_pp:.0f} us ({100 * plane_us_pp / wall_us_pp:.2f}%); host wall a call, ms: "
+        f"{json.dumps({k: round(v, 4) for k, v in call_wall_ms.items()})}; hll_update_step "
+        f"observed {prog['calls']} calls = {launches_on} launches, every event pair resolved: "
+        f"{prog['meanDeviceMs']:.5f} ms a call on CUDA events (min {prog['minDeviceMs']:.5f}, "
+        f"max {prog['maxDeviceMs']:.5f}) beside phase a2's profiler {a2_ms:.5f} ms")
     return fig
 
 
@@ -3277,7 +3370,7 @@ def phase_obs_server(seed: int, torch, card: str, stored: dict, cfg=None, device
         server.stop()
     torch.cuda.synchronize()
     # stopped: the emitter flushed its last spans, so the counts are final
-    launches = hll_kernel.update_step.launches
+    launches, update_launches = hll_kernel.update_step.launches, hll_kernel.update.launches
     final = OBSERVATORY.programs()["hll_update_step"]
 
     stages = st["stages"]
@@ -3323,7 +3416,7 @@ def phase_obs_server(seed: int, torch, card: str, stored: dict, cfg=None, device
     if not [f for f in families if f.startswith("zipkin_tpu_device_")]:
         raise AssertionError("phase j2: /prometheus lacks zipkin_tpu_device_*")
     fig = dict(card=card, post_s=post_s, post_spans_per_s=len(stored["spans"]) / post_s,
-               launches=launches, kernel_event_ms=final["meanDeviceMs"],
+               launches=launches, update_launches=update_launches, kernel_event_ms=final["meanDeviceMs"],
                hll_rel_err=g["accuracyHllRelErr"], hll_band=band,
                digest_p99_rel_err=g["accuracyDigestP99RelErr"], link_recall=g["accuracyLinkRecall"],
                rollup_ms=g["accuracyRollupMs"], ticks=st["windows"]["ticks"],
@@ -3368,7 +3461,7 @@ def phase_obs_tier(torch, card: str, stored: dict, cfg=None, device=None, worker
 
         storage = TorchStorage(config=cfg, device=device, deps_max_stale_ms=0.0)
     before = obs.RECORDER.snapshot()
-    hll_kernel.update_step.launches = 0
+    hll_kernel.update.launches = hll_kernel.update_step.launches = 0
     server = ZipkinServer(obs_server_config(cfg, tpu_mp_workers=workers), storage=storage,
                           seal_interval_s=1.0).start()
     base = f"http://127.0.0.1:{server.port}"
@@ -3390,7 +3483,7 @@ def phase_obs_tier(torch, card: str, stored: dict, cfg=None, device=None, worker
         groups = ing.counters["groups"]
     finally:
         server.stop()
-    launches = hll_kernel.update_step.launches
+    launches, update_launches = hll_kernel.update_step.launches, hll_kernel.update.launches
     after = obs.RECORDER.snapshot()
     ran = {s: after.stage(s).count - before.stage(s).count
            for s in ("parse", "pack", "route", "mp_vocab_replay", "mp_device_feed", "mp_record",
@@ -3403,13 +3496,90 @@ def phase_obs_tier(torch, card: str, stored: dict, cfg=None, device=None, worker
     rows = st.get("workers", [])
     if [w["widx"] for w in rows] != list(range(workers)) or sum(w["spans"] for w in rows) != per * len(wire):
         raise AssertionError(f"phase j3: workers {rows}")
-    fig = dict(card=card, stages=ran, groups=groups, launches=launches, backoffs=backoffs,
+    fig = dict(card=card, stages=ran, groups=groups, launches=launches,
+               update_launches=update_launches, backoffs=backoffs,
                shadow_offered=shadow["shadowOfferedBatches"],
                worker_spans=[w["spans"] for w in rows])
     log(f"phase j3 ({card}): TPU_MP_WORKERS={workers}, {len(wire)} POSTs ({backoffs} backoffs): "
         f"stage counts {json.dumps(ran)}; {groups} groups, update_step launches {launches}; the "
         f"shadow offered {shadow['shadowOfferedBatches']} dispatcher images; workers' spans "
         f"{fig['worker_spans']}")
+    return fig
+
+
+def phase_obs_tier_cost(torch, card: str, stored: dict, cfg=None, device=None,
+                        workers=None) -> dict:
+    """(j5) the plane's cost on the fan-out tier: i2's path (``workers``
+    parse workers, ``coalesce_max=8``, the tier's blocking ``submit``) into
+    one store, phase e's payloads a pass, the plane on (the recorder, the
+    device observatory, the query plane and a HostShadow on the store's and
+    the dispatcher's taps, as the server wires it) and off: one warm-up
+    pass, then five pairs, the side that goes first alternating
+    (:func:`paired_runs`). The shadow folds what it was offered between
+    passes, off the clock; the server's accuracy rollup, which does that
+    on the ticker every ``TPU_OBS_SHADOW_ROLLUP_S`` and reads the device,
+    is not in the timed passes. Each pass's update_step launches equal its
+    dispatcher groups; every pass's spans land."""
+    import os
+
+    from zipkin_tpu_torch.obs.shadow import HostShadow
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.tpu.mp_ingest import MultiProcessIngester
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    wire, n_spans = stored["wire"], len(stored["spans"])
+    workers = workers or max(1, min(4, (os.cpu_count() or 1) - 2))
+    store = TorchStorage(config=cfg, device=device)
+    shadow = HostShadow(max_services=cfg.max_services, svc_resolver=store.vocab.services.get,
+                        pending_max=2 * len(wire))
+    ing = MultiProcessIngester(store, workers=workers, coalesce_max=8)
+
+    def run(on):
+        obs_switch(on, store)
+        store.shadow = ing.shadow = shadow if on else None
+        offered0 = shadow.counters()["shadowOfferedBatches"]
+        groups0 = ing.stats()["mpGroups"]
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        for p in wire:
+            ing.submit(p)
+        ing.drain()
+        store.agg.block_until_ready()
+        wall = time.perf_counter() - t0
+        groups = ing.stats()["mpGroups"] - groups0
+        offered = shadow.counters()["shadowOfferedBatches"] - offered0
+        if hll_kernel.update_step.launches != groups:
+            raise AssertionError(f"phase j5: update_step launches {hll_kernel.update_step.launches}"
+                                 f" != {groups} dispatcher groups")
+        if (offered < groups) if on else offered:
+            raise AssertionError(f"phase j5: the shadow was offered {offered} images for {groups} "
+                                 f"groups with the plane {'on' if on else 'off'}")
+        shadow.drain()
+        return dict(on=on, spans_per_s=n_spans / wall, wall_ms=wall * 1e3, groups=groups,
+                    launches=hll_kernel.update_step.launches,
+                    update_launches=hll_kernel.update.launches)
+
+    try:
+        wait_ready(ing, "phase j5")
+        runs = paired_runs(run)
+        stats = ing.stats()
+    finally:
+        obs_switch(True)
+        ing.close()
+    if stats["mpFallbacks"] or store.agg.host_counters["spans"] != len(runs) * n_spans:
+        raise AssertionError(f"phase j5: {store.agg.host_counters['spans']} spans landed in "
+                             f"{len(runs)} passes, {stats['mpFallbacks']} fallbacks")
+    verdict = on_off_verdict(runs)
+    fig = dict(card=card, workers=workers, runs=runs, **verdict,
+               launches=sum(r["launches"] for r in runs),
+               update_launches=sum(r["update_launches"] for r in runs))
+    log(f"phase j5 ({card}): the fan-out tier ({workers} workers, coalesce_max=8, blocking "
+        f"submit), a warm-up and five pairs, plane on/off: spans/s "
+        + ", ".join(f"{'warm-up ' if r['warmup'] else ''}{'on' if r['on'] else 'off'} "
+                    f"{r['spans_per_s']:.0f} ({r['groups']} steps)" for r in runs)
+        + f"; {verdict_text(verdict)}")
     return fig
 
 
@@ -3484,22 +3654,31 @@ def phase_obs_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu",
 def phase_obs(seed: int, torch, card: str, stored: dict, a2_ms: float, cfg=None, device=None,
               entry_argv=None, entry_env=None, entry_storage: str = "tpu") -> dict:
     """(j) the observability plane on the card: j1 (:func:`phase_obs_cost`),
-    j2 (:func:`phase_obs_server`), j3 (:func:`phase_obs_tier`) and j4
-    (:func:`phase_obs_entry`). Returns each part's figures and the phase's
-    ``update_step`` and ``update`` launches."""
-    from zipkin_tpu_torch.ops import hll_kernel
-
-    fig = {"j1": phase_obs_cost(torch, card, stored, a2_ms, cfg=cfg, device=device)}
-    torch.cuda.empty_cache()
-    update_launches = hll_kernel.update.launches
-    fig["j2"] = phase_obs_server(seed, torch, card, stored, cfg=cfg, device=device)
-    update_launches += hll_kernel.update.launches
-    torch.cuda.empty_cache()
-    fig["j3"] = phase_obs_tier(torch, card, stored, cfg=cfg, device=device)
-    torch.cuda.empty_cache()
-    fig["j4"] = phase_obs_entry(card, storage=entry_storage, argv=entry_argv, env_extra=entry_env)
-    fig["launches"] = fig["j1"]["launches"] + fig["j2"]["launches"] + fig["j3"]["launches"]
-    fig["update_launches"] = update_launches
+    j2 (:func:`phase_obs_server`), j3 (:func:`phase_obs_tier`), j4
+    (:func:`phase_obs_entry`) and j5 (:func:`phase_obs_tier_cost`). Returns
+    each part's figures and the phase's ``update_step`` and ``update``
+    launches, each part's counted from 0 just before it; no part may launch
+    the single-target kernel."""
+    parts = {
+        "j1": lambda: phase_obs_cost(torch, card, stored, a2_ms, cfg=cfg, device=device),
+        "j2": lambda: phase_obs_server(seed, torch, card, stored, cfg=cfg, device=device),
+        "j3": lambda: phase_obs_tier(torch, card, stored, cfg=cfg, device=device),
+        "j4": lambda: phase_obs_entry(card, storage=entry_storage, argv=entry_argv,
+                                      env_extra=entry_env),
+        "j5": lambda: phase_obs_tier_cost(torch, card, stored, cfg=cfg, device=device),
+    }
+    fig = {}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        fig[name] = part()
+        torch.cuda.empty_cache()
+        fig[name]["seconds"] = time.perf_counter() - t0
+    log("phase j parts, s: " + ", ".join(f"{k} {fig[k]['seconds']:.1f}" for k in parts))
+    parts = ("j1", "j2", "j3", "j5")
+    fig["launches"] = sum(fig[k]["launches"] for k in parts)
+    fig["update_launches"] = sum(fig[k]["update_launches"] for k in parts)
+    if fig["update_launches"]:
+        raise AssertionError(f"phase j: {fig['update_launches']} single-target launches")
     return fig
 
 
@@ -3612,8 +3791,8 @@ def main() -> int:
     # archive's phase (h1's and h4's device batches) and launches_phase_i
     # those of the parse fan-out's (i1-i5, the i3 replay included; each
     # part's count is in launches_phase_i_parts) and launches_phase_j those
-    # of the observability plane's (j1's four runs, j2's and j3's servers;
-    # each part's count is in launches_phase_j_parts).
+    # of the observability plane's (j1's eleven runs, j2's and j3's servers,
+    # j5's eleven passes; each part's count is in launches_phase_j_parts).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -3646,8 +3825,7 @@ def main() -> int:
                                      "i3_replay": fanned["i3"]["replay_launches"],
                                      "i4": fanned["i4"]["launches"], "i5": fanned["i5"]["launches"]},
              launches_phase_j=observed["launches"],
-             launches_phase_j_parts={"j1": observed["j1"]["launches"], "j2": observed["j2"]["launches"],
-                                     "j3": observed["j3"]["launches"]},
+             launches_phase_j_parts={k: observed[k]["launches"] for k in ("j1", "j2", "j3", "j5")},
              event_ms_phase_j1=observed["j1"]["kernel_event_ms"],
              cases=step_cases, card=card),
     ]

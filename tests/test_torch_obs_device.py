@@ -83,6 +83,119 @@ def test_a_build_during_a_call_is_a_compile():
     assert prog["compileWallMs"] <= prog["callWallMs"]
 
 
+def test_event_queue_drops_and_resolves_consistently_across_threads(monkeypatch):
+    """A full queue's drop (the caller's thread) and the peek-then-pop of
+    ``resolve`` (statusz's threads) never fold one pair and discard
+    another: the pairs ``resolve`` takes off the queue are exactly the
+    pairs it folds, and every call's pair is folded or counted dropped."""
+    import threading
+    import time
+    from collections import deque
+
+    import torch
+
+    folded, taken = [], []
+
+    class FakeEvent:
+        def __init__(self, enable_timing=False):
+            self.t = 0.0
+
+        def record(self, stream=None):
+            self.t = time.perf_counter()
+
+        def query(self):
+            time.sleep(0)  # yield between the peek and the pop
+            return True
+
+        def elapsed_time(self, end):
+            folded.append(id(self))
+            return (end.t - self.t) * 1e3 + 1e-3
+
+    class Queue(deque):
+        def popleft(self):
+            item = super().popleft()
+            if threading.current_thread() is not threading.main_thread():
+                taken.append(id(item[0]))
+            return item
+
+    monkeypatch.setattr(torch.cuda, "Event", FakeEvent)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev=None: "stream")
+    monkeypatch.setattr(obs_device, "_cuda_device", lambda device, args: "cuda")
+    monkeypatch.setattr(obs_device, "deque", Queue)
+    monkeypatch.setattr(obs_device, "EVENT_QUEUE", 8)
+    obs = DeviceObservatory()
+    fn = obs.wrap("spmd_race", lambda v: v)
+    stop = threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            obs.programs()
+
+    threads = [threading.Thread(target=reader) for _ in range(2)]
+    for t in threads:
+        t.start()
+    try:
+        for i in range(3000):
+            fn(i)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    threads = [threading.Thread(target=obs.programs)]  # the last pairs, off the main thread
+    threads[0].start()
+    threads[0].join()
+    prog = obs.programs()["spmd_race"]
+    assert prog["calls"] == 3000 and prog["eventsPending"] == 0
+    assert sorted(folded) == sorted(taken)
+    assert prog["deviceCalls"] == len(folded)
+    assert prog["deviceCalls"] + prog["eventsDropped"] == prog["calls"]
+    assert prog["eventsDropped"] > 0 and prog["minDeviceMs"] > 0.0
+
+
+def _store_with_planes():
+    store = TorchStorage(config=SMALL, device="cpu")
+    store.set_query_observatory(True)
+    return store, [store, store.agg]
+
+
+def _store_with_accuracy():
+    from zipkin_tpu_torch.obs.accuracy import AccuracyEstimator
+    from zipkin_tpu_torch.obs.shadow import HostShadow
+
+    store = TorchStorage(config=SMALL, device="cpu")
+    store.shadow = HostShadow(max_services=SMALL.max_services,
+                              svc_resolver=store.vocab.services.get)
+    store.accuracy = AccuracyEstimator(store, store.shadow, rollup_s=0.0)
+    return store, [store, store.agg]
+
+
+def _cleared_store():
+    store = TorchStorage(config=SMALL, device="cpu")
+    old = store.agg
+    store.clear()
+    return store, [old]
+
+
+@pytest.mark.parametrize("make", [_store_with_planes, _store_with_accuracy, _cleared_store],
+                         ids=["query_plane", "accuracy", "clear"])
+def test_a_dropped_store_frees_its_state_without_the_cycle_collector(make):
+    """The wrapped programs, the query plane's lock provider and the
+    accuracy estimator hold no strong cycle through the store or its
+    aggregator, so dropping them frees the device state at once."""
+    import gc
+    import weakref
+
+    gc.collect()
+    gc.disable()
+    try:
+        store, watched = make()
+        refs = [weakref.ref(o) for o in watched]
+        del store, watched
+        assert [r() is None for r in refs] == [True] * len(refs)
+    finally:
+        gc.enable()
+
+
 def test_store_programs_report_under_the_reference_names():
     before = OBSERVATORY.programs()
     store = TorchStorage(config=SMALL, device="cpu", pad_to_multiple=256)

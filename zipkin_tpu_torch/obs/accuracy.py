@@ -57,6 +57,7 @@ from __future__ import annotations
 import math
 import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -101,7 +102,9 @@ class AccuracyEstimator:
         min_coverage: float = 0.9,
         clock=time.monotonic,
     ) -> None:
-        self._store = storage
+        # the store owns its estimator (store.accuracy): a weak proxy, so
+        # the pair is no cycle that keeps a dropped store's device state
+        self._store = weakref.proxy(storage)
         self._shadow = shadow
         self.rollup_s = float(rollup_s)
         self.min_count = int(min_count)

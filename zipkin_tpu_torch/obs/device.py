@@ -58,7 +58,7 @@ class ProgramStats:
     __slots__ = ("name", "calls", "compiles", "call_wall_s", "compile_wall_s",
                  "last_compile_s", "max_call_s", "device_ms", "device_calls",
                  "max_device_ms", "min_device_ms", "events_dropped", "_pending",
-                 "_compile_probe")
+                 "_qlock", "_compile_probe")
 
     def __init__(self, name: str, compile_probe: Optional[Callable[[], int]] = None) -> None:
         self.name = name
@@ -74,6 +74,9 @@ class ProgramStats:
         self.min_device_ms = 0.0
         self.events_dropped = 0
         self._pending: deque = deque()
+        # the queue's drop in observe() and the peek-then-pop in resolve()
+        # run on different threads (the caller's, statusz's)
+        self._qlock = threading.Lock()
         self._compile_probe = compile_probe
 
     recompiles = 0  # no jit: a shape change never rebuilds anything
@@ -95,10 +98,11 @@ class ProgramStats:
         if stream is not None:
             e1 = torch.cuda.Event(enable_timing=True)
             e1.record(stream)
-            if len(self._pending) >= EVENT_QUEUE:
-                self._pending.popleft()
-                self.events_dropped += 1
-            self._pending.append((e0, e1))
+            with self._qlock:
+                if len(self._pending) >= EVENT_QUEUE:
+                    self._pending.popleft()
+                    self.events_dropped += 1
+                self._pending.append((e0, e1))
         # a traced query's device_dispatch segment is this call's host wall
         # (perf_counter and perf_counter_ns share a clock)
         querytrace.stamp_active(querytrace.QSEG_DEVICE_DISPATCH, int(t0 * 1e9), int((t0 + dt) * 1e9))
@@ -119,11 +123,11 @@ class ProgramStats:
         wall; stop at the first unfinished one (a stream finishes in
         order). ``query()`` never blocks."""
         pending = self._pending
-        while pending:
-            e0, e1 = pending[0]
-            if not e1.query():
-                return
-            pending.popleft()
+        while True:
+            with self._qlock:
+                if not pending or not pending[0][1].query():
+                    return
+                e0, e1 = pending.popleft()
             ms = float(e0.elapsed_time(e1))
             if self.device_calls == 0 or ms < self.min_device_ms:
                 self.min_device_ms = ms
@@ -137,7 +141,8 @@ class ProgramStats:
         self.call_wall_s = self.compile_wall_s = self.last_compile_s = self.max_call_s = 0.0
         self.device_ms = self.max_device_ms = self.min_device_ms = 0.0
         self.device_calls = self.events_dropped = 0
-        self._pending.clear()
+        with self._qlock:
+            self._pending.clear()
 
     def as_dict(self) -> Dict:
         return {

@@ -68,6 +68,22 @@ def unfuse_columns(fz: torch.Tensor) -> SpanColumns:
     )
 
 
+def _edge_topk(calls: torch.Tensor, errors: torch.Tensor, e: int):
+    """The first ``e`` nonzero cells of the call matrix by prefix-sum
+    compaction: (flat_index int32, calls u32, errors u32), each [e]."""
+    cf = calls.reshape(-1)
+    ef = errors.reshape(-1)
+    cs = torch.cumsum((cf > 0).to(torch.int64), 0)
+    want = torch.arange(1, e + 1, dtype=torch.int64, device=cf.device)
+    pos = torch.clamp(torch.searchsorted(cs, want, right=False), 0, cf.shape[0] - 1)
+    have = torch.arange(e, device=cf.device) < cs[-1]
+    return (
+        torch.where(have, pos, 0),
+        torch.where(have, cf[pos], 0),
+        torch.where(have, ef[pos], 0),
+    )
+
+
 class TorchAggregator:
     """Owns the device state and runs the ingest step and the reads."""
 
@@ -161,12 +177,17 @@ class TorchAggregator:
         def links(s, ctx, lo, hi):
             return readpack.pack(ing.dependency_links(cfg, s, lo, hi, ctx=ctx), (np.uint32, np.uint32))
 
+        # no closure here may hold self: the wrapped programs live on self
+        # (a cycle would keep a dropped aggregator's state until the
+        # cycle collector runs)
+        n_edges = min(4096, cfg.max_services ** 2)
+
         def edges_rolled(s, lo, hi):
-            return readpack.pack(self._edge_topk(*ing.rolled_links(cfg, s, lo, hi)),
+            return readpack.pack(_edge_topk(*ing.rolled_links(cfg, s, lo, hi), n_edges),
                                  (np.int32, np.uint32, np.uint32))
 
         def edges_fresh(s, ctx, lo, hi):
-            return readpack.pack(self._edge_topk(*ing.dependency_links(cfg, s, lo, hi, ctx=ctx)),
+            return readpack.pack(_edge_topk(*ing.dependency_links(cfg, s, lo, hi, ctx=ctx), n_edges),
                                  (np.int32, np.uint32, np.uint32))
 
         def ttread(s, ctx, lo_ep, hi_ep):
@@ -477,22 +498,6 @@ class TorchAggregator:
         window: the rollup matrices alone then answer it exactly."""
         with self.lock:
             return all(ts_hi_min < lo or ts_lo_min > hi for lo, hi, _ in self._resident)
-
-    def _edge_topk(self, calls: torch.Tensor, errors: torch.Tensor):
-        """The first E nonzero cells of the call matrix by prefix-sum
-        compaction: (flat_index int32, calls u32, errors u32), each [E]."""
-        e = min(4096, self.config.max_services ** 2)
-        cf = calls.reshape(-1)
-        ef = errors.reshape(-1)
-        cs = torch.cumsum((cf > 0).to(torch.int64), 0)
-        want = torch.arange(1, e + 1, dtype=torch.int64, device=cf.device)
-        pos = torch.clamp(torch.searchsorted(cs, want, right=False), 0, cf.shape[0] - 1)
-        have = torch.arange(e, device=cf.device) < cs[-1]
-        return (
-            torch.where(have, pos, 0),
-            torch.where(have, cf[pos], 0),
-            torch.where(have, ef[pos], 0),
-        )
 
     def dependency_edges(self, ts_lo_min: int, ts_hi_min: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """(flat_index, calls, errors) [E] — the nonzero cells of the

@@ -60,6 +60,7 @@ import json
 import logging
 import threading
 import time
+import weakref
 import zlib
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional, Tuple
@@ -225,7 +226,10 @@ class ZipkinServer:
     port, read back from ``self.port``) and serves on a thread;
     ``stop()`` shuts the listener down, takes the final snapshot and closes
     the storage. ``device`` is where a store built here lives (the card
-    unless named)."""
+    unless named). ``seal_interval_s`` is the time tier's seal period only
+    with the windows off (``TPU_OBS_WINDOWS=0``); with them on, the seal
+    rides the windows ticker every ``TPU_OBS_TICK_S`` and only
+    ``seal_interval_s > 0`` (seal) against 0 (no seal) matters."""
 
     MAX_INFLATED = 256 * 1024 * 1024  # decompression-bomb guard
 
@@ -371,14 +375,16 @@ class ZipkinServer:
             from zipkin_tpu_torch.obs.accuracy import AccuracyEstimator
             from zipkin_tpu_torch.obs.shadow import HostShadow
 
+            core_ref = weakref.ref(core)
             self._obs_shadow = shadow = HostShadow(
                 reservoir_k=cfg.obs_shadow_reservoir_k,
                 distinct_k=cfg.obs_shadow_distinct_k,
                 link_rate=cfg.obs_shadow_link_rate,
                 pending_max=cfg.obs_shadow_pending_max,
                 max_services=core.config.max_services,
-                # read through core.agg at call time: clear() replaces it
-                sampler_ref=lambda: core.agg.sampler,
+                # read through core.agg at call time: clear() replaces it;
+                # weakly, as core holds the shadow
+                sampler_ref=lambda: getattr(getattr(core_ref(), "agg", None), "sampler", None),
                 # get, never intern: a read-side plane must not move the ids
                 svc_resolver=core.vocab.services.get,
                 bucket_minutes=(core.config.time_bucket_minutes

@@ -108,7 +108,8 @@ class ServerConfig:
     obs_selfspans_enabled: bool = False
     obs_budget_scale: float = 1.0
     # the windowed plane: a ticker takes per-tick deltas of the recorder
-    # and the store's counters (the time tier's seal rides it)
+    # and the store's counters (the time tier's seal rides it, so the
+    # server's seal_interval_s then only turns the seal on or off)
     obs_windows_enabled: bool = True
     obs_windows_tick_s: float = 1.0
     # the SLO burn-rate watchdog over the windowed plane

@@ -68,6 +68,7 @@ import os
 import tempfile
 import threading
 import time
+import weakref
 import zlib
 from typing import List, Optional, Sequence, Tuple
 
@@ -245,7 +246,8 @@ class TorchStorage(
         # aggregator lock's contention ledger, found through self.agg at
         # read time (clear() replaces the aggregator)
         self.querytrace = querytrace.QueryObservatory()
-        self.querytrace.lock_provider = lambda: getattr(self.agg, "lock", None)
+        store = weakref.ref(self)  # no cycle through the store's own plane
+        self.querytrace.lock_provider = lambda: getattr(getattr(store(), "agg", None), "lock", None)
         self._query_obs_enabled: Optional[bool] = None
         # the accuracy plane, attached by the server: the host shadow the
         # ingest paths offer their batches to, and its estimator
