@@ -90,7 +90,20 @@ Builds the hand-written kernels from the sources in the checkout, then:
     sections, self-spans under a posted B3 trace, /prometheus), the same
     server over TPU_MP_WORKERS=2 (j3: relayed and mp_* stages, the workers'
     rows, the shadow's fused taps), the entry point's /prometheus (j4) and
-    i2's fan-out tier with the plane on and off in pairs (j5). Phases a and a2 time the kernels with the device observatory off.
+    i2's fan-out tier with the plane on and off in pairs (j5). Phases a and a2 time the kernels with the device observatory off;
+(k) the critical-path tracer, the read mirror and scale-out readers: i2's
+    tier with the tracer on and off in pairs, every traced payload a
+    stitched timeline whose segments sum to its wall, a SIGKILLed worker
+    leaving no slot open (k1); one store fed at the line rate while 8
+    threads read, the mirror off and on: read walls, zero lock
+    acquisitions in mirror serves, the publish's lock hold, serve ages, and
+    mirror answers equal to fresh reads once quiet (k2); an in-process
+    server with a mirror segment and ``python -m zipkin_tpu_torch.serving``
+    with 2 reader processes: answers equal the server's at one generation,
+    503s on staleness, a miss served next epoch, a SIGKILLed reader
+    respawned, no torch in a reader (k3); the entry point with the tier,
+    the tracer and a segment: statusz's critpath, mirror and serving
+    sections and their families (k4).
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -112,6 +125,11 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 QS = [0.5, 0.9, 0.99]
+# a server's aggregate routes, asked for an exact answer: a default read may
+# serve the last published mirror epoch while the server's ticker holds the
+# aggregator lock (the mirror's contract; phase k measures it), and the
+# checks of phases f-j hold the routes to the state just written
+FRESH = {"staleness_ms": 0}
 
 
 def log(msg: str) -> None:
@@ -1559,18 +1577,18 @@ class HttpStore:
     def get_dependencies(self, end_ts, lookback):
         from zipkin_tpu_torch.model import json_v2
 
-        body = self.get("/api/v2/dependencies", {"endTs": end_ts, "lookback": lookback})
+        body = self.get("/api/v2/dependencies", {"endTs": end_ts, "lookback": lookback, **FRESH})
         return self._call(json_v2.decode_link_list(json.dumps(body).encode()))
 
     def trace_cardinalities(self):
-        return self.get("/api/v2/tpu/cardinalities")
+        return self.get("/api/v2/tpu/cardinalities", FRESH)
 
     def latency_quantiles(self, qs, use_digest=True):
         return self._rows(self.get("/api/v2/tpu/percentiles", {
-            "q": ",".join(map(str, qs)), "sketch": "digest" if use_digest else "hist"}))
+            "q": ",".join(map(str, qs)), "sketch": "digest" if use_digest else "hist", **FRESH}))
 
     def sketch_overview(self, qs):
-        body = self.get("/api/v2/tpu/overview", {"q": ",".join(map(str, qs))})
+        body = self.get("/api/v2/tpu/overview", {"q": ",".join(map(str, qs)), **FRESH})
         return {**body, "percentiles": self._rows(body["percentiles"])}
 
     def get_service_names(self):
@@ -1737,17 +1755,18 @@ def phase_server(seed: int, torch, card: str, stored: dict, cfg=None, device=Non
             "spans": ("/api/v2/spans", {"serviceName": svc}, lambda: store.get_span_names(svc).execute()),
             "remoteServices": ("/api/v2/remoteServices", {"serviceName": svc},
                                lambda: store.get_remote_service_names(svc).execute()),
-            "dependencies": ("/api/v2/dependencies", window,
+            "dependencies": ("/api/v2/dependencies", {**window, **FRESH},
                              lambda: [json_v2.link_to_dict(x) for x in store.get_dependencies(
-                                 truth.t_end, truth.lookback).execute()]),
+                                 truth.t_end, truth.lookback, staleness_ms=0).execute()]),
             "autocompleteKeys": ("/api/v2/autocompleteKeys", None, lambda: store.get_keys().execute()),
             "autocompleteValues": ("/api/v2/autocompleteValues", {"key": "env"},
                                    lambda: store.get_values("env").execute()),
-            "tpu/percentiles": ("/api/v2/tpu/percentiles", {"q": "0.5,0.9,0.99"},
-                                lambda: store.latency_quantiles(QS)),
-            "tpu/cardinalities": ("/api/v2/tpu/cardinalities", None, store.trace_cardinalities),
-            "tpu/overview": ("/api/v2/tpu/overview", {"q": "0.5,0.9,0.99"},
-                             lambda: {**store.sketch_overview(QS), "counters": None}),
+            "tpu/percentiles": ("/api/v2/tpu/percentiles", {"q": "0.5,0.9,0.99", **FRESH},
+                                lambda: store.latency_quantiles(QS, staleness_ms=0)),
+            "tpu/cardinalities": ("/api/v2/tpu/cardinalities", FRESH,
+                                  lambda: store.trace_cardinalities(staleness_ms=0)),
+            "tpu/overview": ("/api/v2/tpu/overview", {"q": "0.5,0.9,0.99", **FRESH},
+                             lambda: {**store.sketch_overview(QS, staleness_ms=0), "counters": None}),
             "tpu/counters": ("/api/v2/tpu/counters", None, None),
             "health": ("/health", None, lambda: {"status": "UP", "zipkin": {"tpu": {"status": "UP"}}}),
             "info": ("/info", None, None),
@@ -1837,10 +1856,11 @@ def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> di
                 if resp.status != 202:
                     raise AssertionError(f"phase f3: POST {resp.status}")
             got = http.get(f"/api/v2/trace/{trace[0].trace_id}")
-            deps = http.get("/api/v2/dependencies", {"endTs": now_ms + 60_000, "lookback": 3_600_000})
+            deps = http.get("/api/v2/dependencies", {"endTs": now_ms + 60_000, "lookback": 3_600_000,
+                                                     **FRESH})
             rows = [{"serviceName": "entry", "count": 1}, {"serviceName": "entry-db", "count": 1}]
             if storage == "tpu":
-                rows = http.get("/api/v2/tpu/percentiles", {"q": "0.5"})
+                rows = http.get("/api/v2/tpu/percentiles", {"q": "0.5", **FRESH})
             if len(got) != 2 or deps != [{"parent": "entry", "child": "entry-db", "callCount": 1}] \
                     or sorted((r["serviceName"], r["count"]) for r in rows) != [("entry", 1), ("entry-db", 1)]:
                 raise AssertionError(f"phase f3: read back {got}, {deps}, {rows}")
@@ -2132,10 +2152,10 @@ def phase_resume_entry(card: str, wire, spans, cold_boot_s: float, timeout_s: fl
 
     def reads(window):
         return dict(
-            dependencies=http.get("/api/v2/dependencies", window),
-            hist=http.get("/api/v2/tpu/percentiles", {"q": "0.5,0.9,0.99", "sketch": "hist"}),
-            digest=http.get("/api/v2/tpu/percentiles", {"q": "0.5,0.9,0.99"}),
-            cardinalities=http.get("/api/v2/tpu/cardinalities"),
+            dependencies=http.get("/api/v2/dependencies", {**window, **FRESH}),
+            hist=http.get("/api/v2/tpu/percentiles", {"q": "0.5,0.9,0.99", "sketch": "hist", **FRESH}),
+            digest=http.get("/api/v2/tpu/percentiles", {"q": "0.5,0.9,0.99", **FRESH}),
+            cardinalities=http.get("/api/v2/tpu/cardinalities", FRESH),
             spans=http.get("/api/v2/tpu/counters")["spans"],
         )
 
@@ -3332,10 +3352,11 @@ def phase_obs_server(seed: int, torch, card: str, stored: dict, cfg=None, device
         if statuses != [202] * len(wire):
             raise AssertionError(f"phase j2: POST statuses {sorted(set(statuses))}")
         window = {"endTs": truth.t_end, "lookback": truth.lookback}
-        reads = {"dependencies": ("/api/v2/dependencies", window),
-                 "quantiles": ("/api/v2/tpu/percentiles", {"q": "0.5,0.99"}),
-                 "cardinalities": ("/api/v2/tpu/cardinalities", None),
-                 "overview": ("/api/v2/tpu/overview", {"q": "0.5"})}
+        # the lock path's waterfalls (FRESH): phase k3 reads the mirror's
+        reads = {"dependencies": ("/api/v2/dependencies", {**window, **FRESH}),
+                 "quantiles": ("/api/v2/tpu/percentiles", {"q": "0.5,0.99", **FRESH}),
+                 "cardinalities": ("/api/v2/tpu/cardinalities", FRESH),
+                 "overview": ("/api/v2/tpu/overview", {"q": "0.5", **FRESH})}
         # each kind's fresh and cached read, then statusz: its stitch folds
         # what the ticker has not, so the slowest query folded since the
         # last read of the page is of this kind (a sealed-only window reads
@@ -3682,6 +3703,773 @@ def phase_obs(seed: int, torch, card: str, stored: dict, a2_ms: float, cfg=None,
     return fig
 
 
+def free_port_base(n: int) -> int:
+    """A base port with ``n + 1`` free ports from ``base - 1`` on (the
+    serving front end's aggregate surface sits at ``base - 1``)."""
+    import socket
+
+    for _ in range(50):
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = s.getsockname()[1] + 1
+        if base + n >= 65000:
+            continue
+        socks = []
+        try:
+            for p in range(base - 1, base + n):
+                sk = socket.socket()
+                socks.append(sk)
+                sk.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for sk in socks:
+                sk.close()
+    raise AssertionError("no free port range")
+
+
+def http_get(url: str, timeout: float = 60.0):
+    """(status, headers, body bytes) of one GET."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def tracer_host_ns(n: int = 4000) -> dict:
+    """The critical-path tracer's own host ns a payload, priced on a private
+    ledger: the dispatcher side's claim, enqueue stamp, four segment stamps
+    and ack (main process), the worker side's calibration and four stamps
+    (each parse worker, off the dispatcher's thread), and the stitcher's
+    fold of one timeline (the windows ticker)."""
+    from zipkin_tpu_torch.obs import critpath as cp
+
+    led = cp.CritPathLedger(1, 64)
+    view = cp.CritPathWorkerView(led.params(), 0)
+    try:
+        st = cp.CritPathStitcher(led, queue_capacity=8)
+        main_ns = worker_ns = fold_ns = 0
+        for k in range(n // 64):
+            t0 = time.perf_counter_ns()
+            slots = []
+            for i in range(64):
+                pid = k * 64 + i
+                s = led.alloc(pid, 0, 1 + i)
+                led.stamp(s, cp.SEG_ENQUEUE, 2, 3, pid)
+                for code in (cp.SEG_VOCAB_REPLAY, cp.SEG_DEVICE_FEED, cp.SEG_WAL_APPEND,
+                             cp.SEG_SHM_COPY):
+                    led.stamp(s, code, 10, 20, pid)
+                slots.append((s, pid))
+            t1 = time.perf_counter_ns()
+            for s, _ in slots:
+                view.calibrate()
+                for code in (cp.SEG_PARSE, cp.SEG_PACK, cp.SEG_ROUTE, cp.SEG_RING_WAIT):
+                    view.stamp(s, code, 4, 9)
+            t2 = time.perf_counter_ns()
+            for s, pid in slots:
+                led.ack(s, pid, 100)
+            t3 = time.perf_counter_ns()
+            if st.stitch() != 64:
+                raise AssertionError("tracer pricing: a fold lost a timeline")
+            t4 = time.perf_counter_ns()
+            main_ns += (t1 - t0) + (t3 - t2)
+            worker_ns += t2 - t1
+            fold_ns += t4 - t3
+        m = (n // 64) * 64
+        return dict(main_ns=main_ns / m, worker_ns=worker_ns / m, fold_ns=fold_ns / m)
+    finally:
+        view.close()
+        led.close()
+
+
+def phase_tracer(torch, card: str, stored: dict, cfg=None, device=None, workers=None) -> dict:
+    """(k1) the critical-path tracer on i2's tier (``workers`` parse workers,
+    ``coalesce_max=8``, 256 ledger slots), phase e's payloads a pass: one
+    warm-up and five pairs with the tracer on (each payload carries a wire
+    anchor, so the ledger traces it) and off (no anchor: no slot is
+    claimed), the first side alternating; the stitcher folds each traced
+    pass off the clock. Checks that every traced payload folds into a
+    timeline whose segments sum to its wall within the stitcher's 10% at
+    p50, and that update_step launches equal the dispatcher's groups. Then
+    one worker is SIGKILLed mid-pass: the drain completes and, after the
+    reclaim age, no ledger slot is left open. Prints wire-to-durable p50 and
+    p99, the top three segments by share, the Little's-law gauges, the
+    on/off verdict and the tracer's own host cost a payload
+    (:func:`tracer_host_ns`)."""
+    import os
+
+    from zipkin_tpu_torch.obs import critpath as cp
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.tpu.mp_ingest import MultiProcessIngester
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    wire, n_spans = stored["wire"], len(stored["spans"])
+    workers = workers or max(1, min(4, (os.cpu_count() or 1) - 2))
+    store = TorchStorage(config=cfg, device=device)
+    ing = MultiProcessIngester(store, workers=workers, coalesce_max=8, critpath_slots=256,
+                               critpath_reclaim_s=1.0)
+    stitcher, ledger = ing.critpath, ing._cp_ledger
+    folded = []
+
+    def run(on):
+        groups0 = ing.stats()["mpGroups"]
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        for p in wire:
+            cp.WIRE_T0_NS.set(time.perf_counter_ns() if on else 0)
+            ing.submit(p)
+        ing.drain()
+        store.agg.block_until_ready()
+        wall = time.perf_counter() - t0
+        cp.WIRE_T0_NS.set(0)
+        groups = ing.stats()["mpGroups"] - groups0
+        if hll_kernel.update_step.launches != groups:
+            raise AssertionError(f"phase k1: update_step launches {hll_kernel.update_step.launches}"
+                                 f" != {groups} dispatcher groups")
+        n = stitcher.stitch()
+        if n != (len(wire) if on else 0):
+            raise AssertionError(f"phase k1: {n} timelines folded from a pass of {len(wire)} "
+                                 f"payloads with the tracer {'on' if on else 'off'}")
+        folded.append(n)
+        return dict(on=on, spans_per_s=n_spans / wall, wall_ms=wall * 1e3, groups=groups,
+                    launches=hll_kernel.update_step.launches,
+                    update_launches=hll_kernel.update.launches)
+
+    try:
+        wait_ready(ing, "phase k1")
+        runs = paired_runs(run)
+        wf = stitcher.waterfall()
+        counters = stitcher.counters()
+        # a worker SIGKILLed mid-pass: its payloads re-ingest, its slots are
+        # abandoned, and no timeline stays open past the reclaim age
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        abandoned0 = ledger.abandoned
+        for i, p in enumerate(wire):
+            cp.WIRE_T0_NS.set(time.perf_counter_ns())
+            ing.submit(p)
+            if i == len(wire) // 4:
+                ing._procs[0].kill()
+        ing.drain()
+        cp.WIRE_T0_NS.set(0)
+        kill_launches = hll_kernel.update_step.launches
+        kill_update = hll_kernel.update.launches
+        time.sleep(1.2)  # past the reclaim age
+        stitcher.stitch()
+        open_slots = [s for s in range(ledger.slots) if ledger.state(s) != 0]
+        stats = ing.stats()
+    finally:
+        cp.WIRE_T0_NS.set(0)
+        ing.close()
+    if open_slots:
+        raise AssertionError(f"phase k1: {len(open_slots)} ledger slots stuck after the kill")
+    if store.agg.host_counters["spans"] != (len(runs) + 1) * n_spans:
+        raise AssertionError(f"phase k1: {store.agg.host_counters['spans']} spans landed, want "
+                             f"{(len(runs) + 1) * n_spans}")
+    if stats["mpWorkersAlive"] != workers - 1 or (
+            stats["mpFallbacks"] and ledger.abandoned - abandoned0 < 1):
+        raise AssertionError(f"phase k1: after the kill {stats['mpWorkersAlive']} workers alive, "
+                             f"{ledger.abandoned - abandoned0} slots abandoned")
+    traced = sum(folded)
+    if wf["timelines"] != traced or wf["skipped"] or abs(wf["conservation"]["p50"] - 1.0) > 0.10:
+        raise AssertionError(f"phase k1: {wf['timelines']} timelines of {traced} traced, "
+                             f"{wf['skipped']} skipped, conservation {wf['conservation']}")
+    total_us = sum(r["sumUs"] for r in wf["segments"]) or 1
+    top = sorted(wf["segments"], key=lambda r: -r["sumUs"])[:3]
+    price = tracer_host_ns()
+    verdict = on_off_verdict(runs)
+    payload_ms = statistics.median(r["wall_ms"] for r in runs if not r["warmup"]) / len(wire)
+    fig = dict(card=card, workers=workers, runs=runs, **verdict, timelines=wf["timelines"],
+               conservation=wf["conservation"], wire_to_durable=wf["wireToDurable"],
+               top_segments=[(r["segment"], r["sumUs"] / total_us) for r in top],
+               littles_law=wf["littlesLaw"], counters_lambda=counters["critpathLambdaCps"],
+               queue_wait=wf["queueWaitVsService"], price_ns=price,
+               price_share=(price["main_ns"] + price["fold_ns"]) / (payload_ms * 1e6),
+               abandoned=ledger.abandoned - abandoned0, reclaimed=stitcher.reclaimed,
+               fallbacks=stats["mpFallbacks"],
+               launches=sum(r["launches"] for r in runs) + kill_launches,
+               update_launches=sum(r["update_launches"] for r in runs) + kill_update)
+    log(f"phase k1 ({card}): the tracer on i2's tier ({workers} workers, coalesce_max=8, 256 "
+        f"slots), a warm-up and five pairs, tracer on/off: spans/s "
+        + ", ".join(f"{'warm-up ' if r['warmup'] else ''}{'on' if r['on'] else 'off'} "
+                    f"{r['spans_per_s']:.0f} ({r['groups']} steps)" for r in runs)
+        + f"; {verdict_text(verdict)}")
+    w2d = wf["wireToDurable"]
+    log(f"phase k1: {wf['timelines']} timelines stitched, {wf['skipped']} skipped; conservation "
+        f"p50 {wf['conservation']['p50']:.4f} (min {wf['conservation']['min']:.4f}, max "
+        f"{wf['conservation']['max']:.4f}); wire_to_durable p50 {w2d['p50Us'] / 1e3:.3f} ms, p99 "
+        f"{w2d['p99Us'] / 1e3:.3f} ms, max {w2d['maxUs'] / 1e3:.3f} ms; top segments by share "
+        + ", ".join(f"{name} {share:.3f}" for name, share in fig["top_segments"])
+        + f"; wait fraction {wf['queueWaitVsService']['waitFraction']:.4f}; Little's law "
+        + json.dumps(wf["littlesLaw"]))
+    log(f"phase k1: the tracer's own host ns a payload: {price['main_ns']:.0f} on the boundary and "
+        f"dispatcher threads, {price['worker_ns']:.0f} in a worker, {price['fold_ns']:.0f} to fold "
+        f"on the ticker ({fig['price_share'] * 100:.3f}% of a payload's {payload_ms:.3f} ms pass "
+        f"wall, main side and fold); a SIGKILLed worker: {fig['fallbacks']} payloads re-ingested, "
+        f"{fig['abandoned']} slots abandoned (a full queue's retries included), "
+        f"{fig['reclaimed']} reclaimed, 0 left open after the reclaim age; update_step launches "
+        f"{fig['launches']}")
+    return fig
+
+
+def phase_mirror(torch, card: str, stored: dict, cfg=None, device=None, readers: int = 8,
+                 tick_s: float = 0.25, passes: int = 1, think_s: float = 0.002,
+                 max_ingest_s: float = 60.0) -> dict:
+    """(k2) the read mirror in process: a fresh TorchStorage a setting, fed
+    phase e's payloads ``passes`` times at the line rate (f1's path,
+    ``Collector(fast_ingest=True)``) from one thread while ``readers``
+    threads loop over the four aggregate reads (dependencies over the
+    generator's window, percentiles, cardinalities, the overview), each
+    waiting ``think_s`` between its reads (polling clients: a closed loop
+    with no wait starves the one ingest thread of the GIL; the ingest stops
+    early past ``max_ingest_s``), once with
+    the mirror off and once on, a publisher thread calling
+    ``publish_mirror(paced=True)`` every ``tick_s`` (the server's ticker).
+    Prints each read kind's wall p50 and p99, the aggregator-lock
+    acquisitions made inside mirror serves (must be 0), the publish's ms
+    (its one lock hold, the device sync of the packed reads included), the
+    largest serve age against the bound and the ingest rate. After ingest
+    stops and one publish, every mirror answer equals the fresh read
+    (``staleness_ms=0``) byte for byte."""
+    import threading
+
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.model import json_v2
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    wire, n_spans = stored["wire"], len(stored["spans"])
+    truth = store_truth(stored["traffic"], cfg)
+    kinds = ("dependencies", "percentiles", "cardinalities", "overview")
+    fig = dict(card=card, readers=readers, tick_s=tick_s, passes=passes, launches=0,
+               update_launches=0)
+
+    def reads(store, kind, **kw):
+        if kind == "dependencies":
+            return [json_v2.link_to_dict(x) for x in
+                    store.get_dependencies(truth.t_end, truth.lookback, **kw).execute()]
+        if kind == "percentiles":
+            return store.latency_quantiles(QS, **kw)
+        if kind == "cardinalities":
+            return store.trace_cardinalities(**kw)
+        out = store.sketch_overview(QS, **kw)
+        return {"percentiles": out["percentiles"], "cardinalities": out["cardinalities"]}
+
+    for setting in ("off", "on"):
+        store = TorchStorage(config=cfg, device=device)
+        store.mirror.enabled = setting == "on"
+        collector = Collector(store, fast_ingest=True)
+        lock = store.agg.lock
+        tl = threading.local()
+        acquire = lock.acquire
+
+        def counting_acquire(*a, **k):
+            tl.n = getattr(tl, "n", 0) + 1
+            return acquire(*a, **k)
+
+        lock.acquire = counting_acquire
+        serve = store._mirror_serve
+        serve_lock_acq = [0, 0]  # acquisitions inside mirror serves, hits
+
+        def counted_serve(*a, **k):
+            n0 = getattr(tl, "n", 0)
+            hit = serve(*a, **k)
+            if hit is not None:
+                serve_lock_acq[0] += getattr(tl, "n", 0) - n0
+                serve_lock_acq[1] += 1
+            return hit
+
+        store._mirror_serve = counted_serve
+        walls = {k: [] for k in kinds}
+        done = threading.Event()
+        errors = []
+
+        def reader(i):
+            try:
+                k = i
+                while not done.is_set():
+                    kind = kinds[k % len(kinds)]
+                    t0 = time.perf_counter()
+                    reads(store, kind)
+                    walls[kind].append((time.perf_counter() - t0) * 1e3)
+                    k += 1
+                    done.wait(think_s)
+            except BaseException as e:  # surfaced after the join
+                errors.append(e)
+
+        def publisher():
+            try:
+                while not done.wait(tick_s):
+                    store.publish_mirror(paced=True)
+            except BaseException as e:
+                errors.append(e)
+
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        threads = [threading.Thread(target=reader, args=(i,)) for i in range(readers)]
+        if setting == "on":
+            threads.append(threading.Thread(target=publisher))
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        sent = 0
+        try:
+            for p in [p for _ in range(passes) for p in wire]:
+                if time.perf_counter() - t0 > max_ingest_s:
+                    break
+                collector.accept_spans_bytes(p)
+                sent += 1
+            store.agg.block_until_ready()
+        finally:
+            ingest_s = time.perf_counter() - t0
+            done.set()
+            for t in threads:
+                t.join(timeout=300)
+        if errors:
+            raise errors[0]
+        fig["launches"] += hll_kernel.update_step.launches
+        fig["update_launches"] += hll_kernel.update.launches
+        per = n_spans // len(wire)
+        if store.agg.host_counters["spans"] != sent * per:
+            raise AssertionError(f"phase k2: {store.agg.host_counters['spans']} spans landed of "
+                                 f"{sent} payloads")
+        res = dict(spans_per_s=sent * per / ingest_s, ingest_s=ingest_s, payloads=sent,
+                   reads={k: len(v) for k, v in walls.items()},
+                   p50_ms={k: float(np.percentile(v, 50)) for k, v in walls.items() if v},
+                   p99_ms={k: float(np.percentile(v, 99)) for k, v in walls.items() if v},
+                   serve_lock_acquisitions=serve_lock_acq[0], mirror_hits=serve_lock_acq[1])
+        c = store.ingest_counters()
+        res.update({k: c[k] for k in ("mirrorPublishes", "mirrorPublishSkips",
+                                      "mirrorPublishBackoffs", "mirrorServes", "mirrorStaleServes",
+                                      "mirrorMisses", "mirrorServeAgeMaxMs", "mirrorMaxStaleMs",
+                                      "queryLockContended", "queryLockWaitP99Us")})
+        res["publish_ms_mean"] = c["mirrorPublishMsSum"] / max(1, c["mirrorPublishes"])
+        if setting == "on":
+            if serve_lock_acq[0] or not serve_lock_acq[1]:
+                raise AssertionError(f"phase k2: {serve_lock_acq[0]} lock acquisitions in "
+                                     f"{serve_lock_acq[1]} mirror serves")
+            if res["mirrorServeAgeMaxMs"] > res["mirrorMaxStaleMs"]:
+                raise AssertionError(f"phase k2: a serve {res['mirrorServeAgeMaxMs']} ms stale")
+            # quiescent: one publish, then every mirror answer equals the fresh read
+            store._deps_max_stale_ms = 0.0  # the fresh dependency read takes no cached answer
+            t_pub = time.perf_counter()
+            store.publish_mirror(force=True)
+            res["quiet_publish_ms"] = (time.perf_counter() - t_pub) * 1e3
+            res["quiet_publish_keys"] = len(store.mirror.snapshot().values)
+            for kind in kinds:
+                serves = store.mirror.serves
+                mirrored = json.dumps(reads(store, kind), sort_keys=True)
+                if store.mirror.serves != serves + 1:
+                    raise AssertionError(f"phase k2: the quiescent {kind} read missed the mirror")
+                if mirrored != json.dumps(reads(store, kind, staleness_ms=0), sort_keys=True):
+                    raise AssertionError(f"phase k2: the mirror's {kind} differs from the fresh read")
+        else:
+            if res["mirrorServes"]:
+                raise AssertionError("phase k2: the disabled mirror served")
+        lock.acquire = acquire
+        fig[setting] = res
+        del store, collector
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    on, off = fig["on"], fig["off"]
+    log(f"phase k2 ({card}): one ingest thread ({passes} x phase e's payloads, f1's path) and "
+        f"{readers} reader threads ({think_s * 1e3:.0f} ms between reads); read wall ms p50/p99, "
+        f"mirror off -> on: "
+        + "; ".join(f"{k} {off['p50_ms'][k]:.3f}/{off['p99_ms'][k]:.3f} -> "
+                    f"{on['p50_ms'][k]:.3f}/{on['p99_ms'][k]:.3f} ({off['reads'][k]} -> "
+                    f"{on['reads'][k]} reads)" for k in kinds))
+    log(f"phase k2: ingest {off['spans_per_s']:.0f} spans/s mirror off ({off['payloads']} payloads "
+        f"in {off['ingest_s']:.1f} s), {on['spans_per_s']:.0f} on ({on['payloads']} in "
+        f"{on['ingest_s']:.1f} s); {on['mirrorPublishes']} publishes every {tick_s} s (paced; {on['mirrorPublishBackoffs']}"
+        f" backoffs, {on['mirrorPublishSkips']} skips) at {on['publish_ms_mean']:.3f} ms each, the "
+        f"lock hold with the packed reads' device sync ({on['quiet_publish_ms']:.3f} ms for "
+        f"{on['quiet_publish_keys']} keys once the readers stopped); {on['mirrorServes']} mirror serves "
+        f"({on['mirrorStaleServes']} stale, {on['mirrorMisses']} misses) with "
+        f"{on['serve_lock_acquisitions']} aggregator-lock acquisitions in {on['mirror_hits']} "
+        f"hits; largest serve age {on['mirrorServeAgeMaxMs']:.1f} ms against "
+        f"{on['mirrorMaxStaleMs']:.0f} ms; lock contended {off['queryLockContended']} -> "
+        f"{on['queryLockContended']}; after a quiescent publish the four mirror answers equal the "
+        f"fresh reads byte for byte")
+    return fig
+
+
+def phase_readers(torch, card: str, stored: dict, cfg=None, device=None, n_payloads: int = 16,
+                  serving_argv=None) -> dict:
+    """(k3) scale-out readers: an in-process server (the line-rate path, the
+    resume adapter with a 64 MiB mirror segment, windows every 0.25 s) takes
+    ``n_payloads`` of phase e's payloads, and ``python -m
+    zipkin_tpu_torch.serving`` runs 2 reader processes over its segment.
+    Each reader's four aggregate answers equal the ingest server's at one
+    segment generation; ``staleness_ms=0`` answers 503 with Retry-After; a
+    missed key answers 503 and then 200, equal to the server's, on the next
+    epoch; a SIGKILLed reader is respawned; a reader process maps no torch
+    library and the reader's imports load no torch. Prints the in-process
+    ``reader_serve`` µs (a decoded epoch, memoized and not), the HTTP round
+    trip to a reader against the ingest server's, and the segment's payload
+    bytes and serialize ms. SIGTERM stops the front end with exit 0."""
+    import dataclasses
+    import os
+    import signal
+    import tempfile
+
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.server.app import ZipkinServer
+    from zipkin_tpu_torch.server.config import ServerConfig
+    from zipkin_tpu_torch.serving.segment import MirrorSegment
+    from zipkin_tpu_torch.serving.shape import SegmentView
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    truth = store_truth(stored["traffic"], cfg)
+    hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+    config = ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", tpu_fast_ingest=True,
+                          tpu_archive_dir=None, obs_windows_tick_s=0.25, obs_shadow_enabled=False,
+                          tpu_mirror_segment_bytes=64 << 20, tpu_readers=2,
+                          tpu_agg=dataclasses.asdict(cfg))
+    server = ZipkinServer(config, device=device, seal_interval_s=1.0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    core = server.storage
+    seg = core.mirror_segment
+    pb = free_port_base(2)
+    rbase = [f"http://127.0.0.1:{pb + i}" for i in range(2)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TPU_MIRROR_SEGMENT=seg.name, TPU_READERS="2",
+               TPU_READER_PORT_BASE=str(pb))
+    cmd = serving_argv or [sys.executable, "-m", "zipkin_tpu_torch.serving"]
+    routes = [("/api/v2/dependencies", {"endTs": truth.t_end, "lookback": truth.lookback}),
+              ("/api/v2/tpu/percentiles", {}),
+              ("/api/v2/tpu/cardinalities", {}),
+              ("/api/v2/tpu/overview", {})]
+
+    def url(b, path, params):
+        import urllib.parse
+
+        return b + path + ("?" + urllib.parse.urlencode(params) if params else "")
+
+    def answer(b, path, params):
+        status, headers, body = http_get(url(b, path, params))
+        if status != 200:
+            return status, headers, body
+        got = json.loads(body)
+        if path.endswith("overview"):
+            got.pop("counters")  # the reader's are the publish instant's
+        return status, headers, json.dumps(got, sort_keys=True)
+
+    fig = dict(card=card)
+    with tempfile.TemporaryFile() as out:
+        proc = None
+        try:
+            for p in stored["wire"][:n_payloads]:
+                if post_body(base, p) != 202:
+                    raise AssertionError("phase k3: a POST was not answered 202")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+            for b in rbase:
+                while not _up(b):
+                    if proc.poll() is not None:
+                        raise AssertionError(f"phase k3: the front end exited {proc.returncode}")
+                    if time.perf_counter() - t0 > 120:
+                        raise AssertionError("phase k3: a reader did not come up in 120 s")
+                    time.sleep(0.1)
+            fig["readers_up_s"] = time.perf_counter() - t0
+            # first touches miss and register; the ticker's next epoch carries
+            # them (it also seals the time tier first), and with no write
+            # and no new demand after it the ticker republishes nothing
+            deadline = time.monotonic() + 60
+            while not all(answer(b, path, params)[0] == 200 for b in rbase for path, params in routes):
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase k3: the readers' keys were never published")
+                time.sleep(0.1)
+            ticks = server._obs_windows.ticks
+            while server._obs_windows.ticks < ticks + 2:
+                time.sleep(0.05)
+            gen = seg.generation()
+            for i, b in enumerate(rbase):
+                for path, params in routes:
+                    want = answer(base, path, params)
+                    got = answer(b, path, params)
+                    if got[0] != 200 or got[2] != want[2]:
+                        raise AssertionError(f"phase k3: reader r{i} {path}: {got[0]} differs "
+                                             f"from the ingest server's")
+                    if float(got[1]["X-Staleness-Ms"]) < 0.0:
+                        raise AssertionError("phase k3: a negative staleness")
+            if seg.generation() != gen:
+                raise AssertionError("phase k3: the segment moved during the comparison")
+            # a fresh read is not a reader's to serve
+            status, headers, _ = http_get(rbase[0] + "/api/v2/tpu/cardinalities?staleness_ms=0")
+            if status != 503 or headers.get("Retry-After") != "1":
+                raise AssertionError(f"phase k3: staleness_ms=0 answered {status} {headers}")
+            # a missed key: 503 now, served on the next epoch
+            miss = ("/api/v2/tpu/percentiles", {"q": "0.25,0.75"})
+            status, headers, _ = http_get(url(rbase[1], *miss))
+            if status != 503 or "Retry-After" not in headers:
+                raise AssertionError(f"phase k3: a missed key answered {status}")
+            deadline = time.monotonic() + 30
+            while (got := answer(rbase[1], *miss))[0] != 200:
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase k3: the missed key was never served")
+                time.sleep(0.05)
+            if got[2] != answer(base, *miss)[2]:
+                raise AssertionError("phase k3: the missed key's answer differs from the server's")
+            fig["miss_served_s"] = 30 - (deadline - time.monotonic())
+            # the reader process: no torch mapped
+            pid = json.loads(http_get(rbase[0] + "/metrics")[2])["reader"]["readerPid"]
+            with open(f"/proc/{pid}/maps") as f:
+                maps = f.read()
+            libs = [lib for lib in ("libtorch", "libc10", "libcuda", "libcudart") if lib in maps]
+            if libs:
+                raise AssertionError(f"phase k3: reader r0 maps {libs}")
+            check = subprocess.run(
+                [sys.executable, "-c", "import sys\nfrom zipkin_tpu_torch.serving import reader, "
+                 "supervisor, segment, shape\nimport zipkin_tpu_torch.serving.__main__\nprint(sorted("
+                 "m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'zipkin_tpu')))"],
+                cwd=root, capture_output=True, text=True, timeout=120)
+            if check.returncode != 0 or check.stdout.strip() != "[]":
+                raise AssertionError(f"phase k3: the reader's imports load {check.stdout.strip()} "
+                                     f"{check.stderr[-500:]}")
+            fig["reader_modules"] = check.stdout.strip()
+            # one HTTP round trip to a reader against the ingest server's; a
+            # quiet server publishes no epoch, and a reader answers 503 once
+            # its epoch is older than the 5 s bound, so both take a wide one
+            fig["http_ms"] = {}
+            for name, b in (("reader", rbase[0]), ("server", base)):
+                fig["http_ms"][name] = {}
+                for path, params in routes:
+                    wide = {**params, "staleness_ms": 600_000}
+                    if http_get(url(b, path, wide))[0] != 200:
+                        raise AssertionError(f"phase k3: {name} {path} did not answer 200")
+                    fig["http_ms"][name][path.rsplit("/", 1)[1]] = median_ms(
+                        lambda: http_get(url(b, path, wide)), reps=21)
+            # SIGKILL a reader: the supervisor respawns it
+            os.kill(pid, signal.SIGKILL)
+            deadline = time.monotonic() + 60
+            while True:
+                st = http_get(f"http://127.0.0.1:{pb - 1}/statusz")
+                if st[0] == 200 and json.loads(st[2])["respawns"] >= 1 and _up(rbase[0]):
+                    new_pid = json.loads(http_get(rbase[0] + "/metrics")[2])["reader"]["readerPid"]
+                    if new_pid != pid:
+                        break
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase k3: the killed reader was not respawned")
+                time.sleep(0.1)
+            fig["respawn_s"] = 60 - (deadline - time.monotonic())
+            prom = http_get(f"http://127.0.0.1:{pb - 1}/prometheus")[2].decode()
+            if 'zipkin_tpu_reader_up{reader="r0"} 1' not in prom or \
+                    "zipkin_tpu_reader_supervisor_respawns 1" not in prom:
+                raise AssertionError("phase k3: the aggregate /prometheus lacks the readers")
+            # reader_serve in process: a decoded epoch's serve, memoized and not
+            att = MirrorSegment(name=seg.name)
+            view = SegmentView(att, 1)
+            try:
+                view.serve_cardinalities(staleness_ms=600_000)
+                fig["reader_serve_us"] = {
+                    "memoized": median_ms(lambda: view.serve_cardinalities(staleness_ms=600_000),
+                                          reps=101) * 1e3,
+                    "decode": median_ms(lambda: (setattr(view, "_ep", None),
+                                                 view.serve_cardinalities(staleness_ms=600_000)),
+                                        reps=11) * 1e3,
+                }
+            finally:
+                del view
+                att.close()
+            pids = [json.loads(http_get(b + "/metrics")[2])["reader"]["readerPid"] for b in rbase]
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            if rc != 0:
+                raise AssertionError(f"phase k3: the front end exited {rc} after SIGTERM")
+            for reader_pid in pids:  # the front end stopped its readers
+                if os.path.exists(f"/proc/{reader_pid}") and \
+                        open(f"/proc/{reader_pid}/stat").read().split()[2] != "Z":
+                    raise AssertionError(f"phase k3: reader {reader_pid} outlived its front end")
+            # the front end and its readers exited: the segment is still there
+            MirrorSegment(name=seg.name).close()
+            c = core.ingest_counters()
+            fig.update(payload_bytes=c["segmentPayloadBytes"], serialize_ms=c["segmentSerializeMs"],
+                       segment_publishes=c["segmentPublishes"], generation=gen,
+                       reader_serve_age_ms=c["readerServeAgeMs"])
+        except BaseException:
+            out.seek(0)
+            log("phase k3: serving output:\n" + out.read().decode(errors="replace")[-4000:])
+            raise
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+                _kill_readers(pb)
+            server.stop()
+    fig.update(launches=hll_kernel.update_step.launches, update_launches=hll_kernel.update.launches)
+    log(f"phase k3 ({card}): python -m zipkin_tpu_torch.serving, 2 readers up in "
+        f"{fig['readers_up_s']:.1f} s over a {64 << 20}-byte segment; every reader's four answers "
+        f"equal the server's at generation {gen}; staleness_ms=0 -> 503 Retry-After 1; a missed "
+        f"key 503 then served {fig['miss_served_s']:.2f} s later; a SIGKILLed reader respawned in "
+        f"{fig['respawn_s']:.1f} s; reader maps no torch, its imports load {fig['reader_modules']}")
+    log(f"phase k3: reader_serve us (in process): memoized {fig['reader_serve_us']['memoized']:.1f},"
+        f" with the epoch's decode {fig['reader_serve_us']['decode']:.1f}; HTTP ms median of 21, "
+        f"reader / server: " + ", ".join(
+            f"{k} {fig['http_ms']['reader'][k]:.3f} / {fig['http_ms']['server'][k]:.3f}"
+            for k in fig["http_ms"]["reader"])
+        + f"; segment payload {fig['payload_bytes']} bytes serialized in {fig['serialize_ms']:.3f} "
+        f"ms ({fig['segment_publishes']} publishes); update_step launches {fig['launches']}")
+    return fig
+
+
+def _kill_readers(port_base: int) -> None:
+    """After a failure, SIGKILL the reader processes listening from
+    ``port_base`` on (a killed front end leaves its children)."""
+    import os
+    import signal
+
+    for i in range(2):
+        try:
+            body = http_get(f"http://127.0.0.1:{port_base + i}/metrics", timeout=5)[2]
+            os.kill(json.loads(body)["reader"]["readerPid"], signal.SIGKILL)
+        except (OSError, ValueError, KeyError):
+            pass
+
+
+def _up(base: str) -> bool:
+    try:
+        return http_get(base + "/health", timeout=5)[0] == 200
+    except OSError:
+        return False
+
+
+def phase_serve_entry(card: str, wire, timeout_s: float = 180.0, argv=None, env_extra=None) -> dict:
+    """(k4) ``python -m zipkin_tpu_torch.server`` with the tier
+    (``TPU_MP_WORKERS=2``), the tracer and the mirror on and a 64 MiB mirror
+    segment, windows every 0.5 s: 8 payloads POSTed (a client that backs
+    off on 429), then statusz's ``critpath``, ``mirror`` and ``serving``
+    sections and the ``zipkin_tpu_critpath_segment_*``, ``mirror`` and
+    ``segment`` families of /prometheus each carry a signal; SIGTERM ->
+    exit 0."""
+    import os
+    import signal
+    import tempfile
+
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    base = f"http://127.0.0.1:{port}"
+    env = dict(os.environ, TPU_FAST_INGEST="1", TPU_MP_WORKERS="2", TPU_ARCHIVE_DIR="off",
+               TPU_OBS_TICK_S="0.5", TPU_MIRROR_SEGMENT_BYTES=str(64 << 20), TPU_READERS="2",
+               QUERY_HOST="127.0.0.1", **(env_extra or {}))
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = (argv or [sys.executable, "-m", "zipkin_tpu_torch.server"]) + [
+        "--port", str(port), "--storage", "tpu"]
+    fig = dict(card=card)
+    with tempfile.TemporaryFile() as out:
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+        try:
+            while not _up(base):
+                if proc.poll() is not None:
+                    raise AssertionError(f"phase k4: the server exited {proc.returncode} early")
+                if time.perf_counter() - t0 > timeout_s:
+                    raise AssertionError(f"phase k4: /health not UP within {timeout_s} s")
+                time.sleep(0.25)
+            fig["boot_s"] = time.perf_counter() - t0
+            for p in wire[:8]:
+                while (status := post_body(base, p)) == 429:
+                    time.sleep(0.005)
+                if status != 202:
+                    raise AssertionError(f"phase k4: POST answered {status}")
+            for path in ("/api/v2/tpu/cardinalities", "/api/v2/tpu/percentiles"):
+                http_get(base + path)
+            deadline = time.monotonic() + 60
+            while True:
+                st = json.loads(http_get(base + "/api/v2/tpu/statusz")[2])
+                cpw, mir, srv = st.get("critpath", {}), st.get("mirror", {}), st.get("serving", {})
+                if (cpw.get("timelines", 0) >= 8 and mir.get("mirrorPublishes", 0) >= 2
+                        and srv.get("publishes", 0) >= 2 and mir.get("snapshot")):
+                    break
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"phase k4: statusz critpath {cpw.get('timelines')} "
+                                         f"mirror {mir.get('mirrorPublishes')} serving "
+                                         f"{srv.get('publishes')}")
+                time.sleep(0.25)
+            prom = http_get(base + "/prometheus")[2].decode()
+            families = {line.split()[2] for line in prom.splitlines() if line.startswith("# TYPE")}
+            want = {"zipkin_tpu_critpath_segment_count_total", "zipkin_tpu_critpath_timelines",
+                    "zipkin_tpu_mirror_publishes", "zipkin_tpu_mirror_serve_age_ms",
+                    "zipkin_tpu_segment_publishes", "zipkin_tpu_segment_payload_bytes",
+                    "zipkin_tpu_reader_serve_age_ms"}
+            if not want <= families or "zipkin_tpu_critpath_timelines 0" in prom \
+                    or "zipkin_tpu_segment_publishes 0" in prom:
+                raise AssertionError(f"phase k4: /prometheus lacks {sorted(want - families)} or "
+                                     f"carries no signal")
+            metrics = json.loads(http_get(base + "/metrics")[2])
+            if not metrics.get("gauge.zipkin_tpu.critpathTimelines") or \
+                    not metrics.get("gauge.zipkin_tpu.mirrorPublishes"):
+                raise AssertionError("phase k4: /metrics lacks the critpath or mirror gauges")
+            fig.update(timelines=cpw["timelines"], conservation_p50=cpw["conservation"]["p50"],
+                       mirror_publishes=mir["mirrorPublishes"], segment_publishes=srv["publishes"],
+                       segment=srv["name"], families=len(families))
+            t1 = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+            fig["stop_s"] = time.perf_counter() - t1
+            if rc != 0:
+                raise AssertionError(f"phase k4: exit code {rc} after SIGTERM")
+        except BaseException:
+            out.seek(0)
+            log("phase k4: server output:\n" + out.read().decode(errors="replace")[-4000:])
+            raise
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    log(f"phase k4 ({card}): TPU_MP_WORKERS=2 TPU_MIRROR_SEGMENT_BYTES={64 << 20} python -m "
+        f"zipkin_tpu_torch.server: /health UP in {fig['boot_s']:.1f} s; statusz critpath "
+        f"{fig['timelines']} timelines (conservation p50 {fig['conservation_p50']:.4f}), mirror "
+        f"{fig['mirror_publishes']} publishes, serving {fig['segment_publishes']} segment publishes "
+        f"({fig['segment']}); /prometheus {len(families)} families with the critpath, mirror and "
+        f"segment ones; SIGTERM -> exit 0 in {fig['stop_s']:.2f} s")
+    return fig
+
+
+def phase_serve(torch, card: str, stored: dict, cfg=None, device=None, workers=None,
+                serving_argv=None, entry_argv=None, entry_env=None) -> dict:
+    """(k) the critical-path tracer, the read mirror and scale-out readers:
+    k1 (:func:`phase_tracer`), k2 (:func:`phase_mirror`), k3
+    (:func:`phase_readers`) and k4 (:func:`phase_serve_entry`). Returns each
+    part's figures and the phase's update_step and update launches, each
+    part's counted from 0 just before it; no part may launch the
+    single-target kernel."""
+    parts = {
+        "k1": lambda: phase_tracer(torch, card, stored, cfg=cfg, device=device, workers=workers),
+        "k2": lambda: phase_mirror(torch, card, stored, cfg=cfg, device=device),
+        "k3": lambda: phase_readers(torch, card, stored, cfg=cfg, device=device,
+                                    serving_argv=serving_argv),
+        "k4": lambda: phase_serve_entry(card, stored["wire"], argv=entry_argv, env_extra=entry_env),
+    }
+    fig = {}
+    for name, part in parts.items():
+        t0 = time.perf_counter()
+        fig[name] = part()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        fig[name]["seconds"] = time.perf_counter() - t0
+    log("phase k parts, s: " + ", ".join(f"{k} {fig[k]['seconds']:.1f}" for k in parts))
+    parts = ("k1", "k2", "k3")
+    fig["launches"] = sum(fig[k]["launches"] for k in parts)
+    fig["update_launches"] = sum(fig[k]["update_launches"] for k in parts)
+    if fig["update_launches"]:
+        raise AssertionError(f"phase k: {fig['update_launches']} single-target launches")
+    if not all(fig[k]["launches"] for k in parts):
+        raise AssertionError(f"phase k: update_step did not launch in every part: "
+                             f"{[fig[k]['launches'] for k in parts]}")
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -3776,6 +4564,10 @@ def main() -> int:
     observed = phase_obs(args.seed, torch, card, stored, a2_ms)
     torch.cuda.empty_cache()
     log(f"phase j done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    served_k = phase_serve(torch, card, stored)
+    torch.cuda.empty_cache()
+    log(f"phase k done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -3792,7 +4584,9 @@ def main() -> int:
     # those of the parse fan-out's (i1-i5, the i3 replay included; each
     # part's count is in launches_phase_i_parts) and launches_phase_j those
     # of the observability plane's (j1's eleven runs, j2's and j3's servers,
-    # j5's eleven passes; each part's count is in launches_phase_j_parts).
+    # j5's eleven passes; each part's count is in launches_phase_j_parts) and
+    # launches_phase_k those of the tracer, mirror and readers' (k1's twelve
+    # passes, k2's two stores, k3's server; launches_phase_k_parts).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -3807,6 +4601,7 @@ def main() -> int:
              launches_phase_h=archived["update_launches"],
              launches_phase_i=0,
              launches_phase_j=observed["update_launches"],
+             launches_phase_k=served_k["update_launches"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -3827,6 +4622,8 @@ def main() -> int:
              launches_phase_j=observed["launches"],
              launches_phase_j_parts={k: observed[k]["launches"] for k in ("j1", "j2", "j3", "j5")},
              event_ms_phase_j1=observed["j1"]["kernel_event_ms"],
+             launches_phase_k=served_k["launches"],
+             launches_phase_k_parts={k: served_k[k]["launches"] for k in ("k1", "k2", "k3")},
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

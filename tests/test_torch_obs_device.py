@@ -176,12 +176,27 @@ def _cleared_store():
     return store, [old]
 
 
-@pytest.mark.parametrize("make", [_store_with_planes, _store_with_accuracy, _cleared_store],
-                         ids=["query_plane", "accuracy", "clear"])
+def _store_with_published_mirror_and_segment():
+    from zipkin_tpu_torch.serving.segment import MirrorSegment
+
+    store = TorchStorage(config=SMALL, device="cpu")
+    store.latency_quantiles([0.5, 0.99])  # a miss registers a key of its own
+    segment = MirrorSegment(readers=1, capacity=1 << 20)
+    store.attach_mirror_segment(segment)
+    assert store.publish_mirror(force=True) and store._segment_publisher.publishes == 1
+    store.mirror.segment_sink = None
+    segment.close()
+    return store, [store, store.agg]
+
+
+@pytest.mark.parametrize("make", [_store_with_planes, _store_with_accuracy, _cleared_store,
+                                  _store_with_published_mirror_and_segment],
+                         ids=["query_plane", "accuracy", "clear", "mirror_segment"])
 def test_a_dropped_store_frees_its_state_without_the_cycle_collector(make):
-    """The wrapped programs, the query plane's lock provider and the
-    accuracy estimator hold no strong cycle through the store or its
-    aggregator, so dropping them frees the device state at once."""
+    """The wrapped programs, the query plane's lock provider, the accuracy
+    estimator and the read mirror (its demand closures and segment sink)
+    hold no strong cycle through the store or its aggregator, so dropping
+    them frees the device state at once."""
     import gc
     import weakref
 
@@ -191,6 +206,60 @@ def test_a_dropped_store_frees_its_state_without_the_cycle_collector(make):
         store, watched = make()
         refs = [weakref.ref(o) for o in watched]
         del store, watched
+        assert [r() is None for r in refs] == [True] * len(refs)
+    finally:
+        gc.enable()
+
+
+@pytest.mark.parametrize("planes", ["default", "every_plane"])
+def test_a_stopped_dropped_server_frees_its_store_without_the_cycle_collector(planes, tmp_path):
+    """A ZipkinServer that ran (a POST, the aggregate reads, statusz, a few
+    ticks) and stopped holds no cycle through itself or its store: dropping
+    it frees the aggregator at once."""
+    import gc
+    import json
+    import time
+    import urllib.request
+    import weakref
+
+    from zipkin_tpu_torch.model import json_v2
+    from zipkin_tpu_torch.model.span import Endpoint, Span
+    from zipkin_tpu_torch.server.app import ZipkinServer
+    from zipkin_tpu_torch.server.config import ServerConfig
+    from zipkin_tpu_torch.storage.tpu import TorchStorage as Adapter
+
+    extra, adapter = {}, {}
+    if planes == "every_plane":
+        extra = dict(obs_selfspans_enabled=True, self_tracing_enabled=True,
+                     obs_incident_dir=str(tmp_path / "incidents"))
+        adapter = dict(mirror_segment_bytes=1 << 20)
+    gc.collect()
+    gc.disable()
+    try:
+        store = Adapter(config=SMALL, device="cpu", batch_size=256, **adapter)
+        server = ZipkinServer(ServerConfig(host="127.0.0.1", port=0, storage_type="tpu",
+                                           obs_windows_tick_s=0.05, **extra),
+                              storage=store).start()
+        base = f"http://127.0.0.1:{server.port}"
+        spans = [Span.create(trace_id=f"{t + 1:016x}", id=f"{t + 1:016x}", name="op",
+                             timestamp=1_700_000_000_000_000 + t, duration=100,
+                             local_endpoint=Endpoint.create("svc"))
+                 for t in range(50)]
+        req = urllib.request.Request(base + "/api/v2/spans", data=json_v2.encode_span_list(spans),
+                                     headers={"Content-Type": "application/json"}, method="POST")
+        assert urllib.request.urlopen(req, timeout=60).status == 202
+        for path in ("/api/v2/tpu/percentiles", "/api/v2/tpu/cardinalities",
+                     "/api/v2/tpu/statusz", "/prometheus"):
+            assert urllib.request.urlopen(base + path, timeout=60).status == 200
+        deadline = time.monotonic() + 30
+        while server._obs_windows.ticks < 3 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        status = json.loads(urllib.request.urlopen(base + "/api/v2/tpu/statusz", timeout=60).read())
+        if planes == "every_plane":
+            assert status["mirror"]["mirrorPublishes"] >= 1 and "serving" in status
+        server.stop()
+        refs = [weakref.ref(o) for o in (server, store, store.agg)]
+        del server, store, req, status
         assert [r() is None for r in refs] == [True] * len(refs)
     finally:
         gc.enable()

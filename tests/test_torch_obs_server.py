@@ -25,11 +25,9 @@ from zipkin_tpu_torch.server.app import ZipkinServer
 from zipkin_tpu_torch.server.config import ServerConfig
 from zipkin_tpu_torch.storage.memory import InMemoryStorage
 
-# the reference's planes this slice leaves out (the critical-path tracer,
-# the read mirror and its serving segment, overload and tenant admission)
-LEFT_OUT_SECTIONS = {"critpath", "mirror", "serving", "overload"}
-LEFT_OUT_NAMES = ("mirror", "overload", "tenant", "reader", "critpath", "segment",
-                  "read_cache_stale", "readCacheStale", "deadlineExpired")
+# the reference's planes the port leaves out (overload and tenant admission)
+LEFT_OUT_SECTIONS = {"overload"}
+LEFT_OUT_NAMES = ("overload", "tenant", "read_cache_stale", "readCacheStale", "deadlineExpired")
 
 READS = [
     ("POST", "/api/v2/spans", TRACE_BODY, {"Content-Type": "application/json"}, None),
@@ -60,7 +58,8 @@ def pages(tmp_path_factory):
             assert client.request(method, path, data, headers, params)[0] in (200, 202)
         deadline = time.monotonic() + 30
         while (time.monotonic() < deadline
-               and (server._accuracy.rollups < 1 or server._obs_windows.ticks < 1)):
+               and (server._accuracy.rollups < 1 or server._obs_windows.ticks < 1
+                    or server._mirror.publishes < 1)):
             time.sleep(0.05)
         got = [client.request(*r[:2]) for r in PAGES]
     finally:
@@ -73,7 +72,7 @@ def test_statusz_has_the_reference_sections_and_keys(pages):
     got, want = (json.loads(p[0]) for p in pages)
     assert set(got) == set(want) - LEFT_OUT_SECTIONS
     assert {"stages", "slow", "recorder", "windows", "slo", "accuracy", "device", "queries",
-            "incidents"} <= set(got)
+            "mirror", "incidents"} <= set(got)
     for section in set(got) - {"slow"}:
         assert set(got[section]) == set(want[section]), section
     assert set(got["stages"]) == set(want["stages"])  # the 29 stages

@@ -21,8 +21,10 @@ injected allocation failure is answered as the same backpressure.
 
 An object-path decode is the flight recorder's ``parse`` stage, and a
 ``shadow`` (:class:`~zipkin_tpu_torch.obs.shadow.HostShadow`) is offered
-the object path's sampled spans. Left out, against the reference:
-overload and tenant admission and the ingest critical-path stamps.
+the object path's sampled spans. A payload handed to the tier without a
+server boundary's wire anchor (``critpath.WIRE_T0_NS``) is anchored at the
+collector's entry, so direct callers get critical-path timelines too. Left
+out, against the reference: overload and tenant admission.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import time
 from typing import Dict, List, Optional, Sequence
 
 from zipkin_tpu_torch import faults, obs
+from zipkin_tpu_torch.obs import critpath
 from zipkin_tpu_torch.model import codec
 from zipkin_tpu_torch.model.span import Span
 from zipkin_tpu_torch.storage.spi import FastIngestError, StorageComponent
@@ -181,11 +184,20 @@ class Collector:
             # a payload when that path is off. Non-blocking: a full tier
             # answers at once. A malformed payload is counted and dropped
             # by the dispatcher, as an at-least-once transport would
+            tok = None
+            if critpath.WIRE_T0_NS.get() == 0:
+                # a caller without a server boundary still gets timelines,
+                # measured from here; reset, so a long-lived thread stamps
+                # afresh for each payload
+                tok = critpath.WIRE_T0_NS.set(time.perf_counter_ns())
             try:
                 self.mp_ingester.submit(data, block=False)
             except IngestBackpressure:
                 self.metrics.increment_messages_dropped()
                 raise
+            finally:
+                if tok is not None:
+                    critpath.WIRE_T0_NS.reset(tok)
             return 0
         if fast:
             try:

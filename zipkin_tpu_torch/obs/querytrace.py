@@ -37,8 +37,8 @@ lock shows up as ``lock_wait``. Three pieces:
   real self-span timeline through the SelfSpanEmitter.
 
 ``begin``/``finish``/``stamp_active`` run on host threads only, never
-inside a device program. The port has no read mirror yet, so nothing
-stamps ``mirror_serve`` or ``reader_serve``.
+inside a device program. The store's mirror serve stamps ``mirror_serve``
+and a reader process's serve (``serving/shape.py``) ``reader_serve``.
 """
 
 from __future__ import annotations

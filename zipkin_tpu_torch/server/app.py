@@ -23,11 +23,19 @@ Routes and status codes follow the reference:
   gauges);
 - ``GET /api/v2/tpu/statusz`` (the observability plane's debug page: the
   flight recorder's stage table, its slow-event ring and its own cost, the
-  sampler, durability, windows, SLO, accuracy, device, workers, queries and
-  incidents sections) and ``GET /prometheus`` (the exposition format: the
-  collector's counters, the store's flat gauges, the stage latency
-  histogram with exemplars, and the worker, query-lock, query-segment,
-  accuracy and SLO families).
+  sampler, durability, windows, SLO, accuracy, device, workers, critpath,
+  queries, mirror, serving and incidents sections) and ``GET /prometheus``
+  (the exposition format: the collector's counters, the store's flat gauges
+  with the ``critpath``, ``mirror``, ``segment`` and ``reader`` families,
+  the stage latency histogram with exemplars, and the worker, critical-path
+  segment, query-lock, query-segment, accuracy and SLO families).
+
+The four aggregate routes take ``staleness_ms`` (400 when it is not a
+number), passed on only to a store with a read mirror: the bound of a
+mirror serve, <= 0 for a fresh read. With ``TPU_MIRROR_SEGMENT_BYTES`` the
+resume adapter also publishes each epoch into a shared-memory segment that
+``python -m zipkin_tpu_torch.serving`` serves from (statusz's ``serving``
+section names it).
 
 With ``TPU_MP_WORKERS`` > 0, the line-rate path on and the device store,
 the server builds the multi-process ingest tier
@@ -36,10 +44,12 @@ go to its parse workers and are answered 202 on hand-off.
 
 Each request runs on its own thread. The observability plane's ticker
 (``TPU_OBS_WINDOWS``, every ``TPU_OBS_TICK_S``) takes the windowed deltas
-and, in the reference's order, rolls up the accuracy plane, folds the
-query traces, seals the store's time tier and evaluates the SLOs; with the
-windows off a thread of its own seals the time tier every
-``seal_interval_s`` (0: no seal on either). With a checkpoint dir another
+and, in the reference's order, rolls up the accuracy plane, stitches the
+tier's critical-path ledger, folds the query traces, seals the store's time
+tier, publishes a read-mirror epoch (paced) and evaluates the SLOs; with
+the windows off a thread of its own seals the time tier every
+``seal_interval_s`` (0: no seal on either). A POST's body read is the
+critical path's wire anchor (``critpath.WIRE_T0_NS``). With a checkpoint dir another
 thread snapshots the store every ``TPU_SNAPSHOT_INTERVAL_S``; the store's
 own scrubber thread re-verifies its files every ``TPU_SCRUB_INTERVAL_S``.
 ``SELF_TRACING_ENABLED`` traces each request into the store, and
@@ -50,8 +60,10 @@ within the same limit, stops the scrubber, and takes a final snapshot after
 the listener and both tickers have stopped. Left out, against the
 reference: gRPC, scribe, the UI and ``/config.json``, deadlines, overload
 and tenant admission (so a 429 carries no ``Retry-After`` unless its
-exception does), and statusz's ``critpath``, ``mirror``, ``serving`` and
-``overload`` sections with their gauges and families.
+exception does), and statusz's ``overload`` section with its gauges and
+families. The routes, the windows' counter source and the ticker's
+subscribers reach the server weakly, so a stopped, dropped server and its
+store are freed without the cycle collector.
 """
 
 from __future__ import annotations
@@ -68,6 +80,7 @@ from urllib.parse import parse_qs, unquote, urlsplit
 
 import zipkin_tpu_torch
 from zipkin_tpu_torch import obs
+from zipkin_tpu_torch.obs import critpath
 from zipkin_tpu_torch.collector.core import Collector, CollectorSampler, InMemoryCollectorMetrics
 from zipkin_tpu_torch.internal.hex import normalize_trace_id
 from zipkin_tpu_torch.model import json_v2
@@ -99,6 +112,12 @@ _DURABILITY_GAUGES = ("scrubBytes", "scrubPasses", "scrubCorruptDetected",
 # accounting that shows no loss (zipkin_tpu/server/app.py:1212-1219)
 _MP_GAUGES = ("mpWorkers", "mpWorkersAlive", "mpQueueDepth", "mpInflight",
               "mpAccepted", "mpSampleDropped", "mpFallbacks", "mpRejected")
+# the critical-path stitcher: timeline accounting and the Little's-law
+# gauges behind the queue-saturation SLO (zipkin_tpu/server/app.py:1223-1227)
+_CRITPATH_GAUGES = ("critpathTimelines", "critpathSkipped", "critpathAbandoned",
+                    "critpathReclaimed", "critpathDegraded", "critpathTruncated",
+                    "critpathLambdaCps", "critpathLittleL", "critpathWorkerOccupancy",
+                    "critpathQueueSaturation", "critpathConservationP50Milli")
 # the query plane: stitched query walls and the aggregator lock's ledger
 # (zipkin_tpu/server/app.py:1252-1268; the cache-age gauges are above)
 _QUERY_GAUGES = ("queryTraces", "queryWallP50Us", "queryWallP99Us", "queryWallMaxUs",
@@ -106,6 +125,16 @@ _QUERY_GAUGES = ("queryTraces", "queryWallP50Us", "queryWallP99Us", "queryWallMa
                  "queryLockReentries", "queryLockWaiters", "queryLockWaitersHighWater",
                  "queryLockWaitP50Us", "queryLockWaitP99Us", "queryLockWaitMaxUs",
                  "queryLockHoldP50Us", "queryLockHoldP99Us", "queryLockHoldMaxUs")
+# the read mirror's cadence, serves and staleness, and scale-out serving's
+# segment ledger and reader rollup (zipkin_tpu/server/app.py:1240-1270)
+_MIRROR_GAUGES = ("mirrorGeneration", "mirrorPublishes", "mirrorPublishSkips",
+                  "mirrorPublishBackoffs", "mirrorPublishMs", "mirrorServes",
+                  "mirrorStaleServes", "mirrorMisses", "mirrorServeAgeMs", "mirrorServeAgeMaxMs")
+_SERVING_GAUGES = ("segmentGeneration", "segmentPublishes", "segmentPublishErrors",
+                   "segmentOverflows", "segmentSkippedKeys", "segmentPayloadBytes",
+                   "segmentSerializeMs", "mirrorSegmentSinkErrors", "readerRespawns",
+                   "readerDemandRequests", "readerDemandOverflow", "readerDemandUnparsed",
+                   "readerServeAgeMs", "readerGenerationLagMax")
 
 
 class _HTTPServer(ThreadingHTTPServer):
@@ -129,6 +158,22 @@ class HttpError(Exception):
         self.status = status
         self.text = text
         self.headers = headers or {}
+
+
+def _weakly(method):
+    """``method`` (bound) behind a weak reference to its object: what the
+    server hands to its own routes and ticker must not hold it in a
+    cycle. A call after the object is gone answers 503."""
+    ref = weakref.WeakMethod(method)
+
+    def call(*args):
+        m = ref()
+        if m is None:
+            raise HttpError(503, "server stopped")
+        return m(*args)
+
+    call.__name__ = method.__name__
+    return call
 
 
 def build_storage(config: ServerConfig, device=None) -> StorageComponent:
@@ -177,6 +222,8 @@ def build_storage(config: ServerConfig, device=None) -> StorageComponent:
                 sampling_interval_s=config.tpu_sampling_interval_s,
                 sampling_min_rate=config.tpu_sampling_min_rate,
                 sampling_tail_quantile=config.tpu_sampling_tail_quantile,
+                mirror_segment_bytes=config.tpu_mirror_segment_bytes,
+                mirror_segment_readers=config.tpu_readers,
                 **common,
             )
 
@@ -264,6 +311,7 @@ class ZipkinServer:
         self._inflight = 0
         self._idle = threading.Condition()
         self._draining = self._abandoned = False
+        w = _weakly
         routes = {
             "/api/v2/traces": self.get_traces,
             "/api/v2/traceMany": self.get_trace_many,
@@ -287,17 +335,17 @@ class ZipkinServer:
                 "/api/v2/tpu/counters": self.get_tpu_counters,
                 "/api/v2/tpu/overview": self.get_tpu_overview,
             })
-        self.get_routes = routes
+        self.get_routes = {path: w(fn) for path, fn in routes.items()}
         # path -> handler(body, content_type, t0), t0 the perf_counter at
         # which the request's body read began. The snapshot route is served
         # on every store, so one that cannot snapshot answers 501 (the
         # reference serves it only beside the sketch reads: 404 on mem)
-        self.post_routes = {
-            "/api/v2/tpu/snapshot": lambda body, ctype, t0: self.post_tpu_snapshot()}
+        snap, post = w(self.post_tpu_snapshot), w(self.post_spans)
+        self.post_routes = {"/api/v2/tpu/snapshot": lambda body, ctype, t0: snap()}
         if self.config.http_collector_enabled:
             self.post_routes.update({
-                "/api/v2/spans": lambda body, ctype, t0: self.post_spans(body, ctype, False, t0),
-                "/api/v1/spans": lambda body, ctype, t0: self.post_spans(body, ctype, True, t0),
+                "/api/v2/spans": lambda body, ctype, t0: post(body, ctype, False, t0),
+                "/api/v1/spans": lambda body, ctype, t0: post(body, ctype, True, t0),
             })
         self._snapshots = False  # a periodic snapshot thread runs
 
@@ -327,16 +375,21 @@ class ZipkinServer:
         ing = MultiProcessIngester(
             core, workers=cfg.tpu_mp_workers, sampler=sampler,
             queue_depth=cfg.tpu_mp_queue_depth, ring_slots=cfg.tpu_mp_ring_slots,
-            coalesce_max=cfg.tpu_mp_coalesce_max, metrics=metrics)
+            coalesce_max=cfg.tpu_mp_coalesce_max, metrics=metrics,
+            # the critical-path ledger's slots (0: no tracing)
+            critpath_slots=cfg.obs_critpath_slots if cfg.obs_critpath_enabled else 0,
+            critpath_reclaim_s=cfg.obs_critpath_reclaim_s)
         core.mp_ingester = ing
         return ing
 
     def _build_obs_plane(self) -> None:
         """The observability plane over this server's store (the reference
         builds it in ``ZipkinServer.__init__``): self-tracing, slow-stage
-        self-spans, the query plane's setting, and with the windows on the
-        ticker's subscribers in the reference's order (accuracy rollup,
-        query stitch, time-tier seal, then the SLO watchdog, whose trips
+        self-spans (the slowest critical-path and query timelines ride
+        them), the query plane's setting, the read mirror's posture, and
+        with the windows on the ticker's subscribers in the reference's
+        order (accuracy rollup, critical-path stitch, query stitch,
+        time-tier seal, mirror publish, then the SLO watchdog, whose trips
         write incident bundles)."""
         cfg = self.config
         core = getattr(self.storage, "delegate", self.storage)
@@ -357,11 +410,19 @@ class ZipkinServer:
                 Collector(self.storage, metrics=self.metrics.for_transport("obs")),
                 budget_scale=cfg.obs_budget_scale)
             self._obs_emitter.install(obs.RECORDER)
+        self._critpath = getattr(self._mp_ingester, "critpath", None)
+        if self._critpath is not None and self._obs_emitter is not None:
+            self._critpath.emitter = self._obs_emitter
         self._querytrace = getattr(core, "querytrace", None)
         if hasattr(core, "set_query_observatory"):
             core.set_query_observatory(cfg.obs_query_enabled)
         if self._querytrace is not None and self._obs_emitter is not None:
             self._querytrace.emitter = self._obs_emitter
+        # the configured posture, before any ticker or route reads the mirror
+        self._mirror = getattr(core, "mirror", None)
+        if self._mirror is not None:
+            self._mirror.enabled = bool(cfg.tpu_read_mirror)
+            self._mirror.max_stale_ms = float(cfg.tpu_mirror_max_stale_ms)
         self._obs_windows = self._obs_slo = self._obs_shadow = None
         self._accuracy = self._obs_incidents = None
         self._seal_on_ticker = False
@@ -370,12 +431,21 @@ class ZipkinServer:
         from zipkin_tpu_torch.obs.windows import WindowedTelemetry
 
         self._obs_windows = windows = WindowedTelemetry(
-            obs.RECORDER, self._window_counter_source, tick_s=cfg.obs_windows_tick_s)
+            obs.RECORDER, _weakly(self._window_counter_source), tick_s=cfg.obs_windows_tick_s)
+        # the ticker's subscribers reach the store weakly: the windows and
+        # the watchdog hold each other, a cycle the store must not be in
+        core_ref = weakref.ref(core)
+
+        def on_core(fn):
+            def tick(_w):
+                c = core_ref()
+                if c is not None:
+                    fn(c)
+            return tick
         if cfg.obs_shadow_enabled and hasattr(core, "agg") and hasattr(core, "vocab"):
             from zipkin_tpu_torch.obs.accuracy import AccuracyEstimator
             from zipkin_tpu_torch.obs.shadow import HostShadow
 
-            core_ref = weakref.ref(core)
             self._obs_shadow = shadow = HostShadow(
                 reservoir_k=cfg.obs_shadow_reservoir_k,
                 distinct_k=cfg.obs_shadow_distinct_k,
@@ -398,13 +468,21 @@ class ZipkinServer:
             if self._mp_ingester is not None:
                 self._mp_ingester.shadow = shadow
             windows.on_tick(lambda _w: accuracy.maybe_rollup())
+        if self._critpath is not None:
+            # before the watchdog: the fold feeds wire_to_durable and the
+            # saturation gauges it reads
+            windows.on_tick(self._critpath.on_tick)
         if self._querytrace is not None and cfg.obs_query_enabled:
             windows.on_tick(self._querytrace.on_tick)
         if getattr(core, "timetier", None) is not None and self.seal_interval_s > 0:
             # one ticker thread touches the card for the seal, as the
             # reference's; the plain seal loop runs only with the windows off
             self._seal_on_ticker = True
-            windows.on_tick(lambda _w: self._seal(core))
+            windows.on_tick(on_core(self._seal))
+        if self._mirror is not None and self._mirror.enabled:
+            # after the seal, so a windowed key's epoch serves sealed
+            # segments; paced: the publisher's lock duty cycle stays <= 50%
+            windows.on_tick(on_core(lambda c: c.publish_mirror(paced=True)))
         if cfg.obs_slo_enabled:
             from zipkin_tpu_torch.obs.slo import SloWatchdog, default_specs
 
@@ -462,9 +540,12 @@ class ZipkinServer:
         })
         rec.add_source("slowRing", obs.RECORDER.slow_events)
         if hasattr(core, "ingest_counters"):
-            rec.add_source("counters", core.ingest_counters)
+            core_ref = weakref.ref(core)
+            rec.add_source("counters", lambda: core_ref().ingest_counters())
         if self._querytrace is not None:
             rec.add_source("queries", self._querytrace.waterfall)
+        if self._critpath is not None:
+            rec.add_source("critpath", self._critpath.waterfall)
 
     def _close_mp_ingester(self, deadline: float) -> None:
         """Drain the tier until ``deadline`` (monotonic), so every 202 it
@@ -486,7 +567,8 @@ class ZipkinServer:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> "ZipkinServer":
-        self._httpd = _HTTPServer((self.config.host, self.config.port), _handler_for(self))
+        self._httpd = _HTTPServer((self.config.host, self.config.port),
+                                  _handler_for(weakref.ref(self)))
         self.port = self._httpd.server_address[1]
         self._stopping.clear()
         self._draining = self._abandoned = False
@@ -585,6 +667,10 @@ class ZipkinServer:
             self._self_tracer = None
         if self._obs_emitter is not None:
             self._obs_emitter.stop()
+            # the store's query plane would keep the emitter, and through
+            # its collector the store, in a cycle
+            if self._querytrace is not None and self._querytrace.emitter is self._obs_emitter:
+                self._querytrace.emitter = None
             self._obs_emitter = None
         if self._snapshots:
             # the final snapshot last: the listener and the tickers have
@@ -620,6 +706,16 @@ class ZipkinServer:
         return b"".join(chunks)
 
     def post_spans(self, body: bytes, content_type: str, v1: bool, t0: float):
+        # the critical path's wire anchor: the instant http_boundary
+        # measures from, in the ledger's ns domain; submit() reads it on
+        # this thread
+        tok = critpath.WIRE_T0_NS.set(int(t0 * 1e9))
+        try:
+            return self._post_spans(body, content_type, v1, t0)
+        finally:
+            critpath.WIRE_T0_NS.reset(tok)
+
+    def _post_spans(self, body: bytes, content_type: str, v1: bool, t0: float):
         try:
             body = self._inflate(body)
         except PayloadTooLarge as e:
@@ -708,15 +804,27 @@ class ZipkinServer:
         names = self.storage.service_and_span_names()
         return 200, names.get_remote_service_names(q.get("serviceName", "")).execute()
 
+    @staticmethod
+    def _staleness_param(q) -> Optional[float]:
+        """A request's mirror staleness bound in ms (<= 0: a fresh read;
+        absent: the server's); ValueError on garbage, answered 400."""
+        raw = q.get("staleness_ms")
+        return float(raw) if raw is not None else None
+
     def get_dependencies(self, q):
         if not q.get("endTs"):
             raise HttpError(400, "endTs parameter is required")
         try:
             end_ts = int(q["endTs"])
             lookback = int(q.get("lookback") or self.config.default_lookback)
+            staleness = self._staleness_param(q)
         except ValueError as e:
             raise HttpError(400, str(e))
-        links = self.storage.span_store().get_dependencies(end_ts, lookback).execute()
+        # the bound goes only to a store with a mirror: the in-memory
+        # store's SPI signature stays the reference's
+        kwargs = ({"staleness_ms": staleness}
+                  if staleness is not None and self._mirror is not None else {})
+        links = self.storage.span_store().get_dependencies(end_ts, lookback, **kwargs).execute()
         return 200, [json_v2.link_to_dict(x) for x in links]
 
     def get_autocomplete_keys(self, q):
@@ -734,18 +842,20 @@ class ZipkinServer:
         try:
             qs = _quantile_list(q.get("q", "0.5,0.9,0.99"))
             end_ts, lookback = _opt_int(q, "endTs"), _opt_int(q, "lookback")
+            staleness = self._staleness_param(q)
         except ValueError as e:
             raise HttpError(400, str(e))
         return 200, self.storage.latency_quantiles(
             qs, q.get("serviceName"), q.get("spanName"), q.get("sketch", "digest") == "digest",
-            end_ts, lookback)
+            end_ts, lookback, staleness)
 
     def get_tpu_cardinalities(self, q):
         try:
+            staleness = self._staleness_param(q)
             end_ts, lookback = _opt_int(q, "endTs"), _opt_int(q, "lookback")
         except ValueError as e:
             raise HttpError(400, str(e))
-        return 200, self.storage.trace_cardinalities(None, end_ts, lookback)
+        return 200, self.storage.trace_cardinalities(staleness, end_ts, lookback)
 
     def get_tpu_counters(self, q):
         return 200, self.storage.ingest_counters()
@@ -765,9 +875,11 @@ class ZipkinServer:
             raise HttpError(501, "storage does not serve sketch_overview")
         try:
             qs = _quantile_list(q.get("q", "0.5,0.9,0.99"))
+            staleness = self._staleness_param(q)
         except ValueError as e:
             raise HttpError(400, str(e))
-        return 200, self.storage.sketch_overview(qs, q.get("serviceName"), q.get("spanName"))
+        return 200, self.storage.sketch_overview(qs, q.get("serviceName"), q.get("spanName"),
+                                                 staleness)
 
     # -- ops ---------------------------------------------------------------
 
@@ -801,7 +913,8 @@ class ZipkinServer:
                 names += _SAMPLER_GAUGES
                 for svc, rate in sorted(self.storage.sampler_rates().items()):
                     out[f"gauge.zipkin_tpu.samplerRate.{svc}"] = rate
-            for name in names + _DURABILITY_GAUGES + _MP_GAUGES + _QUERY_GAUGES:
+            for name in (names + _DURABILITY_GAUGES + _MP_GAUGES + _CRITPATH_GAUGES
+                         + _QUERY_GAUGES + _MIRROR_GAUGES + _SERVING_GAUGES):
                 if name in counters:
                     out[f"gauge.zipkin_tpu.{name}"] = counters[name]
         # the accuracy plane's gauges and the shadow's occupancy
@@ -847,6 +960,7 @@ class ZipkinServer:
                 lines.append(f"# TYPE {fam} gauge")
                 lines.append(f"{fam} {value}")
             lines.extend(_prom_mp_workers(counters.get("mpWorkerTable")))
+            lines.extend(_prom_critpath(counters.get("critpathSegments")))
             lines.extend(_prom_query_lock(counters.get("queryLock")))
             lines.extend(_prom_query_segments(counters.get("querySegments")))
         if getattr(self.storage, "sampler", None) is not None:
@@ -867,8 +981,8 @@ class ZipkinServer:
 
     def get_tpu_statusz(self, q):
         """The observability plane's debug page
-        (``zipkin_tpu/server/app.py:1408-1511``, less the critical-path,
-        mirror, serving and overload sections)."""
+        (``zipkin_tpu/server/app.py:1408-1511``, less the overload
+        section)."""
         from zipkin_tpu_torch.obs.device import OBSERVATORY
 
         rec = obs.RECORDER
@@ -908,13 +1022,26 @@ class ZipkinServer:
         if self._accuracy is not None:
             body["accuracy"] = self._accuracy.status()
         body["device"] = OBSERVATORY.status()
-        ing = getattr(getattr(self.storage, "delegate", self.storage), "mp_ingester", None)
+        core = getattr(self.storage, "delegate", self.storage)
+        ing = getattr(core, "mp_ingester", None)
         if ing is not None:
             stats = ing.stats()
             if "mpWorkerTable" in stats:
                 body["workers"] = stats["mpWorkerTable"]
+            # wire-to-durable percentiles, queue wait against service, the
+            # Little's-law gauges and the slowest chunk's timeline
+            cp = getattr(ing, "critpath", None)
+            if cp is not None:
+                body["critpath"] = cp.waterfall()
         if self._querytrace is not None:
             body["queries"] = self._querytrace.waterfall()
+        if self._mirror is not None:
+            body["mirror"] = self._mirror.status()
+        # the segment's name is here for TPU_MIRROR_SEGMENT of
+        # python -m zipkin_tpu_torch.serving
+        seg = getattr(core, "mirror_segment", None)
+        if seg is not None:
+            body["serving"] = seg.status()
         if self._obs_incidents is not None:
             body["incidents"] = self._obs_incidents.counters()
         return 200, body
@@ -946,7 +1073,12 @@ class ZipkinServer:
         return out
 
 
-def _handler_for(server: ZipkinServer):
+def _handler_for(server_ref):
+    """The request handler class of a server, reached through
+    ``server_ref`` (a weak reference): a class is freed only by the cycle
+    collector, so a strong one would keep a stopped server alive. Each
+    request holds the server for its own duration; one that arrives after
+    the server is gone answers 503."""
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
         server_version = "zipkin-tpu-torch"
@@ -977,8 +1109,8 @@ def _handler_for(server: ZipkinServer):
                 logger.exception("%s %s failed", self.command, self.path)
                 self._send(500, f"{type(e).__name__}: {e}".encode())
                 return
-            with server._idle:
-                late = server._abandoned
+            with self._server._idle:
+                late = self._server._abandoned
             if late:
                 # stop() snapshotted without this request: the sender retries
                 self._send(503, b"server stopped")
@@ -1021,12 +1153,14 @@ def _handler_for(server: ZipkinServer):
             return self.rfile.read(length)
 
         def _gated(self, method) -> None:
-            if not server.admit():
+            self._server = server_ref()
+            if self._server is None or not self._server.admit():
+                self._server = None
                 self._send(503, b"server stopping")
                 self.close_connection = True
                 return
             try:
-                tracer = server._self_tracer
+                tracer = self._server._self_tracer
                 if tracer is None:
                     method()
                     return
@@ -1038,7 +1172,8 @@ def _handler_for(server: ZipkinServer):
 
                 tracer.trace(self.command, urlsplit(self.path).path, self.headers, handle)
             finally:
-                server.release()
+                self._server.release()
+                self._server = None  # a kept-alive connection holds no server between requests
 
         def do_GET(self):
             self._gated(self._get)
@@ -1050,19 +1185,19 @@ def _handler_for(server: ZipkinServer):
             url = urlsplit(self.path)
             # the first value of a repeated parameter, as aiohttp's query.get
             query = {k: v[0] for k, v in parse_qs(url.query, keep_blank_values=True).items()}
-            fn = server.get_routes.get(url.path)
+            fn = self._server.get_routes.get(url.path)
             if fn is not None:
                 self._answer(fn, query)
             elif url.path.startswith("/api/v2/trace/") and url.path.count("/") == 4:
-                self._answer(server.get_trace, unquote(url.path[len("/api/v2/trace/"):]))
+                self._answer(self._server.get_trace, unquote(url.path[len("/api/v2/trace/"):]))
             else:
                 self._send(404, b"404: Not Found")
 
         def _post(self):
             path = urlsplit(self.path).path
-            route = server.post_routes.get(path)
+            route = self._server.post_routes.get(path)
             if route is None:
-                self._send(405 if path in server.get_routes else 404)
+                self._send(405 if path in self._server.get_routes else 404)
                 self.close_connection = True
                 return
             t0 = time.perf_counter()
@@ -1079,7 +1214,7 @@ def _handler_for(server: ZipkinServer):
 
 
 # -- the exposition format (zipkin_tpu/server/app.py:1560-1954, less the
-# critical-path, overload and tenant families) --------------------------
+# overload and tenant families) --------------------------------------------
 
 
 def _snake(name: str) -> str:
@@ -1235,6 +1370,28 @@ def _prom_mp_workers(table) -> List[str]:
                 f'{fam}{{worker="{_prom_label(row["widx"])}"}} '
                 f'{row.get(field, 0)}'
             )
+    return lines
+
+
+def _prom_critpath(segments) -> List[str]:
+    """The critical-path segment families (``zipkin_tpu/server/app.py:1716-1740``):
+    the scalar ``zipkin_tpu_critpath_*`` gauges ride the flat render, the
+    per-segment table needs segment and kind labels."""
+    if not segments:
+        return []
+    lines: List[str] = []
+    fields = (
+        ("count", "folded occurrences", "counter", "_total"),
+        ("sumUs", "cumulative wall microseconds", "counter", "_total"),
+        ("maxUs", "worst single occurrence microseconds", "gauge", ""),
+    )
+    for field, help_text, typ, suffix in fields:
+        fam = _prom_name(f"zipkin_tpu_critpath_segment_{_snake(field)}{suffix}")
+        lines.append(f"# HELP {fam} Critical-path segment {help_text}.")
+        lines.append(f"# TYPE {fam} {typ}")
+        for seg, row in sorted(segments.items()):
+            lines.append(f'{fam}{{segment="{_prom_label(seg)}",'
+                         f'kind="{_prom_label(row["kind"])}"}} {row[field]}')
     return lines
 
 

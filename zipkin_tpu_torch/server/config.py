@@ -21,9 +21,13 @@ and ``TPU_MP_COALESCE_MAX``, and the observability plane's
 ``SELF_TRACING_ENABLED``, ``SELF_TRACING_SAMPLE_RATE``, ``TPU_OBS_SELFSPANS``,
 ``TPU_OBS_BUDGET_SCALE``, ``TPU_OBS_WINDOWS``, ``TPU_OBS_TICK_S``,
 ``TPU_SLO``, ``TPU_SLO_SHORT_S``, ``TPU_SLO_LONG_S``, ``TPU_SLO_BURN``,
-``TPU_OBS_SHADOW*``, ``TPU_OBS_QUERY`` and ``TPU_OBS_INCIDENT_*``
-(``zipkin_tpu/server/config.py:78-145,151,236-264,280-313,332-357,362-365,411-428``;
-the critical-path tracer's ``TPU_OBS_CRITPATH*`` are not ported yet).
+``TPU_OBS_SHADOW*``, ``TPU_OBS_QUERY``, ``TPU_OBS_INCIDENT_*`` and the
+critical-path tracer's ``TPU_OBS_CRITPATH``, ``TPU_OBS_CRITPATH_SLOTS`` and
+``TPU_OBS_CRITPATH_RECLAIM_S``, and the read mirror's ``TPU_READ_MIRROR``
+and ``TPU_MIRROR_MAX_STALE_MS`` with scale-out serving's
+``TPU_MIRROR_SEGMENT_BYTES`` (0: no segment), ``TPU_READERS`` and
+``TPU_READER_PORT_BASE``, whose bounds refuse a boot
+(``zipkin_tpu/server/config.py:78-145,151,205-230,236-264,280-313,332-357,362-365,390-410,411-428``).
 ``TPU_OBS``, ``TPU_OBS_DEVICE`` and ``TPU_OBS_QUERY`` are also read where
 the recorder, the device observatory and the query plane are made.
 
@@ -57,6 +61,17 @@ def _env_int(name: str, default: int) -> int:
 def _env_float(name: str, default: float) -> float:
     raw = os.environ.get(name)
     return float(raw) if raw else default
+
+
+def _bounded(name: str, value: int, lo: int, hi: int, *, allow_zero: bool = False) -> int:
+    """Refuse to boot on a structural setting out of bounds: a reader fleet
+    or a segment sized from a typo fails at config time, not at run time."""
+    if allow_zero and value == 0:
+        return value
+    if not (lo <= value <= hi):
+        raise ValueError(f"{name}={value} out of bounds [{lo}, {hi}]"
+                         + (" (0 = disabled)" if allow_zero else ""))
+    return value
 
 
 def _env_list(name: str) -> Tuple[str, ...]:
@@ -130,6 +145,27 @@ class ServerConfig:
     obs_query_enabled: bool = True
     obs_incident_dir: str = ""
     obs_incident_retention: int = 16
+    # the ingest critical-path tracer (obs/critpath.py), active only with
+    # the multi-process tier: ledger slots (payloads past them go untraced,
+    # counted critpathSkipped) and the age past which an open slot a dead
+    # worker left is reclaimed
+    obs_critpath_enabled: bool = True
+    obs_critpath_slots: int = 256
+    obs_critpath_reclaim_s: float = 60.0
+    # the epoch-published read mirror (tpu/mirror.py): the ticker publishes
+    # an epoch each tick and the four aggregate reads serve from it without
+    # the aggregator lock, at most this stale (a request's staleness_ms
+    # sets its own bound; <= 0 forces a fresh read); off: every read takes
+    # the lock
+    tpu_read_mirror: bool = True
+    tpu_mirror_max_stale_ms: int = 5000
+    # scale-out serving (serving/): with segment bytes > 0 each epoch is
+    # also serialized into a shared-memory segment with a stripe for each
+    # of tpu_readers reader processes (python -m zipkin_tpu_torch.serving),
+    # reader rN listening on port base + N, the aggregate surface on base - 1
+    tpu_readers: int = 4
+    tpu_mirror_segment_bytes: int = 0
+    tpu_reader_port_base: int = 9512
     # line-rate path: JSON v2 and proto3 bytes through the native parser,
     # with a trace-affine 1/N archive sample (0: none)
     tpu_fast_ingest: bool = False
@@ -231,6 +267,18 @@ class ServerConfig:
             obs_query_enabled=_env_bool("TPU_OBS_QUERY", True),
             obs_incident_dir=os.environ.get("TPU_OBS_INCIDENT_DIR", ""),
             obs_incident_retention=_env_int("TPU_OBS_INCIDENT_RETENTION", 16),
+            obs_critpath_enabled=_env_bool("TPU_OBS_CRITPATH", True),
+            obs_critpath_slots=_env_int("TPU_OBS_CRITPATH_SLOTS", 256),
+            obs_critpath_reclaim_s=_env_float("TPU_OBS_CRITPATH_RECLAIM_S", 60.0),
+            tpu_read_mirror=_env_bool("TPU_READ_MIRROR", True),
+            tpu_mirror_max_stale_ms=_env_int("TPU_MIRROR_MAX_STALE_MS", 5000),
+            tpu_readers=_bounded("TPU_READERS", _env_int("TPU_READERS", 4), 1, 64),
+            tpu_mirror_segment_bytes=_bounded(
+                "TPU_MIRROR_SEGMENT_BYTES", _env_int("TPU_MIRROR_SEGMENT_BYTES", 0),
+                64 << 10, 1 << 30, allow_zero=True),
+            tpu_reader_port_base=_bounded(
+                # base - 1 hosts the aggregate surface: keep it unprivileged
+                "TPU_READER_PORT_BASE", _env_int("TPU_READER_PORT_BASE", 9512), 1025, 65000),
             tpu_fast_ingest=fast_ingest,
             tpu_fast_archive_sample=_env_int("TPU_FAST_ARCHIVE_SAMPLE", 64),
             tpu_mp_workers=_env_int("TPU_MP_WORKERS", 0),

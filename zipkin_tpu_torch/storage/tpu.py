@@ -15,8 +15,15 @@ reference subclasses its core store, and owns durable boot:
    post-replay tallies;
 6. ``resume_offset``: the durable span count, where a transport that tracks
    offsets resumes;
-7. flush the pending digest points, as the reference's boot read does;
-8. with ``scrub_interval_s`` > 0 and something durable to scrub, start the
+7. with ``mirror_segment_bytes`` > 0, create the shared-memory mirror
+   segment (:class:`~zipkin_tpu_torch.serving.segment.MirrorSegment`, one
+   heartbeat and demand stripe for each of ``mirror_segment_readers``) and
+   attach it, so the first epoch lands in it;
+8. cut the first read-mirror epoch from the restored state
+   (:meth:`publish_mirror`): the first read after boot serves lock-free,
+   and its digest read flushes the pending digest points (a ``ttflush``
+   record with the time tier on), as the reference's does;
+9. with ``scrub_interval_s`` > 0 and something durable to scrub, start the
    at-rest scrubber (:mod:`zipkin_tpu_torch.runtime.scrub`).
 
 The disk archive (``archive_dir``) opens in the core store's constructor,
@@ -29,9 +36,8 @@ final vocab at the next fast ingest.
 generation's ``wal_seq``, and degrades on a full disk (the retained
 generations stay intact; the save is retried next cycle). ``close()``
 drains and closes an attached multi-process tier (``mp_ingester``) before
-the WAL detaches, when the server's ``stop()`` has not. Left out against
-the reference: the mesh (``num_devices``) and the shared-memory mirror
-segment.
+the WAL detaches, when the server's ``stop()`` has not, and retires the
+mirror segment. Left out against the reference: the mesh (``num_devices``).
 """
 
 from __future__ import annotations
@@ -82,13 +88,17 @@ class TorchStorage(_CoreStorage):
         snapshot_keep: int = 2,
         scrub_interval_s: float = 0.0,
         scrub_bytes_per_sec: int = 8 << 20,
+        mirror_segment_bytes: int = 0,
+        mirror_segment_readers: int = 4,
     ) -> None:
         """``device``: where the state lives and is restored to, the card
         unless the caller names another. ``wal_fsync``: fsync each append,
         so the log survives a host or power failure at a per-batch cost;
         without it the log survives a process crash (the page cache holds
         it). ``scrub_interval_s``: the gap between the scrubber's passes (0:
-        no scrubber), each read paced at ``scrub_bytes_per_sec``."""
+        no scrubber), each read paced at ``scrub_bytes_per_sec``.
+        ``mirror_segment_bytes``: each of the segment's two payload buffers
+        (0: no segment)."""
         super().__init__(
             config=config,
             device=device,
@@ -146,14 +156,20 @@ class TorchStorage(_CoreStorage):
         if self.sampling_controller is not None:
             self.sampling_controller.start()
         self.resume_offset = int(self.agg.host_counters["spans"])
-        # the reference cuts its first read-mirror epoch here, and that
-        # epoch's digest read flushes the pending digest points (a ttflush
-        # record, with the time tier on). The port has no mirror yet but
-        # flushes at the same point, so that states and logs stay equal.
-        with self.agg.lock:
-            if self.agg._pend_lanes:
-                self.agg.flush_now()
-        # boot's restore and replay pulls are not query transfers
+        # the segment exists before the boot publish below, so readers that
+        # attach after a crash-resume serve the restored epoch
+        self.mirror_segment = None
+        if mirror_segment_bytes > 0:
+            from zipkin_tpu_torch.serving.segment import MirrorSegment
+
+            self.mirror_segment = MirrorSegment(readers=mirror_segment_readers,
+                                                capacity=mirror_segment_bytes)
+            self.attach_mirror_segment(self.mirror_segment)
+        # the first epoch, cut from the restored state before any ticker:
+        # its digest read flushes the pending digest points (a ttflush
+        # record with the time tier on), at the reference's point
+        self.publish_mirror()
+        # boot's restore, replay and publish pulls are not query transfers
         self.agg.read_stats["host_transfers"] = 0
         # the first pass waits one interval: the boot just read what a
         # restore verifies
@@ -242,4 +258,11 @@ class TorchStorage(_CoreStorage):
                 # aggregator could append to a closed file
                 self.agg.wal_hook = None
                 self.wal.close()
+            seg = self.mirror_segment
+            if seg is not None:
+                # detach the sink first, so a late publish cannot write
+                # through a closed mapping
+                self.mirror.segment_sink = None
+                seg.close()
+                self.mirror_segment = None
             super().close()

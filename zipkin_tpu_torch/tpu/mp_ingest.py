@@ -55,9 +55,19 @@ The flight recorder: the dispatcher stamps ``mp_vocab_replay``,
 flushes); the workers' ``parse``, ``pack`` and ``route`` seconds ride each
 chunk and are relayed into the recorder (histogram only), besides the
 plain counters of :meth:`MultiProcessIngester.stats`. An attached
-``shadow`` is offered every flushed chunk image. Left out, against the
-reference: the critical-path ledger, stitcher and worker view (the
-critical-path tracer) and the tenant plumbing.
+``shadow`` is offered every flushed chunk image.
+
+The critical-path tracer (:mod:`zipkin_tpu_torch.obs.critpath`, with
+``critpath_slots`` > 0): ``submit()`` claims a ledger slot for a payload
+that carries a wire anchor (``critpath.WIRE_T0_NS``) and stamps its
+enqueue; the worker stamps parse, pack, route and ring wait into the slot's
+worker region (the slot rides the queue item and the ring's critical-path
+word); the dispatcher stamps the journal replay, the shm copy, the device
+feed (with the WAL's append and fsync inside it, through
+``critpath.set_active``) and acks the slot once the payload is durable. The
+stitcher (``.critpath``) folds the slots on the server's windows ticker. A
+fallback or a reaped worker abandons its payloads' slots. Left out, against
+the reference: the tenant plumbing.
 """
 
 from __future__ import annotations
@@ -72,6 +82,7 @@ from typing import Dict, List, Optional, Set
 import numpy as np
 
 from zipkin_tpu_torch import faults, obs
+from zipkin_tpu_torch.obs import critpath as _critpath
 from zipkin_tpu_torch.tpu import ring as ring_mod
 
 logger = logging.getLogger(__name__)
@@ -104,11 +115,20 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
     imports are numpy, the standard library and the native parser's shared
     library; the build the parent made is loaded, never rebuilt."""
     from zipkin_tpu_torch import native
+    from zipkin_tpu_torch.obs.critpath import (
+        SEG_PACK,
+        SEG_PARSE,
+        SEG_RING_WAIT,
+        SEG_ROUTE,
+        CritPathWorkerView,
+    )
     from zipkin_tpu_torch.tpu.archive import parsed_record
     from zipkin_tpu_torch.tpu.columnar import Vocab, pack_parsed, route_fused, sample_slices
     from zipkin_tpu_torch.tpu.ring import RingProducer, pack_aux
 
     prod = RingProducer(ring_params, widx)
+    cp_params = params.get("critpath")
+    cview = CritPathWorkerView(cp_params, widx) if cp_params is not None else None
     vocab = Vocab(params["max_services"], params["max_keys"])
     nvocab = native.NativeVocab(vocab) if native.available() else None
     n_shards = params["n_shards"]
@@ -120,8 +140,13 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
     # journal cursors: how much of the local vocab has been reported
     sent_svc, sent_name, sent_pair = 1, 1, 1
 
-    def handle(pid: int, payload: bytes, state: dict) -> None:
+    def handle(pid: int, payload: bytes, state: dict, cslot: int) -> None:
         nonlocal sent_svc, sent_name, sent_pair
+        traced = cview is not None and cslot >= 0
+        if traced:
+            # a per-payload recalibration keeps the clock bridge fresh; the
+            # stamps below reuse the stage timings' perf_counter readings
+            cview.calibrate()
         t0 = time.perf_counter()
         # the parser sniffs the wire format: JSON v2 and proto3 both land here
         parsed = native.parse_spans(payload, nvocab=nvocab) if nvocab is not None else None
@@ -141,6 +166,8 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
                 parsed = parsed.select(np.nonzero(keep)[0])
                 n = parsed.n
         parse_s = time.perf_counter() - t0
+        if traced:
+            cview.stamp(cslot, SEG_PARSE, int(t0 * 1e9), int((t0 + parse_s) * 1e9))
         if n == 0:
             state["completed"] = True
             result_q.put((_KIND_BATCH, widx, pid, prod.next_wseq(), None, 0, 0, 0,
@@ -155,6 +182,9 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
             fused = route_fused(cols, n_shards)
             route_s = time.perf_counter() - t2
             pack_s = t2 - t1
+            if traced:
+                cview.stamp(cslot, SEG_PACK, int(t1 * 1e9), int(t2 * 1e9))
+                cview.stamp(cslot, SEG_ROUTE, int(t2 * 1e9), int((t2 + route_s) * 1e9))
             arch = sample_slices(sub, every)  # the store's 1/N host-archive sample
             rec = parsed_record(sub) if disk else None
             # the vocab journal since the last report, in id order
@@ -177,7 +207,11 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
                 state["completed"] = True
             aux = pack_aux(svc_new, name_new, pairs_new, arch, rec)
             if fused.size <= prod.img_cap_u32 and len(aux) <= prod.aux_cap:
+                ta = time.perf_counter()
                 prod.claim()
+                tb = time.perf_counter()
+                if traced:
+                    cview.stamp(cslot, SEG_RING_WAIT, int(ta * 1e9), int(tb * 1e9))
                 prod.image(fused.size)[:] = fused.reshape(-1)
                 # the wseq is taken at the last instant that cannot fail on
                 # both channels, so a worker that survives an exception never
@@ -186,6 +220,7 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
                     pidx=pid, wseq=prod.next_wseq(), per=int(fused.shape[-1]),
                     n_spans=n_spans, n_dur=n_dur, n_err=n_err,
                     dropped=dropped if is_last else -1,
+                    cslot=cslot if traced else -1,
                     ts_min=ts_range[0], ts_max=ts_range[1],
                     parse_ns=int(parse_s * 1e9), pack_ns=int(pack_s * 1e9),
                     route_ns=int(route_s * 1e9), aux=aux,
@@ -207,10 +242,10 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
             item = work_q.get()
             if item is None:
                 break
-            pid, payload = item
+            pid, payload, cslot = item
             state: dict = {"completed": False}
             try:
-                handle(pid, payload, state)
+                handle(pid, payload, state, cslot)
             except Exception:  # keep the pool alive
                 logging.getLogger(__name__).exception("mp-ingest worker %d failed on a payload", widx)
                 if not state["completed"]:
@@ -221,6 +256,8 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
     finally:
         result_q.put((_KIND_EOF, widx))
         prod.close()
+        if cview is not None:
+            cview.close()
 
 
 class _IdMaps:
@@ -262,6 +299,8 @@ class MultiProcessIngester:
         ring_slots: int = 0,
         coalesce_max: int = 1,
         ring_aux_bytes: int = 1 << 20,
+        critpath_slots: int = 0,
+        critpath_reclaim_s: float = 60.0,
     ) -> None:
         from zipkin_tpu_torch import native
         from zipkin_tpu_torch.tpu.columnar import WIRE_ROWS
@@ -308,6 +347,18 @@ class MultiProcessIngester:
             sample_boundary=(sampler._boundary
                              if sampler is not None and sampler.rate < 1.0 else None),
         )
+        # the critical-path ledger, made before the pool spawns so workers
+        # attach by name; the stitcher is .critpath, which the server puts
+        # on its windows ticker and statusz reads
+        self._cp_ledger = None
+        self.critpath = None
+        self._cslots: Dict[int, int] = {}  # payload id -> ledger slot, under _cv
+        if critpath_slots > 0:
+            self._cp_ledger = _critpath.CritPathLedger(workers, critpath_slots)
+            self.critpath = _critpath.CritPathStitcher(
+                self._cp_ledger, queue_capacity=workers * self.queue_depth,
+                recorder=obs.RECORDER, reclaim_age_s=critpath_reclaim_s)
+            params["critpath"] = self._cp_ledger.params()
         self._procs = [
             ctx.Process(target=_worker_main,
                         args=(w, self._work_qs[w], self._result_q, self._ring.params(), params),
@@ -397,6 +448,7 @@ class MultiProcessIngester:
                 self._next_pid += 1
                 self._pending[pid] = payload
                 self._inflight += 1
+            wire_ns = _critpath.WIRE_T0_NS.get() if self._cp_ledger is not None else 0
             for relax in (False, True):
                 for w in live[start:] + live[:start]:
                     with self._cv:
@@ -410,13 +462,30 @@ class MultiProcessIngester:
                             if self._assigned.get(pid) == w:
                                 self._assigned.pop(pid)
                         continue
+                    cslot = -1
+                    if wire_ns:
+                        t_en0 = time.perf_counter_ns()
+                        cslot = self._cp_ledger.alloc(pid, w, wire_ns)
+                        if cslot >= 0:
+                            # stamped and registered before the queue put: the
+                            # dispatcher writes the slot only after the
+                            # worker's chunk arrives, so the main-side region
+                            # keeps one writer at a time
+                            self._cp_ledger.stamp(cslot, _critpath.SEG_ENQUEUE, t_en0,
+                                                  time.perf_counter_ns(), pid)
+                            with self._cv:
+                                self._cslots[pid] = cslot
                     try:
-                        self._work_qs[w].put_nowait((pid, payload))
+                        self._work_qs[w].put_nowait((pid, payload, cslot))
                         with self._cv:
                             self._qdepth[w] += 1
                             self._qhigh[w] = max(self._qhigh[w], self._qdepth[w])
                         return
                     except queue.Full:
+                        if cslot >= 0:
+                            with self._cv:
+                                self._cslots.pop(pid, None)
+                            self._cp_ledger.abandon(cslot)
                         with self._cv:
                             if pid not in self._pending:
                                 return  # a racing reap already re-ingested it
@@ -463,7 +532,7 @@ class MultiProcessIngester:
             qdepth = list(self._qdepth)
             qhigh = list(self._qhigh)
         depth = [0 if self._closed else self._ring.stripe_depth(w) for w in range(self.workers)]
-        return {
+        out = {
             "mpWorkers": self.workers,
             "mpWorkersAlive": self.workers - dead,
             "mpQueueDepth": self.queue_depth,
@@ -489,6 +558,9 @@ class MultiProcessIngester:
                 for w, ws in enumerate(self._wstats)
             ],
         }
+        if self.critpath is not None:
+            out.update(self.critpath.counters())
+        return out
 
     def close(self) -> None:
         if self._closed:
@@ -530,6 +602,8 @@ class MultiProcessIngester:
                 traceback.clear_frames(tb)
         self._buffered.clear()
         self._ring.close()
+        if self._cp_ledger is not None:
+            self._cp_ledger.close()
 
     # -- dispatcher ------------------------------------------------------
 
@@ -710,6 +784,7 @@ class MultiProcessIngester:
             if payload is None:
                 return  # a reap already re-ingested it
             self._buffered.pop(pid, None)
+            self._drop_cslot(pid)  # the slow path's retry: the timeline is abandoned
             self._fallback(payload)
             self.counters["fallbacks"] += 1
             if 0 <= widx < len(self._wstats):
@@ -735,6 +810,7 @@ class MultiProcessIngester:
         store = self.store
         vocab = store.vocab
         m = self._maps[widx]
+        cs = self._cslots.get(pid, -1) if self._cp_ledger is not None else -1
         if svc_new or name_new or pairs_new:
             tv0 = time.perf_counter()
             with store._intern_lock:
@@ -745,6 +821,9 @@ class MultiProcessIngester:
             tv1 = time.perf_counter()
             obs.record("mp_vocab_replay", tv1 - tv0)
             self.stage_us["vocabReplay"] += int((tv1 - tv0) * 1e6 + 0.5)
+            if cs >= 0:
+                self._cp_ledger.stamp(cs, _critpath.SEG_VOCAB_REPLAY, int(tv0 * 1e9),
+                                      int(tv1 * 1e9), pid)
         # the workers' stage walls, relayed (histogram only: the time was
         # spent in another process, not under this thread's request)
         if parse_s > 0.0:
@@ -785,13 +864,18 @@ class MultiProcessIngester:
         """Chunks still buffered for an incomplete payload at the end of a
         pass are copied out of their slots, so every consumed slot can be
         freed and a payload never pins its worker's stripe."""
-        for entries in self._buffered.values():
+        for pid, entries in self._buffered.items():
             for e in entries:
                 if e[7]:
                     t0 = time.perf_counter()
                     e[0] = np.array(e[0])
                     e[7] = False
-                    obs.record("mp_shm_copy", time.perf_counter() - t0)
+                    tc1 = time.perf_counter()
+                    obs.record("mp_shm_copy", tc1 - t0)
+                    cs = self._cslots.get(pid, -1) if self._cp_ledger is not None else -1
+                    if cs >= 0:
+                        self._cp_ledger.stamp(cs, _critpath.SEG_SHM_COPY, int(t0 * 1e9),
+                                              int(tc1 * 1e9), pid)
 
     # -- coalesced flush --------------------------------------------------
 
@@ -847,7 +931,22 @@ class MultiProcessIngester:
         """One coalesced group -> one gather, one device step, one WAL
         record. Returns the payloads whose last chunk it held."""
         store = self.store
+        led = self._cp_ledger
         t_g0 = time.perf_counter()
+        pairs = []
+        if led is not None:
+            seen: Set[int] = set()
+            for _, pid in group:
+                if pid not in seen:
+                    seen.add(pid)
+                    pairs.append((self._cslots.get(pid, -1), pid))
+            traced = [(s, p) for s, p in pairs if s >= 0]
+            # arm the thread-local, so the WAL's append and fsync stamps
+            # land in these payloads' timelines (the WAL rides the step)
+            if len(traced) == 1:
+                _critpath.set_active(led, traced[0][0], traced[0][1])
+            elif traced:
+                _critpath.set_active_group(led, traced)
         n_spans = n_dur = n_err = 0
         lo = hi = None
         parts = []
@@ -883,10 +982,17 @@ class MultiProcessIngester:
         # stalls the dispatcher (backpressure tests fill the queues with it)
         faults.resource_point("feed.latency")
         tf0 = time.perf_counter()
-        store.agg.ingest_fused_multi(parts, n_spans=n_spans, n_dur=n_dur, n_err=n_err,
-                                     ts_range=ts, pad_to_multiple=store._pad)
+        try:
+            store.agg.ingest_fused_multi(parts, n_spans=n_spans, n_dur=n_dur, n_err=n_err,
+                                         ts_range=ts, pad_to_multiple=store._pad)
+        finally:
+            if led is not None:
+                _critpath.clear_active()
         tf1 = time.perf_counter()
         obs.record("mp_device_feed", tf1 - tf0)
+        for s, p in pairs:
+            if s >= 0:
+                led.stamp(s, _critpath.SEG_DEVICE_FEED, int(tf0 * 1e9), int(tf1 * 1e9), p)
         self.stage_us["deviceFeed"] += int((tf1 - tf0) * 1e6 + 0.5)
         self.counters["groups"] += 1
         if len(group) > 1:
@@ -922,6 +1028,9 @@ class MultiProcessIngester:
                 self.metrics.increment_spans(total + max(dropped, 0))
                 if dropped > 0:
                     self.metrics.increment_spans_dropped(dropped)
+            cs = self._cslots.get(pid, -1) if self._cp_ledger is not None else -1
+            if cs >= 0:
+                self._cp_ledger.ack(cs, pid)  # durable: the WAL append and the feed are done
             self._finish(pid)
 
     # -- worker death -----------------------------------------------------
@@ -996,6 +1105,8 @@ class MultiProcessIngester:
                     payload = self._pending.get(pid)
                     if payload is None:
                         continue
+                    # the dead worker's slots would stay open: recycle them
+                    self._drop_cslot(pid)
                     self._fallback(payload)
                     self.counters["fallbacks"] += 1
                     self._finish(pid)
@@ -1008,9 +1119,20 @@ class MultiProcessIngester:
 
     # -- shared helpers ----------------------------------------------------
 
+    def _drop_cslot(self, pid: int) -> None:
+        """Abandon a payload's timeline (the fallback and reap paths): its
+        partial stamps would decompose misleadingly, so the slot recycles."""
+        if self._cp_ledger is None:
+            return
+        with self._cv:
+            cs = self._cslots.pop(pid, -1)
+        if cs >= 0:
+            self._cp_ledger.abandon(cs)
+
     def _finish(self, pid: int) -> None:
         with self._cv:
             self._pending.pop(pid, None)
+            self._cslots.pop(pid, None)
             w = self._assigned.pop(pid, None)
             if w is not None and self._qdepth[w] > 0:
                 self._qdepth[w] -= 1

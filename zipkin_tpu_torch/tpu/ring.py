@@ -66,7 +66,7 @@ _S_NSPANS = 6
 _S_NDUR = 7
 _S_NERR = 8
 _S_DROPPED = 9    # -1 = continuation chunk
-_S_CSLOT = 10     # the reference's critical-path slot; the port writes -1
+_S_CSLOT = 10     # critical-path ledger slot (-1: untraced)
 _S_TS_MIN = 11
 _S_TS_MAX = 12
 _S_PARSE_NS = 13

@@ -49,10 +49,18 @@ cache-probe, link-resolve and serialize segments; an attached ``shadow``
 of the line-rate path, and ``ingest_counters()`` carries the device
 observatory's totals, the ``accuracy`` gauges and the query plane's.
 
-Left out, against the reference: the epoch-published read mirror and its
-shared-memory segment (the reference falls back to the versioned cache
-when no epoch is published, which is what a library caller sees) and the
-overload hooks. :meth:`TorchStorage.get_traces` reads every id
+The epoch-published read mirror (:mod:`zipkin_tpu_torch.tpu.mirror`): the
+four aggregate reads serve first from the last published epoch without
+taking the aggregator lock, within ``staleness_ms`` (per request) or the
+mirror's bound; :meth:`TorchStorage.publish_mirror` cuts an epoch (the
+server's windows ticker calls it, the resume adapter at boot), and
+:meth:`TorchStorage.attach_mirror_segment` also serializes each epoch into
+a shared-memory segment that reader processes serve from
+(:mod:`zipkin_tpu_torch.serving`). Every closure the mirror keeps reaches
+the store through a weak proxy, so the mirror makes no cycle.
+
+Left out, against the reference: the overload hooks (brownout read modes)
+and tenant-scoped mirror keys. :meth:`TorchStorage.get_traces` reads every id
 through one ``views()`` of the disk archive (the reference takes one per
 id, which sorts the live segment again for each). Durable boot (snapshot
 restore, WAL replay) is the resume adapter's,
@@ -97,6 +105,7 @@ from zipkin_tpu_torch.storage.spi import (
 )
 from zipkin_tpu_torch.tpu.archive import SpanArchive, parsed_record
 from zipkin_tpu_torch.tpu.columnar import Vocab, pack_parsed, pack_spans, sample_slices
+from zipkin_tpu_torch.tpu.mirror import ReadMirror
 from zipkin_tpu_torch.tpu.state import AggConfig
 from zipkin_tpu_torch.tpu.timetier import TimeTier
 from zipkin_tpu_torch.utils.call import Call
@@ -111,6 +120,12 @@ MAX_DEVICE_BATCH = 65536
 # dependency answers may be this stale under ingest: the reference's
 # dependency table is an offline batch job, hours stale by design
 DEPS_MAX_STALE_MS = 5000.0
+# the dashboard's default quantile list (the server's q default): the
+# mirror pins these reads, so the first post-boot refresh is lock-free
+DEFAULT_QS = (0.5, 0.9, 0.99)
+# returned by _mirror_bound when the request opted out of the mirror
+# (staleness_ms <= 0): force the fresh lock-path read
+_MIRROR_FRESH = object()
 
 
 def _decode_raw_span(raw: bytes) -> Span:
@@ -249,6 +264,18 @@ class TorchStorage(
         store = weakref.ref(self)  # no cycle through the store's own plane
         self.querytrace.lock_provider = lambda: getattr(getattr(store(), "agg", None), "lock", None)
         self._query_obs_enabled: Optional[bool] = None
+        # the epoch-published read mirror: one publisher (the server's
+        # windows ticker, the resume adapter at boot) takes the aggregator
+        # lock once an epoch and republishes every demanded read; reads then
+        # serve lock-free with a staleness age. Its closures reach the store
+        # through this proxy, never a strong reference (no cycle)
+        self._weak = weakref.proxy(self)
+        self.mirror = ReadMirror(lambda: getattr(store(), "agg", None))
+        self._seed_mirror()
+        # the publisher into the shared-memory segment reader processes
+        # serve from, when one is attached (attach_mirror_segment)
+        self._segment_publisher = None
+        self._demand_unparsed = 0
         # the accuracy plane, attached by the server: the host shadow the
         # ingest paths offer their batches to, and its estimator
         self.shadow = None
@@ -873,6 +900,149 @@ class TorchStorage(
             self._read_cache.clear()
             self._deps_cache.clear()
 
+    # -- epoch-published read mirror (port of zipkin_tpu/tpu/store.py:1136-1340)
+
+    def _seed_mirror(self) -> None:
+        """Pin the dashboard's default reads into the mirror's demand
+        registry, so the first publish (boot, before the ticker starts)
+        carries them; the keys are ``_cached_read``'s."""
+        w = self._weak
+        qs = DEFAULT_QS
+        qkey = ",".join(f"{q:.6g}" for q in qs)
+        self.mirror.register(f"overview:{qkey}", lambda: w.agg.sketch_overview(qs), pinned=True)
+        self.mirror.register("card", lambda: w.agg.cardinalities(), pinned=True)
+        self.mirror.register(f"quant:digest:{qkey}", lambda: w.agg.quantiles(qs, source="digest"),
+                             pinned=True)
+
+    def publish_mirror(self, force: bool = False, paced: bool = False) -> bool:
+        """One mirror epoch (:meth:`ReadMirror.publish`): the windows ticker
+        calls it each tick (``paced=True``, the duty-cycle cap), the resume
+        adapter at boot. Reader-process demand drains first, so a key a
+        reader missed is carried by this very epoch."""
+        pub = self._segment_publisher
+        if pub is not None:
+            for key in pub.drain_demand():
+                self.mirror_register_key(key)
+        return self.mirror.publish(force=force, paced=paced)
+
+    def attach_mirror_segment(self, segment) -> None:
+        """Serialize every mirror epoch into ``segment``
+        (:class:`~zipkin_tpu_torch.serving.segment.MirrorSegment`) after the
+        snapshot swap, outside the aggregator lock. Call before the boot
+        publish, so readers that attach after a crash-resume serve the
+        restored epoch."""
+        from zipkin_tpu_torch.serving.publisher import SegmentPublisher
+
+        pub = SegmentPublisher(segment)
+        self._segment_publisher = pub
+        w = self._weak
+
+        def sink(snap) -> None:
+            tt = w.timetier
+            pub.publish_snapshot(
+                snap,
+                vocab=w.vocab,
+                max_stale_ms=w.mirror.max_stale_ms,
+                deps_max_stale_ms=w._deps_max_stale_ms,
+                time_bucket_minutes=w.config.time_bucket_minutes,
+                global_hll_row=w.config.global_hll_row,
+                tt_sealed_through=tt.sealed_through if tt is not None else None,
+                counters=w.ingest_counters(),
+                mirror_generation=w.mirror.gen,
+            )
+
+        self.mirror.segment_sink = sink
+
+    def mirror_register_key(self, key: str) -> bool:
+        """Parse a reader-demanded key back into its compute and register it
+        (unpinned, expiring). The grammar is the closed set of keys the
+        store mints; anything else, tenant-prefixed keys included, is
+        refused and counted, never guessed at."""
+        w = self._weak
+        try:
+            if key == "card":
+                return self.mirror.register(key, lambda: w.agg.cardinalities())
+            if key.startswith("overview:"):
+                qs = tuple(float(x) for x in key.split(":", 1)[1].split(",") if x)
+                if qs:
+                    return self.mirror.register(key, lambda: w.agg.sketch_overview(qs))
+            if key.startswith("quant:w:"):
+                _, _, lo, hi, qstr = key.split(":", 4)
+                lo_min, hi_min = int(lo), int(hi)
+                qs = tuple(float(x) for x in qstr.split(",") if x)
+                if qs:
+                    return self.mirror.register(
+                        key, lambda: w.agg.quantiles(qs, ts_lo_min=lo_min, ts_hi_min=hi_min))
+            elif key.startswith("quant:"):
+                _, src, qstr = key.split(":", 2)
+                qs = tuple(float(x) for x in qstr.split(",") if x)
+                if src in ("digest", "hist") and qs:
+                    return self.mirror.register(key, lambda: w.agg.quantiles(qs, source=src))
+            if key.startswith("deps:"):
+                _, lo, hi = key.split(":")
+                lo_min, hi_min = int(lo), int(hi)
+                return self.mirror.register(key, lambda: w._dependency_links(lo_min, hi_min))
+            if key.startswith("ttq:") and self.timetier is not None:
+                _, lo, hi = key.split(":")
+                lo_ep, hi_ep = int(lo), int(hi)
+                return self.mirror.register(key, lambda: w.timetier.window(w.agg, lo_ep, hi_ep))
+        except (ValueError, TypeError):
+            pass
+        self._demand_unparsed += 1
+        return False
+
+    @staticmethod
+    def _mirror_bound(staleness_ms: Optional[float], default_ms: float):
+        """The effective bound of a mirror serve: ms the answer may be
+        stale, or ``_MIRROR_FRESH`` when the request opted out
+        (``staleness_ms <= 0``). The reference also loosens it under its
+        brownout read modes, which the port has not yet."""
+        if staleness_ms is not None and staleness_ms <= 0:
+            return _MIRROR_FRESH
+        return float(staleness_ms) if staleness_ms is not None else float(default_ms)
+
+    def _mirror_serve(self, key: str, bound_ms, allow_stale: bool = True):
+        """Serve ``key`` from the published epoch without the aggregator
+        lock: a seqlock snapshot read and a staleness check against the
+        live write version, stamped as ``query_mirror`` and the traced
+        query's mirror-serve segment. None on a miss."""
+        mirror = self.mirror
+        if not mirror.enabled:
+            return None
+        t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
+        hit = mirror.serve(key, bound_ms, self.agg.write_version, allow_stale)
+        if hit is None:
+            return None
+        obs.record("query_mirror", time.perf_counter() - t0)
+        querytrace.stamp_active(querytrace.QSEG_MIRROR_SERVE, t0_ns, time.perf_counter_ns())
+        return hit
+
+    def _mirror_allow_stale(self, staleness_ms) -> bool:
+        """May this request see a version-stale epoch? Yes when the caller
+        opted in (a positive ``staleness_ms``) or the aggregator lock is
+        held by another thread right now (a non-blocking probe, which is
+        no acquisition); otherwise an exact read is cheap and a default
+        request stays exact."""
+        if staleness_ms is not None:
+            return True
+        probe = getattr(self.agg.lock, "would_block", None)
+        return bool(probe is not None and probe())
+
+    def _mirror_read(self, key: str, compute, staleness_ms=None):
+        """Mirror first: serve from the published epoch when the age
+        allows, else register ``compute`` for the next epoch and read
+        through the versioned cache (where the aggregator lock is).
+        ``compute`` must reach the store weakly (``self._weak``): the
+        registry keeps it."""
+        bound = self._mirror_bound(staleness_ms, self.mirror.max_stale_ms)
+        if bound is not _MIRROR_FRESH:
+            hit = self._mirror_serve(key, bound, self._mirror_allow_stale(staleness_ms))
+            if hit is not None:
+                return hit[0]
+            self.mirror.register(key, compute)
+        return self._cached_read(key, compute)
+
     # -- time-disaggregated sketch tier ----------------------------------
 
     def tt_seal(self, limit: Optional[int] = None) -> int:
@@ -893,14 +1063,17 @@ class TorchStorage(
         hi_ep = max(0, epoch_minutes(end_ts) // g)
         return lo_ep, hi_ep
 
-    def _tt_window(self, lo_ep: int, hi_ep: int):
-        """The merged window answer of all three windowed reads; a range
-        past ``sealed_through`` makes one device read of the unsealed
-        buckets, a sealed-only range none."""
-        return self._cached_read(
+    def _tt_window(self, lo_ep: int, hi_ep: int, staleness_ms=None):
+        """The merged window answer of all three windowed reads, mirror
+        first (one ``ttq:`` key an epoch range); a range past
+        ``sealed_through`` makes one device read of the unsealed buckets,
+        a sealed-only range none."""
+        w = self._weak
+        return self._mirror_read(
             f"ttq:{lo_ep}:{hi_ep}",
-            # self.agg is read at call time: clear() replaces it
-            lambda: self.timetier.window(self.agg, lo_ep, hi_ep),
+            # w.agg is read at call time: clear() replaces it
+            lambda: w.timetier.window(w.agg, lo_ep, hi_ep),
+            staleness_ms,
         )
 
     def _tt_dependency_links(self, ans) -> List[DependencyLink]:
@@ -924,19 +1097,21 @@ class TorchStorage(
     def get_dependencies(
         self, end_ts: int, lookback: int, staleness_ms: Optional[float] = None,
     ) -> Call[List[DependencyLink]]:
-        """``staleness_ms`` is the reference's bound on a mirror serve; the
-        port has no mirror, so it changes nothing. Set
-        ``_deps_max_stale_ms`` to 0 for answers that are never stale."""
+        """Mirror first, within ``staleness_ms`` (None: the dependency
+        bound ``_deps_max_stale_ms``; <= 0: a fresh read), then the
+        bounded-stale answer cache. Set ``_deps_max_stale_ms`` to 0 for
+        answers that are never stale."""
         def run() -> List[DependencyLink]:
             qt = self.querytrace.begin("dependencies")
             try:
-                return self._get_dependencies(end_ts, lookback)
+                return self._get_dependencies(end_ts, lookback, staleness_ms)
             finally:
                 self.querytrace.finish(qt)
 
         return Call.of(run)
 
-    def _get_dependencies(self, end_ts: int, lookback: int) -> List[DependencyLink]:
+    def _get_dependencies(self, end_ts: int, lookback: int,
+                          staleness_ms: Optional[float] = None) -> List[DependencyLink]:
         tt = self.timetier
         if tt is not None:
             lo_ep, hi_ep = self._tt_epochs(end_ts, lookback)
@@ -944,9 +1119,20 @@ class TorchStorage(
                 # part of the window is sealed: merge the covering segments
                 # on the host (exact per-bucket edge counts) instead of
                 # linking the span ring
-                return self._tt_dependency_links(self._tt_window(lo_ep, hi_ep))
+                return self._tt_dependency_links(self._tt_window(lo_ep, hi_ep, staleness_ms))
         lo_min = epoch_minutes(end_ts - lookback)
         hi_min = epoch_minutes(end_ts)
+        # mirror first: the epoch carries the resolved link list, so a hit
+        # touches neither the aggregator lock nor the answer cache; the
+        # dependency bound, not the mirror's, is the default
+        bound = self._mirror_bound(staleness_ms, self._deps_max_stale_ms)
+        if bound is not _MIRROR_FRESH:
+            mkey = f"deps:{lo_min}:{hi_min}"
+            hit = self._mirror_serve(mkey, bound)
+            if hit is not None:
+                return hit[0]
+            w = self._weak
+            self.mirror.register(mkey, lambda: w._dependency_links(lo_min, hi_min))
         fresh = self.agg.write_version
         now = time.monotonic()
         t0 = time.perf_counter()
@@ -964,7 +1150,7 @@ class TorchStorage(
                                             time.perf_counter_ns())
                     return value
         querytrace.stamp_active(querytrace.QSEG_CACHE_PROBE, t0_ns, time.perf_counter_ns())
-        value = self._dependency_links(lo_min, hi_min)
+        value = self._dependency_links(lo_min, hi_min, fetch=self._cached_read)
         with self._read_cache_lock:
             self._deps_cache[(lo_min, hi_min)] = (value, fresh, now)
             # prune by age so windows that move with endTs cannot pile up
@@ -973,9 +1159,16 @@ class TorchStorage(
                 del self._deps_cache[k]
         return value
 
-    def _dependency_links(self, lo_min: int, hi_min: int) -> List[DependencyLink]:
+    def _dependency_links(self, lo_min: int, hi_min: int, fetch=None) -> List[DependencyLink]:
+        """The edge read and its resolution into links. ``fetch`` is the
+        read seam: the query path memoizes through ``_cached_read``; the
+        mirror's publisher (already inside its one lock hold) reads the
+        aggregator directly, so a publish fills no read cache."""
+        if fetch is None:
+            def fetch(_key, compute):
+                return compute()
         # the edges are compacted on the device: [E] vectors, not [S, S]
-        idx, calls, errors = self._cached_read(
+        idx, calls, errors = fetch(
             f"edges:{lo_min}:{hi_min}", lambda: self.agg.dependency_edges(lo_min, hi_min))
         s = self.config.max_services
         live = calls > 0
@@ -984,7 +1177,7 @@ class TorchStorage(
             # than the compaction holds, so read the dense matrices instead
             # of dropping any
             logger.debug("dependency edge compaction full (%d); using dense pull", len(calls))
-            dense_c, dense_e = self._cached_read(
+            dense_c, dense_e = fetch(
                 f"depmat:{lo_min}:{hi_min}", lambda: self.agg.dependency_matrices(lo_min, hi_min))
             p_idx, c_idx = np.nonzero(dense_c)
             idx, calls, errors = p_idx * s + c_idx, dense_c[p_idx, c_idx], dense_e[p_idx, c_idx]
@@ -1020,15 +1213,19 @@ class TorchStorage(
         rows come from the time tier when its sealer has reached the window
         (per-bucket digests merged over the covering segments), else from
         the time-sliced histograms (``use_digest=False`` forces these).
-        ``staleness_ms`` is accepted for the reference's signature and
-        changes nothing here (no mirror)."""
+        ``staleness_ms`` tunes the mirror-first serve: None accepts the
+        mirror's bound, a positive value sets it for this request, and
+        <= 0 forces a fresh lock-path read."""
         qt = self.querytrace.begin("quantiles")
         try:
-            return self._latency_quantiles(qs, service_name, span_name, use_digest, end_ts, lookback)
+            return self._latency_quantiles(qs, service_name, span_name, use_digest, end_ts,
+                                           lookback, staleness_ms)
         finally:
             self.querytrace.finish(qt)
 
-    def _latency_quantiles(self, qs, service_name, span_name, use_digest, end_ts, lookback):
+    def _latency_quantiles(self, qs, service_name, span_name, use_digest, end_ts, lookback,
+                           staleness_ms=None):
+        w = self._weak
         if end_ts is None and lookback is not None:
             end_ts = int(time.time() * 1000)  # endTs defaults to now
         qkey = ",".join(f"{q:.6g}" for q in qs)
@@ -1036,21 +1233,22 @@ class TorchStorage(
             tt = self.timetier
             lo_ep, hi_ep = self._tt_epochs(end_ts, lookback) if tt is not None else (0, -1)
             if use_digest and tt is not None and lo_ep <= tt.sealed_through:
-                ans = self._tt_window(lo_ep, hi_ep)
+                ans = self._tt_window(lo_ep, hi_ep, staleness_ms)
                 source_q = ttmerge.digest_quantile(ans.digest, qs)
                 counts = ttmerge.digest_total(ans.digest)
             else:
                 lb = lookback if lookback is not None else end_ts
                 lo_min = epoch_minutes(end_ts - lb)
                 hi_min = epoch_minutes(end_ts)
-                source_q, counts = self._cached_read(
+                source_q, counts = self._mirror_read(
                     f"quant:w:{lo_min}:{hi_min}:{qkey}",
-                    lambda: self.agg.quantiles(qs, ts_lo_min=lo_min, ts_hi_min=hi_min),
+                    lambda: w.agg.quantiles(qs, ts_lo_min=lo_min, ts_hi_min=hi_min),
+                    staleness_ms,
                 )
         else:
             src = "digest" if use_digest else "hist"
-            source_q, counts = self._cached_read(
-                f"quant:{src}:{qkey}", lambda: self.agg.quantiles(qs, source=src))
+            source_q, counts = self._mirror_read(
+                f"quant:{src}:{qkey}", lambda: w.agg.quantiles(qs, source=src), staleness_ms)
         return self._quantile_rows(qs, source_q, counts, service_name, span_name)
 
     def _quantile_rows(self, qs, source_q: np.ndarray, counts: np.ndarray,
@@ -1114,15 +1312,18 @@ class TorchStorage(
     ) -> dict:
         """Estimated distinct traces: ``{"_global": n, service: n, ...}``;
         with ``end_ts``/``lookback`` (epoch ms) over the time tier's
-        covering buckets, else over all time."""
+        covering buckets, else over all time; mirror first, within
+        ``staleness_ms`` as for :meth:`latency_quantiles`."""
         qt = self.querytrace.begin("cardinalities")
         try:
             if end_ts is None and lookback is not None:
                 end_ts = int(time.time() * 1000)
             if end_ts is not None and self.timetier is not None:
-                ans = self._tt_window(*self._tt_epochs(end_ts, lookback))
+                ans = self._tt_window(*self._tt_epochs(end_ts, lookback), staleness_ms)
                 return self._cardinality_rows(ttmerge.hll_estimate(ans.hll))
-            return self._cardinality_rows(self._cached_read("card", lambda: self.agg.cardinalities()))
+            w = self._weak
+            return self._cardinality_rows(
+                self._mirror_read("card", lambda: w.agg.cardinalities(), staleness_ms))
         finally:
             self.querytrace.finish(qt)
 
@@ -1131,12 +1332,15 @@ class TorchStorage(
         span_name: Optional[str] = None, staleness_ms: Optional[float] = None,
     ) -> dict:
         """The sketch page from one device read: ``{"percentiles": rows,
-        "cardinalities": dict, "counters": ingest_counters()}``."""
+        "cardinalities": dict, "counters": ingest_counters()}``; the packed
+        triple mirror first (the rows and the live counters are shaped per
+        request)."""
         qt = self.querytrace.begin("overview")
         try:
             qkey = ",".join(f"{q:.6g}" for q in qs)
-            source_q, counts, est = self._cached_read(
-                f"overview:{qkey}", lambda: self.agg.sketch_overview(qs))
+            w = self._weak
+            source_q, counts, est = self._mirror_read(
+                f"overview:{qkey}", lambda: w.agg.sketch_overview(qs), staleness_ms)
             return {
                 "percentiles": self._quantile_rows(qs, source_q, counts, service_name, span_name),
                 "cardinalities": self._cardinality_rows(est),
@@ -1180,6 +1384,15 @@ class TorchStorage(
             "readCacheServeAgeMs": round(self._read_cache_age_ms, 3),
             "readCacheServeAgeMaxMs": round(self._read_cache_age_max_ms, 3),
             "readCacheEntries": len(self._read_cache),
+            # the mirror's publish and serve ledger, staleness at serve
+            # (mirrorServeAgeMs backs the query_mirror_staleness SLO)
+            **self.mirror.counters(),
+            # the segment reader processes serve from: publishes, overflows,
+            # demand traffic and the worst live reader's age
+            # (readerServeAgeMs backs the reader_staleness SLO)
+            "mirrorSegmentSinkErrors": self.mirror.segment_sink_errors,
+            "readerDemandUnparsed": self._demand_unparsed,
+            **(self._segment_publisher.counters() if self._segment_publisher is not None else {}),
             **(self.timetier.export_counters() if self.timetier is not None else {}),
             **self.restore_stats,
             # what the disk archive holds, dropped, skipped and quarantined
@@ -1230,9 +1443,12 @@ class TorchStorage(
         if self.timetier is not None:
             self.timetier.clear()
         # the new aggregator's write versions start again from 0, so a read
-        # cached at version v would serve the new state's version v
+        # cached at version v would serve the new state's version v; the
+        # published epoch was cut against versions that no longer compare
+        # (its demand keys stay: the next publish refills)
         self.invalidate_read_cache()
         self._read_cache_version = -1
+        self.mirror.reset()
         # the swap replaced the instrumented lock: drop what was stitched
         # against the old aggregator and reapply the configured setting
         self.querytrace.reset()

@@ -21,8 +21,10 @@ The on-disk format is the reference's (the same magic, ``<IQII I`` header,
 meta keys and payload), so a log written by either package replays in the
 other. The archive sample is not logged: it is a bounded, lossy cache by
 design. Each append is the flight recorder's ``wal_append`` stage (the
-fsync included) and each fsync its ``wal_fsync``; the reference's
-critical-path segments of an append come with the critical-path tracer.
+fsync included) and each fsync its ``wal_fsync``; for the critical-path
+tracer the append (without its fsync) is the ``wal_append`` segment and the
+fsync the ``wal_fsync`` segment of the payloads the dispatcher is flushing
+(``critpath.stamp_active``, a no-op on any other thread).
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 
 from zipkin_tpu_torch import faults, obs
+from zipkin_tpu_torch.obs import critpath
 
 logger = logging.getLogger(__name__)
 
@@ -123,10 +126,15 @@ class WriteAheadLog:
             if not deferred:
                 fh.flush()
             faults.crashpoint("wal.append.pre_fsync")
+            t1 = time.perf_counter()
+            # the critical path wants the append and the fsync as disjoint
+            # intervals (the wal_append stage keeps the fsync)
+            critpath.stamp_active(critpath.SEG_WAL_APPEND, int(t0 * 1e9), int(t1 * 1e9))
             if self.fsync and not deferred:
-                t1 = time.perf_counter()
                 os.fsync(fh.fileno())
-                obs.record("wal_fsync", time.perf_counter() - t1)
+                t2 = time.perf_counter()
+                obs.record("wal_fsync", t2 - t1)
+                critpath.stamp_active(critpath.SEG_WAL_FSYNC, int(t1 * 1e9), int(t2 * 1e9))
         except OSError as e:
             if e.errno != errno.ENOSPC:
                 raise
@@ -165,7 +173,9 @@ class WriteAheadLog:
             if self.fsync:
                 t1 = time.perf_counter()
                 os.fsync(fh.fileno())
-                obs.record("wal_fsync", time.perf_counter() - t1)
+                t2 = time.perf_counter()
+                obs.record("wal_fsync", t2 - t1)
+                critpath.stamp_active(critpath.SEG_WAL_FSYNC, int(t1 * 1e9), int(t2 * 1e9))
         except OSError as e:
             if e.errno != errno.ENOSPC:
                 raise
