@@ -103,7 +103,20 @@ Builds the hand-written kernels from the sources in the checkout, then:
     503s on staleness, a miss served next epoch, a SIGKILLed reader
     respawned, no torch in a reader (k3); the entry point with the tier,
     the tracer and a segment: statusz's critpath, mirror and serving
-    sections and their families (k4).
+    sections and their families (k4);
+(l) admission: the mirror's repairs (l0: k2's memoized serves, a key that
+    outgrows a 4 MiB segment left out while the rest serve from a reader
+    process, a reader of an idle server serving past the staleness bound),
+    the overload ladder under a paced client and an 8-client flood through
+    a server with the tier (l1: each tick's level and top signal, sheds by
+    class, every error-class payload admitted, Retry-After on every 429,
+    read p99 by level, the seconds back to B0, every acked span read back),
+    tenant budgets (l2: a tenant at 4x its budget shed alone, with scope
+    tenant, while another at 0.5x and the global ladder are untouched),
+    deadlines and the resume supervisor (l3: 504 on a spent budget; a
+    supervised process trips, snapshots and exits 75, a relaunch restores
+    every acked span and trace) and admission's cost on the line-rate path
+    in on/off pairs with admit()'s own ns (l4).
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -3295,7 +3308,8 @@ def obs_server_config(cfg, **extra):
                         tpu_agg=dataclasses.asdict(cfg), **extra)
 
 
-def post_body(base: str, body: bytes, headers=None) -> int:
+def post_full(base: str, body: bytes, headers=None, timeout: float = 300.0):
+    """(status, headers, body bytes) of one POST of spans."""
     import urllib.error
     import urllib.request
 
@@ -3303,10 +3317,14 @@ def post_body(base: str, body: bytes, headers=None) -> int:
     req = urllib.request.Request(base + "/api/v2/spans", data=body, method="POST",
                                  headers={"Content-Type": ctype, **(headers or {})})
     try:
-        with urllib.request.urlopen(req, timeout=300) as resp:
-            return resp.status
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return resp.status, dict(resp.headers), resp.read()
     except urllib.error.HTTPError as e:
-        return e.code
+        return e.code, dict(e.headers), e.read()
+
+
+def post_body(base: str, body: bytes, headers=None) -> int:
+    return post_full(base, body, headers)[0]
 
 
 def phase_obs_server(seed: int, torch, card: str, stored: dict, cfg=None, device=None) -> dict:
@@ -3340,7 +3358,7 @@ def phase_obs_server(seed: int, torch, card: str, stored: dict, cfg=None, device
     OBSERVATORY.reset_counters()
     hll_kernel.update.launches = hll_kernel.update_step.launches = 0
     server = ZipkinServer(obs_server_config(cfg, obs_incident_dir=incidents), storage=storage,
-                          seal_interval_s=1.0).start()
+                          seal_interval_s=0.5).start()
     base = f"http://127.0.0.1:{server.port}"
     http = HttpStore(base)
     trace_id = "00000000feedface"
@@ -3484,7 +3502,7 @@ def phase_obs_tier(torch, card: str, stored: dict, cfg=None, device=None, worker
     before = obs.RECORDER.snapshot()
     hll_kernel.update.launches = hll_kernel.update_step.launches = 0
     server = ZipkinServer(obs_server_config(cfg, tpu_mp_workers=workers), storage=storage,
-                          seal_interval_s=1.0).start()
+                          seal_interval_s=0.5).start()
     base = f"http://127.0.0.1:{server.port}"
     try:
         ing = server._mp_ingester
@@ -4051,6 +4069,7 @@ def phase_mirror(torch, card: str, stored: dict, cfg=None, device=None, readers:
                                       "mirrorMisses", "mirrorServeAgeMaxMs", "mirrorMaxStaleMs",
                                       "queryLockContended", "queryLockWaitP99Us")})
         res["publish_ms_mean"] = c["mirrorPublishMsSum"] / max(1, c["mirrorPublishes"])
+        res["shape_memo_hits"] = store._shape_memo_hits  # serves whose shaping was memoized
         if setting == "on":
             if serve_lock_acq[0] or not serve_lock_acq[1]:
                 raise AssertionError(f"phase k2: {serve_lock_acq[0]} lock acquisitions in "
@@ -4133,7 +4152,7 @@ def phase_readers(torch, card: str, stored: dict, cfg=None, device=None, n_paylo
                           tpu_archive_dir=None, obs_windows_tick_s=0.25, obs_shadow_enabled=False,
                           tpu_mirror_segment_bytes=64 << 20, tpu_readers=2,
                           tpu_agg=dataclasses.asdict(cfg))
-    server = ZipkinServer(config, device=device, seal_interval_s=1.0).start()
+    server = ZipkinServer(config, device=device, seal_interval_s=0.25).start()
     base = f"http://127.0.0.1:{server.port}"
     core = server.storage
     seg = core.mirror_segment
@@ -4470,6 +4489,819 @@ def phase_serve(torch, card: str, stored: dict, cfg=None, device=None, workers=N
     return fig
 
 
+def admission_payloads(stored: dict, per: int = 1024, every: int = 8):
+    """Phase e's spans as ``per``-span payloads, JSON v2 and proto3 by turns,
+    with every error tag taken out but on every ``every``-th payload, whose
+    first span also carries one: a bulk payload holds no ``error`` byte (the
+    ladder's value-class probe) and the others are error class. Returns
+    ``[(body, cls, spans)]``."""
+    import dataclasses
+
+    from zipkin_tpu_torch.model import json_v2, proto3
+    from zipkin_tpu_torch.runtime.overload import CLASS_BULK, CLASS_ERROR, OverloadController
+
+    spans = stored["spans"]
+    out = []
+    for i in range(len(spans) // per):
+        chunk = spans[i * per:(i + 1) * per]
+        if i % every == every - 1:
+            chunk = [dataclasses.replace(chunk[0], tags={**chunk[0].tags, "error": "true"})] + chunk[1:]
+            cls = CLASS_ERROR
+        else:
+            chunk = [dataclasses.replace(s, tags={k: v for k, v in s.tags.items() if k != "error"})
+                     if "error" in s.tags else s for s in chunk]
+            cls = CLASS_BULK
+        body = (proto3 if i % 2 else json_v2).encode_span_list(chunk)
+        if OverloadController.classify(body) != cls:
+            raise AssertionError(f"phase l: payload {i} is not of class {cls}")
+        out.append((body, cls, chunk))
+    return out
+
+
+def phase_admission_repairs(torch, card: str, stored: dict, mirror_fig: dict, cfg=None,
+                            device=None, serving_argv=None, max_stale_ms: int = 1500,
+                            segment_bytes: int = 4 << 20) -> dict:
+    """(l0) the mirror's repairs on the card. The in-process serves'
+    memoized shaping is phase k2's on leg of this very run (its ingest rate
+    against the off leg, and the memo's hits); then an in-process server
+    (the line-rate path, no seal, ``TPU_MIRROR_MAX_STALE_MS`` of
+    ``max_stale_ms``) with a 4 MiB segment (``segment_bytes``) takes 16 of
+    phase e's payloads and
+    registers the window's ``ttq:`` key, which outgrows the segment: the
+    epoch leaves it out (counted ``segmentOversizedKeys``, no overflow) and a
+    reader process serves the cardinality, quantile, overview and
+    dependency routes; then, idle past ``max_stale_ms``, the reader still
+    answers 200, its epoch re-stamped by the skipped publishes."""
+    import dataclasses
+    import os
+    import pickle
+    import signal
+    import tempfile
+
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.server.app import ZipkinServer
+    from zipkin_tpu_torch.server.config import ServerConfig
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    truth = store_truth(stored["traffic"], cfg)
+    on, off = mirror_fig["on"], mirror_fig["off"]
+    fig = dict(card=card, k2_ratio=on["spans_per_s"] / off["spans_per_s"],
+               k2_on=on["spans_per_s"], k2_off=off["spans_per_s"],
+               k2_memo_hits=on["shape_memo_hits"], k2_serves=on["mirrorServes"])
+    log(f"phase l0 ({card}): k2 of this run serves the mirror's shaped answers memoized per "
+        f"generation ({on['shape_memo_hits']} memo hits in {on['mirrorServes']} serves): ingest "
+        f"{on['spans_per_s']:.0f} spans/s mirror on against {off['spans_per_s']:.0f} off "
+        f"({fig['k2_ratio']:.3f}x)")
+    hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+    config = ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", tpu_fast_ingest=True,
+                          tpu_archive_dir=None, obs_windows_tick_s=0.25, obs_shadow_enabled=False,
+                          tpu_mirror_segment_bytes=segment_bytes, tpu_readers=1,
+                          tpu_mirror_max_stale_ms=max_stale_ms, tpu_agg=dataclasses.asdict(cfg))
+    server = ZipkinServer(config, device=device, seal_interval_s=0).start()
+    base = f"http://127.0.0.1:{server.port}"
+    core = server.storage
+    seg = core.mirror_segment
+    pb = free_port_base(1)
+    rbase = f"http://127.0.0.1:{pb}"
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, TPU_MIRROR_SEGMENT=seg.name, TPU_READERS="1",
+               TPU_READER_PORT_BASE=str(pb))
+    cmd = serving_argv or [sys.executable, "-m", "zipkin_tpu_torch.serving"]
+    routes = ["/api/v2/tpu/cardinalities", "/api/v2/tpu/percentiles", "/api/v2/tpu/overview",
+              f"/api/v2/dependencies?endTs={truth.t_end}&lookback={truth.lookback}"]
+    with tempfile.TemporaryFile() as out:
+        proc = None
+        try:
+            for p in stored["wire"][:16]:
+                if post_full(base, p)[0] != 202:
+                    raise AssertionError("phase l0: a POST was not answered 202")
+            lo, hi = core._tt_epochs(truth.t_end, truth.lookback)
+            if not core.mirror_register_key(f"ttq:{lo}:{hi}"):
+                raise AssertionError("phase l0: the ttq: key was refused")
+            ttq_bytes = len(pickle.dumps(core.timetier.window(core.agg, lo, hi)))
+            if ttq_bytes <= seg.capacity:
+                raise AssertionError(f"phase l0: the ttq: value ({ttq_bytes} bytes) fits the "
+                                     f"{seg.capacity}-byte segment")
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(cmd, cwd=root, env=env, stdout=out, stderr=subprocess.STDOUT)
+            while not _up(rbase):
+                if proc.poll() is not None:
+                    raise AssertionError(f"phase l0: the front end exited {proc.returncode}")
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError("phase l0: the reader did not come up in 120 s")
+                time.sleep(0.1)
+            # first touches miss and register; the next epoch carries them
+            deadline = time.monotonic() + 60
+            while not all(http_get(rbase + r)[0] == 200 for r in routes):
+                if time.monotonic() > deadline:
+                    raise AssertionError("phase l0: the reader's routes were never served: "
+                                         + str([http_get(rbase + r)[0] for r in routes]))
+                time.sleep(0.1)
+            c = core.ingest_counters()
+            if c["segmentOversizedKeys"] < 1 or c["segmentOverflows"] or \
+                    f"ttq:{lo}:{hi}" not in core.mirror.snapshot().values:
+                raise AssertionError(f"phase l0: oversized {c['segmentOversizedKeys']}, "
+                                     f"overflows {c['segmentOverflows']}")
+            fig.update(oversized_keys=c["segmentOversizedKeys"], payload_bytes=c["segmentPayloadBytes"],
+                       ttq_bytes=ttq_bytes, segment_bytes=seg.capacity)
+            # idle past the bound: the skipped publishes re-stamp the epoch
+            publishes, restamps = c["segmentPublishes"], c["segmentRestamps"]
+            time.sleep(max_stale_ms / 1000.0 + 1.0)
+            status, headers, _ = http_get(rbase + routes[0])
+            c = core.ingest_counters()
+            if status != 200 or float(headers["X-Staleness-Ms"]) > max_stale_ms:
+                raise AssertionError(f"phase l0: an idle server's reader answered {status} "
+                                     f"{headers.get('X-Staleness-Ms')}")
+            fig.update(idle_status=status, idle_staleness_ms=float(headers["X-Staleness-Ms"]),
+                       idle_publishes=c["segmentPublishes"] - publishes,
+                       idle_restamps=c["segmentRestamps"] - restamps)
+            proc.send_signal(signal.SIGTERM)
+            if proc.wait(timeout=60) != 0:
+                raise AssertionError(f"phase l0: the front end exited {proc.returncode}")
+        except BaseException:
+            out.seek(0)
+            log("phase l0: serving output:\n" + out.read().decode(errors="replace")[-4000:])
+            raise
+        finally:
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+                _kill_readers(pb)
+            server.stop()
+    fig.update(launches=hll_kernel.update_step.launches, update_launches=hll_kernel.update.launches)
+    log(f"phase l0: a {seg.capacity}-byte segment with the window's ttq: key registered "
+        f"({ttq_bytes} bytes pickled): the epochs left it out ({fig['oversized_keys']} times, "
+        f"segmentOversizedKeys) and published {fig['payload_bytes']} bytes, no overflow; the reader served "
+        f"cardinalities, percentiles, overview and dependencies 200; idle "
+        f"{max_stale_ms / 1000.0 + 1.0:.1f} s past a {max_stale_ms} ms bound it answered "
+        f"{fig['idle_status']} at {fig['idle_staleness_ms']:.1f} ms staleness "
+        f"({fig['idle_restamps']} re-stamps, {fig['idle_publishes']} publishes meanwhile); "
+        f"update_step launches {fig['launches']}")
+    return fig
+
+
+LOADGEN = r'''
+import json, pickle, sys, threading, time, urllib.error, urllib.request
+
+spec = json.load(open(sys.argv[1]))
+with open(spec["payloads"], "rb") as f:
+    loads = pickle.load(f)  # [(body, cls)]
+base = spec["base"]
+posts, reads, marks = [], [], {}
+lock = threading.Lock()
+stop_reads = threading.Event()
+
+
+def post(body):
+    ctype = "application/x-protobuf" if body[:1] == b"\n" else "application/json"
+    req = urllib.request.Request(base + "/api/v2/spans", data=body, method="POST",
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def send(leg, i):
+    body, cls = loads[i % len(loads)]
+    retries = 0
+    while True:
+        t0 = time.monotonic()
+        status, headers, text = post(body)
+        kind = ""
+        if status == 429:
+            kind = ("admission" if text.decode(errors="replace").startswith(("overload", "tenant"))
+                    else "tier")
+        with lock:
+            posts.append((leg, cls, status, kind, "Retry-After" in headers, retries, t0,
+                          i % len(loads)))
+        if status == 429 and cls == "error" and kind == "tier":
+            retries += 1  # a full tier: an error-class client retries
+            time.sleep(min(0.05, int(headers.get("X-Retry-After-Ms", "5")) / 1000.0))
+            continue
+        return status
+
+
+def reader():
+    k = 0
+    routes = spec["read_routes"]
+    while not stop_reads.is_set():
+        t0 = time.monotonic()
+        try:
+            with urllib.request.urlopen(base + routes[k % len(routes)], timeout=300) as resp:
+                resp.read()
+                ok = resp.status == 200
+        except urllib.error.HTTPError:
+            ok = False
+        if ok:
+            reads.append((t0, routes[k % len(routes)].split("?")[0].rsplit("/", 1)[1],
+                          (time.monotonic() - t0) * 1e3))
+        k += 1
+        stop_reads.wait(spec["read_every_s"])
+
+
+counter = iter(range(1 << 30))
+counter_lock = threading.Lock()
+
+
+def paced(leg, rate, seconds=None, stop_file=None, error_only=False):
+    t0 = time.monotonic()
+    n = 0
+    while True:
+        if seconds is not None and time.monotonic() - t0 >= seconds:
+            break
+        if stop_file is not None:
+            try:
+                open(stop_file).close()
+                break
+            except OSError:
+                pass
+            if time.monotonic() - t0 > spec["trickle_max_s"]:
+                break
+        with counter_lock:
+            j = next(counter)
+        if error_only:
+            j = spec["error_idx"][j % len(spec["error_idx"])]
+        send(leg, j)
+        n += 1
+        time.sleep(max(0.0, t0 + n / rate - time.monotonic()))
+    return n, time.monotonic() - t0
+
+
+def flood(seconds, clients):
+    t0 = time.monotonic()
+
+    def client():
+        while time.monotonic() - t0 < seconds:
+            with counter_lock:
+                j = next(counter)
+            send("flood", j)
+
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
+
+marks["paced"] = time.monotonic()
+n, s = paced("paced", spec["paced_rate"], seconds=spec["paced_s"])
+marks["paced_rate"] = n / s
+marks["flood"] = time.monotonic()
+rt = threading.Thread(target=reader)
+rt.start()
+flood(spec["flood_s"], spec["clients"])
+marks["flood_end"] = time.monotonic()
+stop_reads.set()
+open(spec["flood_done"], "w").close()
+n, s = paced("trickle", spec["trickle_rate"], stop_file=spec["stop"], error_only=True)
+marks["trickle_end"] = time.monotonic()
+rt.join()
+with open(spec["out"], "w") as f:
+    json.dump(dict(posts=posts, reads=reads, marks=marks), f)
+'''
+
+
+def phase_ladder(torch, card: str, stored: dict, i2_spans_per_s: float, cfg=None, device=None,
+                 paced_s: float = 8.0, flood_s: float = 12.0, clients: int = 8,
+                 workers: int = 2, trickle_rate: float = 10.0, readback: int = 512) -> tuple:
+    """(l1) the ladder under a flood: an in-process server with the
+    reference's overload defaults, the resume adapter with a disk archive,
+    ``TPU_MP_WORKERS=2`` and windows every 0.25 s, fed phase e's spans as
+    1,024-span payloads, one in eight error class (:func:`admission_payloads`)
+    by a load generator in a process of its own (its clients hold no GIL of
+    the server's): first one client paced at a quarter of i2's spans/s for
+    ``paced_s`` (ingest alone: the tier's queue saturation against its
+    limit), then ``clients`` clients back to back for ``flood_s`` (a bulk
+    payload is not retried; an error payload is retried after a full tier
+    until 202, and the ladder must never shed one) while one reader client
+    polls the four aggregate routes every 0.1 s, then a trickle of
+    error-class payloads (``trickle_rate`` a second, which the ladder admits
+    at any level, so the critical-path gauges keep folding) until the
+    ladder is back at B0. Prints each tick's level and top signal, sheds by
+    class and cause, the error class's admitted share (1.0), that every 429
+    carried ``Retry-After``, read p99 at B0 against B1 or higher and the
+    seconds back to B0 once the flood stops. After a drain every acked span
+    is on the card, the disk archive's index holds every acked trace with
+    exactly the rows its acked payloads gave it, and ``readback`` acked
+    traces read back in full with their span ids. Returns the figures and
+    the still-running server for phases l2 and l3."""
+    import collections
+    import dataclasses
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.runtime.overload import CLASS_ERROR, LEVEL_NAMES
+    from zipkin_tpu_torch.server.app import ZipkinServer
+    from zipkin_tpu_torch.server.config import ServerConfig
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    truth = store_truth(stored["traffic"], cfg)
+    loads = admission_payloads(stored)
+    per = len(loads[0][2])
+    root = tempfile.mkdtemp(prefix="zt-l1-")
+    hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+    config = ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", tpu_fast_ingest=True,
+                          tpu_mp_workers=workers, obs_windows_tick_s=0.25,
+                          tpu_archive_dir=os.path.join(root, "archive"),
+                          tpu_agg=dataclasses.asdict(cfg))
+    server = ZipkinServer(config, device=device, seal_interval_s=0.25).start()
+    base = f"http://127.0.0.1:{server.port}"
+    ctl = server._overload
+    core = server.storage
+    ticks = []  # (monotonic s, level, top signal, load index, signals)
+
+    def on_tick(_w):
+        st = ctl.status()
+        ticks.append((time.monotonic(), st["level"], st["topSignal"], st["loadIndex"],
+                      st["signals"]))
+
+    def tick_text(rows, t0):
+        return " ".join(f"{t - t0:.2f}:{LEVEL_NAMES[lv]}/{sig}/{load:.2f}"
+                        for t, lv, sig, load, _ in rows)
+
+    server._obs_windows.on_tick(on_tick)
+    fig = dict(card=card, per=per, clients=clients, paced_s=paced_s, flood_s=flood_s,
+               trickle_rate=trickle_rate)
+    interval = per / (0.25 * i2_spans_per_s)
+    spec = dict(base=base, payloads=os.path.join(root, "payloads.pkl"), paced_rate=1 / interval,
+                paced_s=paced_s, flood_s=flood_s, clients=clients, trickle_rate=trickle_rate,
+                trickle_max_s=90.0, error_idx=[i for i, x in enumerate(loads) if x[1] == CLASS_ERROR],
+                read_every_s=0.1, flood_done=os.path.join(root, "flood_done"),
+                stop=os.path.join(root, "stop"), out=os.path.join(root, "out.json"),
+                read_routes=[f"/api/v2/dependencies?endTs={truth.t_end}&lookback={truth.lookback}",
+                             "/api/v2/tpu/percentiles", "/api/v2/tpu/cardinalities",
+                             "/api/v2/tpu/overview"])
+    with open(spec["payloads"], "wb") as f:
+        pickle.dump([(b, c) for b, c, _ in loads], f)
+    with open(os.path.join(root, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    proc = None
+    try:
+        wait_ready(server._mp_ingester, "phase l1")
+        t_start = time.monotonic()
+        proc = subprocess.Popen([sys.executable, "-c", LOADGEN, os.path.join(root, "spec.json")],
+                                stderr=subprocess.PIPE)
+        while not os.path.exists(spec["flood_done"]):
+            if proc.poll() is not None:
+                raise AssertionError(f"phase l1: the load generator exited {proc.returncode}: "
+                                     f"{proc.stderr.read().decode(errors='replace')[-2000:]}")
+            time.sleep(0.05)
+        t_end = time.monotonic()
+        # back to B0 under the trickle
+        while ctl.level != 0:
+            if time.monotonic() - t_end > 90 or proc.poll() is not None:
+                log(f"phase l1: ticks {tick_text(ticks, t_start)}; the last ticks' signals "
+                    + json.dumps([sig for *_, sig in ticks[-8:]]))
+                raise AssertionError(f"phase l1: the ladder still at {ctl.level_name} "
+                                     f"{time.monotonic() - t_end:.0f} s after the flood")
+            time.sleep(0.02)
+        fig["back_to_b0_s"] = time.monotonic() - t_end
+        open(spec["stop"], "w").close()
+        if proc.wait(timeout=120) != 0:
+            raise AssertionError(f"phase l1: the load generator exited {proc.returncode}: "
+                                 f"{proc.stderr.read().decode(errors='replace')[-2000:]}")
+        with open(spec["out"]) as f:
+            res = json.load(f)
+        server._mp_ingester.drain()
+        acked = [p[7] for p in res["posts"] if p[2] == 202]
+        acked_spans = per * len(acked)
+        if core.agg.host_counters["spans"] != acked_spans:
+            raise AssertionError(f"phase l1: {core.agg.host_counters['spans']} spans on the card, "
+                                 f"{acked_spans} acked")
+        # the disk archive's index: each acked trace's rows, one a span of
+        # each acked payload (payloads repeat, so a trace has one row a copy)
+        t0 = time.perf_counter()
+        want_rows = collections.Counter()
+        for j, n in collections.Counter(acked).items():
+            for s in loads[j][2]:
+                want_rows[int(s.trace_id[-16:], 16)] += n
+        have_rows = collections.Counter()
+        for ids, *_ in core._disk.views():
+            u, c = np.unique(np.asarray(ids), return_counts=True)
+            have_rows.update(dict(zip(u.tolist(), c.tolist())))
+        short = [t for t, n in want_rows.items() if have_rows.get(t, 0) != n]
+        if short or sum(have_rows.values()) != acked_spans:
+            raise AssertionError(f"phase l1: {len(short)} acked traces with other row counts in "
+                                 f"the archive, {sum(have_rows.values())} rows for {acked_spans} "
+                                 f"acked spans")
+        fig["index_s"] = time.perf_counter() - t0
+        fig["index_traces"] = len(want_rows)
+        # and a sample of them read back in full
+        want = {}
+        for j in set(acked):
+            for s in loads[j][2]:
+                want.setdefault(s.trace_id, set()).add(s.id)
+        sample = sorted(want)[::max(1, len(want) // readback)][:readback]
+        t0 = time.perf_counter()
+        got = core.traces().get_traces(sample).execute()
+        fig["readback_s"] = time.perf_counter() - t0
+        have = {}
+        for trace in got:
+            for s in trace:
+                have.setdefault(s.trace_id, set()).add(s.id)
+        if any(want[t] != have.get(t) for t in sample):
+            raise AssertionError("phase l1: an acked trace read back without its spans")
+        fig["readback_traces"] = len(sample)
+    except BaseException:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        server.stop()
+        shutil.rmtree(root, ignore_errors=True)
+        raise
+    posts, marks = res["posts"], res["marks"]
+    fig["paced_rate"] = marks["paced_rate"]
+    legs = {}
+    for leg, cls, status, kind, retry_after, *_ in posts:
+        row = legs.setdefault(leg, {"posts": 0, "202": 0, "admission_shed_bulk": 0,
+                                    "admission_shed_error": 0, "tier_429_bulk": 0,
+                                    "tier_429_error": 0, "other": 0, "429_without_retry_after": 0})
+        row["posts"] += 1
+        if status == 202:
+            row["202"] += 1
+        elif status == 429:
+            row[f"{kind}_{'shed' if kind == 'admission' else '429'}_{cls}"] += 1
+            row["429_without_retry_after"] += not retry_after
+        else:
+            row["other"] += 1
+    fig["legs"] = legs
+    # an error payload's first attempt is a payload sent; its retries follow
+    # a full tier only, until a 202
+    errors_sent = sum(1 for p in posts if p[1] == CLASS_ERROR and p[5] == 0)
+    errors_admitted = sum(1 for p in posts if p[1] == CLASS_ERROR and p[2] == 202)
+    fig["error_share"] = errors_admitted / max(1, errors_sent)
+    if any(p[2] not in (202, 429) for p in posts):
+        raise AssertionError(f"phase l1: statuses {sorted({p[2] for p in posts})}")
+    if any(row["admission_shed_error"] for row in legs.values()):
+        raise AssertionError("phase l1: the ladder shed an error-class payload")
+    if fig["error_share"] != 1.0:
+        raise AssertionError(f"phase l1: error-class admitted share {fig['error_share']}")
+    if any(row["429_without_retry_after"] for row in legs.values()):
+        raise AssertionError("phase l1: a 429 without Retry-After")
+
+    def level_at(t):
+        lv = 0
+        for tt, lvl, *_ in ticks:
+            if tt > t:
+                break
+            lv = lvl
+        return lv
+
+    reads = [(level_at(t), route, ms) for t, route, ms in res["reads"]]
+    by = {"B0": [r for r in reads if r[0] == 0], "B1+": [r for r in reads if r[0] >= 1]}
+    fig["read_p99_ms"] = {
+        lv: {route: float(np.percentile([ms for _, k, ms in rows if k == route], 99))
+             for route in ("dependencies", "percentiles", "cardinalities", "overview")
+             if any(k == route for _, k, _ in rows)}
+        for lv, rows in by.items()}
+    fig["reads"] = {lv: len(rows) for lv, rows in by.items()}
+
+    def max_level(lo, hi):
+        return max([lv for t, lv, *_ in ticks if lo <= t < hi] or [0])
+
+    fig["max_level"] = {"paced": max_level(marks["paced"], marks["flood"]),
+                        "flood": max_level(marks["flood"], marks["flood_end"])}
+    fig["ticks"] = [(t - t_start, lv, sig, load) for t, lv, sig, load, _ in ticks]
+    fig["counters"] = {k: v for k, v in ctl.counters().items()
+                       if k.startswith(("overload", "deadline"))}
+    fig["update_launches"] = hll_kernel.update.launches
+    fig["launches"] = hll_kernel.update_step.launches
+    fig["root"] = root
+    log(f"phase l1 ({card}): ticks (s:level/top signal/load index): {tick_text(ticks, t_start)}")
+    log(f"phase l1: a load generator in its own process; one client paced at a quarter of i2's "
+        f"{i2_spans_per_s:.0f} spans/s for {paced_s:.0f} s ({fig['paced_rate']:.1f} of "
+        f"{1 / interval:.1f} payloads/s of {per} spans; highest level "
+        f"{LEVEL_NAMES[fig['max_level']['paced']]}), then {clients} clients for {flood_s:.0f} s "
+        f"(highest {LEVEL_NAMES[fig['max_level']['flood']]}), then error-class payloads at "
+        f"{trickle_rate:.0f}/s; by leg {json.dumps(legs)}; error-class admitted share "
+        f"{fig['error_share']:.3f} ({errors_admitted} payloads); every 429 carried Retry-After; "
+        f"read p99 ms at B0 {json.dumps(fig['read_p99_ms']['B0'])} ({fig['reads']['B0']} reads) "
+        f"against B1+ {json.dumps(fig['read_p99_ms']['B1+'])} ({fig['reads']['B1+']} reads); back "
+        f"to B0 {fig['back_to_b0_s']:.2f} s after the flood; {acked_spans} acked spans on the card;"
+        f" the archive's index holds all {fig['index_traces']} acked traces with their acked rows "
+        f"({fig['index_s']:.2f} s), {fig['readback_traces']} of them read back in full in "
+        f"{fig['readback_s']:.2f} s; controller {json.dumps(fig['counters'])}; update_step "
+        f"launches {fig['launches']}")
+    return fig, server
+
+
+def phase_tenants(card: str, stored: dict, server, budget_payloads_s: float = 1.0,
+                  l2_s: float = 6.0) -> dict:
+    """(l2) tenants on phase l1's server, back at B0: its tenant table's
+    budget set (as ``TPU_TENANT_INGEST_BYTES_PER_S`` sets it) to
+    ``budget_payloads_s`` bulk payloads a second; tenant A sends at 4x that
+    and tenant B at 0.5x for ``l2_s``. B gets no 429, every A shed carries
+    ``X-Shed-Scope: tenant`` and ``X-Shed-Tenant: A``, and the global ladder
+    stays B0; prints each tenant's offered, shed and retained counts."""
+    import threading
+
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.runtime.overload import CLASS_BULK
+
+    loads = [x for x in admission_payloads(stored) if x[1] == CLASS_BULK]
+    size = sum(len(b) for b, _, _ in loads) / len(loads)
+    ctl = server._overload
+    ta = ctl.tenant_admission
+    ta.bytes_per_s = budget_payloads_s * size
+    base = f"http://127.0.0.1:{server.port}"
+    hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+    out = {"A": [], "B": []}
+    levels = []
+
+    def client(tenant, rate, offset):
+        t0 = time.perf_counter()
+        i = 0
+        while time.perf_counter() - t0 < l2_s:
+            status, headers, _ = post_full(base, loads[(offset + i) % len(loads)][0],
+                                           {"X-Tenant-Id": tenant})
+            out[tenant].append((status, headers.get("X-Shed-Scope"), headers.get("X-Shed-Tenant"),
+                                "Retry-After" in headers))
+            levels.append(ctl.level)
+            i += 1
+            time.sleep(max(0.0, t0 + i / rate - time.perf_counter()))
+
+    threads = [threading.Thread(target=client, args=("A", 4 * budget_payloads_s, 0)),
+               threading.Thread(target=client, args=("B", 0.5 * budget_payloads_s, 97))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    server._mp_ingester.drain()
+    st = ta.status()["tenants"]
+    fig = dict(card=card, budget_bytes_per_s=ta.bytes_per_s,
+               rows={t: {"offered": st[t]["offered"], "shed": st[t]["shed"],
+                         "retained_spans": st[t]["retainedSpans"], "level": st[t]["level"]}
+                     for t in ("A", "B")},
+               a_statuses=[s for s, *_ in out["A"]], max_global_level=max(levels or [0]))
+    ta.bytes_per_s = 0.0  # accounting only again
+    if any(s != 202 for s, *_ in out["B"]):
+        raise AssertionError(f"phase l2: tenant B got {[s for s, *_ in out['B']]}")
+    a_sheds = [r for r in out["A"] if r[0] == 429]
+    if not a_sheds or any(r[1:] != ("tenant", "A", True) for r in a_sheds):
+        raise AssertionError(f"phase l2: tenant A's sheds {a_sheds}")
+    if fig["max_global_level"]:
+        raise AssertionError(f"phase l2: the global ladder left B0 ({fig['max_global_level']})")
+    fig.update(launches=hll_kernel.update_step.launches, update_launches=hll_kernel.update.launches)
+    log(f"phase l2 ({card}): tenant budget {ta.bytes_per_s or fig['budget_bytes_per_s']:.0f} "
+        f"bytes/s ({budget_payloads_s} payloads/s); A at 4x, B at 0.5x for {l2_s:.0f} s: "
+        f"{json.dumps(fig['rows'])}; B got no 429, all {len(a_sheds)} of A's sheds carried "
+        f"X-Shed-Scope tenant and X-Shed-Tenant A with Retry-After; the global ladder stayed B0; "
+        f"update_step launches {fig['launches']}")
+    return fig
+
+
+SUPERVISED_CHILD = r"""
+import json, os, pickle, sys, time
+from zipkin_tpu_torch.runtime.supervisor import EX_RESTART, ResumeSupervisor
+from zipkin_tpu_torch.storage.tpu import TorchStorage
+from zipkin_tpu_torch.tpu.state import AggConfig
+
+root, mode, device = sys.argv[1], sys.argv[2], sys.argv[3]
+cfg = AggConfig(**json.loads(sys.argv[4]))
+with open(os.path.join(root, "payloads.pkl"), "rb") as f:
+    wire, per = pickle.load(f)
+store = TorchStorage(config=cfg, device=None if device == "cuda" else device,
+                     checkpoint_dir=os.path.join(root, "snap"), wal_dir=os.path.join(root, "wal"),
+                     archive_dir=os.path.join(root, "archive"), scrub_interval_s=0.0)
+if mode == "victim":
+    sup = ResumeSupervisor(store, window_s=0.1, deadline_s=float(sys.argv[5]))
+    sent = 0
+    for p in wire:
+        store.ingest_json_fast(p, None)
+        sent += 1
+        time.sleep(0.02)
+        reason = sup.observe(store.agg.host_counters["spans"])
+        if reason is not None:
+            break
+    t0 = time.perf_counter()
+    path = sup.finalize()
+    with open(os.path.join(root, "victim.json"), "w") as f:
+        json.dump(dict(reason=reason, sent=sent, spans=store.agg.host_counters["spans"],
+                       snapshot=path, finalize_s=time.perf_counter() - t0), f)
+    sys.stdout.flush()
+    os._exit(EX_RESTART)
+ids = sorted({s for s in json.loads(sys.argv[5])})
+got = {t[0].trace_id: len(t) for t in store.get_traces(ids).execute() if t}
+print(json.dumps(dict(spans=store.agg.host_counters["spans"], resume_offset=store.resume_offset,
+                      wal_replay_batches=store.restore_stats["walReplayBatches"], traces=got)))
+store.close()
+"""
+
+
+def phase_deadlines_and_supervisor(torch, card: str, stored: dict, server, cfg=None,
+                                   device=None, deadline_s: float = 0.3) -> dict:
+    """(l3) on phase l1's server a POST whose ``X-Request-Timeout-Ms`` is
+    spent answers 504 with ``X-Deadline-Expired``, counted in
+    ``deadlineExpired``; then a subprocess ingests phase e's payloads through
+    the line-rate path of the resume adapter under
+    ``ResumeSupervisor(deadline_s=...)``, trips, calls ``finalize()`` and
+    exits 75 (``EX_RESTART``); a second process restores from the same dirs
+    with every acked span, replays no WAL batch, and reads every acked
+    trace back from the disk archive with the span count the payloads
+    gave it."""
+    import collections
+    import dataclasses
+    import os
+    import pickle
+    import shutil
+    import tempfile
+
+    from zipkin_tpu_torch.model import codec
+    from zipkin_tpu_torch.runtime.supervisor import EX_RESTART
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    base = f"http://127.0.0.1:{server.port}"
+    before = json.loads(http_get(base + "/metrics")[2])["gauge.zipkin_tpu.deadlineExpired"]
+    status, headers, _ = post_full(base, stored["wire"][0], {"X-Request-Timeout-Ms": "0"})
+    after = json.loads(http_get(base + "/metrics")[2])["gauge.zipkin_tpu.deadlineExpired"]
+    if status != 504 or headers.get("X-Deadline-Expired") != "1" or after != before + 1:
+        raise AssertionError(f"phase l3: a spent deadline answered {status} {headers}, "
+                             f"deadlineExpired {before} -> {after}")
+    fig = dict(card=card, deadline_status=status, deadline_expired=after)
+    root = tempfile.mkdtemp(prefix="zt-l3-")
+    wire = stored["wire"]
+    per = len(stored["spans"]) // len(wire)
+    here = os.path.dirname(os.path.abspath(__file__))
+    dev = "cuda" if device is None else str(device)
+    agg = json.dumps(dataclasses.asdict(cfg))
+    try:
+        with open(os.path.join(root, "payloads.pkl"), "wb") as f:
+            pickle.dump((wire, per), f)
+        t0 = time.perf_counter()
+        victim = subprocess.run([sys.executable, "-c", SUPERVISED_CHILD, root, "victim", dev, agg,
+                                 str(deadline_s)], cwd=here, capture_output=True, text=True,
+                                timeout=300)
+        fig["victim_s"] = time.perf_counter() - t0
+        if victim.returncode != EX_RESTART:
+            raise AssertionError(f"phase l3: the supervised process exited {victim.returncode}: "
+                                 f"{victim.stderr[-2000:]}")
+        with open(os.path.join(root, "victim.json")) as f:
+            v = json.load(f)
+        if v["reason"] != "deadline" or not v["snapshot"] or not 0 < v["sent"] < len(wire):
+            raise AssertionError(f"phase l3: the victim {v}")
+        want = collections.Counter()
+        for p in wire[:v["sent"]]:
+            for s in codec.decode_spans(p):
+                want[s.trace_id] += 1
+        t0 = time.perf_counter()
+        resumed = subprocess.run([sys.executable, "-c", SUPERVISED_CHILD, root, "resume", dev, agg,
+                                  json.dumps(sorted(want))], cwd=here, capture_output=True,
+                                 text=True, timeout=300)
+        fig["resume_s"] = time.perf_counter() - t0
+        if resumed.returncode != 0:
+            raise AssertionError(f"phase l3: the resumed process exited {resumed.returncode}: "
+                                 f"{resumed.stderr[-2000:]}")
+        r = json.loads(resumed.stdout.strip().splitlines()[-1])
+        if r["spans"] != v["spans"] or r["spans"] != per * v["sent"] or \
+                r["resume_offset"] != v["spans"] or r["wal_replay_batches"]:
+            raise AssertionError(f"phase l3: resumed {dict(r, traces=len(r['traces']))} after {v}")
+        if r["traces"] != dict(want):
+            bad = [t for t in want if r["traces"].get(t) != want[t]]
+            raise AssertionError(f"phase l3: {len(bad)} acked traces read back unequal")
+        fig.update(victim=v, resumed_spans=r["spans"], traces=len(want))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase l3 ({card}): X-Request-Timeout-Ms 0 -> 504 X-Deadline-Expired 1, deadlineExpired "
+        f"{before} -> {after}; ResumeSupervisor(deadline_s={deadline_s}) tripped "
+        f"({v['reason']}) after {v['sent']} of {len(wire)} payloads, finalize() {v['finalize_s']:.2f}"
+        f" s, exit {EX_RESTART} ({fig['victim_s']:.1f} s with the boot); the relaunch restored "
+        f"{r['spans']} spans = every acked one, replayed {r['wal_replay_batches']} WAL batches and "
+        f"read all {len(want)} acked traces back with their span counts ({fig['resume_s']:.1f} s)")
+    return fig
+
+
+def phase_admission_cost(torch, card: str, stored: dict, cfg=None, device=None,
+                         n_payloads: int = 32) -> dict:
+    """(l4) admission's cost on the line-rate path: ``n_payloads`` of phase
+    e's payloads through ``Collector(fast_ingest=True)`` into a fresh
+    TorchStorage a run, with the server's controller (the reference's
+    defaults, an accounting-only tenant table) on the collector and the
+    store (``TPU_OVERLOAD`` on) and without (off): one warm-up and five
+    pairs, the first side alternating (:func:`paired_runs`). Prints each
+    pair's ratio, their median and range, and ``admit()``'s own ns a payload
+    at B0 beside a payload's wall."""
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.runtime.overload import OverloadController
+    from zipkin_tpu_torch.runtime.tenant import TenantAdmission
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    wire = stored["wire"][:n_payloads]
+    per = len(stored["spans"]) // len(stored["wire"])
+    n_spans = per * len(wire)
+    totals = dict(launches=0, update_launches=0, wall_s=0.0, payloads=0)
+
+    def controller():
+        ctl = OverloadController()
+        ctl.tenant_admission = TenantAdmission()
+        return ctl
+
+    def run(on):
+        store = TorchStorage(config=cfg, device=device)
+        collector = Collector(store, fast_ingest=True)
+        if on:
+            collector.overload = store.overload = controller()
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        for p in wire:
+            collector.accept_spans_bytes(p)
+        store.agg.block_until_ready()
+        wall = time.perf_counter() - t0
+        if store.agg.host_counters["spans"] != n_spans:
+            raise AssertionError(f"phase l4: {store.agg.host_counters['spans']} spans landed")
+        totals["launches"] += hll_kernel.update_step.launches
+        totals["update_launches"] += hll_kernel.update.launches
+        totals["wall_s"] += wall
+        totals["payloads"] += len(wire)
+        out = dict(on=on, spans_per_s=n_spans / wall, wall_ms=wall * 1e3)
+        del store, collector
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        return out
+
+    runs = paired_runs(run)
+    verdict = on_off_verdict(runs)
+    ctl = controller()
+    reps = 20_000
+    t0 = time.perf_counter_ns()
+    for k in range(reps):
+        ctl.admit(wire[k % len(wire)])
+    t1 = time.perf_counter_ns()
+    for k in range(reps):
+        wire[k % len(wire)]
+    admit_ns = (t1 - t0 - (time.perf_counter_ns() - t1)) / reps
+    wall_us = totals["wall_s"] * 1e6 / totals["payloads"]
+    fig = dict(card=card, runs=runs, **verdict, admit_ns=admit_ns, wall_us_per_payload=wall_us,
+               launches=totals["launches"], update_launches=totals["update_launches"])
+    log(f"phase l4 ({card}): f1's path over {len(wire)} payloads, a warm-up and five pairs, "
+        f"admission on/off: spans/s "
+        + ", ".join(f"{'warm-up ' if r['warmup'] else ''}{'on' if r['on'] else 'off'} "
+                    f"{r['spans_per_s']:.0f}" for r in runs)
+        + f"; {verdict_text(verdict)}; admit() {admit_ns:.0f} ns a payload at B0 against a "
+        f"payload's {wall_us:.0f} us ({100 * admit_ns / 1e3 / wall_us:.4f}%); update_step "
+        f"launches {fig['launches']}")
+    return fig
+
+
+def phase_admission(torch, card: str, stored: dict, i2_spans_per_s: float, mirror_fig: dict,
+                    cfg=None, device=None, serving_argv=None, repairs_kw=None,
+                    **ladder_kw) -> dict:
+    """(l) admission on the card: l0 (:func:`phase_admission_repairs`), l1
+    (:func:`phase_ladder`), l2 (:func:`phase_tenants`), l3
+    (:func:`phase_deadlines_and_supervisor`) and l4
+    (:func:`phase_admission_cost`). Each part's launches are counted from 0
+    just before it; no part may launch the single-target kernel, and each
+    part that feeds the card must launch ``update_step``."""
+    import shutil
+
+    fig = {}
+    t0 = time.perf_counter()
+    fig["l0"] = phase_admission_repairs(torch, card, stored, mirror_fig, cfg=cfg, device=device,
+                                        serving_argv=serving_argv, **(repairs_kw or {}))
+    fig["l0"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fig["l1"], server = phase_ladder(torch, card, stored, i2_spans_per_s, cfg=cfg, device=device,
+                                     **ladder_kw)
+    fig["l1"]["seconds"] = time.perf_counter() - t0
+    try:
+        t0 = time.perf_counter()
+        fig["l2"] = phase_tenants(card, stored, server)
+        fig["l2"]["seconds"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        fig["l3"] = phase_deadlines_and_supervisor(torch, card, stored, server, cfg=cfg,
+                                                   device=device)
+        fig["l3"]["seconds"] = time.perf_counter() - t0
+    finally:
+        server.stop()
+        shutil.rmtree(fig["l1"].pop("root"), ignore_errors=True)
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fig["l4"] = phase_admission_cost(torch, card, stored, cfg=cfg, device=device)
+    fig["l4"]["seconds"] = time.perf_counter() - t0
+    log("phase l parts, s: " + ", ".join(f"{k} {fig[k]['seconds']:.1f}"
+                                         for k in ("l0", "l1", "l2", "l3", "l4")))
+    parts = ("l0", "l1", "l2", "l4")
+    fig["launches"] = sum(fig[k]["launches"] for k in parts)
+    fig["update_launches"] = sum(fig[k]["update_launches"] for k in parts)
+    if fig["update_launches"]:
+        raise AssertionError(f"phase l: {fig['update_launches']} single-target launches")
+    if not all(fig[k]["launches"] for k in parts):
+        raise AssertionError(f"phase l: update_step did not launch in every part: "
+                             f"{[fig[k]['launches'] for k in parts]}")
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -4568,6 +5400,10 @@ def main() -> int:
     served_k = phase_serve(torch, card, stored)
     torch.cuda.empty_cache()
     log(f"phase k done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    admitted = phase_admission(torch, card, stored, fanned["i2"]["spans_per_s"], served_k["k2"])
+    torch.cuda.empty_cache()
+    log(f"phase l done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -4586,7 +5422,9 @@ def main() -> int:
     # of the observability plane's (j1's eleven runs, j2's and j3's servers,
     # j5's eleven passes; each part's count is in launches_phase_j_parts) and
     # launches_phase_k those of the tracer, mirror and readers' (k1's twelve
-    # passes, k2's two stores, k3's server; launches_phase_k_parts).
+    # passes, k2's two stores, k3's server; launches_phase_k_parts) and
+    # launches_phase_l those of admission's (l0's server, l1's and l2's
+    # server with the tier, l4's eleven runs; launches_phase_l_parts).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -4602,6 +5440,7 @@ def main() -> int:
              launches_phase_i=0,
              launches_phase_j=observed["update_launches"],
              launches_phase_k=served_k["update_launches"],
+             launches_phase_l=admitted["update_launches"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -4624,6 +5463,8 @@ def main() -> int:
              event_ms_phase_j1=observed["j1"]["kernel_event_ms"],
              launches_phase_k=served_k["launches"],
              launches_phase_k_parts={k: served_k[k]["launches"] for k in ("k1", "k2", "k3")},
+             launches_phase_l=admitted["launches"],
+             launches_phase_l_parts={k: admitted[k]["launches"] for k in ("l0", "l1", "l2", "l4")},
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

@@ -12,9 +12,11 @@ version-stale epoch served without the lock (zero acquisitions) while
 another thread holds it; ``clear()``; the resume adapter publishing before
 the first serve. Across packages: the four reads and a ``ttq:`` window
 served from each package's mirror, on the same payloads, give the same
-answers. The reference's brownout case
-(``test_brownout_cache_first_and_cache_only_carry_mirror_age``) waits for
-the admission slice, which brings the read modes.
+answers. The reference's brownout case: cache first loosens the bound to
+the controller's, cache only serves any age, and both carry the served age.
+The port's repair of in-process serves: the shaped answer of a mirror serve
+is memoized for its generation (equal to a freshly shaped one), dropped by a
+new generation and by ``clear()``, and bounded.
 
 Tolerances are those of ``tests/test_torch_store.py``: counts, names and
 links exact, histogram quantiles and cardinalities rtol 1e-6, digest
@@ -357,3 +359,80 @@ def test_the_four_reads_and_a_window_from_both_mirrors_agree():
     assert got["wdeps"] and got["wdeps"] == want["wdeps"]
     port.close()
     ref.close()
+
+
+class _FakeCtl:
+    def __init__(self, mode="normal", max_stale_ms=60_000):
+        self.mode = mode
+        self.max_stale_ms = max_stale_ms
+
+    def read_mode(self):
+        return self.mode
+
+
+def test_brownout_cache_first_and_cache_only_carry_mirror_age(store):
+    """B1/B2 (cache first) loosen the bound to the controller's
+    ``max_stale_ms``; B3 (cache only) serves any age; both serve the mirror
+    and the staleness gauges carry the served age."""
+    _ingest(store)
+    store.publish_mirror(force=True)
+    store.agg.write_version += 1  # the epoch is now version-stale
+    store.mirror._snap.published_at -= 10.0  # and 10 s old
+    serves = store.mirror.serves
+    store.trace_cardinalities()  # normal: 10 s is past the 5 s bound
+    assert store.mirror.serves == serves
+    store.overload = _FakeCtl("cache_first", max_stale_ms=60_000)
+    store.trace_cardinalities()
+    assert store.mirror.serves == serves + 1
+    assert store.ingest_counters()["mirrorServeAgeMs"] >= 10_000.0
+    store.mirror._snap.published_at -= 100.0
+    store.overload = _FakeCtl("cache_only", max_stale_ms=0)
+    store.trace_cardinalities()
+    assert store.mirror.serves == serves + 2
+    assert store.ingest_counters()["mirrorServeAgeMs"] >= 100_000.0
+    assert store.ingest_counters()["mirrorStaleServes"] >= 2
+
+
+def test_a_mirror_serve_memoizes_its_shaped_answer_for_the_generation(store):
+    """Concurrent serves of one epoch shape it once: at one generation the
+    memoized answer equals a freshly shaped one (and the same store's fresh
+    read); a new generation and ``clear()`` drop the memo; the memo keeps
+    at most ``_SHAPE_MEMO_MAX`` entries."""
+    from zipkin_tpu_torch.tpu import store as store_mod
+
+    _ingest(store)
+    assert store.publish_mirror(force=True)
+    svc = [n for n in store.vocab.services.names if n][:2]
+
+    def overview(name):
+        out = store.sketch_overview(QS, name)
+        del out["counters"]  # live gauges, read per request
+        return out
+
+    reads = [lambda: store.latency_quantiles(QS), lambda: store.trace_cardinalities(),
+             lambda: overview(svc[0]), lambda: store.latency_quantiles(QS, service_name=svc[1])]
+    first = [json.dumps(r(), sort_keys=True, default=str) for r in reads]
+    assert all(json.loads(f) for f in first)
+    hits = store._shape_memo_hits
+    again = [r() for r in reads]
+    assert store._shape_memo_hits == hits + len(reads)  # every serve came from the memo
+    for got, want in zip(again, first):
+        assert json.dumps(got, sort_keys=True, default=str) == want
+    assert store.latency_quantiles(QS) == store.latency_quantiles(QS, staleness_ms=0)
+    assert store.trace_cardinalities() == store.trace_cardinalities(staleness_ms=0)
+    gen = store.mirror.gen
+    assert store._shape_memo[0] == gen and len(store._shape_memo[1]) == len(reads)
+    # a new generation: the first serve shapes afresh
+    _ingest(store, seed=8)
+    assert store.publish_mirror(force=True) and store.mirror.gen != gen
+    hits = store._shape_memo_hits
+    assert store.latency_quantiles(QS) == store.latency_quantiles(QS, staleness_ms=0)
+    assert store._shape_memo_hits == hits and store._shape_memo[0] == store.mirror.gen
+    store.clear()
+    assert store._shape_memo == (-1, {})
+    # bounded: distinct shaping arguments past the cap are served unmemoized
+    _ingest(store)
+    assert store.publish_mirror(force=True)
+    for i in range(store_mod._SHAPE_MEMO_MAX + 10):
+        store.latency_quantiles(QS, service_name=f"none{i}")
+    assert len(store._shape_memo[1]) == store_mod._SHAPE_MEMO_MAX

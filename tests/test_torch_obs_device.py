@@ -189,9 +189,26 @@ def _store_with_published_mirror_and_segment():
     return store, [store, store.agg]
 
 
+def _store_with_overload_controller():
+    """The server's admission wiring: the controller (with a tenant table)
+    on the store and its read modes exercised by a browned-out read."""
+    from zipkin_tpu_torch.runtime.overload import OverloadController
+    from zipkin_tpu_torch.runtime.tenant import TenantAdmission
+
+    store = TorchStorage(config=SMALL, device="cpu")
+    ctl = OverloadController(seed=1, ema_alpha=1.0, hbm_stats=dict,
+                             rate_controller=store.sampling_controller)
+    ctl.tenant_admission = TenantAdmission(bytes_per_s=100.0)
+    store.overload = ctl
+    ctl.evaluate({"critpathQueueSaturation": 0.9})  # B3: cache-only reads
+    store.latency_quantiles([0.5, 0.99])
+    return store, [store, store.agg]
+
+
 @pytest.mark.parametrize("make", [_store_with_planes, _store_with_accuracy, _cleared_store,
-                                  _store_with_published_mirror_and_segment],
-                         ids=["query_plane", "accuracy", "clear", "mirror_segment"])
+                                  _store_with_published_mirror_and_segment,
+                                  _store_with_overload_controller],
+                         ids=["query_plane", "accuracy", "clear", "mirror_segment", "overload"])
 def test_a_dropped_store_frees_its_state_without_the_cycle_collector(make):
     """The wrapped programs, the query plane's lock provider, the accuracy
     estimator and the read mirror (its demand closures and segment sink)

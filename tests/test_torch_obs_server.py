@@ -25,10 +25,6 @@ from zipkin_tpu_torch.server.app import ZipkinServer
 from zipkin_tpu_torch.server.config import ServerConfig
 from zipkin_tpu_torch.storage.memory import InMemoryStorage
 
-# the reference's planes the port leaves out (overload and tenant admission)
-LEFT_OUT_SECTIONS = {"overload"}
-LEFT_OUT_NAMES = ("overload", "tenant", "read_cache_stale", "readCacheStale", "deadlineExpired")
-
 READS = [
     ("POST", "/api/v2/spans", TRACE_BODY, {"Content-Type": "application/json"}, None),
     ("GET", "/api/v2/tpu/percentiles", None, None, None),
@@ -40,10 +36,6 @@ PAGES = [("GET", "/api/v2/tpu/statusz", None, None, None), ("GET", "/prometheus"
 
 def _families(text: bytes) -> set:
     return {line.split()[2] for line in text.decode().splitlines() if line.startswith("# TYPE")}
-
-
-def _left_out(name: str) -> bool:
-    return any(part in name for part in LEFT_OUT_NAMES)
 
 
 @pytest.fixture(scope="module")
@@ -70,9 +62,9 @@ def pages(tmp_path_factory):
 
 def test_statusz_has_the_reference_sections_and_keys(pages):
     got, want = (json.loads(p[0]) for p in pages)
-    assert set(got) == set(want) - LEFT_OUT_SECTIONS
+    assert set(got) == set(want)
     assert {"stages", "slow", "recorder", "windows", "slo", "accuracy", "device", "queries",
-            "mirror", "incidents"} <= set(got)
+            "mirror", "overload", "incidents"} <= set(got)
     for section in set(got) - {"slow"}:
         assert set(got[section]) == set(want[section]), section
     assert set(got["stages"]) == set(want["stages"])  # the 29 stages
@@ -83,24 +75,37 @@ def test_statusz_has_the_reference_sections_and_keys(pages):
     assert {"spmd_init", "spmd_step", "spmd_card", "spmd_quant_digest"} <= set(got["device"]["programs"])
     assert got["device"]["hbm"] == {}  # the store runs on the CPU
     assert set(got["accuracy"]["gauges"]) == set(want["accuracy"]["gauges"])
+    # the admission plane: the ladder at B0 after a calm exchange, with the
+    # reference's counters and an accounting-only tenant table
+    assert got["overload"]["levelName"] == want["overload"]["levelName"] == "B0"
+    assert got["overload"]["readMode"] == "normal"
+    assert set(got["overload"]["counters"]) == set(want["overload"]["counters"])
+    assert set(got["overload"]["tenants"]) == set(want["overload"]["tenants"])
+    assert set(got["overload"]["signals"]) <= set(want["overload"]["signals"]) | {"hbm"}
 
 
 def test_prometheus_and_metrics_carry_the_reference_names(pages):
     (_, got_prom, got_metrics), (_, want_prom, want_metrics) = pages
     got, want = _families(got_prom), _families(want_prom)
     assert got <= want
-    assert not [f for f in want - got if not _left_out(f)]
+    assert got == want
     for fam in ("zipkin_tpu_stage_latency_seconds", "zipkin_tpu_slo_alert", "zipkin_tpu_slo_burn_rate",
                 "zipkin_tpu_device_program_calls", "zipkin_tpu_host_transfer_bytes",
                 "zipkin_tpu_query_lock_wait_seconds", "zipkin_tpu_query_segment_count_total",
-                "zipkin_tpu_accuracy_hll_rel_err", "zipkin_collector_spans_total"):
+                "zipkin_tpu_accuracy_hll_rel_err", "zipkin_collector_spans_total",
+                "zipkin_tpu_overload_level", "zipkin_tpu_overload_shed_total",
+                "zipkin_tpu_overload_deadline_expired_total", "zipkin_tpu_read_cache_stale_serves",
+                "zipkin_tpu_tenant_table_size", "zipkin_tpu_tenant_offered_total"):
         assert fam in got, fam
     gm, wm = set(json.loads(got_metrics)), set(json.loads(want_metrics))
     # the per-stage quantile gauges exist for the stages that ran, which
     # differ with the timing of the ticks
     not_stage = lambda names: {n for n in names if ".stage." not in n}
     assert not_stage(gm) <= not_stage(wm)
-    assert not [n for n in not_stage(wm) - not_stage(gm) if not _left_out(n)]
+    assert not_stage(gm) == not_stage(wm)
+    for name in ("overloadLevel", "overloadShedTotal", "overloadShedTenant", "deadlineExpired",
+                 "tenantOffered_default"):
+        assert f"gauge.zipkin_tpu.{name}" in gm, name
     assert any(n.startswith("gauge.zipkin_tpu.slo.") for n in gm)
 
 
@@ -183,6 +188,30 @@ def test_the_seal_rides_the_windows_ticker():
     finally:
         server.stop()
     assert not server._obs_windows.ticker_running
+
+
+def test_the_ticker_seals_at_the_asked_period():
+    """``seal_interval_s`` is the seal's period with the windows on too: on
+    a 0.05 s ticker a 0.5 s period seals about once every ten ticks, not
+    on every tick."""
+    store = small_store()
+    calls = []
+    seal = store.tt_seal
+    store.tt_seal = lambda *a, **kw: calls.append(time.monotonic()) or seal(*a, **kw)
+    server = ZipkinServer(ServerConfig(host="127.0.0.1", port=0, storage_type="tpu",
+                                       obs_windows_tick_s=0.05),
+                          storage=store, seal_interval_s=0.5)
+    t0 = time.monotonic()
+    server.start()
+    try:
+        time.sleep(1.3)
+    finally:
+        server.stop()
+    elapsed = time.monotonic() - t0
+    ticks = server._obs_windows.ticks
+    assert calls and ticks >= 2 * len(calls), (ticks, len(calls))
+    assert len(calls) <= elapsed / 0.5 + 1
+    assert all(b - a >= 0.5 for a, b in zip(calls, calls[1:]))
 
 
 def test_multi_process_tier_under_the_plane():

@@ -51,6 +51,32 @@ def test_the_archive_and_scrubber_modules_are_checked():
         assert not bad, f"{m} imports {bad}"
 
 
+ADMISSION = ("zipkin_tpu_torch.runtime.overload", "zipkin_tpu_torch.runtime.tenant",
+             "zipkin_tpu_torch.runtime.supervisor")
+
+
+def test_the_admission_modules_are_checked_and_load_no_torch():
+    """The overload controller, the tenant table and the resume supervisor
+    are under the import checks above, and load neither torch nor numpy:
+    the collector and the spawn paths import them."""
+    mods = _modules()
+    for m in ADMISSION:
+        assert m in mods
+        bad = [r for r in _imported_roots(ROOT / (m.replace(".", "/") + ".py")) if r in FORBIDDEN]
+        assert not bad, f"{m} imports {bad}"
+    code = (
+        "import importlib, sys\n"
+        f"for m in {ADMISSION!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in ('torch', 'numpy', 'jax'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_importing_every_module_loads_no_jax():
     code = (
         "import importlib, sys\n"

@@ -697,7 +697,9 @@ def test_mp_tier_answers_202_and_lands_every_span():
         assert m["gauge.zipkin_tpu.mpWorkers"] == m["gauge.zipkin_tpu.mpWorkersAlive"] == 2
         assert m["gauge.zipkin_tpu.mpAccepted"] == m["counter.zipkin_collector.spans.http"] == 3000
         assert m["gauge.zipkin_tpu.mpInflight"] == 0
-        assert m["gauge.zipkin_tpu.mpRejected"] == refused
+        # a 429 is a full tier or an admission shed (the ladder is on)
+        assert m["gauge.zipkin_tpu.mpRejected"] + m["gauge.zipkin_tpu.overloadShedTotal"] \
+            + m["gauge.zipkin_tpu.overloadShedTenant"] == refused
         assert m["counter.zipkin_collector.messages_dropped.http"] == refused
     finally:
         server.stop()
@@ -706,9 +708,10 @@ def test_mp_tier_answers_202_and_lands_every_span():
 
 def test_full_tier_answers_429_and_the_throttle_keeps_503():
     """A frozen lone worker with a queue of one: the first POST is queued
-    (202), the next finds every queue full (429, no Retry-After: the tier
-    gives no backoff guidance), while a throttle shed on the object path
-    stays 503. Unfrozen, the 202'd payload lands at stop()."""
+    (202), the next finds every queue full (429 with the overload ladder's
+    backoff guidance and scope ``global``, as the reference answers a full
+    tier), while a throttle shed on the object path stays 503. Unfrozen,
+    the 202'd payload lands at stop()."""
     if not native.available():
         pytest.skip("no C compiler for the native parser")
     store = small_store()
@@ -725,7 +728,9 @@ def test_full_tier_answers_429_and_the_throttle_keeps_503():
             urllib.request.urlopen(urllib.request.Request(url, data=ps[2], method="POST"),
                                    timeout=60)
         assert e.value.code == 429 and "saturated" in e.value.read().decode()
-        assert e.value.headers.get("Retry-After") is None
+        assert int(e.value.headers["Retry-After"]) >= 1
+        assert int(e.value.headers["X-Retry-After-Ms"]) >= 50
+        assert e.value.headers["X-Shed-Scope"] == "global"
         assert ing.counters["rejected"] == 1
 
         class Shedding(SpanConsumer):
@@ -891,7 +896,9 @@ def test_entry_point_with_mp_workers_answers_202_429_and_drains_on_sigterm(tmp_p
             time.sleep(0.1)
         assert m["gauge.zipkin_tpu.mpWorkersAlive"] == 2
         refused += flood.count(429)
-        assert m["gauge.zipkin_tpu.mpRejected"] == refused
+        # a 429 is a full tier or an admission shed (the ladder is on)
+        assert m["gauge.zipkin_tpu.mpRejected"] + m["gauge.zipkin_tpu.overloadShedTotal"] \
+            + m["gauge.zipkin_tpu.overloadShedTenant"] == refused
         assert m["counter.zipkin_collector.messages_dropped.http"] == refused
         proc.send_signal(signal.SIGTERM)
         assert proc.wait(timeout=60) == 0

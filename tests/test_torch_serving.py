@@ -16,11 +16,17 @@ port's store publishes decodes through the reference's ``SegmentView`` to
 the same bytes as the port's; the port's reader on ``http.server`` answers
 the reference's aiohttp reader byte for byte (bodies, status, Retry-After).
 A spawned reader loads no torch, no jax and nothing of ``zipkin_tpu``. The
-reference's tenant cases (``test_tenant_prefixed_key_parity``,
-``test_tenant_demand_keys_are_refused_not_guessed``) wait for the admission
-slice, which brings tenant-scoped reads; a reader SIGKILLed mid-flood stays
-in the reference's suite (marked slow there) and here is one kill, one
-respawn.
+reference's tenant cases: a tenant-prefixed key registered ingest side serves
+through the reader as the unscoped read it wraps, and a reader's miss on a
+tenant key is refused and counted, never guessed. A reader SIGKILLed
+mid-flood stays in the reference's suite (marked slow there) and here is
+one kill, one respawn.
+
+The port's repairs, each a departure from the reference: a key whose value
+outgrows the segment is left out of the epoch and counted
+(``segmentOversizedKeys``) while the other keys publish, where the
+reference drops the whole epoch; and an idle publisher re-stamps its
+unchanged epoch, so a reader keeps serving it past the staleness bound.
 
 Tolerances: none; answers are compared as JSON bytes.
 """
@@ -567,3 +573,78 @@ def test_request_threads_never_pair_one_epoch_with_anothers_vocab():
     assert not any(t.is_alive() for t in threads)
     assert not bad, bad[0]
     assert view.decodes > 10
+
+
+def test_tenant_prefixed_key_parity(served):
+    """A tenant-scoped mirror key registered ingest side serves through the
+    reader's ``tenant`` with the bytes of the unscoped read it wraps."""
+    store, _seg, view = served
+    store.mirror.register("tenant:t1:card", lambda: store.agg.cardinalities(), pinned=True)
+    assert store.publish_mirror(force=True)
+    assert J(_serve(store, view.serve_cardinalities, None, None, None, "t1")) == \
+        J(store.trace_cardinalities())
+
+
+def test_tenant_demand_keys_are_refused_not_guessed(served):
+    """A reader's miss on a tenant-prefixed key is not registered (the
+    publisher cannot infer a scoped compute): it is counted
+    ``readerDemandUnparsed`` and keeps missing."""
+    store, _seg, view = served
+    with pytest.raises(SegmentMiss):
+        view.serve_cardinalities(None, None, None, "t9")
+    assert store.publish_mirror(force=True)
+    assert store.ingest_counters()["readerDemandUnparsed"] == 1
+    with pytest.raises(SegmentMiss):
+        view.serve_cardinalities(None, None, None, "t9")
+
+
+def test_an_oversized_key_is_left_out_and_the_rest_still_serve():
+    """A registered ``ttq:`` window whose dense planes outgrow a small
+    segment: the epoch publishes without it (counted), and the card,
+    dependency and quantile keys serve from a ``SegmentView``."""
+    store = small_store(archive_max_span_count=100_000)
+    seg = MirrorSegment(readers=1, capacity=96 << 10)
+    try:
+        end_ts = _ingest(store)
+        store._deps_max_stale_ms = 60_000.0
+        store.attach_mirror_segment(seg)
+        lo, hi = store._tt_epochs(end_ts, 3_600_000)
+        assert store.mirror_register_key(f"ttq:{lo}:{hi}")
+        store.get_dependencies(end_ts, 3_600_000).execute()  # a miss registers deps
+        assert store.publish_mirror(force=True)
+        snap = store.mirror.snapshot()
+        assert len(pickle.dumps(snap.values[f"ttq:{lo}:{hi}"])) > seg.capacity
+        c = store.ingest_counters()
+        assert c["segmentOversizedKeys"] == 1 and c["segmentOverflows"] == 0
+        assert c["segmentPublishes"] == 1
+        view = SegmentView(seg, 0)
+        payload = view.refresh()
+        assert f"ttq:{lo}:{hi}" not in payload["values"]
+        assert J(view.serve_cardinalities()[0]) == J(store.trace_cardinalities(staleness_ms=0))
+        assert J(view.serve_quantiles(QS)[0]) == J(store.latency_quantiles(QS, staleness_ms=0))
+        assert view.serve_dependencies(end_ts, 3_600_000)[0]
+    finally:
+        store.mirror.segment_sink = store.mirror.segment_restamp = None
+        seg.close()
+
+
+def test_an_idle_publisher_restamps_its_epoch_so_readers_keep_serving(served):
+    """No ingest after an epoch: past ``max_stale_ms`` a reader still serves,
+    because each skipped publish re-stamps the unchanged epoch; once the
+    state moves, a skipped publish cannot happen and the stale epoch ages."""
+    store, seg, view = served
+    store.mirror.max_stale_ms = 200.0
+    assert store.publish_mirror(force=True)
+    rows, _ = view.serve_cardinalities()
+    gen, decodes = seg.generation(), view.decodes
+    time.sleep(0.3)
+    assert not store.publish_mirror()  # skipped: nothing changed
+    assert seg.generation() > gen and store.ingest_counters()["segmentRestamps"] >= 1
+    got, age = view.serve_cardinalities()  # past the bound since the write
+    assert J(got) == J(rows) and age < 200.0
+    assert view.decodes == decodes  # the re-stamp reused the decoded epoch
+    _ingest(store, seed=9)  # the state moves: no re-stamp
+    time.sleep(0.3)
+    assert not store.mirror.segment_restamp(store.mirror.snapshot())
+    with pytest.raises(StalenessExceeded):
+        view.serve_cardinalities()

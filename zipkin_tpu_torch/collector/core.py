@@ -23,8 +23,16 @@ An object-path decode is the flight recorder's ``parse`` stage, and a
 ``shadow`` (:class:`~zipkin_tpu_torch.obs.shadow.HostShadow`) is offered
 the object path's sampled spans. A payload handed to the tier without a
 server boundary's wire anchor (``critpath.WIRE_T0_NS``) is anchored at the
-collector's entry, so direct callers get critical-path timelines too. Left
-out, against the reference: overload and tenant admission.
+collector's entry, so direct callers get critical-path timelines too.
+
+Admission (:mod:`zipkin_tpu_torch.runtime.overload`): with an ``overload``
+controller attached (the server attaches one by default), every payload
+passes its chokepoint before any parse or hand-off. The tenant's own budget
+comes first (``CURRENT_TENANT``, set by the server's handler from
+``X-Tenant-Id``), then the global brownout ladder; a shed raises
+``IngestBackpressure`` carrying its ``scope``, ``tenant`` and
+``retry_after_s``, counted as a dropped message. The tenant rides on into
+the multi-process tier as an argument of ``submit``.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ from typing import Dict, List, Optional, Sequence
 
 from zipkin_tpu_torch import faults, obs
 from zipkin_tpu_torch.obs import critpath
+from zipkin_tpu_torch.runtime.tenant import CURRENT_TENANT
 from zipkin_tpu_torch.model import codec
 from zipkin_tpu_torch.model.span import Span
 from zipkin_tpu_torch.storage.spi import FastIngestError, StorageComponent
@@ -159,6 +168,10 @@ class Collector:
         # the accuracy plane's tap: the object path offers its sampled
         # spans, so the shadow sees what the device sketches see
         self.shadow = shadow
+        # the overload controller (runtime/overload.py), set by the server:
+        # its verdict gates each payload before any parse or hand-off, and
+        # a shed is an explicit IngestBackpressure, never a silent ack
+        self.overload = None
         self._consumer = storage.span_consumer()
 
     def accept_spans_bytes(self, data: bytes, encoding: Optional[codec.Encoding] = None) -> int:
@@ -167,10 +180,28 @@ class Collector:
         took, which accepts it asynchronously. Raises ``ValueError`` on a
         malformed payload, after counting the dropped message,
         ``RejectedExecutionError`` when the throttle sheds it and
-        ``IngestBackpressure`` when the multi-process tier is full (or the
-        ``alloc`` site fires), both counted as dropped messages."""
+        ``IngestBackpressure`` when admission sheds it, the multi-process
+        tier is full or the ``alloc`` site fires, both counted as dropped
+        messages."""
+        # zt-tenant-admission: the collector chokepoint, the tenant's budget
+        # first (scope tenant), then the global ladder (scope global), before
+        # any parse or device dispatch
         self.metrics.increment_messages()
         self.metrics.increment_bytes(len(data))
+        tenant = CURRENT_TENANT.get()
+        ctl = self.overload
+        if ctl is not None:
+            v = ctl.admit(data, tenant=tenant)
+            if not v.admitted:
+                self.metrics.increment_messages_dropped()
+                if v.scope == "tenant":
+                    msg = (f"tenant {v.tenant!r} over ingest budget: {v.cls} payload shed; "
+                           "retry after the advertised backoff")
+                else:
+                    msg = (f"overload {ctl.level_name}: {v.cls} payload shed; "
+                           "retry after the advertised backoff")
+                raise IngestBackpressure(msg, scope=v.scope, tenant=v.tenant,
+                                         retry_after_s=v.retry_after_s or None)
         try:
             # an allocation failure at the boundary is answered as
             # backpressure: the sender retries instead of the server failing
@@ -191,7 +222,7 @@ class Collector:
                 # afresh for each payload
                 tok = critpath.WIRE_T0_NS.set(time.perf_counter_ns())
             try:
-                self.mp_ingester.submit(data, block=False)
+                self.mp_ingester.submit(data, block=False, tenant=tenant)
             except IngestBackpressure:
                 self.metrics.increment_messages_dropped()
                 raise

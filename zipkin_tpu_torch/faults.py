@@ -35,8 +35,14 @@ with mode ``flip``, ``zero`` or ``truncate``, and
 the ``feed.latency`` sleep (25 ms by default). Crash and corrupt sites
 are one-shot: they disarm as they fire. A resource site fails ``count``
 traversals in a row from its ``nth`` (0: until :func:`disarm`). Disarmed, a
-hook is one dict probe. The reference's tenant-scoped resource faults wait
-for the port's tenant admission (ROADMAP §1 item 6).
+hook is one dict probe.
+
+A resource site can also target one tenant: ``arm_resource(site,
+tenant="B")`` or ``ZT_RESOURCE=feed.latency:tenant=B`` fires only on
+traversals attributed to that tenant, either the ``tenant=`` the call site
+passes (the fan-out dispatcher knows its group's tenant) or the ambient
+:data:`~zipkin_tpu_torch.runtime.tenant.CURRENT_TENANT` at boundary sites.
+Other tenants' traversals consume neither ``nth`` nor ``count``.
 """
 
 from __future__ import annotations
@@ -46,7 +52,7 @@ import logging
 import os
 import signal
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 logger = logging.getLogger(__name__)
 
@@ -93,8 +99,8 @@ class CrashpointTriggered(RuntimeError):
 _armed: Dict[str, List] = {}
 # site -> [remaining_nth, mode]; mutated in place by corrupt_point()
 _corrupt_armed: Dict[str, List] = {}
-# site -> [remaining_nth, remaining_count, latency_s]; mutated in place by
-# resource_point()
+# site -> [remaining_nth, remaining_count, latency_s, tenant|None]; mutated in
+# place by resource_point()
 _resource_armed: Dict[str, List] = {}
 
 
@@ -116,14 +122,17 @@ def arm_corrupt(site: str, mode: str = "flip", nth: int = 1) -> None:
     _corrupt_armed[site] = [max(1, int(nth)), mode]
 
 
-def arm_resource(site: str, nth: int = 1, count: int = 1, latency_ms: float = 25.0) -> None:
+def arm_resource(site: str, nth: int = 1, count: int = 1, latency_ms: float = 25.0,
+                 tenant: Optional[str] = None) -> None:
     """Arm a resource site: it starts failing on its ``nth`` traversal and
     fails ``count`` traversals in a row (0: until :func:`disarm`), a disk
     that fills and later frees; ``feed.latency`` sleeps ``latency_ms`` a
-    traversal instead of failing."""
+    traversal instead of failing. ``tenant`` scopes it to that tenant's
+    traversals."""
     if site not in RESOURCE_SITES:
         raise ValueError(f"unknown resource site {site!r} (see faults.RESOURCE_SITES)")
-    _resource_armed[site] = [max(1, int(nth)), max(0, int(count)), max(0.0, latency_ms) / 1000.0]
+    _resource_armed[site] = [max(1, int(nth)), max(0, int(count)), max(0.0, latency_ms) / 1000.0,
+                             tenant or None]
 
 
 def disarm() -> None:
@@ -195,14 +204,25 @@ def corrupt_point(site: str, path: str, start: int, length: int) -> bool:
     return True
 
 
-def resource_point(site: str) -> None:
+def resource_point(site: str, tenant: Optional[str] = None) -> None:
     """Hot-path hook for exhaustion sites: a no-op unless ``site`` is armed.
     Disk sites raise ``OSError(ENOSPC)``, ``alloc`` raises ``MemoryError``,
     ``feed.latency`` sleeps and returns; the caller's own handling is what
-    is under test."""
+    is under test. A site armed for one tenant fires only for it:
+    ``tenant`` is the caller's attribution, else the ambient
+    ``CURRENT_TENANT``."""
     spec = _resource_armed.get(site)
     if spec is None:
         return
+    want = spec[3]
+    if want is not None:
+        if tenant is None:
+            # imported here: faults loads before runtime/
+            from zipkin_tpu_torch.runtime.tenant import CURRENT_TENANT
+
+            tenant = CURRENT_TENANT.get()
+        if tenant != want:
+            return  # another tenant's traversal: nth and count untouched
     if spec[0] > 1:
         spec[0] -= 1  # not yet at the nth traversal
         return
@@ -260,9 +280,16 @@ def _arm_from_env() -> None:
             if not spec:
                 continue
             parts = [p.strip() for p in spec.split(":")]
+            tenant = None
+            pos = []
+            for part in parts[1:]:
+                if part.startswith("tenant="):
+                    tenant = part[len("tenant="):] or None
+                elif part:
+                    pos.append(part)
             try:
-                arm_resource(parts[0], int(parts[1]) if len(parts) > 1 and parts[1] else 1,
-                             int(parts[2]) if len(parts) > 2 and parts[2] else 1, latency_ms=lat_ms)
+                arm_resource(parts[0], int(pos[0]) if pos else 1,
+                             int(pos[1]) if len(pos) > 1 else 1, latency_ms=lat_ms, tenant=tenant)
             except ValueError as e:
                 logger.warning("ignoring %s=%r: %s", ENV_RESOURCE, raw, e)
 

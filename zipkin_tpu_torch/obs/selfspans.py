@@ -64,8 +64,8 @@ class SelfSpanEmitter:
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         self.emitted = 0
-        # brownout gate (the overload controller, not ported yet): a callable
-        # returning True when B1+ is shedding expensive observability.
+        # brownout gate: the server sets the overload controller's
+        # shed_observability, True when B1+ sheds expensive observability.
         # Gated events are counted and DROPPED — the slow ring and
         # /statusz keep recording (they are cheap); only the span
         # emission (a collector write competing with real traffic for

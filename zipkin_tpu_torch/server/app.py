@@ -7,8 +7,10 @@ Routes and status codes follow the reference:
 
 - ``POST /api/v2/spans``, ``POST /api/v1/spans``: gzip (by its magic, with
   a 256 MiB inflation cap -> 413), Content-Type -> encoding, else sniffed;
-  malformed -> 400, throttle shed -> 503, a full multi-process tier -> 429,
-  accepted -> 202;
+  malformed -> 400, throttle shed -> 503,
+  admission shed or a full multi-process tier -> 429 with ``Retry-After``,
+  ``X-Retry-After-Ms`` and, for a shed, ``X-Shed-Scope`` (``tenant`` or
+  ``global``) and ``X-Shed-Tenant``; accepted -> 202;
 - ``GET /api/v2/{traces,trace/{id},traceMany,services,spans,remoteServices,
   dependencies,autocompleteKeys,autocompleteValues}``;
 - ``GET /api/v2/tpu/{percentiles,cardinalities,counters,overview}`` when the
@@ -24,11 +26,24 @@ Routes and status codes follow the reference:
 - ``GET /api/v2/tpu/statusz`` (the observability plane's debug page: the
   flight recorder's stage table, its slow-event ring and its own cost, the
   sampler, durability, windows, SLO, accuracy, device, workers, critpath,
-  queries, mirror, serving and incidents sections) and ``GET /prometheus``
-  (the exposition format: the collector's counters, the store's flat gauges
-  with the ``critpath``, ``mirror``, ``segment`` and ``reader`` families,
-  the stage latency histogram with exemplars, and the worker, critical-path
-  segment, query-lock, query-segment, accuracy and SLO families).
+  queries, mirror, serving, overload and incidents sections) and ``GET
+  /prometheus`` (the exposition format: the collector's counters, the
+  store's flat gauges with the ``critpath``, ``mirror``, ``segment`` and
+  ``reader`` families, the stage latency histogram with exemplars, and the
+  worker, critical-path segment, query-lock, query-segment, accuracy, SLO,
+  ``zipkin_tpu_overload_*`` and ``{tenant=}`` families).
+
+Admission (:mod:`zipkin_tpu_torch.runtime.overload`, on by default as in
+the reference, ``TPU_OVERLOAD``): the brownout ladder B0-B3 folds the
+windowed signals each tick and gates the collector (value-class admission),
+the store's reads (cache first, cache only) and the self-spans; each
+transition is an incident. Per-tenant budgets (``TPU_TENANT*``) shed a
+flooding tenant alone, by ``X-Tenant-Id``, which the handler puts into
+``CURRENT_TENANT`` on the request's thread before the collector runs.
+``X-Request-Timeout-Ms`` is a deadline (``TPU_DEADLINES``): a request whose
+budget is spent before its dispatch answers 504 with ``X-Deadline-Expired:
+1``, counted as ``deadlineExpired``; a malformed or absent header means no
+deadline.
 
 The four aggregate routes take ``staleness_ms`` (400 when it is not a
 number), passed on only to a store with a read mirror: the bound of a
@@ -46,8 +61,10 @@ Each request runs on its own thread. The observability plane's ticker
 (``TPU_OBS_WINDOWS``, every ``TPU_OBS_TICK_S``) takes the windowed deltas
 and, in the reference's order, rolls up the accuracy plane, stitches the
 tier's critical-path ledger, folds the query traces, seals the store's time
-tier, publishes a read-mirror epoch (paced) and evaluates the SLOs; with
-the windows off a thread of its own seals the time tier every
+tier, publishes a read-mirror epoch (paced), evaluates the SLOs and steps
+the overload ladder. ``seal_interval_s`` is the seal's period: on the
+ticker the seal runs at the first tick at least that long after the last,
+and with the windows off a thread of its own seals every
 ``seal_interval_s`` (0: no seal on either). A POST's body read is the
 critical path's wire anchor (``critpath.WIRE_T0_NS``). With a checkpoint dir another
 thread snapshots the store every ``TPU_SNAPSHOT_INTERVAL_S``; the store's
@@ -58,16 +75,15 @@ own scrubber thread re-verifies its files every ``TPU_SCRUB_INTERVAL_S``.
 reference's ``runner.cleanup()``), drains and closes the multi-process tier
 within the same limit, stops the scrubber, and takes a final snapshot after
 the listener and both tickers have stopped. Left out, against the
-reference: gRPC, scribe, the UI and ``/config.json``, deadlines, overload
-and tenant admission (so a 429 carries no ``Retry-After`` unless its
-exception does), and statusz's ``overload`` section with its gauges and
-families. The routes, the windows' counter source and the ticker's
-subscribers reach the server weakly, so a stopped, dropped server and its
+reference: gRPC, scribe, the UI and ``/config.json``. The routes, the
+windows' counter source and the ticker's subscribers reach the server
+weakly, so a stopped, dropped server and its
 store are freed without the cycle collector.
 """
 
 from __future__ import annotations
 
+import contextvars
 import json
 import logging
 import threading
@@ -85,6 +101,7 @@ from zipkin_tpu_torch.collector.core import Collector, CollectorSampler, InMemor
 from zipkin_tpu_torch.internal.hex import normalize_trace_id
 from zipkin_tpu_torch.model import json_v2
 from zipkin_tpu_torch.model.codec import Encoding
+from zipkin_tpu_torch.runtime.tenant import CURRENT_TENANT, TENANT_HEADER, normalize_tenant
 from zipkin_tpu_torch.server.config import ServerConfig
 from zipkin_tpu_torch.storage.memory import InMemoryStorage
 from zipkin_tpu_torch.storage.spi import QueryRequest, StorageComponent
@@ -96,6 +113,10 @@ logger = logging.getLogger(__name__)
 JSON = "application/json"
 MAX_BODY = 64 * 1024 * 1024  # compressed request bytes, as the reference's client_max_size
 DRAIN_TIMEOUT_S = 30.0  # how long stop() waits for the requests in flight
+# the caller's X-Request-Timeout-Ms deadline (monotonic s; None: none), set
+# by the handler on the request's thread at its earliest instant
+REQUEST_DEADLINE: contextvars.ContextVar = contextvars.ContextVar(
+    "zipkin_tpu_torch_deadline", default=None)
 # gauges of ingest_counters() that /metrics publishes as gauge.zipkin_tpu.<name>
 _METRIC_GAUGES = (
     "ctxDeltaLanes", "ctxAdvances", "ctxMaintenanceMs",
@@ -273,10 +294,11 @@ class ZipkinServer:
     port, read back from ``self.port``) and serves on a thread;
     ``stop()`` shuts the listener down, takes the final snapshot and closes
     the storage. ``device`` is where a store built here lives (the card
-    unless named). ``seal_interval_s`` is the time tier's seal period only
-    with the windows off (``TPU_OBS_WINDOWS=0``); with them on, the seal
-    rides the windows ticker every ``TPU_OBS_TICK_S`` and only
-    ``seal_interval_s > 0`` (seal) against 0 (no seal) matters."""
+    unless named). ``seal_interval_s`` is the time tier's seal period (0:
+    no seal): with the windows on, the seal rides their ticker at the first
+    tick at least ``seal_interval_s`` after the last seal; with them off
+    (``TPU_OBS_WINDOWS=0``) a thread of its own seals every
+    ``seal_interval_s``."""
 
     MAX_INFLATED = 256 * 1024 * 1024  # decompression-bomb guard
 
@@ -301,7 +323,9 @@ class ZipkinServer:
         )
         self.components = {self.config.storage_type: self.storage}
         self.seal_interval_s = seal_interval_s
+        self._last_seal = float("-inf")
         self._build_obs_plane()
+        self._build_admission()
         self.port: Optional[int] = None
         self._httpd: Optional[_HTTPServer] = None
         self._threads = []
@@ -478,7 +502,13 @@ class ZipkinServer:
             # one ticker thread touches the card for the seal, as the
             # reference's; the plain seal loop runs only with the windows off
             self._seal_on_ticker = True
-            windows.on_tick(on_core(self._seal))
+            seal_due = weakref.WeakMethod(self._seal_if_due)
+
+            def seal(c):
+                m = seal_due()
+                if m is not None:
+                    m(c)
+            windows.on_tick(on_core(seal))
         if self._mirror is not None and self._mirror.enabled:
             # after the seal, so a windowed key's epoch serves sealed
             # segments; paced: the publisher's lock duty cycle stays <= 50%
@@ -497,6 +527,119 @@ class ZipkinServer:
                     cfg.obs_incident_dir, retention=cfg.obs_incident_retention)
                 self._wire_incident_sources(core)
                 self._obs_slo.on_trip.append(self._obs_incidents.on_slo_trip)
+
+    def _build_admission(self) -> None:
+        """The overload controller and the tenant table
+        (``zipkin_tpu/server/app.py:383-489``): built without the windows
+        too (tests and embedders drive ``evaluate`` themselves); with them,
+        the controller steps after the stitchers and the watchdog on each
+        tick, reading the gauges that tick folded. It gates the collector,
+        the store's read modes and the self-spans; each transition is an
+        incident."""
+        cfg = self.config
+        self._overload = None
+        if not cfg.overload_enabled:
+            return
+        from zipkin_tpu_torch.runtime.overload import OverloadController
+
+        core = getattr(self.storage, "delegate", self.storage)
+        rc = getattr(core, "sampling_controller", None)
+        ctl = self._overload = OverloadController(
+            enter=(cfg.overload_enter_b1, cfg.overload_enter_b2, cfg.overload_enter_b3),
+            exit_margin=cfg.overload_exit_margin,
+            dwell_ticks=cfg.overload_dwell_ticks,
+            max_stale_ms=cfg.overload_max_stale_ms,
+            retry_base_s=cfg.overload_retry_base_s,
+            # B2's bulk sheds nudge the sampling tier's pressure hook, so a
+            # sustained overload lowers sampling rates instead of adding 429s
+            rate_controller=rc,
+        )
+        self.collector.overload = ctl
+        if hasattr(core, "overload"):
+            core.overload = ctl
+        if self._obs_emitter is not None:
+            # B1 sheds the self-spans first
+            self._obs_emitter.gate = ctl.shed_observability
+        if self._obs_windows is not None:
+            self._obs_windows.on_tick(ctl.on_tick)
+        if self._obs_incidents is not None:
+            rec = self._obs_incidents
+            rec.add_source("overload", ctl.status)
+            ctl.on_transition.append(lambda ev: rec.capture({
+                "kind": "overload_transition",
+                "name": f"overload-{ev['from']}-to-{ev['to']}", **ev}))
+        if not cfg.tenant_enabled:
+            return
+        from zipkin_tpu_torch.runtime.tenant import TenantAdmission
+
+        # built with a zero budget too (accounting only), so the tenant
+        # counters and statusz rows always publish
+        retained = None
+        if cfg.tenant_retained_spans_per_s > 0:
+            from zipkin_tpu_torch.sampling.controller import TenantBudgetTable
+
+            # charged at the dispatcher's ack (span counts are known only
+            # after the parse), consulted by admit() before more bytes
+            retained = TenantBudgetTable(spans_per_s=cfg.tenant_retained_spans_per_s,
+                                         burst_s=cfg.tenant_ingest_burst_s,
+                                         max_tenants=cfg.tenant_max)
+            if rc is not None:
+                rc.tenant_table = retained
+        ta = ctl.tenant_admission = TenantAdmission(
+            bytes_per_s=cfg.tenant_ingest_bytes_per_s,
+            burst_s=cfg.tenant_ingest_burst_s,
+            max_tenants=cfg.tenant_max,
+            flood_ratio=cfg.tenant_flood_ratio,
+            dwell_ticks=cfg.tenant_dwell_ticks,
+            retained_table=retained,
+        )
+        if self._mp_ingester is not None:
+            self._mp_ingester.tenant_sink = ta.note_retained
+        if self._obs_slo is not None and cfg.tenant_slo_tenants:
+            from zipkin_tpu_torch.obs.slo import tenant_specs
+
+            # one shed-ratio spec a TPU_TENANT_SLO entry, over that
+            # tenant's own counters
+            for t in cfg.tenant_slo_tenants:
+                for spec in tenant_specs(t, short_s=cfg.obs_slo_short_s,
+                                         long_s=cfg.obs_slo_long_s,
+                                         burn_threshold=cfg.obs_slo_burn_threshold):
+                    self._obs_slo.add_spec(spec)
+
+    # -- deadlines and backoff guidance -----------------------------------
+
+    def _check_deadline(self) -> None:
+        """504 when the caller's ``X-Request-Timeout-Ms`` budget is spent
+        (``zipkin_tpu/server/app.py:729-741``), counted on the controller as
+        ``deadlineExpired``; called right before a route's dispatch."""
+        deadline = REQUEST_DEADLINE.get()
+        if deadline is None or time.monotonic() <= deadline:
+            return
+        if self._overload is not None:
+            self._overload.note_deadline_expired()
+        raise HttpError(504, "deadline expired before dispatch", {"X-Deadline-Expired": "1"})
+
+    def _backoff_headers(self, exc=None) -> Dict[str, str]:
+        """Retry guidance for a 429 (``zipkin_tpu/server/app.py:743-776``):
+        ``Retry-After`` in whole seconds (rounded up), ``X-Retry-After-Ms``
+        to the ms. A shed's own delay is the one its control computed (a
+        tenant's bucket deficit, or the ladder's jittered backoff); a full
+        tier's comes from the ladder. ``X-Shed-Scope`` and
+        ``X-Shed-Tenant`` say which control refused the payload."""
+        delay_s = getattr(exc, "retry_after_s", None)
+        scope = getattr(exc, "scope", None)
+        tenant = getattr(exc, "tenant", None)
+        if delay_s is None:
+            if self._overload is None:
+                return {}
+            delay_s = self._overload.retry_after_s(tenant if scope == "tenant" else None)
+        headers = {"Retry-After": str(max(1, int(-(-delay_s // 1)))),
+                   "X-Retry-After-Ms": str(int(delay_s * 1000.0))}
+        if scope:
+            headers["X-Shed-Scope"] = str(scope)
+        if tenant:
+            headers["X-Shed-Tenant"] = str(tenant)
+        return headers
 
     def _window_counter_source(self) -> dict:
         """What the windowed plane samples each tick: the collector's
@@ -518,6 +661,13 @@ class ZipkinServer:
                 out.update(self.storage.ingest_counters())
             except Exception:  # a counter source must not stop the tick
                 logger.exception("ingest_counters failed in the windows tick")
+        # the admission counters, tenantOffered_<slug> / tenantShed_<slug>
+        # among them: the tenant shed-ratio SLOs burn against these
+        if self._overload is not None:
+            try:
+                out.update(self._overload.counters())
+            except Exception:
+                logger.exception("overload counters failed in the windows tick")
         return out
 
     def _windows_catch_up(self) -> None:
@@ -594,6 +744,13 @@ class ZipkinServer:
             self._obs_windows.start_ticker()
         logger.info("zipkin-tpu-torch listening on %s:%d", self.config.host, self.port)
         return self
+
+    def _seal_if_due(self, core) -> None:
+        """The ticker's seal: at most once a ``seal_interval_s``."""
+        now = time.monotonic()
+        if now - self._last_seal >= self.seal_interval_s:
+            self._last_seal = now
+            self._seal(core)
 
     @staticmethod
     def _seal(core) -> None:
@@ -730,6 +887,8 @@ class ZipkinServer:
             encoding = Encoding.THRIFT
         elif ctype == JSON and v1:
             encoding = Encoding.JSON_V1
+        # a budget spent while the body was read is dropped before dispatch
+        self._check_deadline()
         try:
             self.collector.accept_spans_bytes(body, encoding)
         except ValueError as e:
@@ -738,13 +897,11 @@ class ZipkinServer:
             # the storage throttle shed the write: the sender backs off
             raise HttpError(503, str(e))
         except IngestBackpressure as e:
-            # every parse worker's queue is full (or an allocation failed):
-            # 429, retryable and distinct from the throttle's 503
-            delay = e.retry_after_s
-            headers = {} if delay is None else {
-                "Retry-After": str(max(1, int(-(-delay // 1)))),
-                "X-Retry-After-Ms": str(int(delay * 1000.0))}
-            raise HttpError(429, str(e), headers)
+            # admission shed it, every parse worker's queue is full, or an
+            # allocation failed: 429, retryable and distinct from the
+            # throttle's 503, with backoff guidance scoped to whichever
+            # control refused it
+            raise HttpError(429, str(e), self._backoff_headers(e))
         # body read -> collector hand-off done; the 202 follows
         obs.record("http_boundary", time.perf_counter() - t0)
         return 202, None
@@ -773,6 +930,7 @@ class ZipkinServer:
             request = self._query_request(q)
         except ValueError as e:
             raise HttpError(400, str(e))
+        self._check_deadline()
         traces = self.storage.span_store().get_traces_query(request).execute()
         return 200, [[json_v2.span_to_dict(s) for s in t] for t in traces]
 
@@ -781,6 +939,7 @@ class ZipkinServer:
             normalize_trace_id(raw_id)
         except ValueError as e:
             raise HttpError(400, str(e))
+        self._check_deadline()
         spans = self.storage.span_store().get_trace(raw_id).execute()
         if not spans:
             raise HttpError(404, f"trace {raw_id} not found")
@@ -790,6 +949,7 @@ class ZipkinServer:
         ids = [x for x in q.get("traceIds", "").split(",") if x]
         if not ids:
             raise HttpError(400, "traceIds parameter is required")
+        self._check_deadline()
         traces = self.storage.traces().get_traces(ids).execute()
         return 200, [[json_v2.span_to_dict(s) for s in t] for t in traces]
 
@@ -820,6 +980,7 @@ class ZipkinServer:
             staleness = self._staleness_param(q)
         except ValueError as e:
             raise HttpError(400, str(e))
+        self._check_deadline()
         # the bound goes only to a store with a mirror: the in-memory
         # store's SPI signature stays the reference's
         kwargs = ({"staleness_ms": staleness}
@@ -845,6 +1006,7 @@ class ZipkinServer:
             staleness = self._staleness_param(q)
         except ValueError as e:
             raise HttpError(400, str(e))
+        self._check_deadline()
         return 200, self.storage.latency_quantiles(
             qs, q.get("serviceName"), q.get("spanName"), q.get("sketch", "digest") == "digest",
             end_ts, lookback, staleness)
@@ -878,6 +1040,7 @@ class ZipkinServer:
             staleness = self._staleness_param(q)
         except ValueError as e:
             raise HttpError(400, str(e))
+        self._check_deadline()
         return 200, self.storage.sketch_overview(qs, q.get("serviceName"), q.get("spanName"),
                                                  staleness)
 
@@ -932,6 +1095,11 @@ class ZipkinServer:
                 out[f"{base}.alert"] = int(v["alert"])
                 for wname, wv in v["windows"].items():
                     out[f"{base}.burn.{wname}"] = wv["burn"]
+        # the ladder's level and load index, admission tallies by class and
+        # tenant, deadline drops
+        if self._overload is not None:
+            for name, value in self._overload.counters().items():
+                out[f"gauge.zipkin_tpu.{name}"] = value
         return 200, out
 
     def get_prometheus(self, q):
@@ -977,12 +1145,15 @@ class ZipkinServer:
         if self._obs_slo is not None:
             self._windows_catch_up()
             lines.extend(_prom_slo(self._obs_slo.verdicts()))
+        if self._overload is not None:
+            status = self._overload.status()
+            lines.extend(_prom_overload(status))
+            lines.extend(_prom_tenants(status))
         return 200, "\n".join(lines) + "\n"
 
     def get_tpu_statusz(self, q):
         """The observability plane's debug page
-        (``zipkin_tpu/server/app.py:1408-1511``, less the overload
-        section)."""
+        (``zipkin_tpu/server/app.py:1408-1511``)."""
         from zipkin_tpu_torch.obs.device import OBSERVATORY
 
         rec = obs.RECORDER
@@ -1042,6 +1213,9 @@ class ZipkinServer:
         seg = getattr(core, "mirror_segment", None)
         if seg is not None:
             body["serving"] = seg.status()
+        # the ladder, the live signal fold, admission and the transitions
+        if self._overload is not None:
+            body["overload"] = self._overload.status()
         if self._obs_incidents is not None:
             body["incidents"] = self._obs_incidents.counters()
         return 200, body
@@ -1153,12 +1327,27 @@ def _handler_for(server_ref):
             return self.rfile.read(length)
 
         def _gated(self, method) -> None:
+            # the caller's deadline, stamped at the earliest instant (a
+            # malformed header means none), and its tenant: both set on this
+            # request's thread for the collector and reset after, since a
+            # kept-alive connection serves its next request on this thread
+            deadline = None
+            raw = self.headers.get("X-Request-Timeout-Ms")
+            if raw:
+                try:
+                    deadline = time.monotonic() + max(0.0, float(raw)) / 1000.0
+                except ValueError:
+                    pass
             self._server = server_ref()
             if self._server is None or not self._server.admit():
                 self._server = None
                 self._send(503, b"server stopping")
                 self.close_connection = True
                 return
+            if not self._server.config.deadline_propagation_enabled:
+                deadline = None
+            d_tok = REQUEST_DEADLINE.set(deadline)
+            t_tok = CURRENT_TENANT.set(normalize_tenant(self.headers.get(TENANT_HEADER)))
             try:
                 tracer = self._server._self_tracer
                 if tracer is None:
@@ -1172,6 +1361,8 @@ def _handler_for(server_ref):
 
                 tracer.trace(self.command, urlsplit(self.path).path, self.headers, handle)
             finally:
+                CURRENT_TENANT.reset(t_tok)
+                REQUEST_DEADLINE.reset(d_tok)
                 self._server.release()
                 self._server = None  # a kept-alive connection holds no server between requests
 
@@ -1213,8 +1404,7 @@ def _handler_for(server_ref):
     return Handler
 
 
-# -- the exposition format (zipkin_tpu/server/app.py:1560-1954, less the
-# overload and tenant families) --------------------------------------------
+# -- the exposition format (zipkin_tpu/server/app.py:1560-1954) ------------
 
 
 def _snake(name: str) -> str:
@@ -1473,6 +1663,110 @@ def _prom_query_segments(segments) -> List[str]:
             lines.append(
                 f'{fam}{{segment="{_prom_label(seg)}",'
                 f'kind="{_prom_label(row["kind"])}"}} {row[field]}'
+            )
+    return lines
+
+
+def _prom_overload(status) -> List[str]:
+    """Overload control plane families. Scalars carry the
+    ladder posture; the per-signal family shows WHICH bottleneck is
+    driving the load index (it is a MAX fold, so exactly one signal is
+    the story at any instant)."""
+    lines: List[str] = []
+    gauges = (
+        ("level", status["level"],
+         "Brownout ladder level (0=B0 normal .. 3=B3 essential-only)"),
+        ("load_index", status["loadIndex"],
+         "EMA-smoothed load index (max-folded signal pressure)"),
+        ("raw_load_index", status["rawLoadIndex"],
+         "Unsmoothed load index from the latest tick"),
+        ("bulk_admit_p", status["bulkAdmitP"],
+         "Bulk-class ingest admit probability (1.0 outside B2)"),
+    )
+    for suffix, value, help_text in gauges:
+        fam = f"zipkin_tpu_overload_{suffix}"
+        lines.append(f"# HELP {fam} {help_text}.")
+        lines.append(f"# TYPE {fam} gauge")
+        lines.append(f"{fam} {value}")
+    signals = status.get("signals") or {}
+    if signals:
+        fam = "zipkin_tpu_overload_signal"
+        lines.append(
+            f"# HELP {fam} Per-signal pressure ratio "
+            "(value over design limit; 1.0 = at the limit)."
+        )
+        lines.append(f"# TYPE {fam} gauge")
+        for name, value in sorted(signals.items()):
+            lines.append(
+                f'{fam}{{signal="{_prom_label(name)}"}} {value}'
+            )
+    counters = status.get("counters") or {}
+    counter_fields = (
+        ("admitted", "admitted_total", "payloads admitted"),
+        ("admittedEssential", "admitted_essential_total",
+         "error-class payloads admitted under brownout"),
+        ("shedBulk", "shed_bulk_total", "bulk-class payloads shed"),
+        ("shedTotal", "shed_total", "payloads shed"),
+        ("deadlineExpired", "deadline_expired_total",
+         "requests dropped already past their deadline"),
+        ("transitions", "transitions_total", "ladder level transitions"),
+    )
+    for field, suffix, help_text in counter_fields:
+        if field not in counters:
+            continue
+        fam = f"zipkin_tpu_overload_{suffix}"
+        lines.append(f"# HELP {fam} Overload controller: {help_text}.")
+        lines.append(f"# TYPE {fam} counter")
+        lines.append(f"{fam} {counters[field]}")
+    return lines
+
+
+def _prom_tenants(status) -> List[str]:
+    """Per-tenant admission families: every family carries a
+    ``{tenant=}`` label, so one flooding tenant's shed curve is
+    separable from everyone else's flat zero on the same graph. The
+    label values come from ``normalize_tenant``'s bounded alphabet, so
+    they are prometheus-label-safe by construction; the row count is
+    bounded by the admission table's LRU cap."""
+    tenants = (status or {}).get("tenants")
+    if not tenants:
+        return []
+    lines: List[str] = []
+    table = tenants.get("tenants") or {}
+    scalars = (
+        ("table_size", len(table),
+         "Live tenants in the bounded admission table", "gauge"),
+        ("evictions_total", tenants.get("evictions", 0),
+         "Tenant rows LRU-evicted from the admission table", "counter"),
+    )
+    for suffix, value, help_text, typ in scalars:
+        fam = f"zipkin_tpu_tenant_{suffix}"
+        lines.append(f"# HELP {fam} {help_text}.")
+        lines.append(f"# TYPE {fam} {typ}")
+        lines.append(f"{fam} {value}")
+    fields = (
+        ("level", "level",
+         "Per-tenant brownout level (0=admit .. 3=essential-only)",
+         "gauge"),
+        ("pressure", "pressure",
+         "Per-tenant demand pressure EMA (offered rate over budget)",
+         "gauge"),
+        ("offered", "offered_total", "payloads offered", "counter"),
+        ("admitted", "admitted_total", "payloads admitted", "counter"),
+        ("shed", "shed_total", "payloads shed (scope=tenant)", "counter"),
+        ("retainedSpans", "retained_spans_total",
+         "spans retained past sampling", "counter"),
+    )
+    for field, suffix, help_text, typ in fields:
+        fam = f"zipkin_tpu_tenant_{suffix}"
+        if typ == "counter":
+            lines.append(f"# HELP {fam} Tenant admission: {help_text}.")
+        else:
+            lines.append(f"# HELP {fam} {help_text}.")
+        lines.append(f"# TYPE {fam} {typ}")
+        for name, row in sorted(table.items()):
+            lines.append(
+                f'{fam}{{tenant="{_prom_label(name)}"}} {row[field]}'
             )
     return lines
 

@@ -26,8 +26,15 @@ critical-path tracer's ``TPU_OBS_CRITPATH``, ``TPU_OBS_CRITPATH_SLOTS`` and
 ``TPU_OBS_CRITPATH_RECLAIM_S``, and the read mirror's ``TPU_READ_MIRROR``
 and ``TPU_MIRROR_MAX_STALE_MS`` with scale-out serving's
 ``TPU_MIRROR_SEGMENT_BYTES`` (0: no segment), ``TPU_READERS`` and
-``TPU_READER_PORT_BASE``, whose bounds refuse a boot
-(``zipkin_tpu/server/config.py:78-145,151,205-230,236-264,280-313,332-357,362-365,390-410,411-428``).
+``TPU_READER_PORT_BASE``, whose bounds refuse a boot, and admission's
+``TPU_OVERLOAD``, ``TPU_OVERLOAD_ENTER_B1``/``_B2``/``_B3``,
+``TPU_OVERLOAD_EXIT_MARGIN``, ``TPU_OVERLOAD_DWELL_TICKS``,
+``TPU_OVERLOAD_MAX_STALE_MS``, ``TPU_OVERLOAD_RETRY_BASE_S``, ``TPU_TENANT``,
+``TPU_TENANT_MAX``, ``TPU_TENANT_INGEST_BYTES_PER_S``,
+``TPU_TENANT_INGEST_BURST_S``, ``TPU_TENANT_RETAINED_SPANS_PER_S``,
+``TPU_TENANT_FLOOD_RATIO``, ``TPU_TENANT_DWELL_TICKS``, ``TPU_TENANT_SLO``
+and ``TPU_DEADLINES``
+(``zipkin_tpu/server/config.py:78-145,151,166-204,205-234,236-264,280-313,332-357,362-389,390-428``).
 ``TPU_OBS``, ``TPU_OBS_DEVICE`` and ``TPU_OBS_QUERY`` are also read where
 the recorder, the device observatory and the query plane are made.
 
@@ -123,8 +130,8 @@ class ServerConfig:
     obs_selfspans_enabled: bool = False
     obs_budget_scale: float = 1.0
     # the windowed plane: a ticker takes per-tick deltas of the recorder
-    # and the store's counters (the time tier's seal rides it, so the
-    # server's seal_interval_s then only turns the seal on or off)
+    # and the store's counters (the time tier's seal rides it, at most once
+    # the server's seal_interval_s)
     obs_windows_enabled: bool = True
     obs_windows_tick_s: float = 1.0
     # the SLO burn-rate watchdog over the windowed plane
@@ -166,6 +173,42 @@ class ServerConfig:
     tpu_readers: int = 4
     tpu_mirror_segment_bytes: int = 0
     tpu_reader_port_base: int = 9512
+    # the overload plane (runtime/overload.py): the brownout ladder folds the
+    # windowed signals (queue saturation, occupancy, wire-to-ack / WAL fsync /
+    # query p99s, lock waiters, snapshot age, card memory), each over its
+    # design limit, into an EMA load index each tick. B1 sheds self-spans and
+    # serves reads cache first within max_stale_ms, B2 sheds bulk payloads
+    # with a falling admit probability, B3 admits the error class only and
+    # serves reads cache only. Up is immediate; down is one level a dwell,
+    # below the level's enter threshold less the exit margin. A shed is a 429
+    # whose Retry-After grows with the load from retry_base_s
+    overload_enabled: bool = True
+    overload_enter_b1: float = 0.70
+    overload_enter_b2: float = 0.85
+    overload_enter_b3: float = 0.95
+    overload_exit_margin: float = 0.10
+    overload_dwell_ticks: int = 5
+    overload_max_stale_ms: int = 5000
+    overload_retry_base_s: float = 0.25
+    # tenant admission (runtime/tenant.py): each payload is attributed to
+    # its X-Tenant-Id (absent or hostile ids: "default"). With a byte budget
+    # > 0 each tenant has a token bucket (burst = rate x burst_s) and a level
+    # of its own, so a flooding tenant sheds with tenant-scoped guidance
+    # while the others and the global ladder stay B0; 0 counts without
+    # enforcing. A retained-spans budget > 0 adds the sampling tier's table.
+    # The table is an LRU of tenant_max rows; tenant_slo_tenants get their
+    # own shed-ratio SLO
+    tenant_enabled: bool = True
+    tenant_max: int = 64
+    tenant_ingest_bytes_per_s: float = 0.0
+    tenant_ingest_burst_s: float = 2.0
+    tenant_retained_spans_per_s: float = 0.0
+    tenant_flood_ratio: float = 2.0
+    tenant_dwell_ticks: int = 3
+    tenant_slo_tenants: Tuple[str, ...] = ()
+    # X-Request-Timeout-Ms: work already past its deadline answers 504
+    # before its dispatch (counted deadlineExpired)
+    deadline_propagation_enabled: bool = True
     # line-rate path: JSON v2 and proto3 bytes through the native parser,
     # with a trace-affine 1/N archive sample (0: none)
     tpu_fast_ingest: bool = False
@@ -279,6 +322,23 @@ class ServerConfig:
             tpu_reader_port_base=_bounded(
                 # base - 1 hosts the aggregate surface: keep it unprivileged
                 "TPU_READER_PORT_BASE", _env_int("TPU_READER_PORT_BASE", 9512), 1025, 65000),
+            overload_enabled=_env_bool("TPU_OVERLOAD", True),
+            overload_enter_b1=_env_float("TPU_OVERLOAD_ENTER_B1", 0.70),
+            overload_enter_b2=_env_float("TPU_OVERLOAD_ENTER_B2", 0.85),
+            overload_enter_b3=_env_float("TPU_OVERLOAD_ENTER_B3", 0.95),
+            overload_exit_margin=_env_float("TPU_OVERLOAD_EXIT_MARGIN", 0.10),
+            overload_dwell_ticks=_env_int("TPU_OVERLOAD_DWELL_TICKS", 5),
+            overload_max_stale_ms=_env_int("TPU_OVERLOAD_MAX_STALE_MS", 5000),
+            overload_retry_base_s=_env_float("TPU_OVERLOAD_RETRY_BASE_S", 0.25),
+            tenant_enabled=_env_bool("TPU_TENANT", True),
+            tenant_max=_env_int("TPU_TENANT_MAX", 64),
+            tenant_ingest_bytes_per_s=_env_float("TPU_TENANT_INGEST_BYTES_PER_S", 0.0),
+            tenant_ingest_burst_s=_env_float("TPU_TENANT_INGEST_BURST_S", 2.0),
+            tenant_retained_spans_per_s=_env_float("TPU_TENANT_RETAINED_SPANS_PER_S", 0.0),
+            tenant_flood_ratio=_env_float("TPU_TENANT_FLOOD_RATIO", 2.0),
+            tenant_dwell_ticks=_env_int("TPU_TENANT_DWELL_TICKS", 3),
+            tenant_slo_tenants=_env_list("TPU_TENANT_SLO"),
+            deadline_propagation_enabled=_env_bool("TPU_DEADLINES", True),
             tpu_fast_ingest=fast_ingest,
             tpu_fast_archive_sample=_env_int("TPU_FAST_ARCHIVE_SAMPLE", 64),
             tpu_mp_workers=_env_int("TPU_MP_WORKERS", 0),

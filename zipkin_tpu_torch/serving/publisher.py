@@ -16,6 +16,12 @@ tenant's. Keys of unknown shape are skipped and counted — an epoch
 must publish even when one registered closure returns something the
 wire format does not know.
 
+A key whose value alone makes the payload outgrow the segment (a
+``ttq:`` window's dense planes are 21.4 MB at the default config) is left
+out of the epoch and counted (``segmentOversizedKeys``), largest first, so
+every other key still publishes; the reference drops the whole epoch. An
+idle publisher re-stamps the unchanged epoch (:meth:`SegmentPublisher.restamp`).
+
 The publisher also owns the reverse demand path: ``drain_demand()``
 empties every reader stripe each tick so `store.publish_mirror` can
 re-register missed keys BEFORE the mirror cuts the next epoch — a
@@ -99,6 +105,8 @@ class SegmentPublisher:
         self.publishes = 0
         self.errors = 0
         self.skipped_keys = 0
+        self.oversized_keys = 0
+        self.restamps = 0
         self.payload_bytes = 0
         self.serialize_ms = 0.0
         self.demand_drained = 0
@@ -134,34 +142,35 @@ class SegmentPublisher:
                 values[key] = wire
             with vocab._lock:
                 key_list = np.asarray(vocab._key_list, np.int32)
-            payload = pickle.dumps(
-                {
-                    "format": 1,
-                    "mirror_generation": mirror_generation,
-                    "write_version": snap.write_version,
-                    "published_at": snap.published_at,
-                    "publish_ms": snap.publish_ms,
-                    "max_stale_ms": float(max_stale_ms),
-                    "deps_max_stale_ms": float(deps_max_stale_ms),
-                    "tt_enabled": tt_sealed_through is not None,
-                    "tt_sealed_through": (
-                        -1 if tt_sealed_through is None
-                        else int(tt_sealed_through)
-                    ),
-                    "time_bucket_minutes": int(time_bucket_minutes),
-                    "global_hll_row": int(global_hll_row),
-                    "services": list(vocab.services._names),
-                    "span_names": list(vocab.span_names._names),
-                    "key_list": key_list,
-                    "values": values,
-                    "counters": _plain_counters(counters),
-                },
-                protocol=4,
-            )
+            body = {
+                "format": 1,
+                "mirror_generation": mirror_generation,
+                "write_version": snap.write_version,
+                "published_at": snap.published_at,
+                "publish_ms": snap.publish_ms,
+                "max_stale_ms": float(max_stale_ms),
+                "deps_max_stale_ms": float(deps_max_stale_ms),
+                "tt_enabled": tt_sealed_through is not None,
+                "tt_sealed_through": (
+                    -1 if tt_sealed_through is None
+                    else int(tt_sealed_through)
+                ),
+                "time_bucket_minutes": int(time_bucket_minutes),
+                "global_hll_row": int(global_hll_row),
+                "services": list(vocab.services._names),
+                "span_names": list(vocab.span_names._names),
+                "key_list": key_list,
+                "values": values,
+                "counters": _plain_counters(counters),
+            }
+            payload = pickle.dumps(body, protocol=4)
+            if len(payload) > self.segment.capacity:
+                payload = self._fit(body, values, len(payload))
             ok = self.segment.write(
                 payload,
                 mirror_generation=mirror_generation,
                 write_version=snap.write_version,
+                published_ns=int(snap.published_at * 1e9),
             )
             self.serialize_ms = (time.perf_counter() - t0) * 1000.0
             self.payload_bytes = len(payload)
@@ -179,6 +188,36 @@ class SegmentPublisher:
             self.errors += 1
             logger.exception("mirror segment publish failed")
             return False
+
+    def _fit(self, body: Dict, values: Dict[str, tuple], size: int) -> bytes:
+        """Leave out the largest keys until the payload fits the segment
+        (``values`` is ``body["values"]``, edited in place), each counted."""
+        sizes = {k: len(pickle.dumps(v, protocol=4)) for k, v in values.items()}
+        order = sorted(sizes, key=sizes.get, reverse=True)
+        payload = b""
+        while order:
+            # drop by the estimate first, then check the real size
+            while order and size > self.segment.capacity:
+                key = order.pop(0)
+                del values[key]
+                size -= sizes[key]
+                self.oversized_keys += 1
+                logger.warning("mirror segment: key %r (%d bytes) left out of the epoch; "
+                               "the segment holds %d bytes", key, sizes[key],
+                               self.segment.capacity)
+            payload = pickle.dumps(body, protocol=4)
+            size = len(payload)
+            if size <= self.segment.capacity:
+                break
+        return payload or pickle.dumps(body, protocol=4)
+
+    def restamp(self, write_version: int) -> bool:
+        """Re-stamp the live epoch's publish time when it was cut at
+        ``write_version`` (the mirror skipped a publish: nothing changed)."""
+        ok = self.segment.restamp(write_version)
+        if ok:
+            self.restamps += 1
+        return ok
 
     def drain_demand(self) -> List[str]:
         keys = self.segment.demand_drain()
@@ -201,6 +240,8 @@ class SegmentPublisher:
             "segmentPublishErrors": self.errors,
             "segmentOverflows": seg["overflows"],
             "segmentSkippedKeys": self.skipped_keys,
+            "segmentOversizedKeys": self.oversized_keys,
+            "segmentRestamps": self.restamps,
             "segmentPayloadBytes": self.payload_bytes,
             "segmentSerializeMs": round(self.serialize_ms, 3),
             "segmentGeneration": seg["generation"],

@@ -27,6 +27,12 @@ drains below the head at each tick. Next to each stripe sit heartbeat
 words (pid, last generation seen, serve counters) feeding the ingest
 ``/statusz`` serving block.
 
+An idle publisher re-stamps its unchanged epoch (:meth:`MirrorSegment.restamp`):
+when the live write version still equals the epoch's, only the header's
+publish time moves, under the seqlock, so a reader's staleness bound measures
+the time since the state last could have changed, not since the last
+write. The reference leaves an idle epoch to age past the bound.
+
 This module is imported by reader processes: numpy + stdlib only,
 no torch.
 """
@@ -261,12 +267,14 @@ class MirrorSegment:
         mirror_generation: int,
         write_version: int,
         wall_ms: Optional[int] = None,
+        published_ns: Optional[int] = None,
     ) -> bool:
         """Publish one epoch: land the payload in the INACTIVE buffer,
         then seqlock-stamp the header around the swap. Returns False
         (counted, epoch dropped, previous one keeps serving) when the
         payload outgrew the buffer — a reader must never see a
-        truncated pickle."""
+        truncated pickle. ``published_ns`` (monotonic ns, default now) is
+        the instant a reader measures the epoch's age from."""
         a = self._a
         if len(payload) > self.capacity:
             a[H_OVERFLOWS] += 1
@@ -282,13 +290,30 @@ class MirrorSegment:
         a[H_LEN] = len(payload)
         a[H_CRC] = zlib.crc32(payload)
         a[H_PID] = os.getpid()
-        a[H_PUB_NS] = time.monotonic_ns()
+        a[H_PUB_NS] = time.monotonic_ns() if published_ns is None else int(published_ns)
         a[H_WALL_MS] = (
             int(time.time() * 1000) if wall_ms is None else int(wall_ms)
         )
         a[H_MGEN] = int(mirror_generation)
         a[H_WVER] = int(write_version)
         a[H_PUBLISHES] += 1
+        a[H_GEN] = g + 2  # even: stable
+        return True
+
+    def restamp(self, write_version: int) -> bool:
+        """Move the live epoch's publish time to now, leaving its payload
+        as it is, when that epoch was cut at ``write_version`` (the
+        publisher's live version: nothing query-visible changed since).
+        False when no epoch is live or it is older than that version."""
+        a = self._a
+        if a is None:  # closed
+            return False
+        g = int(a[H_GEN])
+        if g == 0 or g & 1 or int(a[H_WVER]) != int(write_version):
+            return False
+        a[H_GEN] = g + 1  # odd: the stamp is moving
+        a[H_PUB_NS] = time.monotonic_ns()
+        a[H_WALL_MS] = int(time.time() * 1000)
         a[H_GEN] = g + 2  # even: stable
         return True
 
@@ -299,6 +324,24 @@ class MirrorSegment:
 
     def writer_alive(self) -> bool:
         return _pid_alive(int(self._a[H_PID]))
+
+    def read_stamp(self, spins: int = _TORN_RETRIES) -> Optional[tuple]:
+        """``(gen, crc, mirror_generation, published_ns)`` of the live epoch
+        under the seqlock, without copying its payload; None when nothing
+        consistent could be read (the caller falls back to a frame read)."""
+        a = self._a
+        for attempt in range(spins):
+            g1 = int(a[H_GEN])
+            if g1 == 0:
+                return None
+            if g1 & 1:
+                if attempt >= 8:
+                    time.sleep(_SPIN_SLEEP_S)
+                continue
+            out = (g1, int(a[H_CRC]), int(a[H_MGEN]), int(a[H_PUB_NS]))
+            if int(a[H_GEN]) == g1:
+                return out
+        return None
 
     def read_frame(
         self, spins: int = _TORN_RETRIES, spin_sleep_s: float = _SPIN_SLEEP_S

@@ -12,7 +12,8 @@ enforces it endpoint by endpoint).
 
 Staleness contract (the 503 half of the mirror's): every answer is
 stamped with its real age (monotonic now − the epoch's publish
-instant; CLOCK_MONOTONIC is cross-process comparable on Linux). An
+instant in the segment header, which an idle publisher re-stamps;
+CLOCK_MONOTONIC is cross-process comparable on Linux). An
 age over the effective bound — the request's ``staleness_ms`` when
 given, else the bound the publisher stamped into the payload — raises
 :class:`StalenessExceeded`; ``staleness_ms <= 0`` (the fresh-read
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import pickle
 import time
+import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -185,13 +187,22 @@ class _Epoch:
     memo. Immutable but for the memo's GIL-atomic item stores, and swapped
     in as one reference, so request threads need no lock between them."""
 
-    __slots__ = ("gen", "p", "vv", "memo")
+    __slots__ = ("gen", "crc", "mgen", "pub_s", "p", "vv", "memo")
 
-    def __init__(self, gen: int, p: dict) -> None:
+    def __init__(self, gen: int, crc: int, mgen: int, pub_ns: int, p: dict,
+                 vv: Optional["_VocabView"] = None, memo: Optional[dict] = None) -> None:
         self.gen = gen
+        self.crc = crc
+        self.mgen = mgen
+        self.pub_s = pub_ns / 1e9  # the header's publish instant, monotonic
         self.p = p
-        self.vv = _VocabView(p["services"], p["span_names"], p["key_list"])
-        self.memo: Dict[tuple, object] = {}
+        self.vv = vv if vv is not None else _VocabView(p["services"], p["span_names"],
+                                                       p["key_list"])
+        self.memo: Dict[tuple, object] = memo if memo is not None else {}
+
+    def restamped(self, gen: int, pub_ns: int) -> "_Epoch":
+        """The same decoded epoch under a re-stamped header."""
+        return _Epoch(gen, self.crc, self.mgen, pub_ns, self.p, self.vv, self.memo)
 
 
 class SegmentView:
@@ -236,24 +247,33 @@ class SegmentView:
         return self._epoch().p
 
     def _epoch(self) -> _Epoch:
-        """Seqlock frame read + unpickle, memoized per segment generation."""
+        """Seqlock frame read + unpickle, memoized per segment generation;
+        a generation that only re-stamped the same payload (same CRC and
+        mirror generation) keeps the decoded epoch and its memo."""
         ep = self._ep
-        if ep is not None and self._seg.generation() == ep.gen:
-            return ep
+        if ep is not None:
+            if self._seg.generation() == ep.gen:
+                return ep
+            stamp = self._seg.read_stamp()
+            if stamp is not None and (stamp[1], stamp[2]) == (ep.crc, ep.mgen):
+                ep = ep.restamped(stamp[0], stamp[3])
+                self._ep = ep
+                return ep
         frame = self._seg.read_frame()
-        ep = _Epoch(frame.gen, pickle.loads(frame.payload))
+        ep = _Epoch(frame.gen, zlib.crc32(frame.payload), frame.mirror_generation,
+                    frame.published_ns, pickle.loads(frame.payload))
         self._ep = ep
         self.decodes += 1
         return ep
 
     # -- staleness / miss plumbing ----------------------------------------
 
-    def _age_ms(self, p: dict) -> float:
-        return max(0.0, (time.monotonic() - p["published_at"]) * 1000.0)
+    def _age_ms(self, ep: _Epoch) -> float:
+        return max(0.0, (time.monotonic() - ep.pub_s) * 1000.0)
 
-    def _check_bound(self, p: dict, staleness_ms: Optional[float],
+    def _check_bound(self, ep: _Epoch, staleness_ms: Optional[float],
                      default_ms: float) -> float:
-        age = self._age_ms(p)
+        age = self._age_ms(ep)
         if staleness_ms is not None and staleness_ms <= 0:
             self.fresh_rejects += 1
             raise StalenessExceeded(age, 0.0, fresh_required=True)
@@ -331,9 +351,7 @@ class SegmentView:
             if lo_ep <= p["tt_sealed_through"]:
                 key = self._k(tenant, f"ttq:{lo_ep}:{hi_ep}")
                 ans = self._value(p, key)[1]
-                age = self._check_bound(
-                    p, staleness_ms, p["deps_max_stale_ms"]
-                )
+                age = self._check_bound(ep, staleness_ms, p["deps_max_stale_ms"])
                 rows = self._memoize(
                     ep, ("deps", key),
                     lambda: dependency_rows(
@@ -346,7 +364,7 @@ class SegmentView:
         hi_min = epoch_minutes(end_ts)
         key = self._k(tenant, f"deps:{lo_min}:{hi_min}")
         val = self._value(p, key)
-        age = self._check_bound(p, staleness_ms, p["deps_max_stale_ms"])
+        age = self._check_bound(ep, staleness_ms, p["deps_max_stale_ms"])
         rows = val[1]
         self._done(age, t0, t0_ns)
         return rows, age
@@ -381,7 +399,7 @@ class SegmentView:
             ):
                 key = self._k(tenant, f"ttq:{lo_ep}:{hi_ep}")
                 ans = self._value(p, key)[1]
-                age = self._check_bound(p, staleness_ms, p["max_stale_ms"])
+                age = self._check_bound(ep, staleness_ms, p["max_stale_ms"])
                 rows = self._memoize(
                     ep, ("quant", key, qs, service_name, span_name),
                     lambda: quantile_rows(
@@ -403,7 +421,7 @@ class SegmentView:
             src = "digest" if use_digest else "hist"
             key = self._k(tenant, f"quant:{src}:{qkey}")
         val = self._value(p, key)
-        age = self._check_bound(p, staleness_ms, p["max_stale_ms"])
+        age = self._check_bound(ep, staleness_ms, p["max_stale_ms"])
         source_q, counts = val[1], val[2]
         rows = self._memoize(
             ep, ("quant", key, qs, service_name, span_name),
@@ -433,7 +451,7 @@ class SegmentView:
             )
             key = self._k(tenant, f"ttq:{lo_ep}:{hi_ep}")
             ans = self._value(p, key)[1]
-            age = self._check_bound(p, staleness_ms, p["max_stale_ms"])
+            age = self._check_bound(ep, staleness_ms, p["max_stale_ms"])
             rows = self._memoize(
                 ep, ("card", key),
                 lambda: cardinality_rows(
@@ -446,7 +464,7 @@ class SegmentView:
             return rows, age
         key = self._k(tenant, "card")
         val = self._value(p, key)
-        age = self._check_bound(p, staleness_ms, p["max_stale_ms"])
+        age = self._check_bound(ep, staleness_ms, p["max_stale_ms"])
         est = val[1]
         rows = self._memoize(
             ep, ("card", key),
@@ -470,7 +488,7 @@ class SegmentView:
         qs = tuple(qs)
         key = self._k(tenant, f"overview:{_qkey(qs)}")
         val = self._value(p, key)
-        age = self._check_bound(p, staleness_ms, p["max_stale_ms"])
+        age = self._check_bound(ep, staleness_ms, p["max_stale_ms"])
         source_q, counts, est = val[1], val[2], val[3]
         body = self._memoize(
             ep, ("overview", key, qs, service_name, span_name),

@@ -263,6 +263,7 @@ class TorchStorage(_CoreStorage):
                 # detach the sink first, so a late publish cannot write
                 # through a closed mapping
                 self.mirror.segment_sink = None
+                self.mirror.segment_restamp = None
                 seg.close()
                 self.mirror_segment = None
             super().close()

@@ -30,9 +30,10 @@ and serves unconditionally. A version-STALE snapshot carries age
 now − published_at and serves only when BOTH hold: (1) the caller may
 see staleness at all — an explicit per-request ``staleness_ms`` or an
 actually-contended aggregator lock (the store probes non-blocking; on a
-quiet lock an exact read is cheap, so default requests stay exact; the
-reference also admits its brownout read modes, which the port has not
-ported yet); and (2) the
+quiet lock an exact read is cheap, so default requests stay exact), or a
+brownout read mode in force (the store folds the overload controller's
+read mode into the bound: cache first loosens it to the controller's
+``max_stale_ms``, cache only serves any age); and (2) the
 age is within the effective bound: the per-request ``staleness_ms``
 when given, else ``max_stale_ms`` (``TPU_MIRROR_MAX_STALE_MS``,
 default 5000 — the number the ``query_mirror_staleness`` SLO is
@@ -170,6 +171,10 @@ class ReadMirror:
         # The store installs it via attach_mirror_segment().
         self.segment_sink: Optional[Callable] = None
         self.segment_sink_errors = 0
+        # called with the live snapshot when a publish is skipped because
+        # nothing changed: the segment re-stamps that epoch's publish time,
+        # so reader processes of an idle server keep serving it
+        self.segment_restamp: Optional[Callable] = None
 
     # -- demand registry (serving threads) -------------------------------
 
@@ -254,7 +259,8 @@ class ReadMirror:
         Skipped (returns False) when nothing could have changed — the
         aggregator's write_version still matches the published snapshot
         and no new demand key arrived — so an idle system never pulls
-        the device at tick cadence just to republish identical bytes.
+        the device at tick cadence just to republish identical bytes;
+        the segment then re-stamps the unchanged epoch (``segment_restamp``).
 
         ``paced=True`` (the ticker's call) additionally caps the
         publisher's lock duty cycle at 50%: a new epoch is refused
@@ -291,6 +297,13 @@ class ReadMirror:
             and snap.write_version == version
         ):
             self.publish_skips += 1
+            restamp = self.segment_restamp
+            if restamp is not None:
+                try:
+                    restamp(snap)
+                except Exception:
+                    self.segment_sink_errors += 1
+                    logger.exception("mirror publish: segment re-stamp failed")
             return False
         t0 = time.perf_counter()
         values: Dict[str, object] = {}

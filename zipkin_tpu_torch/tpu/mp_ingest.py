@@ -66,8 +66,17 @@ word); the dispatcher stamps the journal replay, the shm copy, the device
 feed (with the WAL's append and fsync inside it, through
 ``critpath.set_active``) and acks the slot once the payload is durable. The
 stitcher (``.critpath``) folds the slots on the server's windows ticker. A
-fallback or a reaped worker abandons its payloads' slots. Left out, against
-the reference: the tenant plumbing.
+fallback or a reaped worker abandons its payloads' slots.
+
+Tenants: ``submit(..., tenant=)`` interns the boundary's tenant id into a
+bounded table (past ``_tenant_max`` names a tenant falls back to the default
+index 0); the index rides the queue item, the ring slot's tenant word and
+the critical-path slot, explicitly and never through a contextvar across
+threads. At ack the dispatcher tallies each tenant's payloads and spans
+(``mpTenantTable`` in :meth:`MultiProcessIngester.stats`) and calls
+``tenant_sink(tenant, spans)`` (the admission table's retained-spans
+charge); a ``feed.latency`` fault armed for one tenant stalls only its
+groups. Admission itself sheds at the collector, before ``submit``.
 """
 
 from __future__ import annotations
@@ -99,14 +108,19 @@ _KIND_NUDGE = 3      # (kind,): wakeup only, a ring slot was published
 
 
 class IngestBackpressure(RuntimeError):
-    """The tier refused a payload it could not absorb: every live parse
-    worker's delivery queue is full in ``submit(..., block=False)``, or an
-    injected allocation failure fired at the collector. The HTTP server
-    answers 429 (the throttle's shed stays 503), with ``Retry-After`` only
-    when ``retry_after_s`` is set."""
+    """A payload was refused: every live parse worker's delivery queue is
+    full in ``submit(..., block=False)``, the admission chokepoint shed it
+    (a tenant's budget or the global brownout ladder), or an injected
+    allocation failure fired at the collector. The HTTP server answers 429
+    (the throttle's shed stays 503) with backoff guidance and the shedding
+    ``scope``: ``tenant`` (that tenant is limited, with a delay from its
+    own budget) or ``global`` (the system is browning out)."""
 
-    def __init__(self, msg: str = "", *, retry_after_s: Optional[float] = None) -> None:
+    def __init__(self, msg: str = "", *, scope: str = "global", tenant: Optional[str] = None,
+                 retry_after_s: Optional[float] = None) -> None:
         super().__init__(msg)
+        self.scope = scope
+        self.tenant = tenant
         self.retry_after_s = retry_after_s
 
 
@@ -140,7 +154,7 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
     # journal cursors: how much of the local vocab has been reported
     sent_svc, sent_name, sent_pair = 1, 1, 1
 
-    def handle(pid: int, payload: bytes, state: dict, cslot: int) -> None:
+    def handle(pid: int, payload: bytes, state: dict, cslot: int, tidx: int) -> None:
         nonlocal sent_svc, sent_name, sent_pair
         traced = cview is not None and cslot >= 0
         if traced:
@@ -223,7 +237,7 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
                     cslot=cslot if traced else -1,
                     ts_min=ts_range[0], ts_max=ts_range[1],
                     parse_ns=int(parse_s * 1e9), pack_ns=int(pack_s * 1e9),
-                    route_ns=int(route_s * 1e9), aux=aux,
+                    route_ns=int(route_s * 1e9), tenant=tidx, aux=aux,
                 )
                 # a publish carries no wakeup of its own: nudge the
                 # dispatcher out of its backed-off idle wait
@@ -242,10 +256,10 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
             item = work_q.get()
             if item is None:
                 break
-            pid, payload, cslot = item
+            pid, payload, cslot, tidx = item
             state: dict = {"completed": False}
             try:
-                handle(pid, payload, state, cslot)
+                handle(pid, payload, state, cslot, tidx)
             except Exception:  # keep the pool alive
                 logging.getLogger(__name__).exception("mp-ingest worker %d failed on a payload", widx)
                 if not state["completed"]:
@@ -370,6 +384,18 @@ class MultiProcessIngester:
         self.metrics = metrics
         # the accuracy plane's tap (obs/shadow.py), set by the server
         self.shadow = None
+        # tenant attribution: a bounded intern table maps the boundary's
+        # tenant id to a small index (past the cap: 0, the default tenant);
+        # _tenant_of maps a payload to its index, under _cv on submit and
+        # on the dispatcher thread; the acked tallies are the dispatcher's.
+        # tenant_sink(tenant, spans) is called on the dispatcher thread at
+        # ack and must be thread-safe
+        self._tenant_names: List[str] = ["default"]
+        self._tenant_ids: Dict[str, int] = {"default": 0}
+        self._tenant_max = 256
+        self._tenant_of: Dict[int, int] = {}
+        self._tenant_acked: Dict[str, Dict[str, int]] = {}
+        self.tenant_sink = None
         self.counters = {
             "accepted": 0, "sampleDropped": 0, "fallbacks": 0, "rejected": 0,
             "coalescedBatches": 0, "coalescedChunks": 0, "groups": 0,
@@ -423,7 +449,30 @@ class MultiProcessIngester:
 
     # -- producer side ---------------------------------------------------
 
-    def submit(self, payload: bytes, *, block: bool = True) -> None:
+    def _tenant_idx(self, tenant: Optional[str]) -> int:
+        """Intern a boundary tenant id into the bounded index table; a new
+        tenant past the cap falls back to the default index 0."""
+        if not tenant or tenant == "default":
+            return 0
+        idx = self._tenant_ids.get(tenant)
+        if idx is not None:
+            return idx
+        with self._cv:
+            idx = self._tenant_ids.get(tenant)
+            if idx is not None:
+                return idx
+            if len(self._tenant_names) >= self._tenant_max:
+                return 0
+            idx = len(self._tenant_names)
+            self._tenant_names.append(tenant)
+            self._tenant_ids[tenant] = idx
+            return idx
+
+    def _tenant_name(self, pid: int) -> str:
+        tidx = self._tenant_of.get(pid, 0)
+        return self._tenant_names[tidx] if 0 <= tidx < len(self._tenant_names) else "default"
+
+    def submit(self, payload: bytes, *, block: bool = True, tenant: Optional[str] = None) -> None:
         """Hand a payload to one live, unsaturated worker.
 
         Registration happens before the queue put, under ``_cv``, the lock
@@ -431,7 +480,10 @@ class MultiProcessIngester:
         registration and re-ingests the payload, or ``submit`` sees the
         worker dead and picks another. A worker whose stripe is full is
         passed over first, and taken in a second round only if its queue
-        has room: ring congestion alone never rejects."""
+        has room: ring congestion alone never rejects. ``tenant`` (the
+        boundary's id) rides the queue item, the ring slot and the
+        critical-path slot, so the ack is attributed to it."""
+        tidx = self._tenant_idx(tenant)
         while True:
             if self._closed:
                 raise RuntimeError("ingester closed")
@@ -447,6 +499,8 @@ class MultiProcessIngester:
                 pid = self._next_pid
                 self._next_pid += 1
                 self._pending[pid] = payload
+                if tidx:
+                    self._tenant_of[pid] = tidx
                 self._inflight += 1
             wire_ns = _critpath.WIRE_T0_NS.get() if self._cp_ledger is not None else 0
             for relax in (False, True):
@@ -465,7 +519,7 @@ class MultiProcessIngester:
                     cslot = -1
                     if wire_ns:
                         t_en0 = time.perf_counter_ns()
-                        cslot = self._cp_ledger.alloc(pid, w, wire_ns)
+                        cslot = self._cp_ledger.alloc(pid, w, wire_ns, tenant=tidx)
                         if cslot >= 0:
                             # stamped and registered before the queue put: the
                             # dispatcher writes the slot only after the
@@ -476,7 +530,7 @@ class MultiProcessIngester:
                             with self._cv:
                                 self._cslots[pid] = cslot
                     try:
-                        self._work_qs[w].put_nowait((pid, payload, cslot))
+                        self._work_qs[w].put_nowait((pid, payload, cslot, tidx))
                         with self._cv:
                             self._qdepth[w] += 1
                             self._qhigh[w] = max(self._qhigh[w], self._qdepth[w])
@@ -497,6 +551,7 @@ class MultiProcessIngester:
                     return  # a racing reap consumed it
                 self._pending.pop(pid)
                 self._assigned.pop(pid, None)
+                self._tenant_of.pop(pid, None)
                 self._inflight -= 1
                 if self._inflight == 0:
                     self._cv.notify_all()
@@ -557,6 +612,9 @@ class MultiProcessIngester:
                  "queueHighWater": qhigh[w], "ringDepth": depth[w], **dict(ws)}
                 for w, ws in enumerate(self._wstats)
             ],
+            # acked payloads and spans by tenant, nested like the worker
+            # table; bounded by the tenant intern cap
+            "mpTenantTable": {name: dict(row) for name, row in list(self._tenant_acked.items())},
         }
         if self.critpath is not None:
             out.update(self.critpath.counters())
@@ -764,6 +822,12 @@ class MultiProcessIngester:
             # slot still counts as consumed and the pass frees it
             self.counters["ringDiscarded"] += 1
             return
+        # the tenant index rides the slot header across processes; submit
+        # recorded a non-default one already, under _cv, before the worker
+        # could publish, so this fills only a pid no other thread touches
+        tidx = int(hdr[ring_mod._S_TENANT])
+        if tidx and pid not in self._tenant_of:
+            self._tenant_of[pid] = tidx
         per = int(hdr[ring_mod._S_PER])
         fused = self._ring.image(w, seq, self._n_shards * self._wire_rows * per).reshape(
             self._n_shards, self._wire_rows, per)
@@ -979,8 +1043,10 @@ class MultiProcessIngester:
         else:
             ts = (lo, hi) if lo is not None else (0, 0)
         # an armed feed.latency site sleeps here, where a slow device feed
-        # stalls the dispatcher (backpressure tests fill the queues with it)
-        faults.resource_point("feed.latency")
+        # stalls the dispatcher (backpressure tests fill the queues with it);
+        # the group's tenant is passed, as this thread has no request context
+        faults.resource_point("feed.latency",
+                              tenant=self._tenant_name(group[0][1]) if group else "default")
         tf0 = time.perf_counter()
         try:
             store.agg.ingest_fused_multi(parts, n_spans=n_spans, n_dur=n_dur, n_err=n_err,
@@ -1031,6 +1097,18 @@ class MultiProcessIngester:
             cs = self._cslots.get(pid, -1) if self._cp_ledger is not None else -1
             if cs >= 0:
                 self._cp_ledger.ack(cs, pid)  # durable: the WAL append and the feed are done
+            # per-tenant acked accounting and the retained-spans charge:
+            # span counts are known only after the parse, so here, at ack
+            tname = self._tenant_name(pid)
+            row = self._tenant_acked.setdefault(tname, {"payloads": 0, "spans": 0})
+            row["payloads"] += 1
+            row["spans"] += total
+            sink = self.tenant_sink
+            if sink is not None and total:
+                try:
+                    sink(tname, total)
+                except Exception:  # accounting must never fail an ack
+                    logger.exception("tenant_sink failed")
             self._finish(pid)
 
     # -- worker death -----------------------------------------------------
@@ -1133,6 +1211,7 @@ class MultiProcessIngester:
         with self._cv:
             self._pending.pop(pid, None)
             self._cslots.pop(pid, None)
+            self._tenant_of.pop(pid, None)
             w = self._assigned.pop(pid, None)
             if w is not None and self._qdepth[w] > 0:
                 self._qdepth[w] -= 1

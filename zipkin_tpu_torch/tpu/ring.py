@@ -74,7 +74,7 @@ _S_PACK_NS = 14
 _S_ROUTE_NS = 15
 _S_AUX_LEN = 16
 _S_PUBLISH_NS = 17
-_S_TENANT = 18    # tenant index; the port writes 0 (the default tenant)
+_S_TENANT = 18    # tenant index (0: the default tenant)
 SLOT_HDR_WORDS = 19
 
 ST_FREE, ST_WRITING, ST_READY = 0, 1, 2

@@ -59,8 +59,19 @@ a shared-memory segment that reader processes serve from
 (:mod:`zipkin_tpu_torch.serving`). Every closure the mirror keeps reaches
 the store through a weak proxy, so the mirror makes no cycle.
 
-Left out, against the reference: the overload hooks (brownout read modes)
-and tenant-scoped mirror keys. :meth:`TorchStorage.get_traces` reads every id
+A serve from the mirror memoizes its shaped answer (the API rows built
+from the epoch's arrays) per mirror generation, key, shaping arguments and
+vocab size, as a reader process's ``SegmentView`` does: concurrent readers
+of one epoch shape it once, and a new generation or :meth:`TorchStorage.clear`
+drops the memo (bounded at ``_SHAPE_MEMO_MAX`` entries).
+
+Brownout read modes: with an ``overload`` controller attached (the server
+attaches one by default), B1/B2 (``cache_first``) serve a version-stale
+cached read or mirror epoch within the controller's ``max_stale_ms``, and B3
+(``cache_only``) serves any cached answer; a cold key still computes, and
+the first normal-mode read drops the stale entries. Stale serves count as
+``readCacheStaleServes``. Tenant-prefixed demand keys are refused and
+counted, as the reference refuses them. :meth:`TorchStorage.get_traces` reads every id
 through one ``views()`` of the disk archive (the reference takes one per
 id, which sorts the live segment again for each). Durable boot (snapshot
 restore, WAL replay) is the resume adapter's,
@@ -126,6 +137,8 @@ DEFAULT_QS = (0.5, 0.9, 0.99)
 # returned by _mirror_bound when the request opted out of the mirror
 # (staleness_ms <= 0): force the fresh lock-path read
 _MIRROR_FRESH = object()
+# shaped mirror answers kept for one generation (the reader's _MEMO_MAX)
+_SHAPE_MEMO_MAX = 256
 
 
 def _decode_raw_span(raw: bytes) -> Span:
@@ -252,6 +265,12 @@ class TorchStorage(
         self._read_cache_lock = threading.Lock()
         self._read_cache_age_ms = 0.0
         self._read_cache_age_max_ms = 0.0
+        # the overload controller (runtime/overload.py), set by the server:
+        # its read mode lets B1/B2 serve a version-stale cached answer within
+        # its staleness bound (cache first) and B3 any cached answer (cache
+        # only); those serves are counted
+        self.overload = None
+        self._read_cache_stale_serves = 0
         # cached dependency answers by window: (value, version, born
         # monotonic), served up to this stale (0: always fresh)
         self._deps_max_stale_ms = float(deps_max_stale_ms)
@@ -276,6 +295,10 @@ class TorchStorage(
         # serve from, when one is attached (attach_mirror_segment)
         self._segment_publisher = None
         self._demand_unparsed = 0
+        # shaped answers of mirror serves: (generation, {memo key: (raw
+        # value, shaped)}), swapped whole when the generation moves
+        self._shape_memo: Tuple[int, dict] = (-1, {})
+        self._shape_memo_hits = 0
         # the accuracy plane, attached by the server: the host shadow the
         # ingest paths offer their batches to, and its estimator
         self.shadow = None
@@ -866,31 +889,45 @@ class TorchStorage(
         digest flush (which changes no answer). The whole cache drops when
         the version moves, so keys holding windows cannot pile up. A hit
         is the ``query_cached`` stage, a miss ``query_fresh``; the probe is
-        a traced query's cache-probe segment."""
+        a traced query's cache-probe segment.
+
+        Brownout read modes (``zipkin_tpu/tpu/store.py:1066-1126``): entries
+        carry the version they were computed at. Under ``cache_first`` a
+        version-stale entry younger than the controller's ``max_stale_ms``
+        serves; under ``cache_only`` any entry serves; a cold key still
+        computes, and the first normal-mode read drops every stale entry."""
         t0 = time.perf_counter()
         t0_ns = time.perf_counter_ns()
         version = self.agg.write_version
+        ctl = self.overload
+        mode = ctl.read_mode() if ctl is not None else "normal"
         with self._read_cache_lock:
-            if self._read_cache_version != version:
+            if mode == "normal" and self._read_cache_version != version:
                 self._read_cache.clear()
                 self._read_cache_version = version
             hit = self._read_cache.get(key)
             if hit is not None:
-                value, born = hit
+                value, born, born_version = hit
                 age_ms = (time.monotonic() - born) * 1000.0
-                self._read_cache_age_ms = age_ms
-                self._read_cache_age_max_ms = max(self._read_cache_age_max_ms, age_ms)
-                obs.record("query_cached", time.perf_counter() - t0)
-                querytrace.stamp_active(querytrace.QSEG_CACHE_PROBE, t0_ns, time.perf_counter_ns())
-                return value
+                fresh = born_version == version
+                if fresh or mode == "cache_only" or (
+                        mode == "cache_first" and age_ms <= ctl.max_stale_ms):
+                    if not fresh:
+                        self._read_cache_stale_serves += 1
+                    self._read_cache_age_ms = age_ms
+                    self._read_cache_age_max_ms = max(self._read_cache_age_max_ms, age_ms)
+                    obs.record("query_cached", time.perf_counter() - t0)
+                    querytrace.stamp_active(querytrace.QSEG_CACHE_PROBE, t0_ns,
+                                            time.perf_counter_ns())
+                    return value
         # the probe ends where compute() begins: the rest of a miss belongs
         # to the dispatch, device-wall, transfer and unpack segments
         querytrace.stamp_active(querytrace.QSEG_CACHE_PROBE, t0_ns, time.perf_counter_ns())
         value = compute()
         obs.record("query_fresh", time.perf_counter() - t0)
         with self._read_cache_lock:
-            if self._read_cache_version == version:
-                self._read_cache[key] = (value, time.monotonic())
+            if mode != "normal" or self._read_cache_version == version:
+                self._read_cache[key] = (value, time.monotonic(), version)
         return value
 
     def invalidate_read_cache(self) -> None:
@@ -952,6 +989,9 @@ class TorchStorage(
             )
 
         self.mirror.segment_sink = sink
+        # an idle tick re-stamps the segment's epoch when it is still current:
+        # cut at the aggregator's live write version
+        self.mirror.segment_restamp = lambda snap: pub.restamp(w.agg.write_version)
 
     def mirror_register_key(self, key: str) -> bool:
         """Parse a reader-demanded key back into its compute and register it
@@ -991,15 +1031,22 @@ class TorchStorage(
         self._demand_unparsed += 1
         return False
 
-    @staticmethod
-    def _mirror_bound(staleness_ms: Optional[float], default_ms: float):
-        """The effective bound of a mirror serve: ms the answer may be
-        stale, or ``_MIRROR_FRESH`` when the request opted out
-        (``staleness_ms <= 0``). The reference also loosens it under its
-        brownout read modes, which the port has not yet."""
+    def _mirror_bound(self, staleness_ms: Optional[float], default_ms: float):
+        """The effective bound of a mirror serve, the request's bound folded
+        with the brownout read mode: ms the answer may be stale, None for any
+        age (B3, cache only), or ``_MIRROR_FRESH`` when the request opted out
+        (``staleness_ms <= 0``). Under B1/B2 (cache first) the controller's
+        bound can only loosen the request's."""
         if staleness_ms is not None and staleness_ms <= 0:
             return _MIRROR_FRESH
-        return float(staleness_ms) if staleness_ms is not None else float(default_ms)
+        bound = float(staleness_ms) if staleness_ms is not None else float(default_ms)
+        ctl = self.overload
+        mode = ctl.read_mode() if ctl is not None else "normal"
+        if mode == "cache_first":
+            bound = max(bound, float(ctl.max_stale_ms))
+        elif mode == "cache_only":
+            return None
+        return bound
 
     def _mirror_serve(self, key: str, bound_ms, allow_stale: bool = True):
         """Serve ``key`` from the published epoch without the aggregator
@@ -1020,28 +1067,56 @@ class TorchStorage(
 
     def _mirror_allow_stale(self, staleness_ms) -> bool:
         """May this request see a version-stale epoch? Yes when the caller
-        opted in (a positive ``staleness_ms``) or the aggregator lock is
-        held by another thread right now (a non-blocking probe, which is
-        no acquisition); otherwise an exact read is cheap and a default
-        request stays exact."""
+        opted in (a positive ``staleness_ms``), a brownout read mode is in
+        force, or the aggregator lock is held by another thread right now (a
+        non-blocking probe, which is no acquisition); otherwise an exact
+        read is cheap and a default request stays exact."""
         if staleness_ms is not None:
+            return True
+        ctl = self.overload
+        if ctl is not None and ctl.read_mode() != "normal":
             return True
         probe = getattr(self.agg.lock, "would_block", None)
         return bool(probe is not None and probe())
 
-    def _mirror_read(self, key: str, compute, staleness_ms=None):
+    def _mirror_read(self, key: str, compute, staleness_ms=None, shape=None, shape_key=()):
         """Mirror first: serve from the published epoch when the age
         allows, else register ``compute`` for the next epoch and read
         through the versioned cache (where the aggregator lock is).
         ``compute`` must reach the store weakly (``self._weak``): the
-        registry keeps it."""
+        registry keeps it. With ``shape`` the answer is ``shape(value)``,
+        memoized on a mirror serve per generation, key and ``shape_key``."""
         bound = self._mirror_bound(staleness_ms, self.mirror.max_stale_ms)
         if bound is not _MIRROR_FRESH:
+            gen = self.mirror.gen
             hit = self._mirror_serve(key, bound, self._mirror_allow_stale(staleness_ms))
             if hit is not None:
-                return hit[0]
+                if shape is None:
+                    return hit[0]
+                return self._shaped(gen, key, shape_key, hit[0], shape)
             self.mirror.register(key, compute)
-        return self._cached_read(key, compute)
+        value = self._cached_read(key, compute)
+        return value if shape is None else shape(value)
+
+    def _shaped(self, gen: int, key: str, shape_key: tuple, raw, shape):
+        """``shape(raw)`` for a mirror-served ``raw``, memoized for the
+        generation ``gen``: the shaping's Python holds the GIL, which
+        concurrent serves of one epoch would otherwise repeat. The key
+        carries the vocab's size (a name interned since shapes differently)
+        and the entry its raw value, checked by identity."""
+        memo_gen, memo = self._shape_memo
+        if memo_gen != gen:
+            memo = {}
+            self._shape_memo = (gen, memo)  # one reference: a racing serve keeps its own
+        mkey = (key, shape_key, len(self.vocab.services._names), len(self.vocab._key_list))
+        ent = memo.get(mkey)
+        if ent is not None and ent[0] is raw:
+            self._shape_memo_hits += 1
+            return ent[1]
+        out = shape(raw)
+        if len(memo) < _SHAPE_MEMO_MAX:
+            memo[mkey] = (raw, out)
+        return out
 
     # -- time-disaggregated sketch tier ----------------------------------
 
@@ -1226,6 +1301,10 @@ class TorchStorage(
     def _latency_quantiles(self, qs, service_name, span_name, use_digest, end_ts, lookback,
                            staleness_ms=None):
         w = self._weak
+
+        def shape(value):
+            return self._quantile_rows(qs, value[0], value[1], service_name, span_name)
+
         if end_ts is None and lookback is not None:
             end_ts = int(time.time() * 1000)  # endTs defaults to now
         qkey = ",".join(f"{q:.6g}" for q in qs)
@@ -1240,16 +1319,15 @@ class TorchStorage(
                 lb = lookback if lookback is not None else end_ts
                 lo_min = epoch_minutes(end_ts - lb)
                 hi_min = epoch_minutes(end_ts)
-                source_q, counts = self._mirror_read(
+                return self._mirror_read(
                     f"quant:w:{lo_min}:{hi_min}:{qkey}",
                     lambda: w.agg.quantiles(qs, ts_lo_min=lo_min, ts_hi_min=hi_min),
-                    staleness_ms,
-                )
-        else:
-            src = "digest" if use_digest else "hist"
-            source_q, counts = self._mirror_read(
-                f"quant:{src}:{qkey}", lambda: w.agg.quantiles(qs, source=src), staleness_ms)
-        return self._quantile_rows(qs, source_q, counts, service_name, span_name)
+                    staleness_ms, shape=shape, shape_key=(service_name, span_name))
+            return self._quantile_rows(qs, source_q, counts, service_name, span_name)
+        src = "digest" if use_digest else "hist"
+        return self._mirror_read(
+            f"quant:{src}:{qkey}", lambda: w.agg.quantiles(qs, source=src), staleness_ms,
+            shape=shape, shape_key=(service_name, span_name))
 
     def _quantile_rows(self, qs, source_q: np.ndarray, counts: np.ndarray,
                        service_name: Optional[str], span_name: Optional[str]) -> List[dict]:
@@ -1322,8 +1400,8 @@ class TorchStorage(
                 ans = self._tt_window(*self._tt_epochs(end_ts, lookback), staleness_ms)
                 return self._cardinality_rows(ttmerge.hll_estimate(ans.hll))
             w = self._weak
-            return self._cardinality_rows(
-                self._mirror_read("card", lambda: w.agg.cardinalities(), staleness_ms))
+            return self._mirror_read("card", lambda: w.agg.cardinalities(), staleness_ms,
+                                     shape=self._cardinality_rows)
         finally:
             self.querytrace.finish(qt)
 
@@ -1339,13 +1417,16 @@ class TorchStorage(
         try:
             qkey = ",".join(f"{q:.6g}" for q in qs)
             w = self._weak
-            source_q, counts, est = self._mirror_read(
-                f"overview:{qkey}", lambda: w.agg.sketch_overview(qs), staleness_ms)
-            return {
-                "percentiles": self._quantile_rows(qs, source_q, counts, service_name, span_name),
-                "cardinalities": self._cardinality_rows(est),
-                "counters": self.ingest_counters(),
-            }
+
+            def shape(value):
+                source_q, counts, est = value
+                return (self._quantile_rows(qs, source_q, counts, service_name, span_name),
+                        self._cardinality_rows(est))
+
+            rows, cards = self._mirror_read(
+                f"overview:{qkey}", lambda: w.agg.sketch_overview(qs), staleness_ms,
+                shape=shape, shape_key=(service_name, span_name))
+            return {"percentiles": rows, "cardinalities": cards, "counters": self.ingest_counters()}
         finally:
             self.querytrace.finish(qt)
 
@@ -1384,6 +1465,8 @@ class TorchStorage(
             "readCacheServeAgeMs": round(self._read_cache_age_ms, 3),
             "readCacheServeAgeMaxMs": round(self._read_cache_age_max_ms, 3),
             "readCacheEntries": len(self._read_cache),
+            # version-stale answers served under the brownout read modes
+            "readCacheStaleServes": self._read_cache_stale_serves,
             # the mirror's publish and serve ledger, staleness at serve
             # (mirrorServeAgeMs backs the query_mirror_staleness SLO)
             **self.mirror.counters(),
@@ -1448,6 +1531,7 @@ class TorchStorage(
         # (its demand keys stay: the next publish refills)
         self.invalidate_read_cache()
         self._read_cache_version = -1
+        self._shape_memo = (-1, {})
         self.mirror.reset()
         # the swap replaced the instrumented lock: drop what was stitched
         # against the old aggregator and reapply the configured setting
