@@ -116,7 +116,19 @@ Builds the hand-written kernels from the sources in the checkout, then:
     deadlines and the resume supervisor (l3: 504 on a spent budget; a
     supervised process trips, snapshots and exits 75, a relaunch restores
     every acked span and trace) and admission's cost on the line-rate path
-    in on/off pairs with admit()'s own ns (l4).
+    in on/off pairs with admit()'s own ns (l4);
+(m) the shard mesh at the default AggConfig, 8 shards on one card (the
+    reference's 8-device deployment laid onto the card): (c)'s traffic into
+    an 8-shard and a 1-shard TorchAggregator, whose merges (sums, register
+    max, the digests' recluster) must equal exactly where the reference's
+    are exact and fall in the digest's rank band where they are not, with
+    update_step launched 8 times a step and each shard's lanes held against
+    the plain version (m1); (e)'s payloads into TorchStorage(mesh=[card] * 8)
+    through the line-rate path and through the fan-out tier, every acked
+    trace read back, the reads equal a 1-shard store's, an 8-shard snapshot
+    restored by an 8-shard store and refused by a 1-shard one (m2); and the
+    entry point with TPU_DEVICES=1 (serves) and one past the cards (refuses
+    to start) (m3).
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -458,15 +470,16 @@ def phase_step(torch, agg, traffic, chunk: int):
     return cases
 
 
-def step_parts(cols, lo: int, hi: int, chunk: int, cfg):
+def step_parts(cols, lo: int, hi: int, chunk: int, cfg, n_shards: int = 1):
     """The ``chunk``-span wire images of lanes ``[lo, hi)`` (identity id
-    maps) and the step's counts, as ``ingest_fused_multi`` takes them."""
-    from zipkin_tpu_torch.tpu.columnar import fuse_columns
+    maps), each routed across ``n_shards`` as a parse worker routes its
+    chunk, and the step's counts, as ``ingest_fused_multi`` takes them."""
+    from zipkin_tpu_torch.tpu.columnar import route_fused
     from zipkin_tpu_torch.workload import slice_columns
 
     ident_svc = np.arange(1 << 16, dtype=np.uint32)
     ident_key = np.arange(cfg.max_keys, dtype=np.uint32)
-    parts = [(fuse_columns(slice_columns(cols, a, min(a + chunk, hi)))[None], ident_svc, ident_key)
+    parts = [(route_fused(slice_columns(cols, a, min(a + chunk, hi)), n_shards), ident_svc, ident_key)
              for a in range(lo, hi, chunk)]
     v = cols.valid[lo:hi]
     ts = cols.ts_min[lo:hi][v]
@@ -481,7 +494,8 @@ def drive(agg, traffic, step_spans: int, chunk: int, cfg, after=None) -> list:
     cols = traffic.cols
     walls = []
     for i, lo in enumerate(range(0, cols.size, step_spans)):
-        parts, counts = step_parts(cols, lo, min(lo + step_spans, cols.size), chunk, cfg)
+        parts, counts = step_parts(cols, lo, min(lo + step_spans, cols.size), chunk, cfg,
+                                   agg.n_shards)
         t0 = time.perf_counter()
         agg.ingest_fused_multi(parts, *counts)
         agg.block_until_ready()
@@ -1815,10 +1829,11 @@ def phase_server(seed: int, torch, card: str, stored: dict, cfg=None, device=Non
     return fig
 
 
-def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> dict:
+def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu", env_extra=None,
+                what: str = "f3") -> dict:
     """(f3) ``python -m zipkin_tpu_torch.server --port P --storage tpu``
     with TPU_FAST_INGEST=1, TPU_FAST_ARCHIVE_SAMPLE=1 and TPU_ARCHIVE_DIR=off
-    as a subprocess:
+    (and ``env_extra``) as a subprocess:
     /health UP within ``timeout_s``, a small trace POSTed and read back
     through trace/{id}, dependencies and tpu/percentiles, then SIGTERM and
     exit code 0 within 30 s. ``storage="mem"`` rehearses it off the card
@@ -1838,7 +1853,7 @@ def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> di
     # the disk archive off: f3 reads the host archive's sample, as it did
     # before the fast path's default turned the disk archive on
     env = dict(os.environ, TPU_FAST_INGEST="1", TPU_FAST_ARCHIVE_SAMPLE="1", TPU_ARCHIVE_DIR="off",
-               TPU_DEPS_MAX_STALE_MS="0", QUERY_HOST="127.0.0.1")
+               TPU_DEPS_MAX_STALE_MS="0", QUERY_HOST="127.0.0.1", **(env_extra or {}))
     root = os.path.dirname(os.path.abspath(__file__))
     http = HttpStore(f"http://127.0.0.1:{port}")
     fig = dict(card=card, port=port)
@@ -1850,14 +1865,14 @@ def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> di
         try:
             while True:
                 if proc.poll() is not None:
-                    raise AssertionError(f"phase f3: the server exited {proc.returncode} before /health")
+                    raise AssertionError(f"phase {what}: the server exited {proc.returncode} before /health")
                 try:
                     if http.get("/health")["status"] == "UP":
                         break
                 except (OSError, AssertionError):
                     pass
                 if time.perf_counter() - t0 > timeout_s:
-                    raise AssertionError(f"phase f3: /health not UP within {timeout_s} s")
+                    raise AssertionError(f"phase {what}: /health not UP within {timeout_s} s")
                 time.sleep(0.25)
             fig["boot_s"] = time.perf_counter() - t0
             now_ms = int(time.time() * 1000)
@@ -1867,7 +1882,7 @@ def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> di
                                          headers={"Content-Type": "application/json"})
             with urllib.request.urlopen(req, timeout=120) as resp:
                 if resp.status != 202:
-                    raise AssertionError(f"phase f3: POST {resp.status}")
+                    raise AssertionError(f"phase {what}: POST {resp.status}")
             got = http.get(f"/api/v2/trace/{trace[0].trace_id}")
             deps = http.get("/api/v2/dependencies", {"endTs": now_ms + 60_000, "lookback": 3_600_000,
                                                      **FRESH})
@@ -1876,22 +1891,22 @@ def phase_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> di
                 rows = http.get("/api/v2/tpu/percentiles", {"q": "0.5", **FRESH})
             if len(got) != 2 or deps != [{"parent": "entry", "child": "entry-db", "callCount": 1}] \
                     or sorted((r["serviceName"], r["count"]) for r in rows) != [("entry", 1), ("entry-db", 1)]:
-                raise AssertionError(f"phase f3: read back {got}, {deps}, {rows}")
+                raise AssertionError(f"phase {what}: read back {got}, {deps}, {rows}")
             t1 = time.perf_counter()
             proc.send_signal(signal.SIGTERM)
             rc = proc.wait(timeout=30)
             fig["stop_s"] = time.perf_counter() - t1
             if rc != 0:
-                raise AssertionError(f"phase f3: exit code {rc} after SIGTERM")
+                raise AssertionError(f"phase {what}: exit code {rc} after SIGTERM")
         except BaseException:
             out.seek(0)
-            log("phase f3: server output:\n" + out.read().decode(errors="replace")[-4000:])
+            log(f"phase {what}: server output:\n" + out.read().decode(errors="replace")[-4000:])
             raise
         finally:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=30)
-    log(f"phase f3 ({card}): python -m zipkin_tpu_torch.server --storage {storage}: /health UP in "
+    log(f"phase {what} ({card}): python -m zipkin_tpu_torch.server --storage {storage}: /health UP in "
         f"{fig['boot_s']:.1f} s; a trace POSTed and read back through trace/{{id}}, dependencies and "
         f"tpu/percentiles; SIGTERM -> exit 0 in {fig['stop_s']:.2f} s")
     return fig
@@ -5302,6 +5317,478 @@ def phase_admission(torch, card: str, stored: dict, i2_spans_per_s: float, mirro
     return fig
 
 
+def mesh_of(torch, n_shards: int, device=None) -> list:
+    """``n_shards`` shards on one device (the card unless ``device`` names
+    another): the reference's 8-shard deployment laid onto one card."""
+    from zipkin_tpu_torch.parallel.mesh import make_mesh
+
+    dev = torch.device(device) if device is not None else torch.device("cuda", 0)
+    return make_mesh(n_shards, devices=[dev] * n_shards)
+
+
+def phase_shards_agg(seed: int, n_spans: int, torch, card: str, cfg=None, device=None,
+                     n_shards: int = 8, chunk: int = 8192) -> dict:
+    """(m1) phase c's traffic (2**20 spans, seed 0, 8 x 8,192-span chunks a
+    step, each chunk routed trace-affine as a parse worker routes it) into
+    an ``n_shards``-shard TorchAggregator on one card and a one-shard one.
+    Exact between the two: the merged histograms, HLL registers and span
+    counters, the dependency matrices, the compacted edges over the whole
+    window and over its hour (where a rolled lane and a live one count
+    alike), the windowed histograms, the cardinalities and tt_read's
+    epochs, registers, calls and errors; CTR_BATCHES is n_shards x the
+    steps; the merged digest's p99s inside the digest's rank band, the
+    overview equal to the reads it coalesces, every read one transfer.
+    update_step launches once per shard a step; each shard's lanes of the
+    last step through check_step, then the kernel against
+    update_step_plain on fresh register files."""
+    from zipkin_tpu_torch import u32
+    from zipkin_tpu_torch.ops import hll_kernel, tdigest
+    from zipkin_tpu_torch.parallel.aggregator import TorchAggregator, unfuse_columns
+    from zipkin_tpu_torch.tpu import ingest as ing
+    from zipkin_tpu_torch.tpu.columnar import route_fused
+    from zipkin_tpu_torch.tpu.state import CTR_BATCHES, AggConfig, state_bytes
+    from zipkin_tpu_torch.workload import BASE_MINUTE, generate, slice_columns
+
+    cfg = cfg or AggConfig()
+    mesh = mesh_of(torch, n_shards, device)
+    traffic = generate(n_spans, seed=seed)
+    cols = traffic.cols
+    fig = dict(card=card, spans=n_spans, shards=n_shards)
+    aggs, walls, launches = {}, {}, {}
+    for label, m in (("S", mesh), ("one", mesh[:1])):
+        agg = TorchAggregator(cfg, mesh=m)
+        agg.block_until_ready()
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        walls[label] = drive(agg, traffic, 8 * chunk, chunk, cfg)
+        launches[label] = (hll_kernel.update.launches, hll_kernel.update_step.launches)
+        aggs[label] = agg
+    big, one = aggs["S"], aggs["one"]
+    steps = len(walls["S"])
+    if launches["S"] != (0, n_shards * steps) or launches["one"] != (0, steps):
+        raise AssertionError(f"phase m1: hll launches {launches} over {steps} steps, want "
+                             f"update_step {n_shards} a step at {n_shards} shards and 1 at one")
+    gib = sum(state_bytes(st) for st in big.states) / 2**30
+    sps = {k: n_spans / (sum(w) / 1e3) for k, w in walls.items()}
+    fig.update(steps=steps, launches=launches["S"][1], one_launches=launches["one"][1],
+               state_gib=gib, spans_per_s=sps["S"], one_spans_per_s=sps["one"],
+               step_ms=statistics.median(walls["S"]), one_step_ms=statistics.median(walls["one"]),
+               first_step_ms=walls["S"][0], rollups=big.ctx_stats["ctx_advances"])
+    log(f"phase m1 ({card}): {n_spans} spans in {steps} steps into {n_shards} shards on "
+        f"{mesh[0]} ({gib:.3f} GiB of state): {sps['S']:.0f} spans/s against {sps['one']:.0f} "
+        f"at one shard ({sps['S'] / sps['one']:.3f}x); median step {fig['step_ms']:.2f} ms against "
+        f"{fig['one_step_ms']:.2f} ms (first {walls['S'][0]:.1f} ms); update_step launches "
+        f"{launches['S'][1]} = {n_shards} x {steps} steps; {fig['rollups']} rollup rounds; "
+        f"step walls ms {[round(w, 2) for w in walls['S']]}")
+
+    # --- each shard's lanes of the last step: kernel against plain
+    lo = (steps - 1) * 8 * chunk
+    image = route_fused(slice_columns(cols, lo, min(lo + 8 * chunk, cols.size)), n_shards)
+    kw = dict(max_services=cfg.max_services, hll_rows=cfg.hll_rows, global_row=cfg.global_hll_row)
+    err, live = 0, []
+    for i, st in enumerate(big.states):
+        batch = unfuse_columns(u32.from_numpy(image[i], mesh[i]))
+        lanes, _, _ = ing.hll_lanes(cfg, torch.full_like(st.tb_epoch, -1), batch)
+        args = tuple(lanes[x] for x in ("hashes", "svc", "valid", "tb_keep", "slot"))
+        files = (torch.zeros_like(st.hll), torch.zeros_like(st.tb_hll).view(-1, st.tb_hll.shape[-1]))
+        hll_kernel.check_step(*files, *args, **kw)
+        got = tuple(x.clone() for x in files)
+        want = tuple(x.clone() for x in files)
+        hll_kernel.update_step(*got, *args, **kw)
+        hll_kernel.update_step_plain(*want, *args, **kw)
+        err = max(err, max(int((a.int() - b.int()).abs().max()) for a, b in zip(got, want)))
+        live.append(int(lanes["valid"].sum()))
+    if err:
+        raise AssertionError(f"phase m1: update_step != update_step_plain on a shard's lanes: {err}")
+    fig["max_abs_err"] = err
+    log(f"phase m1: the last step's lanes of each shard (live {live} of {image.shape[-1]}) through "
+        f"check_step, update_step == update_step_plain on fresh files (max abs err {err})")
+
+    # --- the merges against one shard, exactly
+    def exact(g, w, what):
+        if g.dtype != w.dtype or g.shape != w.shape or not np.array_equal(g, w):
+            raise AssertionError(f"phase m1: {what} at {n_shards} shards != one shard")
+
+    reads = {}
+    read_fns = {}
+    for label, agg in (("S", big), ("one", one)):
+        (h, r, c), *tr = counted(agg, agg.merged_sketches)
+        reads[label] = dict(hist=h, hll=r, counters=c, transfers=tuple(tr))
+    exact(reads["S"]["hist"], reads["one"]["hist"], "merged histograms")
+    exact(reads["S"]["hll"], reads["one"]["hll"], "merged HLL registers")
+    exact(reads["S"]["counters"][:4], reads["one"]["counters"][:4], "span counters")
+    if reads["S"]["counters"][CTR_BATCHES] != n_shards * steps \
+            or reads["one"]["counters"][CTR_BATCHES] != steps:
+        raise AssertionError(f"phase m1: CTR_BATCHES {reads['S']['counters'][CTR_BATCHES]} and "
+                             f"{reads['one']['counters'][CTR_BATCHES]}, want {n_shards * steps} and {steps}")
+    full = (0, (1 << 32) - 1)
+    hour = (BASE_MINUTE // 60 * 60, BASE_MINUTE // 60 * 60 + 59)
+    win = (BASE_MINUTE, BASE_MINUTE + 60)
+    for g, w, what in zip(big.dependency_matrices(*full), one.dependency_matrices(*full),
+                          ("calls", "errors")):
+        exact(g, w, f"dependency {what}")
+    for name, window in (("whole window", full), ("hour", hour)):
+        for g, w in zip(big.dependency_edges(*window), one.dependency_edges(*window)):
+            exact(g, w, f"edges over the {name}")
+    exact(big.windowed_histograms(*win), one.windowed_histograms(*win), "windowed histograms")
+    exact(big.cardinalities(), one.cardinalities(), "cardinalities")
+    ep = big.tt_max_epoch
+    if ep != one.tt_max_epoch:
+        raise AssertionError(f"phase m1: tt_max_epoch {ep} != {one.tt_max_epoch}")
+    tt_s, tt_1 = big.tt_read(ep - 3, ep), one.tt_read(ep - 3, ep)
+    for i, what in ((0, "epochs"), (1, "registers"), (3, "calls"), (4, "errors")):
+        exact(tt_s[i], tt_1[i], f"tt_read {what}")
+    old = (BASE_MINUTE, BASE_MINUTE + 2)
+    paths = {k: a.window_fully_rolled(*old) for k, a in (("S", big), ("one", one))}
+    old_edges = {k: int((a.dependency_edges(*old)[1] > 0).sum()) for k, a in (("S", big), ("one", one))}
+    # the merged digest: counts exact, p99 inside the rank band, the
+    # overview equal to the reads it coalesces
+    dq, dn = big.quantiles(QS, "digest")
+    key_counts = np.bincount(cols.key[cols.valid], minlength=cfg.max_keys)
+    exact(dn, one.quantiles(QS, "digest")[1], "digest counts")
+    if not np.array_equal(dn, key_counts.astype(dn.dtype)):
+        raise AssertionError("phase m1: digest counts != the generated key counts")
+    md = big.merged_digest()
+    if not np.array_equal(md[..., 1].sum(-1), key_counts.astype(np.float32)):
+        raise AssertionError("phase m1: merged digest weights != the key counts")
+    oq, on, oe = big.sketch_overview(QS)
+    if not (np.array_equal(oq, dq) and np.array_equal(on, dn) and np.array_equal(oe, big.cardinalities())):
+        raise AssertionError("phase m1: the overview disagrees with the reads it coalesces")
+    w99 = tdigest.cluster_q_width(cfg.digest_centroids, 0.99)
+    order = np.argsort(cols.key, kind="stable")
+    starts = np.searchsorted(cols.key[order], np.arange(cfg.max_keys + 1))
+    big_keys = np.nonzero(key_counts >= 1000)[0]
+    one_q = one.quantiles(QS, "digest")[0]
+    rel, rel_one = [], []
+    for k in big_keys:
+        v = np.sort(cols.dur[order[starts[k]:starts[k + 1]]].astype(np.float64))
+        lo_v, ex, hi_v = np.quantile(v, [0.99 - w99, 0.99, min(0.99 + w99, 1.0)])
+        got = dq[k, QS.index(0.99)]
+        if not lo_v <= got <= hi_v:
+            raise AssertionError(f"phase m1: key {k}: merged digest p99 {got} outside [{lo_v}, {hi_v}]")
+        rel.append(abs(got - ex) / ex)
+        rel_one.append(abs(one_q[k, QS.index(0.99)] - ex) / ex)
+    # every read one transfer, timed at both shard counts
+    for label, agg in (("S", big), ("one", one)):
+        read_fns[label] = {
+            "digest_quantiles": lambda a=agg: a.quantiles(QS, "digest"),
+            "hist_quantiles": lambda a=agg: a.quantiles(QS, "hist"),
+            "windowed_quantiles": lambda a=agg: a.quantiles(QS, ts_lo_min=win[0], ts_hi_min=win[1]),
+            "cardinalities": agg.cardinalities,
+            "sketch_overview": lambda a=agg: a.sketch_overview(QS),
+            "merged_digest": agg.merged_digest,
+            "merged_sketches": agg.merged_sketches,
+            "dependency_matrices": lambda a=agg: a.dependency_matrices(*full),
+            "edges_cached": lambda a=agg: a.dependency_edges(*full),
+            "tt_read": lambda a=agg: a.tt_read(ep - 3, ep),
+        }
+    transfers = {name: counted(big, fn)[1:] for name, fn in read_fns["S"].items()}
+    if any(t != (1, 1) for t in transfers.values()):
+        raise AssertionError(f"phase m1: a read made other than one transfer: {transfers}")
+    read_ms = {label: {name: median_ms(fn) for name, fn in fns.items()} for label, fns in read_fns.items()}
+    fig.update(read_ms=read_ms["S"], one_read_ms=read_ms["one"], p99_rel_median=statistics.median(rel),
+               p99_rel_max=max(rel), one_p99_rel_median=statistics.median(rel_one),
+               old_window_fully_rolled=paths, old_window_edges=old_edges)
+    log(f"phase m1: exact against one shard: merged histograms, registers, span counters, "
+        f"dependency matrices, edges over the whole window and its hour, windowed histograms, "
+        f"cardinalities, tt_read epochs/registers/calls/errors over epochs {ep - 3}-{ep}; "
+        f"CTR_BATCHES {n_shards * steps} = {n_shards} x {steps}; merged digest p99 inside the rank "
+        f"band +-{w99:.4f} on {len(big_keys)} keys (relative value error median "
+        f"{statistics.median(rel):.4f}, max {max(rel):.4f}; one shard {statistics.median(rel_one):.4f}); "
+        f"every read one transfer. The minutes {old} are rolled-only at one shard "
+        f"({paths['one']}) and not at {n_shards} ({paths['S']}, whose rings have not wrapped): "
+        f"{old_edges} edges, hour-grained and minute-grained answers, not compared")
+    log("phase m1 read wall ms, " + f"{n_shards} shards: " + json.dumps(
+        {k: round(v, 4) for k, v in read_ms["S"].items()}) + "; one shard: " + json.dumps(
+        {k: round(v, 4) for k, v in read_ms["one"].items()}))
+    if mesh[0].type == "cuda":
+        fig["peak_gib"] = torch.cuda.max_memory_allocated(mesh[0]) / 2**30
+        log(f"phase m1: peak device memory {fig['peak_gib']:.3f} GiB")
+    return fig
+
+
+def phase_shards_store(seed: int, torch, card: str, stored: dict, cfg=None, device=None,
+                       n_shards: int = 8, workers: int = 2) -> dict:
+    """(m2) phase e's 64 payloads into the resume adapter
+    ``TorchStorage(mesh=[card] * n_shards)`` with a disk archive:
+    through f1's line-rate path (m2a), then into a second such store
+    through the fan-out tier with ``workers`` parse workers coalescing 8
+    chunks a step (m2b). Each time: every acked trace's rows are in the disk
+    archive's index and 1,024 of them read back complete; update_step
+    launches n_shards times a device
+    step; the store's answers as the generator says (phase e's checks); the
+    dependencies, histogram rows, cardinalities and counters equal a
+    one-shard store's fed the same payloads. m2a's store snapshots at
+    n_shards shards; a new n_shards-shard adapter restores it to the same
+    reads, and a one-shard store refuses it, naming the shards."""
+    import gc
+    import logging
+    import shutil
+    import tempfile
+
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.storage.tpu import TorchStorage as Adapter
+    from zipkin_tpu_torch.tpu import snapshot as snap
+    from zipkin_tpu_torch.tpu.mp_ingest import MultiProcessIngester
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    mesh = mesh_of(torch, n_shards, device)
+    wire, traffic, spans = stored["wire"], stored["traffic"], stored["spans"]
+    n_spans, n_traces = len(spans), len(spans) // 8
+    trace_ids = [spans[8 * t].trace_id for t in range(n_traces)]
+    truth = store_truth(traffic, cfg)
+    fig = dict(card=card, spans=n_spans, shards=n_shards, payloads=len(wire))
+    root = tempfile.mkdtemp(prefix="zt-phase-m2-")
+
+    def free():
+        gc.collect()
+        if mesh[0].type == "cuda":
+            torch.cuda.empty_cache()
+
+    def read_back(store, what, sample: int = 1024):
+        """Every acked trace's 8 rows in the disk archive's index, then
+        ``sample`` traces read back in full (phase h1 reads all 32,768 at
+        one shard; the archive does not depend on the shards)."""
+        import collections
+
+        t0 = time.perf_counter()
+        have = collections.Counter()
+        for ids, *_ in store._disk.views():
+            u, c = np.unique(np.asarray(ids), return_counts=True)
+            have.update(dict(zip(u.tolist(), c.tolist())))
+        short = [t for t in trace_ids if have.get(int(t[-16:], 16)) != 8]
+        if short or sum(have.values()) != n_spans:
+            raise AssertionError(f"phase {what}: {len(short)} acked traces without their 8 rows in "
+                                 f"the archive's index, {sum(have.values())} rows for {n_spans} spans")
+        pick = list(range(0, n_traces, max(1, n_traces // sample)))[:sample]
+        got = store.get_traces([trace_ids[t] for t in pick]).execute()
+        if len(got) != len(pick):
+            raise AssertionError(f"phase {what}: {len(got)} of {len(pick)} traces read back")
+        for t, trace in zip(pick, got):
+            want = spans[8 * t:8 * t + 8]
+            if trace[0].trace_id != want[0].trace_id or \
+                    sorted(s.id for s in trace) != sorted(s.id for s in want):
+                raise AssertionError(f"phase {what}: trace {want[0].trace_id} read back differs")
+        return time.perf_counter() - t0, len(pick)
+
+    def same_reads(got, want, what, batches=True):
+        """Exact, rows by name (several parse workers assign ids in
+        arrival order); the tier's coalesced steps make other batches."""
+        by_row = lambda rows: {(r["serviceName"], r["spanName"]): r for r in rows}  # noqa: E731
+        for name in ("dependencies", "hist", "cardinalities", "counters"):
+            g, w = got[name], want[name]
+            if name == "counters" and not batches:
+                g, w = dict(g, batches=0), dict(w, batches=0)
+            if name == "hist":
+                g, w = by_row(g), by_row(w)
+            if g != w:
+                raise AssertionError(f"phase {what}: {name} at {n_shards} shards != one shard")
+
+    def counting(agg):
+        batches = []
+        inner = agg.ingest
+
+        def count_batch(c):
+            batches.append(int(c.valid.sum()))
+            return inner(c)
+
+        agg.ingest = count_batch
+        return batches
+
+    try:
+        # the one-shard twin, fed through f1's path
+        one = TorchStorage(config=cfg, device=mesh[0])
+        one._deps_max_stale_ms = 0.0
+        collector = Collector(one, fast_ingest=True)
+        t0 = time.perf_counter()
+        for p in wire:
+            collector.accept_spans_bytes(p)
+        one.agg.block_until_ready()
+        one_sps = n_spans / (time.perf_counter() - t0)
+        want = store_reads(one, truth)
+        del one, collector
+        free()
+
+        # (m2a) the line-rate path at n_shards
+        a = Adapter(config=cfg, mesh=mesh, archive_dir=f"{root}/a",
+                    checkpoint_dir=f"{root}/snap")
+        a._deps_max_stale_ms = 0.0
+        batches = counting(a.agg)
+        collector = Collector(a, fast_ingest=True)
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        for p in wire:
+            collector.accept_spans_bytes(p)
+        a.agg.block_until_ready()
+        wall = time.perf_counter() - t0
+        launches = hll_kernel.update_step.launches
+        del a.agg.ingest
+        if hll_kernel.update.launches or launches != n_shards * len(batches) or sum(batches) != n_spans:
+            raise AssertionError(f"phase m2a: {sum(batches)} spans in {len(batches)} device batches, "
+                                 f"update_step launches {launches}, want {n_shards} a batch")
+        readback_s, sampled = read_back(a, "m2a")
+        checked = check_store_answers(a, a.agg, truth, spans, range(0, n_traces, n_traces // 8), "phase m2a")
+        got = store_reads(a, truth)
+        same_reads(got, want, "m2a")
+        fig["m2a"] = dict(spans_per_s=n_spans / wall, one_spans_per_s=one_sps, wall_ms=wall * 1e3,
+                          device_batches=len(batches), launches=launches, readback_s=readback_s,
+                          keys=checked["keys"])
+        log(f"phase m2a ({card}): {n_spans} spans in {len(wire)} payloads through the line-rate path "
+            f"into TorchStorage(mesh=[{mesh[0]}] * {n_shards}) with a disk archive: {n_spans / wall:.0f} spans/s "
+            f"against {one_sps:.0f} into a one-shard store without one ({n_spans / wall / one_sps:.3f}x), "
+            f"{len(batches)} device batches, update_step launches {launches} = {n_shards} x "
+            f"{len(batches)}; all {n_traces} acked traces in the archive's index with their 8 rows and "
+            f"{sampled} read back complete ({readback_s:.2f} s); edges, cardinalities, percentile rows "
+            f"and names as the generator says; dependencies, histogram rows, cardinalities and counters "
+            f"equal one shard's")
+
+        # snapshot at n_shards, restore into a new n_shards store
+        t0 = time.perf_counter()
+        if not a.snapshot():
+            raise AssertionError("phase m2a: the snapshot was not taken")
+        save_s = time.perf_counter() - t0
+        meta = json.load(open(f"{root}/snap/{snap.META_FILE}"))
+        snap_bytes = sum(v for k, v in dir_bytes(f"{root}/snap").items() if k.endswith(".npz"))
+        a.close()
+        del a, collector
+        free()
+        t0 = time.perf_counter()
+        b = Adapter(config=cfg, mesh=mesh, checkpoint_dir=f"{root}/snap")
+        boot_s = time.perf_counter() - t0
+        b._deps_max_stale_ms = 0.0
+        if not b.restore_stats.get("restoreMs") or b.agg.host_counters["spans"] != n_spans:
+            raise AssertionError(f"phase m2a: restore at {n_shards} shards: {b.restore_stats}")
+        restored = store_reads(b, truth)
+        assert_reads_equal(restored, got, "phase m2a restored")
+        restore_ms = b.restore_stats["restoreMs"]
+        b.close()
+        del b
+        free()
+
+        class Grab(logging.Handler):
+            def __init__(self):
+                super().__init__(logging.WARNING)
+                self.text = []
+
+            def emit(self, record):
+                self.text.append(record.getMessage())
+
+        grab = Grab()
+        logging.getLogger("zipkin_tpu_torch.tpu.snapshot").addHandler(grab)
+        try:
+            c = TorchStorage(config=cfg, device=mesh[0])
+            refused = not snap.maybe_restore(c, f"{root}/snap")
+        finally:
+            logging.getLogger("zipkin_tpu_torch.tpu.snapshot").removeHandler(grab)
+        cause = f"has {n_shards} shards but this store has 1"
+        if not refused or not any(cause in t for t in grab.text) or c.agg.host_counters["spans"]:
+            raise AssertionError(f"phase m2a: a one-shard store took an {n_shards}-shard snapshot: "
+                                 f"{grab.text}")
+        del c
+        free()
+        fig["snapshot"] = dict(save_s=save_s, restore_ms=restore_ms, boot_s=boot_s, bytes=snap_bytes,
+                               n_shards=meta["n_shards"])
+        log(f"phase m2a: snapshot of {meta['n_shards']} shards saved in {save_s:.2f} s "
+            f"({snap_bytes / 2**20:.1f} MiB on disk); a new {n_shards}-shard adapter booted in "
+            f"{boot_s:.2f} s (restore {restore_ms:.1f} ms) to equal reads; a one-shard store refused "
+            f"it: \"{cause}\"")
+
+        # (m2b) the fan-out tier at n_shards
+        d = Adapter(config=cfg, mesh=mesh, archive_dir=f"{root}/d")
+        d._deps_max_stale_ms = 0.0
+        ing = MultiProcessIngester(d, workers=workers, coalesce_max=8)
+        try:
+            wait_ready(ing, "phase m2b")
+            ring = dict(slot_bytes=ing._ring.slot_bytes, image_bytes=ing._ring.img_cap_u32 * 4,
+                        slots=ing._ring.n_workers * ing._ring.stripe_slots)
+            hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+            t0 = time.perf_counter()
+            for p in wire:
+                ing.submit(p)
+            ing.drain()
+            wall = time.perf_counter() - t0
+            launches = hll_kernel.update_step.launches
+            stats = ing.stats()
+        finally:
+            ing.close()
+        if stats["mpFallbacks"] or stats["mpAccepted"] != n_spans or d.agg.host_counters["spans"] != n_spans:
+            raise AssertionError(f"phase m2b: {stats['mpAccepted']} spans accepted, "
+                                 f"{stats['mpFallbacks']} fallbacks")
+        if hll_kernel.update.launches or launches != n_shards * stats["mpGroups"]:
+            raise AssertionError(f"phase m2b: update_step launches {launches}, want {n_shards} x "
+                                 f"{stats['mpGroups']} groups")
+        readback_s, sampled = read_back(d, "m2b")
+        same_reads(store_reads(d, truth), want, "m2b", batches=False)
+        fig["m2b"] = dict(spans_per_s=n_spans / wall, wall_ms=wall * 1e3, groups=stats["mpGroups"],
+                          launches=launches, readback_s=readback_s, ring=ring, workers=workers)
+        log(f"phase m2b ({card}): the fan-out tier ({workers} workers, coalesce 8) into "
+            f"{n_shards} shards: {n_spans / wall:.0f} spans/s, {stats['mpGroups']} device steps, "
+            f"update_step launches {launches} = {n_shards} x {stats['mpGroups']}; all {n_traces} "
+            f"acked traces in the index, {sampled} read back ({readback_s:.2f} s); reads equal one "
+            f"shard's; ring "
+            f"{ring['slots']} slots of {ring['slot_bytes'] / 2**20:.1f} MiB (a routed image of "
+            f"{n_shards} x 11 rows x {d.max_batch} lanes: {ring['image_bytes'] / 2**20:.1f} MiB)")
+        d.close()
+        del d
+        free()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fig["launches"] = fig["m2a"]["launches"] + fig["m2b"]["launches"]
+    return fig
+
+
+def phase_shards_entry(card: str, torch, timeout_s: float = 120.0, storage: str = "tpu") -> dict:
+    """(m3) the entry point: ``TPU_DEVICES=1`` boots, serves and stops as
+    f3 does; ``TPU_DEVICES`` one past the visible cards refuses to start
+    (exit code not 0, the reference's ``requested N devices, have M``)."""
+    import os
+
+    fig = dict(card=card)
+    fig["one"] = phase_entry(card, timeout_s, storage=storage, env_extra={"TPU_DEVICES": "1"},
+                             what="m3")
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    ask = have + 1
+    env = dict(os.environ, TPU_DEVICES=str(ask), TPU_ARCHIVE_DIR="off", QUERY_HOST="127.0.0.1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "zipkin_tpu_torch.server", "--port", "0",
+                          "--storage", "tpu"], cwd=root, env=env, capture_output=True, text=True,
+                         timeout=timeout_s)
+    fig["refuse_s"] = time.perf_counter() - t0
+    cause = f"requested {ask} devices, have {have}"
+    if out.returncode == 0 or cause not in out.stderr:
+        raise AssertionError(f"phase m3: TPU_DEVICES={ask} on {have} card(s) exited {out.returncode}: "
+                             f"{out.stderr[-2000:]}")
+    fig["refuse_rc"] = out.returncode
+    log(f"phase m3 ({card}): TPU_DEVICES=1 boots to /health UP in {fig['one']['boot_s']:.1f} s and "
+        f"serves; TPU_DEVICES={ask} on {have} card(s) exits {out.returncode} in {fig['refuse_s']:.1f} s: "
+        f"\"{cause}\"")
+    return fig
+
+
+def phase_shards(seed: int, n_spans: int, torch, card: str, stored: dict, cfg=None, device=None,
+                 n_shards: int = 8, entry_storage: str = "tpu") -> dict:
+    """(m) the shard mesh: m1 the aggregator, m2 the store, m3 the entry
+    point; each part's update_step launches counted from 0."""
+    fig = {}
+    t0 = time.perf_counter()
+    fig["m1"] = phase_shards_agg(seed, n_spans, torch, card, cfg=cfg, device=device, n_shards=n_shards)
+    fig["m1"]["seconds"] = time.perf_counter() - t0
+    if device is None:
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    fig["m2"] = phase_shards_store(seed, torch, card, stored, cfg=cfg, device=device, n_shards=n_shards)
+    fig["m2"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fig["m3"] = phase_shards_entry(card, torch, storage=entry_storage)
+    fig["m3"]["seconds"] = time.perf_counter() - t0
+    fig["launches"] = fig["m1"]["launches"] + fig["m2"]["launches"]
+    log("phase m parts, s: " + ", ".join(f"{k} {fig[k]['seconds']:.1f}" for k in ("m1", "m2", "m3")))
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5404,6 +5891,10 @@ def main() -> int:
     admitted = phase_admission(torch, card, stored, fanned["i2"]["spans_per_s"], served_k["k2"])
     torch.cuda.empty_cache()
     log(f"phase l done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    sharded = phase_shards(args.seed, args.spans, torch, card, stored)
+    torch.cuda.empty_cache()
+    log(f"phase m done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -5424,7 +5915,10 @@ def main() -> int:
     # launches_phase_k those of the tracer, mirror and readers' (k1's twelve
     # passes, k2's two stores, k3's server; launches_phase_k_parts) and
     # launches_phase_l those of admission's (l0's server, l1's and l2's
-    # server with the tier, l4's eleven runs; launches_phase_l_parts).
+    # server with the tier, l4's eleven runs; launches_phase_l_parts) and
+    # launches_phase_m those of the shard mesh's (m1's 8-shard aggregator,
+    # m2a's and m2b's 8-shard stores; launches_phase_m_parts adds m1's
+    # one-shard twin, which launches once a step).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -5441,6 +5935,7 @@ def main() -> int:
              launches_phase_j=observed["update_launches"],
              launches_phase_k=served_k["update_launches"],
              launches_phase_l=admitted["update_launches"],
+             launches_phase_m=0,
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -5465,6 +5960,12 @@ def main() -> int:
              launches_phase_k_parts={k: served_k[k]["launches"] for k in ("k1", "k2", "k3")},
              launches_phase_l=admitted["launches"],
              launches_phase_l_parts={k: admitted[k]["launches"] for k in ("l0", "l1", "l2", "l4")},
+             launches_phase_m=sharded["launches"],
+             launches_phase_m_parts={"m1": sharded["m1"]["launches"],
+                                     "m1_one_shard": sharded["m1"]["one_launches"],
+                                     "m2a": sharded["m2"]["m2a"]["launches"],
+                                     "m2b": sharded["m2"]["m2b"]["launches"]},
+             max_abs_err_phase_m=sharded["m1"]["max_abs_err"],
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

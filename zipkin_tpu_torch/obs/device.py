@@ -30,6 +30,11 @@ captures:
   ``torch.cuda.memory_stats()`` and ``torch.cuda.mem_get_info()`` on the
   card (``{}`` on the CPU), and the readpack transfer count and bytes.
 
+An S-shard aggregator's program runs every shard inside one wrapped call
+(one call a step or a read, as the reference's one SPMD program), and its
+event pair is recorded on the first shard's device: on a mesh of several
+cards the other cards' work shows only where the merge waits for it.
+
 Counter updates are plain attribute writes: the aggregator's programs run
 under its lock and these are debug gauges. The registry is process-global
 and name-keyed; every aggregator wraps its own programs, so one name may

@@ -91,6 +91,12 @@ def quantile(counts: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     return out.reshape(tuple(counts.shape[:-1]) + (qs.shape[0],))
 
 
+def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact union of two count planes: the u32 (wrapping) add, the
+    cross-shard sum's combiner."""
+    return u32.add(a, b)
+
+
 def total_count(counts: torch.Tensor) -> torch.Tensor:
     """Per-row total, u32 (wrapped)."""
     return u32.wrap(torch.sum(u32.wrap(counts), dim=-1))

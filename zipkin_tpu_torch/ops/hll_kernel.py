@@ -165,10 +165,13 @@ def _builds() -> int:
 
 
 def _launch_update(registers, row_ids, hashes, valid, n: int, p: int) -> None:
-    err = _entry("hll_update")(
-        registers.data_ptr(), row_ids.data_ptr(), hashes.data_ptr(), valid.data_ptr(),
-        n, registers.shape[0], p, torch.cuda.current_stream(registers.device).cuda_stream,
-    )
+    # the launch goes to the current device: make it the registers' (a
+    # shard of a mesh over several cards may live on another)
+    with torch.cuda.device(registers.device):
+        err = _entry("hll_update")(
+            registers.data_ptr(), row_ids.data_ptr(), hashes.data_ptr(), valid.data_ptr(),
+            n, registers.shape[0], p, torch.cuda.current_stream(registers.device).cuda_stream,
+        )
     if err != 0:
         raise RuntimeError(f"hll_update kernel launch failed: CUDA error {err}")
 
@@ -259,7 +262,8 @@ def _launch_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, n: int, slots:
     fn = _entry("hll_update_step")
     stream = torch.cuda.current_stream(hll.device).cuda_stream
     ptr = lambda t: 0 if t is None else t.data_ptr()
-    with _launch_lock:
+    # the launch goes to the current device: make it the registers'
+    with _launch_lock, torch.cuda.device(hll.device):
         key, scratch, tag = _scratch_and_tag(hll, tb_flat, stream)
         err = fn(
             hll.data_ptr(), ptr(tb_flat), hashes.data_ptr(), svc.data_ptr(), valid.data_ptr(),

@@ -6,6 +6,12 @@ become scatter-adds, and its vmapped ``jnp.interp`` is written out
 batched with the same edge rules. Sums run in another order than XLA's,
 so means agree to float32 rounding, not bit for bit; weights are
 integer-valued and agree exactly.
+
+:func:`update` folds a weighted batch into the digests with one global
+sort (the streaming form, which the aggregator's buffered flush replaces
+with :func:`compact_points` + :func:`row_merge`); :func:`merge` and
+:func:`merge_many` are the cross-shard merges: a shard-major concatenation
+of every shard's centroids, reclustered row by row.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import math
 import numpy as np
 import torch
 
+from zipkin_tpu_torch.device import resolve_device
 from zipkin_tpu_torch.ops.segments import sorted_segment_cumsum, sorted_segment_total
 
 _INF = float("inf")
@@ -23,6 +30,13 @@ _INF = float("inf")
 def cluster_q_width(c: int, q: float) -> float:
     """Width in q-space of the k1-scale cluster covering quantile ``q``."""
     return min(0.5, math.pi * math.sqrt(max(q * (1.0 - q), 0.0)) / c + 0.5 / c)
+
+
+def new_digests(slots: int, centroids: int = 64, device=None) -> torch.Tensor:
+    """Zeroed digest state ``[slots, centroids, 2]`` (mean, weight)
+    float32, on the card unless ``device`` names another."""
+    return torch.zeros((slots, centroids, 2), dtype=torch.float32,
+                       device=resolve_device(device))
 
 
 def _cluster_ids(q: torch.Tensor, c: int) -> torch.Tensor:
@@ -39,16 +53,10 @@ def _lexsort_slot_mean(mean: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
     return o1[o2]
 
 
-def compact_points(slot_ids, values, weights, slots: int, c: int) -> torch.Tensor:
-    """Compact a flat weighted point list into per-slot partial digests
-    ``[slots, c, 2]`` with one (two-pass stable) sort of the points."""
-    w = weights.to(torch.float32)
-    mean = torch.where(w > 0, values.to(torch.float32), torch.full_like(w, _INF))
-    slot = slot_ids.to(torch.int64)
-
-    order = _lexsort_slot_mean(mean, slot)
-    mean, w, slot = mean[order], w[order], slot[order]
-
+def _cluster_sorted(mean, w, slot, slots: int, c: int) -> torch.Tensor:
+    """Points sorted by (slot, mean) -> ``[slots, c, 2]``: within-slot
+    quantile positions, k1 cluster ids, and the (weight, weight*mean)
+    sums of each (slot, cluster)."""
     cum = sorted_segment_cumsum(w, slot)
     total = sorted_segment_total(w, slot)
     q = torch.where(total > 0, (cum - 0.5 * w) / torch.clamp(total, min=1e-9),
@@ -61,6 +69,35 @@ def compact_points(slot_ids, values, weights, slots: int, c: int) -> torch.Tenso
     msum = torch.zeros_like(wsum).index_add_(0, dest, w * m0)
     new_mean = torch.where(wsum > 0, msum / torch.clamp(wsum, min=1e-9), torch.zeros_like(wsum))
     return torch.stack([new_mean, wsum], dim=-1).reshape(slots, c, 2)
+
+
+def update(digests: torch.Tensor, slot_ids, values, weights) -> torch.Tensor:
+    """Merge a batch of weighted values into their slots' digests with one
+    (two-pass stable) sort of the existing centroids and the batch.
+
+    ``slot_ids`` in [0, slots); lanes with weight 0 are inert. Returns
+    digests of the same shape."""
+    u, c, _ = digests.shape
+    dev = digests.device
+    st_slot = torch.arange(u, dtype=torch.int64, device=dev).repeat_interleave(c)
+    mean = torch.cat([digests[..., 0].reshape(-1), values.to(torch.float32).to(dev)])
+    w = torch.cat([digests[..., 1].reshape(-1), weights.to(torch.float32).to(dev)])
+    slot = torch.cat([st_slot, slot_ids.to(torch.int64).to(dev)])
+    # empty centroids and inert lanes sort to their slot's tail
+    mean = torch.where(w > 0, mean, torch.full_like(mean, _INF))
+    order = _lexsort_slot_mean(mean, slot)
+    return _cluster_sorted(mean[order], w[order], slot[order], u, c)
+
+
+def compact_points(slot_ids, values, weights, slots: int, c: int) -> torch.Tensor:
+    """Compact a flat weighted point list into per-slot partial digests
+    ``[slots, c, 2]`` with one (two-pass stable) sort of the points."""
+    w = weights.to(torch.float32)
+    mean = torch.where(w > 0, values.to(torch.float32), torch.full_like(w, _INF))
+    slot = slot_ids.to(torch.int64)
+
+    order = _lexsort_slot_mean(mean, slot)
+    return _cluster_sorted(mean[order], w[order], slot[order], slots, c)
 
 
 def row_merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -118,3 +155,21 @@ def quantile(digests: torch.Tensor, qs: torch.Tensor) -> torch.Tensor:
     f = torch.where(targets > cum[:, -1:], x[:, -1:].expand_as(f), f)
     return torch.where(total > 0, f, torch.zeros_like(f))
 
+
+
+def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Merge two digest states slot-wise (row-parallel re-compaction)."""
+    return row_merge(a, b)
+
+
+def merge_many(states) -> torch.Tensor:
+    """Merge ``[shards, U, C, 2]`` (a tensor, or a sequence of ``[U, C, 2]``
+    on one device) into one ``[U, C, 2]``: one shard is returned as it is;
+    more are concatenated shard-major along the centroid axis, the order of
+    the reference's all-gather, and reclustered row by row."""
+    if len(states) == 1:
+        return states[0]
+    arr = states if isinstance(states, torch.Tensor) else torch.stack(list(states))
+    d, u, c, _ = arr.shape
+    all_c = arr.movedim(0, 1).reshape(u, d * c, 2)
+    return row_merge(torch.zeros((u, c, 2), dtype=torch.float32, device=arr.device), all_c)

@@ -1,15 +1,26 @@
-"""TorchAggregator: the aggregation tier on one device
+"""TorchAggregator: the aggregation tier over a shard mesh
 (port of ``zipkin_tpu/parallel/sharded.py``).
 
-Keeps ``ShardedAggregator``'s public names and host bookkeeping for a
-single device: the packed wire image is unpacked on the device
+Keeps ``ShardedAggregator``'s public names and host bookkeeping. The mesh
+(:mod:`zipkin_tpu_torch.parallel.mesh`) is a list of devices, one per
+shard; shard ``s`` keeps its own :class:`AggState` on ``mesh[s]`` and runs
+the single-shard programs of :mod:`zipkin_tpu_torch.tpu.ingest` on it, as
+the reference's ``shard_map`` runs them on each device. A host batch is
+routed trace-affine (:func:`route_fused`) into a ``[S, 11, per]`` wire
+image; each shard's slice is unpacked on its device
 (:func:`unfuse_columns`), due maintenance (digest flush, link rollup) runs
-in front of the step exactly where the reference fuses it into the step
-program, and every read packs its outputs on the device into one ZPK1
-buffer that crosses to the host in one counted transfer
-(:mod:`zipkin_tpu_torch.readpack`), as numpy arrays with the reference's
-dtypes. With one shard the reference's cross-shard merges (psum, pmax,
-the digest all-gather + recluster) are the identity and are left out.
+in front of every shard's step exactly where the reference fuses it into
+the step program, and every shard steps, empty ones included.
+
+Every read computes each shard's partial on its device, moves the partials
+to ``mesh[0]`` and merges them there with the reference's collectives:
+the u32 (wrapping) sum for its ``psum`` (histograms, counters, edge
+matrices, the tier's calls and errors), the max for its ``pmax`` (HLL
+registers, epochs), and :func:`tdigest.merge_many` for its all-gather +
+recluster of the digests. One shard's merges are the identity. The merged
+outputs are packed on ``mesh[0]`` into one ZPK1 buffer that crosses to the
+host in one counted transfer (:mod:`zipkin_tpu_torch.readpack`), as numpy
+arrays with the reference's dtypes.
 
 With a :class:`zipkin_tpu_torch.sampling.HostSampler` installed as
 ``sampler``, every batch is also scored on the host over the same
@@ -24,16 +35,18 @@ the reference does, and every device entry point runs inside a device
 observatory wrapper under the reference's ``spmd_*`` name
 (:mod:`zipkin_tpu_torch.obs.device`): the step variants, the flush and the
 rollup, and each read's program, which ends in the packed buffer that
-``_pull`` carries to the host. ``device_dispatch`` here is the host wall of
-the whole step under the lock: the due flush and rollup, the step's host
-work and its asynchronous launches.
+``_pull`` carries to the host. One wrapper covers every shard (one call a
+step or a read, as in the reference), and its event pair is recorded on
+``mesh[0]``'s stream. ``device_dispatch`` here is the host wall of the
+whole step under the lock: the due flush and rollup, every shard's step
+and their asynchronous launches.
 """
 
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,9 +55,10 @@ from zipkin_tpu_torch import convert, obs, readpack, u32
 from zipkin_tpu_torch.device import resolve_device
 from zipkin_tpu_torch.obs import querytrace
 from zipkin_tpu_torch.obs.device import OBSERVATORY
-from zipkin_tpu_torch.ops import histogram
+from zipkin_tpu_torch.ops import histogram, hll, tdigest
+from zipkin_tpu_torch.parallel.mesh import make_mesh
 from zipkin_tpu_torch.tpu import ingest as ing
-from zipkin_tpu_torch.tpu.columnar import SpanColumns, concat_remap, fuse_columns, remap_fused
+from zipkin_tpu_torch.tpu.columnar import SpanColumns, concat_remap, remap_fused, route_fused
 from zipkin_tpu_torch.tpu.state import AggConfig, AggState, init_state
 
 
@@ -84,24 +98,66 @@ def _edge_topk(calls: torch.Tensor, errors: torch.Tensor, e: int):
     )
 
 
+def _on_first(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The shards' partials stacked on the first one's device (the
+    reference's all-gather): ``[S, ...]``."""
+    dev = parts[0].device
+    return torch.stack([p.to(dev) for p in parts])
+
+
+def psum(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The reference's ``psum`` of u32 planes (int64 holding u32): the
+    wrapping sum over shards, on the first shard's device."""
+    if len(parts) == 1:
+        return parts[0]
+    return u32.wrap(_on_first(parts).sum(0))
+
+
+def pmax(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The reference's ``pmax``: the elementwise max over shards."""
+    if len(parts) == 1:
+        return parts[0]
+    return _on_first(parts).amax(0)
+
+
+def digest_merge(parts: List[torch.Tensor]) -> torch.Tensor:
+    """The reference's all-gather + row-wise recluster of per-shard
+    ``[K, C, 2]`` digests (``_gather_recluster``): shard-major
+    concatenation, then :func:`tdigest.merge_many` (one shard is the
+    identity)."""
+    return tdigest.merge_many([p.to(parts[0].device) for p in parts])
+
+
 class TorchAggregator:
-    """Owns the device state and runs the ingest step and the reads."""
+    """Owns the per-shard device states and runs the ingest step and the
+    reads."""
 
-    n_shards = 1
-
-    def __init__(self, config: AggConfig = AggConfig(), device=None) -> None:
-        self.device = resolve_device(device)
+    def __init__(self, config: AggConfig = AggConfig(), device=None, mesh=None) -> None:
+        """``mesh``: the shards' devices (:func:`make_mesh`); ``device``
+        alone is a one-shard mesh on that device; neither is every visible
+        card, one shard each (without a card this raises)."""
+        if mesh is None:
+            mesh = [resolve_device(device)] if device is not None else make_mesh()
+        else:
+            mesh = [resolve_device(d) for d in mesh]
+            if not mesh:
+                raise ValueError("a mesh needs at least one device")
+            if device is not None and resolve_device(device) != mesh[0]:
+                raise ValueError(f"device {device} is not the mesh's first device {mesh[0]}")
+        self.mesh = mesh
+        self.n_shards = len(mesh)
+        self.device = mesh[0]
         self.config = config
         self._wrap_programs()
-        self.state: AggState = self._p["spmd_init"](config, self.device)
-        # device LinkContext of the current write_version
+        self.states: List[AggState] = self._p["spmd_init"](config, self.mesh)
+        # the per-shard device LinkContexts of the current write_version
         self._ctx_cache = (-1, None)
         # exact host counters (the device counters are u32 and wrap)
         self.host_counters = {
             "spans": 0, "spansWithDuration": 0, "spansWithError": 0,
             "batches": 0, "sampledKept": 0, "sampledDropped": 0,
         }
-        # guards every touch of self.state; reentrant (reads nest); its
+        # guards every touch of self.states; reentrant (reads nest); its
         # contention ledger feeds the query plane
         self.lock = querytrace.InstrumentedRLock(name="agg")
         # host mirror of pend_pos: the flush runs before a batch that
@@ -111,8 +167,9 @@ class TorchAggregator:
         # batch would push this past rollup_segment (R/2), so no span is
         # overwritten before its links are folded
         self._lanes_since_rollup = 0
-        # ring-resident time ranges (ts_lo, ts_hi, cursor before), popped
-        # once the cursor has advanced a full ring past the batch
+        # ring-resident time ranges (ts_lo, ts_hi, per-shard cursors
+        # before), popped once every shard's cursor has advanced a full
+        # ring past the batch
         self._resident: deque = deque()
         self._shard_cursor = np.zeros(self.n_shards, np.int64)
         # highest time-tier bucket epoch ingest has touched (-1: none); the
@@ -134,72 +191,108 @@ class TorchAggregator:
 
     def _wrap_programs(self) -> None:
         """Every device entry point of this aggregator, wrapped in the
-        device observatory under the reference's program name."""
+        device observatory under the reference's program name. Each takes
+        the list of per-shard states (and per-shard link contexts), runs
+        the single-shard program on every shard and merges on the first
+        shard's device."""
         cfg = self.config
 
         def step(need_flush, need_rollup):
-            def run(s, batch, live):
-                if need_flush:
-                    s = ing.flush_digest(cfg, s)
-                if need_rollup:
-                    s = ing.rollup_step(cfg, s)
-                return ing.ingest_step(cfg, s, batch, live=live)
+            def run(states, batches, lives):
+                out = []
+                for s, batch, live in zip(states, batches, lives):
+                    if need_flush:
+                        s = ing.flush_digest(cfg, s)
+                    if need_rollup:
+                        s = ing.rollup_step(cfg, s)
+                    out.append(ing.ingest_step(cfg, s, batch, live=live))
+                return out
             return run
 
-        def quant_digest(s, qarr):
-            return readpack.pack((ing.key_quantiles_digest(s, qarr), histogram.total_count(s.hist)),
+        def each(fn):
+            return lambda states: [fn(s) for s in states]
+
+        def counts(states):
+            return psum([histogram.total_count(s.hist) for s in states])
+
+        def merge(states):
+            return readpack.pack(
+                (psum([s.hist for s in states]), pmax([s.hll for s in states]),
+                 psum([s.counters for s in states])), (np.uint32, np.uint8, np.uint32))
+
+        def quant_digest(states, qarr):
+            merged = digest_merge([s.digest for s in states])
+            return readpack.pack((tdigest.quantile(merged, qarr), counts(states)),
                                  (np.float32, np.uint32))
 
-        def quant_hist(s, qarr):
-            return readpack.pack((ing.key_quantiles(s, qarr), histogram.total_count(s.hist)),
-                                 (np.float32, np.uint32))
-
-        def quant_whist(s, qarr, lo, hi):
-            merged = ing.windowed_hist(cfg, s, lo, hi)
+        def quant_hist(states, qarr):
+            merged = psum([s.hist for s in states])
             return readpack.pack((histogram.quantile(merged, qarr), histogram.total_count(merged)),
                                  (np.float32, np.uint32))
 
-        def whist(s, lo, hi):
-            return readpack.pack((ing.windowed_hist(cfg, s, lo, hi),), (np.uint32,))
+        def windowed(states, lo, hi):
+            return psum([ing.windowed_hist(cfg, s, lo, hi) for s in states])
 
-        def card(s):
-            return readpack.pack((ing.cardinalities(s),), (np.float32,))
+        def quant_whist(states, qarr, lo, hi):
+            merged = windowed(states, lo, hi)
+            return readpack.pack((histogram.quantile(merged, qarr), histogram.total_count(merged)),
+                                 (np.float32, np.uint32))
 
-        def overview(s, qarr):
-            return readpack.pack(
-                (ing.key_quantiles_digest(s, qarr), histogram.total_count(s.hist),
-                 ing.cardinalities(s)), (np.float32, np.uint32, np.float32))
+        def whist(states, lo, hi):
+            return readpack.pack((windowed(states, lo, hi),), (np.uint32,))
 
-        def digest_read(s):
-            return readpack.pack(
-                (ing._flush_pending_digest(cfg, s.digest, s.pend_key, s.pend_val),), (np.float32,))
+        def card(states):
+            return readpack.pack((hll.estimate(pmax([s.hll for s in states])),), (np.float32,))
 
-        def links(s, ctx, lo, hi):
-            return readpack.pack(ing.dependency_links(cfg, s, lo, hi, ctx=ctx), (np.uint32, np.uint32))
+        def overview(states, qarr):
+            merged = digest_merge([s.digest for s in states])
+            est = hll.estimate(pmax([s.hll for s in states]))
+            return readpack.pack((tdigest.quantile(merged, qarr), counts(states), est),
+                                 (np.float32, np.uint32, np.float32))
+
+        def digest_read(states):
+            # each shard's pending points folded into a local partial (the
+            # state untouched), then the cross-shard recluster
+            return readpack.pack((digest_merge([
+                ing._flush_pending_digest(cfg, s.digest, s.pend_key, s.pend_val)
+                for s in states]),), (np.float32,))
+
+        def link_parts(states, ctxs, lo, hi):
+            parts = [ing.dependency_links(cfg, s, lo, hi, ctx=c) for s, c in zip(states, ctxs)]
+            return psum([p[0] for p in parts]), psum([p[1] for p in parts])
+
+        def links(states, ctxs, lo, hi):
+            return readpack.pack(link_parts(states, ctxs, lo, hi), (np.uint32, np.uint32))
 
         # no closure here may hold self: the wrapped programs live on self
         # (a cycle would keep a dropped aggregator's state until the
         # cycle collector runs)
         n_edges = min(4096, cfg.max_services ** 2)
 
-        def edges_rolled(s, lo, hi):
-            return readpack.pack(_edge_topk(*ing.rolled_links(cfg, s, lo, hi), n_edges),
+        def edges_rolled(states, lo, hi):
+            parts = [ing.rolled_links(cfg, s, lo, hi) for s in states]
+            return readpack.pack(
+                _edge_topk(psum([p[0] for p in parts]), psum([p[1] for p in parts]), n_edges),
+                (np.int32, np.uint32, np.uint32))
+
+        def edges_fresh(states, ctxs, lo, hi):
+            return readpack.pack(_edge_topk(*link_parts(states, ctxs, lo, hi), n_edges),
                                  (np.int32, np.uint32, np.uint32))
 
-        def edges_fresh(s, ctx, lo, hi):
-            return readpack.pack(_edge_topk(*ing.dependency_links(cfg, s, lo, hi, ctx=ctx), n_edges),
-                                 (np.int32, np.uint32, np.uint32))
-
-        def ttread(s, ctx, lo_ep, hi_ep):
-            return readpack.pack(ing.tt_sketches(cfg, s, lo_ep, hi_ep, ctx=ctx),
-                                 (np.int32, np.uint8, np.float32, np.uint32, np.uint32))
+        def ttread(states, ctxs, lo_ep, hi_ep):
+            parts = [ing.tt_sketches(cfg, s, lo_ep, hi_ep, ctx=c) for s, c in zip(states, ctxs)]
+            ep, regs, digest, calls, errs = (list(x) for x in zip(*parts))
+            return readpack.pack(
+                (pmax(ep), pmax(regs), digest_merge(digest), psum(calls), psum(errs)),
+                (np.int32, np.uint8, np.float32, np.uint32, np.uint32))
 
         programs = {
-            "spmd_init": init_state,
-            "spmd_flush": lambda s: ing.flush_digest(cfg, s),
-            "spmd_rollup": lambda s: ing.rollup_step(cfg, s),
-            "spmd_link_ctx": lambda s: ing.fresh_link_context(cfg, s),
-            "spmd_snap_copy": lambda s: AggState(*(t.clone() for t in s)),
+            "spmd_init": lambda config, mesh: [init_state(config, d) for d in mesh],
+            "spmd_flush": each(lambda s: ing.flush_digest(cfg, s)),
+            "spmd_rollup": each(lambda s: ing.rollup_step(cfg, s)),
+            "spmd_link_ctx": each(lambda s: ing.fresh_link_context(cfg, s)),
+            "spmd_snap_copy": each(lambda s: AggState(*(t.clone() for t in s))),
+            "spmd_merge": merge,
             "spmd_quant_digest": quant_digest, "spmd_quant_hist": quant_hist,
             "spmd_quant_whist": quant_whist, "spmd_whist": whist, "spmd_card": card,
             "spmd_overview": overview, "spmd_digest_read": digest_read, "spmd_links": links,
@@ -215,14 +308,34 @@ class TorchAggregator:
             for f in (False, True) for r in (False, True)
         }
 
+    # -- the per-shard states --------------------------------------------
+
+    @property
+    def state(self) -> AggState:
+        """The one shard's state of a one-shard aggregator (an S-shard one
+        has ``states``, one per mesh device)."""
+        if self.n_shards != 1:
+            raise AttributeError(f"a {self.n_shards}-shard aggregator has per-shard `states`")
+        return self.states[0]
+
+    @state.setter
+    def state(self, value: AggState) -> None:
+        if self.n_shards != 1:
+            raise AttributeError(f"a {self.n_shards}-shard aggregator has per-shard `states`")
+        self.states = [value]
+
+    def _shard_form(self, states: List[AggState]):
+        """One shard's AggState as it is, S shards' as the list."""
+        return states[0] if self.n_shards == 1 else states
+
     # -- write path ------------------------------------------------------
 
     def ingest(self, cols: SpanColumns) -> None:
-        """Fold one host batch (one shard: the wire image is the batch's
-        packing, which the reference's ``route`` stage times)."""
+        """Route one host batch across the shards by trace hash and fold it
+        in (one shard: the wire image is the batch's packing)."""
         live_ts = cols.ts_min[cols.valid]
         t0 = time.perf_counter()
-        routed = fuse_columns(cols)[None]
+        routed = route_fused(cols, self.n_shards)
         obs.record("route", time.perf_counter() - t0)
         self.ingest_fused(
             routed,
@@ -239,10 +352,13 @@ class TorchAggregator:
 
     def ingest_fused(self, fused: np.ndarray, n_spans: int, n_dur: int, n_err: int,
                      ts_range=None) -> None:
-        """Fold one packed wire image ``[1, 11, n]`` (u32) into the state;
-        the caller supplies the live/duration/error counts."""
+        """Fold one routed wire image ``[S, 11, per]`` (u32) into the
+        states, shard ``s``'s slice into ``states[s]``; the caller supplies
+        the live/duration/error counts. Every shard steps, one that got no
+        live lane included (its batch counter, pending cursor and slice
+        epochs advance as the reference's do)."""
         if fused.ndim != 3 or fused.shape[0] != self.n_shards or fused.shape[1] != 11:
-            raise ValueError(f"expected a [1, 11, n] wire image, got {fused.shape}")
+            raise ValueError(f"expected a [{self.n_shards}, 11, n] wire image, got {fused.shape}")
         lanes = int(fused.shape[-1])
         if lanes > self.lane_cap:
             raise ValueError(
@@ -251,7 +367,8 @@ class TorchAggregator:
                 f"({self.config.rollup_segment}); chunk before ingest"
             )
         live_per_shard = (fused[:, 10, :] & 1).sum(axis=1, dtype=np.int64)
-        batch = unfuse_columns(u32.from_numpy(fused[0], self.device))
+        batches = [unfuse_columns(u32.from_numpy(fused[i], d)) for i, d in enumerate(self.mesh)]
+        lives = [int(x) for x in live_per_shard]
         with self.lock:
             # the contention ledger's holder: this hold is the write path
             self.lock.relabel("ingest_fused")
@@ -260,8 +377,7 @@ class TorchAggregator:
             if (0 if need_flush else self._pend_lanes) + lanes > self.config.digest_buffer:
                 raise AssertionError("pending digest buffer would overflow")
             t0 = time.perf_counter()
-            self.state = self._step[(need_flush, need_rollup)](self.state, batch,
-                                                               int(live_per_shard[0]))
+            self.states = self._step[(need_flush, need_rollup)](self.states, batches, lives)
             # the host wall of the step: its host work and its launches
             # (the device runs them after this returns)
             step_wall = time.perf_counter() - t0
@@ -340,22 +456,22 @@ class TorchAggregator:
         self.ingest_fused(out, n_spans, n_dur, n_err, ts_range)
 
     def set_sampler_tables(self, rate: np.ndarray, tail: np.ndarray, link: np.ndarray) -> None:
-        """Publish host-computed sampling tables to the state's table
+        """Publish host-computed sampling tables to every shard's table
         leaves under the lock; every later step scores against them.
         Verdicts gate retention only, so write_version stays."""
         with self.lock:
-            self.state = self.state._replace(
-                s_rate=u32.from_numpy(rate, self.device),
-                s_tail=u32.from_numpy(tail, self.device),
-                s_link=u32.from_numpy(link, self.device),
-            )
+            self.states = [
+                s._replace(s_rate=u32.from_numpy(rate, d), s_tail=u32.from_numpy(tail, d),
+                           s_link=u32.from_numpy(link, d))
+                for s, d in zip(self.states, self.mesh)
+            ]
 
     # -- maintenance -----------------------------------------------------
 
     def _flush_now(self) -> None:
         """Flush the pending digest buffer (callers hold the lock). Query
         invisible, so write_version stays."""
-        self.state = self._p["spmd_flush"](self.state)
+        self.states = self._p["spmd_flush"](self.states)
         self._pend_lanes = 0
         self._wal_marker("ttflush")
 
@@ -375,7 +491,7 @@ class TorchAggregator:
         """Run the link rollup (which also advances the link ctx)."""
         with self.lock:
             t0 = time.perf_counter()
-            self.state = self._p["spmd_rollup"](self.state)
+            self.states = self._p["spmd_rollup"](self.states)
             self._lanes_since_rollup = 0
             self.ctx_stats["ctx_advances"] += 1
             self.ctx_stats["ctx_maintenance_ms"] = (time.perf_counter() - t0) * 1000.0
@@ -434,25 +550,25 @@ class TorchAggregator:
         qarr = torch.as_tensor(np.asarray(qs, np.float32), device=self.device)
         with self.lock:
             if ts_lo_min is not None:
-                packed = self._p["spmd_quant_whist"](self.state, qarr, ts_lo_min, ts_hi_min)
+                packed = self._p["spmd_quant_whist"](self.states, qarr, ts_lo_min, ts_hi_min)
             elif source == "digest":
                 if self._pend_lanes:
                     self._flush_now()  # flush-then-read
-                packed = self._p["spmd_quant_digest"](self.state, qarr)
+                packed = self._p["spmd_quant_digest"](self.states, qarr)
             else:
-                packed = self._p["spmd_quant_hist"](self.state, qarr)
+                packed = self._p["spmd_quant_hist"](self.states, qarr)
             q, n = self._pull(packed)
             return q, n
 
     def windowed_histograms(self, ts_lo_min: int, ts_hi_min: int) -> np.ndarray:
         with self.lock:
-            (out,) = self._pull(self._p["spmd_whist"](self.state, ts_lo_min, ts_hi_min))
+            (out,) = self._pull(self._p["spmd_whist"](self.states, ts_lo_min, ts_hi_min))
             return out
 
     def cardinalities(self) -> np.ndarray:
         """[S+1] HLL distinct-trace estimates (last row global)."""
         with self.lock:
-            (est,) = self._pull(self._p["spmd_card"](self.state))
+            (est,) = self._pull(self._p["spmd_card"](self.states))
             return est
 
     def sketch_overview(self, qs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -461,36 +577,36 @@ class TorchAggregator:
         with self.lock:
             if self._pend_lanes:
                 self._flush_now()
-            q, n, est = self._pull(self._p["spmd_overview"](self.state, qarr))
+            q, n, est = self._pull(self._p["spmd_overview"](self.states, qarr))
             return q, n, est
 
     def merged_digest(self) -> np.ndarray:
         """[K, C, 2] digest with the pending points folded in — a pure
         read: the state is left untouched."""
         with self.lock:
-            (out,) = self._pull(self._p["spmd_digest_read"](self.state))
+            (out,) = self._pull(self._p["spmd_digest_read"](self.states))
             return out
 
     def merged_sketches(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """(hist [K, B] u32, hll [S+1, m] u8, counters u32) in one pull."""
+        """(hist [K, B] u32, hll [S+1, m] u8, counters u32) merged over the
+        shards (sums and the register max) in one pull."""
         with self.lock:
-            s = self.state
-            hist, hll_regs, counters = self._pull(readpack.pack(
-                (s.hist, s.hll, s.counters), (np.uint32, np.uint8, np.uint32)))
+            hist, hll_regs, counters = self._pull(self._p["spmd_merge"](self.states))
             return hist, hll_regs, counters
 
     def _link_context_cached(self):
-        """Device LinkContext for the current state (callers hold lock)."""
+        """Per-shard device LinkContexts for the current states (callers
+        hold the lock)."""
         if self._ctx_cache[0] != self.write_version:
             t0 = time.perf_counter()
-            self._ctx_cache = (self.write_version, self._p["spmd_link_ctx"](self.state))
+            self._ctx_cache = (self.write_version, self._p["spmd_link_ctx"](self.states))
             obs.record("ctx_advance", time.perf_counter() - t0)
         return self._ctx_cache[1]
 
     def dependency_matrices(self, ts_lo_min: int, ts_hi_min: int) -> Tuple[np.ndarray, np.ndarray]:
         with self.lock:
             calls, errors = self._pull(self._p["spmd_links"](
-                self.state, self._link_context_cached(), ts_lo_min, ts_hi_min))
+                self.states, self._link_context_cached(), ts_lo_min, ts_hi_min))
             return calls, errors
 
     def window_fully_rolled(self, ts_lo_min: int, ts_hi_min: int) -> bool:
@@ -507,11 +623,11 @@ class TorchAggregator:
         with self.lock:
             if self.window_fully_rolled(ts_lo_min, ts_hi_min):
                 self.read_stats["rolled_only_reads"] += 1
-                packed = self._p["spmd_edges_rolled"](self.state, ts_lo_min, ts_hi_min)
+                packed = self._p["spmd_edges_rolled"](self.states, ts_lo_min, ts_hi_min)
             else:
                 self.read_stats["ctx_reads"] += 1
                 packed = self._p["spmd_edges_fresh"](
-                    self.state, self._link_context_cached(), ts_lo_min, ts_hi_min)
+                    self.states, self._link_context_cached(), ts_lo_min, ts_hi_min)
             idx, c, e = self._pull(packed)
             return idx, c, e
 
@@ -525,7 +641,7 @@ class TorchAggregator:
             if self._pend_lanes:
                 self._flush_now()
             ep, regs, digest, calls, errs = self._pull(self._p["spmd_ttread"](
-                self.state, self._link_context_cached(), int(lo_ep), int(hi_ep)))
+                self.states, self._link_context_cached(), int(lo_ep), int(hi_ep)))
             return ep, regs, digest, calls, errs
 
     @property
@@ -536,15 +652,16 @@ class TorchAggregator:
     # -- state -----------------------------------------------------------
 
     def sync_pend_lanes(self) -> None:
-        """Re-derive the host bookkeeping from the device state after
-        ``self.state`` was replaced wholesale (snapshot restore): one
-        packed pull of ``pend_pos`` and, with the tier, ``tb_epoch``."""
+        """Re-derive the host bookkeeping from the device states after
+        ``states`` was replaced wholesale (snapshot restore): one packed
+        pull of every shard's ``pend_pos`` and, with the tier, ``tb_epoch``
+        (the max over shards of each)."""
         with self.lock:
-            lanes = [self.state.pend_pos.reshape(-1)]
+            lanes = [s.pend_pos.reshape(-1).to(self.device) for s in self.states]
             if self.config.timetier_enabled:
-                lanes.append(self.state.tb_epoch.reshape(-1))
+                lanes += [s.tb_epoch.reshape(-1).to(self.device) for s in self.states]
             (packed,) = readpack.pull(readpack.pack((torch.cat(lanes),), (np.int32,)))
-            n_pend = self.state.pend_pos.numel()
+            n_pend = sum(s.pend_pos.numel() for s in self.states)
             self._pend_lanes = int(packed[:n_pend].max())
             # the write distance since the last rollup is not in the state:
             # assume the worst so the next batch rolls up first
@@ -559,17 +676,23 @@ class TorchAggregator:
 
     def state_clone(self):
         """(device clone of every leaf, wal_seq, host_counters copy), all
-        taken under the lock: one instant for a snapshot. Callers copy the
-        clone to the host without the lock while ingest goes on."""
+        taken under the lock: one instant for a snapshot. The clone is an
+        :class:`AggState` for one shard and the list of per-shard states
+        for more. Callers copy the clone to the host without the lock while
+        ingest goes on."""
         with self.lock:
-            return self._p["spmd_snap_copy"](self.state), self.wal_seq, dict(self.host_counters)
+            clone = self._p["spmd_snap_copy"](self.states)
+            return self._shard_form(clone), self.wal_seq, dict(self.host_counters)
 
     def state_arrays(self) -> list:
-        """Host copy of every state leaf with the reference's dtypes and
-        shapes (no shard axis), from one :meth:`state_clone`."""
+        """Host copy of every state leaf with the reference's dtypes, from
+        one :meth:`state_clone`: with a leading shard axis of S, the
+        reference's layout, on an S-shard mesh; a one-shard aggregator
+        gives the leaves without it."""
         clone, _, _ = self.state_clone()
         return convert.state_to_numpy(clone)
 
     def block_until_ready(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        for d in dict.fromkeys(self.mesh):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)

@@ -200,7 +200,9 @@ def _weakly(method):
 def build_storage(config: ServerConfig, device=None) -> StorageComponent:
     """STORAGE_TYPE -> StorageComponent: ``mem`` the in-memory store,
     ``tpu`` the resume adapter :class:`zipkin_tpu_torch.storage.tpu.TorchStorage`,
-    on the card unless ``device`` names another. The adapter restores and
+    over the first ``tpu_devices`` cards, a shard each (``TPU_DEVICES``;
+    unset: every visible card), or one shard on ``device`` when the caller
+    names it (``TPU_DEVICES`` must then be unset). The adapter restores and
     replays the durable dirs, and starts the sampling controller and the
     scrubber. An archive dir that cannot be used (a read-only cwd under the
     fast path's default) degrades to a store without the disk archive, with
@@ -225,6 +227,7 @@ def build_storage(config: ServerConfig, device=None) -> StorageComponent:
         def make(archive_dir):
             return TorchStorage(
                 config=AggConfig(**agg_kwargs),
+                num_devices=config.tpu_devices,
                 device=device,
                 max_span_count=config.mem_max_spans,
                 checkpoint_dir=config.tpu_checkpoint_dir,

@@ -209,6 +209,9 @@ class ServerConfig:
     # X-Request-Timeout-Ms: work already past its deadline answers 504
     # before its dispatch (counted deadlineExpired)
     deadline_propagation_enabled: bool = True
+    # the shard mesh: the first N visible cards, a shard each (None: every
+    # visible card); more than the machine has refuses to boot
+    tpu_devices: Optional[int] = None
     # line-rate path: JSON v2 and proto3 bytes through the native parser,
     # with a trace-affine 1/N archive sample (0: none)
     tpu_fast_ingest: bool = False
@@ -339,6 +342,7 @@ class ServerConfig:
             tenant_dwell_ticks=_env_int("TPU_TENANT_DWELL_TICKS", 3),
             tenant_slo_tenants=_env_list("TPU_TENANT_SLO"),
             deadline_propagation_enabled=_env_bool("TPU_DEADLINES", True),
+            tpu_devices=_env_int("TPU_DEVICES", 0) or None,
             tpu_fast_ingest=fast_ingest,
             tpu_fast_archive_sample=_env_int("TPU_FAST_ARCHIVE_SAMPLE", 64),
             tpu_mp_workers=_env_int("TPU_MP_WORKERS", 0),

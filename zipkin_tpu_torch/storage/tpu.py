@@ -37,7 +37,15 @@ generation's ``wal_seq``, and degrades on a full disk (the retained
 generations stay intact; the save is retried next cycle). ``close()``
 drains and closes an attached multi-process tier (``mp_ingester``) before
 the WAL detaches, when the server's ``stop()`` has not, and retires the
-mirror segment. Left out against the reference: the mesh (``num_devices``).
+mirror segment.
+
+The shard mesh, as the reference's ``num_devices``: unset, every visible
+card holds one shard; ``num_devices=N`` takes the first N cards and
+refuses more than the machine has (``requested N devices, have M``);
+``device`` alone is one shard on that device; ``mesh`` gives the devices
+outright, the only way to repeat one (the CPU tests' counterpart of the
+reference's virtual devices). Snapshots hold the leaves with a leading
+shard axis of N and restore only into a store of N shards.
 """
 
 from __future__ import annotations
@@ -50,6 +58,7 @@ from typing import Optional, Sequence
 
 from zipkin_tpu_torch import obs
 from zipkin_tpu_torch.obs import querytrace
+from zipkin_tpu_torch.parallel.mesh import make_mesh
 from zipkin_tpu_torch.runtime.scrub import Scrubber
 from zipkin_tpu_torch.tpu import snapshot as snap
 from zipkin_tpu_torch.tpu import wal as wal_mod
@@ -60,13 +69,31 @@ from zipkin_tpu_torch.tpu.store import TorchStorage as _CoreStorage
 logger = logging.getLogger(__name__)
 
 
+def build_mesh(num_devices: Optional[int] = None, device=None, mesh=None) -> list:
+    """The store's shard mesh from the adapter's arguments, at most one of
+    them: ``mesh`` as given; ``num_devices``: the first N visible cards
+    (:func:`make_mesh`); ``device``: one shard there; none: every visible
+    card."""
+    given = [k for k, v in (("num_devices", num_devices), ("device", device), ("mesh", mesh))
+             if v is not None]
+    if len(given) > 1:
+        raise ValueError(f"pass one of num_devices, device and mesh, not {' and '.join(given)}")
+    if mesh is not None:
+        return list(mesh)
+    if device is not None:
+        return make_mesh(1, devices=[device])
+    return make_mesh(num_devices)
+
+
 class TorchStorage(_CoreStorage):
     def __init__(
         self,
         *,
         max_span_count: int = 500_000,
         batch_size: int = 8192,
+        num_devices: Optional[int] = None,
         device=None,
+        mesh=None,
         checkpoint_dir: Optional[str] = None,
         config: Optional[AggConfig] = None,
         strict_trace_id: bool = True,
@@ -98,10 +125,12 @@ class TorchStorage(_CoreStorage):
         it). ``scrub_interval_s``: the gap between the scrubber's passes (0:
         no scrubber), each read paced at ``scrub_bytes_per_sec``.
         ``mirror_segment_bytes``: each of the segment's two payload buffers
-        (0: no segment)."""
+        (0: no segment). ``num_devices`` / ``mesh``: the shards (see the
+        module's docstring)."""
+        mesh = build_mesh(num_devices, device, mesh)
         super().__init__(
             config=config,
-            device=device,
+            mesh=mesh,
             strict_trace_id=strict_trace_id,
             search_enabled=search_enabled,
             autocomplete_keys=autocomplete_keys,

@@ -357,24 +357,9 @@ def tt_sketches(config: AggConfig, state: AggState, lo_ep: int, hi_ep: int,
     return state.tb_epoch, regs, digest, calls, errs
 
 
-def key_quantiles(state: AggState, qs: torch.Tensor) -> torch.Tensor:
-    """[keys, Q] latency quantiles from the histograms."""
-    return histogram.quantile(state.hist, qs)
-
-
 def windowed_hist(config: AggConfig, state: AggState, ts_lo: int, ts_hi: int) -> torch.Tensor:
     """[keys, BUCKETS] histogram over the slices intersecting the window."""
     lo_e = ts_lo // config.hist_slice_minutes
     hi_e = ts_hi // config.hist_slice_minutes
     sel = _slots_in_window(state.hist_t_epoch, lo_e, hi_e)
     return _masked_slot_sum(sel, state.hist_t)
-
-
-def key_quantiles_digest(state: AggState, qs: torch.Tensor) -> torch.Tensor:
-    """[keys, Q] latency quantiles from the t-digests."""
-    return tdigest.quantile(state.digest, qs)
-
-
-def cardinalities(state: AggState) -> torch.Tensor:
-    """[services+1] estimated distinct traces (last row = global)."""
-    return hll.estimate(state.hll)

@@ -8,7 +8,8 @@ it onto the store's device.
 
 The file format is the reference's: ``SNAPSHOT_VERSION`` 5, leaves ``f0`` to
 ``f50`` in ``AggState`` order with the reference's dtypes (u32 leaves as
-uint32, not the port's int64) and a leading shard axis of 1, a crc32 per
+uint32, not the port's int64) and a leading shard axis of S (the mesh's
+shard count; ``n_shards`` in the meta), a crc32 per
 leaf in the meta, and ``dataclasses.asdict(config)``, which is field for
 field the reference's. A snapshot written by either package restores in the
 other.
@@ -153,9 +154,10 @@ def leaf_digests(arrays: List[np.ndarray]) -> List[int]:
 
 def _template(store) -> List[tuple]:
     """(shape, dtype) of every leaf as the file holds it: the reference's
-    dtype and a leading shard axis of 1."""
-    return [((1, *t.shape), np.dtype(LEAF_DTYPES[name]))
-            for name, t in zip(AggState._fields, store.agg.state)]
+    dtype and a leading shard axis of S."""
+    agg = store.agg
+    return [((agg.n_shards, *t.shape), np.dtype(LEAF_DTYPES[name]))
+            for name, t in zip(AggState._fields, agg.states[0])]
 
 
 def save(store, directory: str, keep: Optional[int] = None) -> str:
@@ -170,7 +172,10 @@ def save(store, directory: str, keep: Optional[int] = None) -> str:
     # host without the lock while ingest goes on. At the default AggConfig
     # the clone is a second 0.906 GiB on the card for the pull's duration.
     clone, wal_seq, counters = store.agg.state_clone()
-    arrays = {f"f{i}": a[None] for i, a in enumerate(convert.state_to_numpy(clone))}
+    leaves = convert.state_to_numpy(clone)
+    if store.agg.n_shards == 1:
+        leaves = [a[None] for a in leaves]
+    arrays = {f"f{i}": a for i, a in enumerate(leaves)}
     del clone
 
     # stray temp files of a crashed earlier save are dead weight
@@ -343,11 +348,11 @@ def _restore_one(store, directory: str, meta: dict, state_name: str) -> str:
                                directory, name, got_crc, int(want_crc), state_name)
                 return "integrity"
     agg = store.agg
-    # straight onto the store's device (the card unless the caller named
-    # another); convert strips the shard axis
-    state = convert.state_from_numpy(leaves, store.config, device=agg.device)
+    # straight onto the store's mesh, shard s onto mesh[s] (the card
+    # unless the caller named another)
+    states = convert.state_from_numpy(leaves, store.config, mesh=agg.mesh)
     with agg.lock:
-        agg.state = state
+        agg.states = states
         agg.sync_pend_lanes()
 
     saved = meta.get("counters", {})
@@ -367,8 +372,8 @@ def _restore_one(store, directory: str, meta: dict, state_name: str) -> str:
         # at the next fast ingest
         store._nvocab = None
     agg.wal_seq = int(meta.get("wal_seq", 0))
-    # host mirrors of restored leaves (the sampling tier's tables), given
-    # without the shard axis
+    # host mirrors of restored leaves (the sampling tier's tables, the same
+    # on every shard), given as shard 0's
     store.on_restored_leaves({name: leaf[0] for name, leaf in zip(fields, leaves)})
     logger.info("restored the sketch snapshot from %s", directory)
     return "ok"

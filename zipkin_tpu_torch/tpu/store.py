@@ -173,6 +173,7 @@ class TorchStorage(
         *,
         config: Optional[AggConfig] = None,
         device=None,
+        mesh=None,
         strict_trace_id: bool = True,
         search_enabled: bool = True,
         autocomplete_keys: Sequence[str] = (),
@@ -191,7 +192,9 @@ class TorchStorage(
         sampling_rare_min: Optional[int] = None,
     ) -> None:
         """``device``: where the aggregator's state lives — the card unless
-        the caller names another (``"cpu"`` runs the plain path).
+        the caller names another (``"cpu"`` runs the plain path); ``mesh``
+        (:func:`zipkin_tpu_torch.parallel.mesh.make_mesh`): the shards'
+        devices, in its place; neither is every visible card, a shard each.
         ``fast_archive_sample``: the line-rate path archives 1 trace in N
         at full fidelity (0: none). ``max_device_batch``: the largest
         device batch before the state's own bounds. ``deps_max_stale_ms``:
@@ -208,7 +211,7 @@ class TorchStorage(
         self.search_enabled = search_enabled
         self.autocomplete_keys = tuple(autocomplete_keys)
         self.vocab = Vocab(max_services=self.config.max_services, max_keys=self.config.max_keys)
-        self.agg = TorchAggregator(self.config, device=device)
+        self.agg = TorchAggregator(self.config, device=device, mesh=mesh)
         # tail sampling gates retention (the RAM archive keeps the kept
         # spans) while the device sketches see every span
         self.sampler = None
@@ -1519,9 +1522,9 @@ class TorchStorage(
 
     def clear(self) -> None:
         """Drop the host archive and reset the device state, on the same
-        device; the disk archive stays, as in the reference."""
+        mesh; the disk archive stays, as in the reference."""
         self._archive.clear()
-        self.agg = TorchAggregator(self.config, device=self.agg.device)
+        self.agg = TorchAggregator(self.config, mesh=self.agg.mesh)
         # sealed segments were cut from the old aggregator's buckets
         if self.timetier is not None:
             self.timetier.clear()
