@@ -128,7 +128,18 @@ Builds the hand-written kernels from the sources in the checkout, then:
     trace read back, the reads equal a 1-shard store's, an 8-shard snapshot
     restored by an 8-shard store and refused by a 1-shard one (m2); and the
     entry point with TPU_DEVICES=1 (serves) and one past the cards (refuses
-    to start) (m3).
+    to start) (m3);
+(n) the wire entry points at the default AggConfig on the card: (e)'s
+    payloads in a replay log drained by TransportCollector(workers=4) into
+    TorchStorage through the line-rate path (planes equal (e)'s, reads as
+    the generator says, every trace read back, the marker at the end), a
+    resume leg from the marker and a QueueSource leg at 1 and 4 workers
+    (n1); (e)'s spans as scribe frames into a server with
+    COLLECTOR_SCRIBE_ENABLED, every reply OK, equal to a store fed the
+    decoded frames through accept, then stop() and a boot from the
+    checkpoint (n2); the UI's routes on that server (n3); the entry point
+    with scribe, and with gRPC (refused where grpc is missing) (n4); and
+    the ZipkinMock test kit (n5).
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -341,7 +352,7 @@ def phase_step(torch, agg, traffic, chunk: int):
     from zipkin_tpu_torch.tpu.columnar import fuse_columns
     from zipkin_tpu_torch.workload import slice_columns
 
-    cfg, dev, st = agg.config, agg.device, agg.state
+    cfg, dev, st = agg.config, agg.device, agg.states[0]
     s_, r_, g_ = cfg.max_services, cfg.hll_rows, cfg.global_hll_row
     kw = dict(max_services=s_, hll_rows=r_, global_row=g_)
     step = 8 * chunk
@@ -622,8 +633,8 @@ def phase_gpu_vs_cpu(seed: int, torch) -> None:
         np.testing.assert_array_equal(gpu.windowed_histograms(lo, hi), cpu.windowed_histograms(lo, hi))
     # digests: weights exact; means rtol 1e-5 (float atomics sum in a
     # run-dependent order on the card)
-    for name, g, c in zip(AggState._fields, convert.state_to_numpy(gpu.state),
-                          convert.state_to_numpy(cpu.state)):
+    for name, g, c in zip(AggState._fields, convert.state_to_numpy(gpu.states),
+                          convert.state_to_numpy(cpu.states)):
         if name in ("digest", "tb_digest"):
             np.testing.assert_array_equal(g[..., 1], c[..., 1], err_msg=name)
             np.testing.assert_allclose(g[..., 0], c[..., 0], rtol=1e-5, err_msg=name)
@@ -683,8 +694,8 @@ def phase_sampled_small(seed: int, torch, cfg, traffic) -> None:
         drive(cpu, traffic, 256, 64, cfg, after=lambda i: after(i, cpu, "cpu"))
         drive(gpu, traffic, 256, 64, cfg, after=lambda i: after(i, gpu, "gpu"))
         np.testing.assert_array_equal(gpu.sampler.link_snapshot(), cpu.sampler.link_snapshot())
-        for name, g, c in zip(AggState._fields, convert.state_to_numpy(gpu.state),
-                              convert.state_to_numpy(cpu.state)):
+        for name, g, c in zip(AggState._fields, convert.state_to_numpy(gpu.states),
+                              convert.state_to_numpy(cpu.states)):
             if name in ("digest", "tb_digest"):
                 np.testing.assert_array_equal(g[..., 1], c[..., 1], err_msg=name)
                 np.testing.assert_allclose(g[..., 0], c[..., 0], rtol=1e-5, err_msg=name)
@@ -753,7 +764,7 @@ def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, devi
     cols = traffic.cols
     agg = TorchAggregator(cfg, device=device)
     agg.block_until_ready()
-    log(f"state: {state_bytes(agg.state) / 2**30:.3f} GiB on {agg.device} for {cfg}")
+    log(f"state: {state_bytes(agg.states[0]) / 2**30:.3f} GiB on {agg.device} for {cfg}")
 
     hll_kernel.update.launches = hll_kernel.update_step.launches = 0
     walls = drive(agg, traffic, 8 * chunk, chunk, cfg)
@@ -809,7 +820,7 @@ def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, devi
         raise AssertionError(f"a read made other than one transfer: {transfers}")
 
     # --- checks against the generator -------------------------------------
-    ctr = agg.state.counters.cpu().numpy()
+    ctr = agg.states[0].counters.cpu().numpy()
     want_err = int((cols.valid & cols.err).sum())
     assert ctr[CTR_SPANS] == n_spans and ctr[CTR_ERRORS] == want_err and ctr[CTR_BATCHES] == steps, ctr
     assert agg.host_counters["spans"] == n_spans and agg.host_counters["spansWithError"] == want_err
@@ -1015,7 +1026,7 @@ def phase_sampled(seed: int, n_spans: int, torch, card: str, cfg=None, chunk: in
             hi = min(lo + step, cols.size)
             keep = sampler.last_keep[0][:hi - lo][cols.valid[lo:hi]]
             pos = torch.from_numpy((cursor + np.arange(keep.size)) % r).to(agg.device)
-            got = agg.state.r_keep[pos].cpu().numpy()
+            got = agg.states[0].r_keep[pos].cpu().numpy()
             if not np.array_equal(got, keep):
                 raise AssertionError(f"step {i}: r_keep != HostSampler.verdict_fused "
                                      f"({int((got != keep).sum())} lanes)")
@@ -1034,7 +1045,7 @@ def phase_sampled(seed: int, n_spans: int, torch, card: str, cfg=None, chunk: in
         if fig["launches"] != [1] * steps or hll_kernel.update.launches:
             raise AssertionError(f"update_step launches per sampled step: {fig['launches']}, "
                                  f"update {hll_kernel.update.launches}")
-        ctr = agg.state.counters.cpu().numpy()
+        ctr = agg.states[0].counters.cpu().numpy()
         hc = agg.host_counters
         if (ctr[CTR_SAMPLED_KEPT], ctr[CTR_SAMPLED_DROPPED]) != (hc["sampledKept"], hc["sampledDropped"]):
             raise AssertionError(f"counters 5/6 {ctr[5:7]} != host tallies {hc}")
@@ -1042,7 +1053,7 @@ def phase_sampled(seed: int, n_spans: int, torch, card: str, cfg=None, chunk: in
             raise AssertionError(f"verdicts did not vary: {hc}, {ctl.publishes} publishes")
         # sampling gates retention, never the sketches
         skip = {"r_keep", "counters", "s_rate", "s_tail", "s_link"}
-        for name, a, b in zip(AggState._fields, agg.state, twin.state):
+        for name, a, b in zip(AggState._fields, agg.states[0], twin.states[0]):
             if name in skip:
                 continue
             if name in ("digest", "tb_digest"):
@@ -5789,6 +5800,607 @@ def phase_shards(seed: int, n_spans: int, torch, card: str, stored: dict, cfg=No
     return fig
 
 
+# -- (n) the wire entry points: broker transports, scribe, the UI, gRPC and the test kit
+
+
+def scribe_frame(entries, seqid: int) -> bytes:
+    """``scribe.Log(List<LogEntry>)`` as a framed, versioned thrift binary
+    call; ``entries`` are (category, message) byte pairs."""
+    import struct
+
+    body = struct.pack(">I", 0x80010001) + struct.pack(">i", 3) + b"Log" + struct.pack(">i", seqid)
+    body += bytes([15]) + struct.pack(">h", 1) + bytes([12]) + struct.pack(">i", len(entries))
+    for category, message in entries:
+        body += bytes([11]) + struct.pack(">h", 1) + struct.pack(">i", len(category)) + category
+        body += bytes([11]) + struct.pack(">h", 2) + struct.pack(">i", len(message)) + message
+        body += b"\x00"
+    body += b"\x00"
+    return struct.pack(">I", len(body)) + body
+
+
+def scribe_entries(spans) -> list:
+    """One (b"zipkin", base64 thrift v1 span) LogEntry a span."""
+    import base64
+
+    from zipkin_tpu_torch.model import thrift
+
+    return [(b"zipkin", base64.b64encode(thrift.encode_span(s))) for s in spans]
+
+
+def scribe_send(port: int, frames, timeout: float = 300.0) -> list:
+    """Each frame on one connection, its reply read before the next; the
+    ResultCode of each reply."""
+    import socket
+    import struct
+
+    codes = []
+    with socket.create_connection(("127.0.0.1", port), timeout=timeout) as sock:
+        f = sock.makefile("rb")
+        for frame in frames:
+            sock.sendall(frame)
+            (length,) = struct.unpack(">I", f.read(4))
+            reply = f.read(length)
+            codes.append(struct.unpack(">i", reply[-5:-1])[0] if reply[-7:-5] == b"\x00\x00" else -1)
+    return codes
+
+
+def assert_planes_by_name(store, want: dict, what: str) -> None:
+    """The store's integer planes, keyed by name (arrival order assigns the
+    vocab ids), equal ``want`` (:func:`planes_by_name` of another store)."""
+    got = planes_by_name(store)
+    for name in want:
+        if got[name] != want[name]:
+            raise AssertionError(f"{what}: the {name} plane differs (by name)")
+
+
+def phase_transports(seed: int, torch, card: str, stored: dict, fast: dict, cfg=None,
+                     device=None, workers: int = 4) -> dict:
+    """(n1) the broker transports (BASELINE config[1]'s shape, a replay log
+    standing in for Kafka, whose client the card lacks): phase e's payloads
+    written with ``append_replay``, then
+
+    - a QueueSource leg at one worker, whose leaves equal phase e's (= f1's)
+      exactly, and at ``workers``, whose planes equal them by name;
+    - ``TransportCollector(ReplayFileSource, Collector(store, fast_ingest=True),
+      workers=4)`` into a TorchStorage with a disk archive: the planes equal
+      the one-worker leg's by name, the reads answer as the generator
+      says, every trace reads back complete, the marker stands at the last
+      offset;
+    - a resume leg on a second log: the collector closed once its marker
+      passed half the log, a new source opened with ``resume=True`` drains
+      the rest; no redelivered offset lies at or below the marker, every
+      trace is present (its rows in the disk archive's index, 1,024 read
+      back: cut from all 32,768 to save ~18 s), and the store counts every
+      delivered payload's spans (at-least-once: the duplicates are
+      counted).
+
+    Each leg's spans/s beside f1's, and its update_step launches."""
+    import os
+    import shutil
+    import tempfile
+
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.collector.transports import (
+        QueueSource,
+        ReplayFileSource,
+        TransportCollector,
+        append_replay,
+    )
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    wire, traffic, spans = stored["wire"], stored["traffic"], stored["spans"]
+    n_spans, n_traces = len(spans), len(spans) // 8
+    per = n_spans // len(wire)
+    truth = store_truth(traffic, cfg)
+    trace_ids = [spans[8 * t].trace_id for t in range(n_traces)]
+    root = tempfile.mkdtemp(prefix="zt-transports-")
+    fig = dict(card=card, spans=n_spans, payloads=len(wire), f1_spans_per_s=fast["spans_per_s"])
+
+    def run(source, store, nworkers, stop_at, poll_batch=4):
+        """Workers drain ``source`` until its commit reaches ``stop_at``;
+        (wall s, update_step launches, the offsets polled). A poll takes
+        ``poll_batch`` payloads, so the workers share the log (at the
+        default 64 one poll would take all of it)."""
+        polled = []
+        poll = source.poll
+
+        def recorded(n, timeout):
+            out = poll(n, timeout)
+            polled.extend(m.offset for m in out)
+            return out
+
+        source.poll = recorded
+        tc = TransportCollector(source, Collector(store, fast_ingest=True), transport="n1",
+                                workers=nworkers, poll_batch=poll_batch, poll_timeout=0.05)
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        tc.start()
+        try:
+            while source.committed < stop_at:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError(f"phase n1: commit at {source.committed} after 300 s, "
+                                         f"want {stop_at}")
+                time.sleep(0.002)
+            store.agg.block_until_ready()
+            wall = time.perf_counter() - t0
+        finally:
+            tc.close()
+        if any(t.is_alive() for t in tc._threads):
+            raise AssertionError("phase n1: a worker outlived close()")
+        if hll_kernel.update.launches:
+            raise AssertionError(f"phase n1: hll_update launched {hll_kernel.update.launches} times")
+        return wall, hll_kernel.update_step.launches, polled
+
+    def traces_present(store, what, exact, sample=None):
+        """Every trace read back complete (``exact``: equal to the generated
+        spans), or with ``sample``: every trace's rows in the disk archive's
+        index, at least 8 a trace, and ``sample`` traces read back. Returns
+        the spans stored past the generated ones (read back, or with
+        ``sample`` the index's rows)."""
+        import collections
+
+        idx = range(n_traces)
+        if sample is not None:
+            have = collections.Counter()
+            for ids, *_ in store._disk.views():
+                u, c = np.unique(np.asarray(ids), return_counts=True)
+                have.update(dict(zip(u.tolist(), c.tolist())))
+            short = [t for t in trace_ids if have.get(int(t[-16:], 16), 0) < 8]
+            if short:
+                raise AssertionError(f"{what}: {len(short)} traces without their 8 rows in the index")
+            idx = range(0, n_traces, n_traces // sample)
+            stored_extra = sum(have.values()) - n_spans
+        got = store.get_traces([trace_ids[t] for t in idx]).execute()
+        if len(got) != len(idx):
+            raise AssertionError(f"{what}: {len(got)} traces read back, want {len(idx)}")
+        extra = 0
+        for trace, t in zip(got, idx):
+            want = spans[8 * t:8 * t + 8]
+            if {(s.id, bool(s.shared)) for s in trace} != {(s.id, bool(s.shared)) for s in want}:
+                raise AssertionError(f"{what}: trace {want[0].trace_id} read back incomplete")
+            if exact and sorted(trace, key=lambda s: s.id) != sorted(want, key=lambda s: s.id):
+                raise AssertionError(f"{what}: trace {want[0].trace_id} read back differs")
+            extra += len(trace) - 8
+        return extra if sample is None else stored_extra
+
+    try:
+        # the queue source at one worker (phase e's order) and at ``workers``
+        for w in (1, workers):
+            store = TorchStorage(config=cfg, device=device, deps_max_stale_ms=0.0)
+            q = QueueSource(maxsize=len(wire))
+            for p in wire:
+                q.send(p)
+            wall, launches, _ = run(q, store, w, len(wire) - 1)
+            if launches != fast["launches"]:
+                raise AssertionError(f"phase n1 queue x{w}: update_step launched {launches} times")
+            if w == 1:
+                assert_leaves_equal(store.agg.state_arrays(), stored["state"], "phase n1 queue x1")
+                planes = planes_by_name(store)
+            else:
+                assert_planes_by_name(store, planes, f"phase n1 queue x{w}")
+            fig[f"queue_{w}"] = dict(spans_per_s=n_spans / wall, launches=launches)
+            store.close()
+            del store
+            torch.cuda.empty_cache()
+
+        # the replay log, the marker at its end
+        log_path = os.path.join(root, "spans.replay")
+        append_replay(log_path, wire)
+        store = TorchStorage(config=cfg, device=device, archive_dir=os.path.join(root, "a"),
+                             deps_max_stale_ms=0.0)
+        source = ReplayFileSource(log_path)
+        wall, launches, polled = run(source, store, workers, len(wire) - 1)
+        with open(log_path + ".offset") as f:
+            marker = int(f.read())
+        if marker != len(wire) - 1 or sorted(polled) != list(range(len(wire))):
+            raise AssertionError(f"phase n1: marker {marker}, polled {sorted(polled)[:8]}...")
+        if launches != fast["launches"]:
+            raise AssertionError(f"phase n1: update_step launched {launches} times, f1 {fast['launches']}")
+        assert_planes_by_name(store, planes, "phase n1 replay")
+        if store.agg.host_counters["spans"] != n_spans:
+            raise AssertionError(f"phase n1: host counters {store.agg.host_counters}")
+        rng = np.random.default_rng(seed + 13)
+        checked = check_store_answers(store, store.agg, truth, spans,
+                                      rng.choice(n_traces, 64, replace=False), "phase n1")
+        t0 = time.perf_counter()
+        traces_present(store, "phase n1 replay", exact=True)
+        fig["replay"] = dict(workers=workers, spans_per_s=n_spans / wall, launches=launches,
+                             marker=marker, read_all_s=time.perf_counter() - t0,
+                             edges=checked["edges"], digest_checked=checked["digest_checked"])
+        store.close()
+        del store
+        torch.cuda.empty_cache()
+
+        # the resume leg: close after half the log, reopen from the marker
+        log2 = os.path.join(root, "resume.replay")
+        append_replay(log2, wire)
+        store = TorchStorage(config=cfg, device=device, archive_dir=os.path.join(root, "b"),
+                             deps_max_stale_ms=0.0)
+        first = ReplayFileSource(log2, resume=True)
+        w1, l1, polled1 = run(first, store, workers, len(wire) // 2 - 1, poll_batch=2)
+        with open(log2 + ".offset") as f:
+            marker = int(f.read())
+        second = ReplayFileSource(log2, resume=True)
+        if second.committed != marker:
+            raise AssertionError(f"phase n1 resume: reopened at {second.committed}, marker {marker}")
+        w2, l2, polled2 = run(second, store, workers, len(wire) - 1, poll_batch=2)
+        if not polled2 or min(polled2) <= marker or sorted(polled2) != list(range(marker + 1, len(wire))):
+            raise AssertionError(f"phase n1 resume: marker {marker}, redelivered {sorted(polled2)[:8]}...")
+        dups = sorted(set(polled1) & set(polled2))
+        if store.agg.host_counters["spans"] != per * (len(polled1) + len(polled2)):
+            raise AssertionError(f"phase n1 resume: {store.agg.host_counters['spans']} spans counted, "
+                                 f"{len(polled1) + len(polled2)} payloads delivered")
+        extra = traces_present(store, "phase n1 resume", exact=False, sample=1024)
+        fig["resume"] = dict(marker_at_close=marker, first_offsets=len(polled1),
+                             second_offsets=len(polled2), duplicates=len(dups), duplicate_spans=extra,
+                             spans_per_s=n_spans / (w1 + w2), launches=l1 + l2)
+        store.close()
+        del store
+        torch.cuda.empty_cache()
+
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    fig["launches"] = (fig["replay"]["launches"] + fig["resume"]["launches"]
+                       + fig["queue_1"]["launches"] + fig[f"queue_{workers}"]["launches"])
+    f1 = fast["spans_per_s"]
+    log(f"phase n1 ({card}): {n_spans} spans in {len(wire)} payloads through TransportCollector -> "
+        f"Collector(fast_ingest): replay log x{workers} {fig['replay']['spans_per_s']:.0f} spans/s "
+        f"({fig['replay']['spans_per_s'] / f1:.3f}x f1's {f1:.0f}), queue x1 "
+        f"{fig['queue_1']['spans_per_s']:.0f} ({fig['queue_1']['spans_per_s'] / f1:.3f}x), queue "
+        f"x{workers} {fig[f'queue_{workers}']['spans_per_s']:.0f} "
+        f"({fig[f'queue_{workers}']['spans_per_s'] / f1:.3f}x); update_step launches replay "
+        f"{fig['replay']['launches']}, queue {fig['queue_1']['launches']} / "
+        f"{fig[f'queue_{workers}']['launches']} (f1 {fast['launches']}); planes equal phase e's; "
+        f"marker at {fig['replay']['marker']}; {n_traces} traces read back in "
+        f"{fig['replay']['read_all_s']:.1f} s; {fig['replay']['edges']} edges exact")
+    log(f"phase n1 resume: closed with the marker at {fig['resume']['marker_at_close']} "
+        f"({fig['resume']['first_offsets']} payloads polled), {fig['resume']['second_offsets']} after "
+        f"reopening, none at or below the marker; {fig['resume']['duplicates']} payloads redelivered "
+        f"({fig['resume']['duplicate_spans']} duplicate rows in the archive); every trace in the index, "
+        f"1,024 read back; "
+        f"{fig['resume']['spans_per_s']:.0f} spans/s, launches {fig['resume']['launches']}")
+    return fig
+
+
+def phase_scribe(seed: int, torch, card: str, stored: dict, cfg=None, device=None,
+                 per_frame: int = 1024, conns: int = 4) -> dict:
+    """(n2) scribe and (n3) the UI on the card: a server with
+    ``scribe_enabled``, scribe port 0 and a checkpoint dir; phase e's spans
+    as base64 thrift v1 LogEntrys in frames of ``per_frame``, the first
+    half over one connection and the rest over ``conns``, every reply OK.
+    The planes (by name) and the reads equal those of a store fed
+    ``decode_scribe_message`` of the same frames through
+    ``Collector.accept``, and 64 traces read back as decoded. (Thrift v1
+    has no ``shared`` flag: a parentless shared server span, which the
+    generator renders, decodes unshared in both packages, so the links
+    differ from (e)'s.) ``/metrics`` counts the spans under scribe. (n3) the UI routes
+    on the same server. Then ``stop()`` and a boot from the checkpoint,
+    whose leaves hold every acked span."""
+    import concurrent.futures
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.collector.scribe import OK, decode_scribe_message
+    from zipkin_tpu_torch.model import json_v2
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.server.app import ZipkinServer, build_storage
+    from zipkin_tpu_torch.server.config import ServerConfig
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+
+    cfg = cfg or AggConfig()
+    traffic, spans = stored["traffic"], stored["spans"]
+    n_spans = len(spans)
+    truth = store_truth(traffic, cfg)
+    t0 = time.perf_counter()
+    entries = scribe_entries(spans)
+    frames = [scribe_frame(entries[lo:lo + per_frame], i)
+              for i, lo in enumerate(range(0, n_spans, per_frame))]
+    fig = dict(card=card, spans=n_spans, frames=len(frames), encode_s=time.perf_counter() - t0,
+               e_spans_per_s=stored["spans_per_s"])
+    root = tempfile.mkdtemp(prefix="zt-scribe-")
+    config = ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", scribe_enabled=True,
+                          scribe_port=0, tpu_checkpoint_dir=os.path.join(root, "snap"),
+                          tpu_deps_max_stale_ms=0.0, obs_shadow_enabled=False,
+                          tpu_agg=dataclasses.asdict(cfg))
+    server = None
+    try:
+        server = ZipkinServer(config, seal_interval_s=0, device=device).start()
+        store = server.storage
+        half = len(frames) // 2
+        hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+        t0 = time.perf_counter()
+        codes = scribe_send(server.scribe_port, frames[:half])
+        one_s = time.perf_counter() - t0
+        parts = [frames[half + i::conns] for i in range(conns)]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(conns) as pool:
+            for got in pool.map(lambda fs: scribe_send(server.scribe_port, fs), parts):
+                codes += got
+        store.agg.block_until_ready()
+        many_s = time.perf_counter() - t0
+        launches = {"update": hll_kernel.update.launches, "update_step": hll_kernel.update_step.launches}
+        if codes != [OK] * len(frames):
+            raise AssertionError(f"phase n2: replies {sorted(set(codes))}, want all OK ({OK})")
+        if launches["update"] or not launches["update_step"]:
+            raise AssertionError(f"phase n2: hll launches {launches}")
+        base = f"http://127.0.0.1:{server.port}"
+        metrics = HttpStore(base).get("/metrics")
+        if metrics.get("counter.zipkin_collector.spans.scribe") != n_spans:
+            raise AssertionError(f"phase n2: /metrics spans.scribe "
+                                 f"{metrics.get('counter.zipkin_collector.spans.scribe')}, want {n_spans}")
+
+        # the reference: the same frames decoded and accepted in one store
+        ref = TorchStorage(config=cfg, device=device, deps_max_stale_ms=0.0)
+        collector = Collector(ref)
+        decoded = []
+        t0 = time.perf_counter()
+        for lo in range(0, n_spans, per_frame):
+            batch = [s for _, m in entries[lo:lo + per_frame] for s in decode_scribe_message(m)]
+            collector.accept(batch)
+            decoded += batch
+        ref.agg.block_until_ready()
+        fig["reference_accept_s"] = time.perf_counter() - t0
+        assert_planes_by_name(store, planes_by_name(ref), "phase n2 vs accept")
+        by_row = lambda rows: {(r["serviceName"], r["spanName"]): r for r in rows}  # noqa: E731
+        reads, ref_reads = store_reads(store, truth), store_reads(ref, truth)
+        for name in ("dependencies", "cardinalities"):
+            if reads[name] != ref_reads[name]:
+                raise AssertionError(f"phase n2: the {name} read differs from the accept store's")
+        if by_row(reads["hist"]) != by_row(ref_reads["hist"]):
+            raise AssertionError("phase n2: the histogram rows differ from the accept store's")
+        ref.close()
+        del ref, collector
+        torch.cuda.empty_cache()
+        rng = np.random.default_rng(seed + 17)
+        for t in rng.choice(n_spans // 8, 64, replace=False):
+            want = sorted(json_v2.encode_span(x) for x in decoded[8 * t:8 * t + 8])
+            got = [json_v2.encode_span(x) for x in store.get_trace(decoded[8 * t].trace_id).execute()]
+            if sorted(got) != want:
+                raise AssertionError(f"phase n2: trace {decoded[8 * t].trace_id} read back differs")
+        fig["ui"] = phase_ui(card, base)
+        want = planes_by_name(store)
+        server.stop()
+        server = None
+        fig.update(one_conn_spans_per_s=half * per_frame / one_s,
+                   many_conn_spans_per_s=(n_spans - half * per_frame) / many_s,
+                   spans_per_s=n_spans / (one_s + many_s), launches=launches["update_step"],
+                   update_launches=launches["update"], edges=len(reads["dependencies"]),
+                   edges_http=len(truth.edges))
+
+        # a boot from the checkpoint holds every acked span
+        t0 = time.perf_counter()
+        reborn = build_storage(dataclasses.replace(config, scribe_enabled=False), device=device)
+        fig["reboot_s"] = time.perf_counter() - t0
+        try:
+            assert_planes_by_name(reborn, want, "phase n2 reborn vs victim")
+            if reborn.agg.host_counters["spans"] != n_spans:
+                raise AssertionError(f"phase n2: the reborn store counts "
+                                     f"{reborn.agg.host_counters['spans']} spans, want {n_spans}")
+        finally:
+            reborn.close()
+        del reborn, store
+        torch.cuda.empty_cache()
+    finally:
+        if server is not None:
+            server.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase n2 ({card}): {n_spans} spans as {len(frames)} scribe frames of {per_frame} "
+        f"(encoded in {fig['encode_s']:.1f} s): one connection {fig['one_conn_spans_per_s']:.0f} spans/s, "
+        f"{conns} connections {fig['many_conn_spans_per_s']:.0f}, all {fig['spans_per_s']:.0f} "
+        f"({fig['spans_per_s'] / stored['spans_per_s']:.3f}x phase e's {stored['spans_per_s']:.0f}); every "
+        f"reply OK; update_step launches {fig['launches']}, update {fig['update_launches']}; planes by "
+        f"name and the reads equal a store fed decode_scribe_message through accept "
+        f"({fig['reference_accept_s']:.1f} s; {fig['edges']} links, {fig['edges_http']} over HTTP: v1 "
+        f"has no shared flag); 64 traces read back as decoded; /metrics spans.scribe {n_spans}; "
+        f"stop() and a boot from the checkpoint ({fig['reboot_s']:.1f} s) hold every acked span")
+    return fig
+
+
+def phase_ui(card: str, base: str, reps: int = 5) -> dict:
+    """(n3) the built-in UI on a running server: ``/zipkin/``, the three
+    assets and ``/config.json``; bodies equal the port's files, the CSP on
+    every page and asset, 404 for an unknown name; median wall ms of
+    ``reps`` GETs each."""
+    import os
+    import urllib.error
+    import urllib.request
+
+    import zipkin_tpu_torch.server.ui as ui
+    from zipkin_tpu_torch.server.app import UI_CSP
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(base + path, timeout=60) as r:
+                return r.status, r.headers.get("Content-Security-Policy"), r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, None, e.read()
+
+    fig = {}
+    pages = {"/zipkin/": "index.html", "/zipkin": "index.html"}
+    pages.update({f"/zipkin/static/{n}": n for n in ("index.html", "app.js", "style.css")})
+    for path, name in pages.items():
+        with open(os.path.join(ui.STATIC_DIR, name), "rb") as f:
+            want = f.read()
+        status, csp, body = get(path)
+        if (status, csp, body) != (200, UI_CSP, want):
+            raise AssertionError(f"phase n3: {path}: {status}, CSP {csp!r}, {len(body)} bytes")
+        fig[path] = median_ms(lambda: get(path), reps)
+    status, _, body = get("/config.json")
+    config = json.loads(body)
+    if status != 200 or config.get("dependency") != {"enabled": True} or "queryLimit" not in config:
+        raise AssertionError(f"phase n3: /config.json {status} {body[:200]!r}")
+    fig["/config.json"] = median_ms(lambda: get("/config.json"), reps)
+    if get("/zipkin/static/nope.js")[0] != 404:
+        raise AssertionError("phase n3: an unknown asset does not answer 404")
+    log(f"phase n3 ({card}): the UI's pages, assets and /config.json equal the port's files with the "
+        f"CSP; an unknown asset 404; median ms of {reps}: "
+        + json.dumps({k: round(v, 3) for k, v in fig.items()}))
+    return fig
+
+
+def phase_wire_entry(card: str, timeout_s: float = 120.0, storage: str = "tpu") -> dict:
+    """(n4) ``python -m zipkin_tpu_torch.server`` with
+    COLLECTOR_SCRIBE_ENABLED=1: boot, one scribe frame, the trace read back
+    over HTTP, SIGTERM -> 0. Then with COLLECTOR_GRPC_ENABLED=1: where
+    ``import grpc`` fails the run exits non-zero naming ``grpc``; where it
+    succeeds one Report is sent and its spans read back."""
+    import importlib.util
+    import os
+    import signal
+    import socket
+    import tempfile
+
+    root = os.path.dirname(os.path.abspath(__file__))
+
+    def free_port():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            return sock.getsockname()[1]
+
+    fig = dict(card=card)
+    has_grpc = importlib.util.find_spec("grpc") is not None
+    for leg in ("scribe", "grpc"):
+        port, wire_port = free_port(), free_port()
+        env = dict(os.environ, TPU_ARCHIVE_DIR="off", TPU_DEPS_MAX_STALE_MS="0", QUERY_HOST="127.0.0.1")
+        if leg == "scribe":
+            env.update(COLLECTOR_SCRIBE_ENABLED="1", COLLECTOR_SCRIBE_PORT=str(wire_port))
+        else:
+            env.update(COLLECTOR_GRPC_ENABLED="1", COLLECTOR_GRPC_PORT=str(wire_port))
+        http = HttpStore(f"http://127.0.0.1:{port}")
+        with tempfile.TemporaryFile() as out:
+            t0 = time.perf_counter()
+            proc = subprocess.Popen([sys.executable, "-m", "zipkin_tpu_torch.server", "--port", str(port),
+                                     "--storage", storage], cwd=root, env=env, stdout=out,
+                                    stderr=subprocess.STDOUT)
+            try:
+                if leg == "grpc" and not has_grpc:
+                    rc = proc.wait(timeout=timeout_s)
+                    out.seek(0)
+                    text = out.read().decode(errors="replace")
+                    if rc == 0 or "grpc package cannot be imported" not in text:
+                        raise AssertionError(f"phase n4: gRPC without grpc: exit {rc}, {text[-400:]!r}")
+                    fig["grpc"] = dict(refused=True, exit_code=rc, refuse_s=time.perf_counter() - t0)
+                    continue
+                while True:
+                    if proc.poll() is not None:
+                        raise AssertionError(f"phase n4 {leg}: exited {proc.returncode} before /health")
+                    try:
+                        if http.get("/health")["status"] == "UP":
+                            break
+                    except (OSError, AssertionError):
+                        pass
+                    if time.perf_counter() - t0 > timeout_s:
+                        raise AssertionError(f"phase n4 {leg}: /health not UP within {timeout_s} s")
+                    time.sleep(0.25)
+                boot_s = time.perf_counter() - t0
+                now_ms = int(time.time() * 1000)
+                trace = small_trace(0x5C12BE0000000000 + (leg == "grpc"), "wire-" + leg,
+                                    (now_ms - 60_000) * 1000)
+                if leg == "scribe":
+                    (code,) = scribe_send(wire_port, [scribe_frame(scribe_entries(trace), 1)], 60)
+                    if code != 0:
+                        raise AssertionError(f"phase n4: scribe reply {code}")
+                else:
+                    import grpc
+
+                    from zipkin_tpu_torch.model import proto3
+                    from zipkin_tpu_torch.server.grpc import METHOD
+
+                    with grpc.insecure_channel(f"127.0.0.1:{wire_port}") as ch:
+                        ch.unary_unary(METHOD)(proto3.encode_span_list(trace), timeout=60)
+                got = http.get(f"/api/v2/trace/{trace[0].trace_id}")
+                if len(got) != len(trace):
+                    raise AssertionError(f"phase n4 {leg}: read back {got}")
+                proc.send_signal(signal.SIGTERM)
+                rc = proc.wait(timeout=30)
+                if rc != 0:
+                    raise AssertionError(f"phase n4 {leg}: exit code {rc} after SIGTERM")
+                fig[leg] = dict(boot_s=boot_s, exit_code=rc)
+            except BaseException:
+                out.seek(0)
+                log(f"phase n4 {leg}: server output:\n" + out.read().decode(errors="replace")[-4000:])
+                raise
+            finally:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait(timeout=30)
+    grpc_text = ("refused to start, exit code {exit_code}, naming the grpc package, in {refuse_s:.1f} s"
+                 if fig["grpc"].get("refused") else "a Report read back, booted in {boot_s:.1f} s")
+    log(f"phase n4 ({card}): python -m zipkin_tpu_torch.server --storage {storage} with "
+        f"COLLECTOR_SCRIBE_ENABLED=1: /health UP in {fig['scribe']['boot_s']:.1f} s, a scribe frame "
+        f"answered OK and its trace read back over HTTP, SIGTERM -> 0; with COLLECTOR_GRPC_ENABLED=1 "
+        f"(grpc {'importable' if has_grpc else 'not importable'} here): "
+        + grpc_text.format(**fig["grpc"]))
+    return fig
+
+
+def phase_testkit(card: str) -> dict:
+    """(n5) ZipkinMock: a POST read back, an enqueued 503 answered, and the
+    next POST stored."""
+    import urllib.error
+    import urllib.request
+
+    from zipkin_tpu_torch.model import json_v2
+    from zipkin_tpu_torch.testkit import HttpFailure, ZipkinMock
+
+    now_us = int(time.time() * 1e6)
+    trace = small_trace(0x7E57C17000000000, "testkit", now_us - 60_000_000)
+    body = json_v2.encode_span_list(trace)
+
+    def post(url):
+        req = urllib.request.Request(url, data=body, headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=60) as r:
+                return r.status
+        except urllib.error.HTTPError as e:
+            return e.code
+
+    t0 = time.perf_counter()
+    with ZipkinMock() as zipkin:
+        if post(zipkin.http_url) != 202 or zipkin.trace_count != 1 or len(zipkin.traces()[0]) != 2:
+            raise AssertionError("phase n5: the first POST was not stored")
+        zipkin.enqueue_failure(HttpFailure.send_error_response(503, "go away"))
+        if post(zipkin.http_url) != 503 or zipkin.trace_count != 1:
+            raise AssertionError("phase n5: the enqueued 503 was not answered")
+        if post(zipkin.http_url) != 202 or zipkin.http_request_count != 3:
+            raise AssertionError("phase n5: the POST after the failure was not stored")
+        spans = zipkin.collector_metrics().get("spans", "http")
+    fig = dict(card=card, wall_s=time.perf_counter() - t0, spans=spans)
+    log(f"phase n5 ({card}): ZipkinMock stored a POST, answered an enqueued 503, stored the next "
+        f"POST ({spans} spans counted, {fig['wall_s']:.2f} s)")
+    return fig
+
+
+def phase_wire(seed: int, torch, card: str, stored: dict, fast: dict, cfg=None, device=None,
+               entry_storage: str = "tpu") -> dict:
+    """(n) the wire entry points: n1 the broker transports, n2 scribe with
+    n3 the UI on its server, n4 the entry point with scribe and gRPC, n5 the
+    test kit. Each part's launches are counted from 0."""
+    t = time.perf_counter()
+    fig = {"n1": phase_transports(seed, torch, card, stored, fast, cfg=cfg, device=device)}
+    fig["n1"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fig["n2"] = phase_scribe(seed, torch, card, stored, cfg=cfg, device=device)
+    fig["n2"]["s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    fig["n4"] = phase_wire_entry(card, storage=entry_storage)
+    fig["n4"]["s"] = time.perf_counter() - t
+    fig["n5"] = phase_testkit(card)
+    fig["launches"] = fig["n1"]["launches"] + fig["n2"]["launches"]
+    fig["update_launches"] = fig["n2"]["update_launches"]
+    log(f"phase n ({card}): seconds n1 {fig['n1']['s']:.1f}, n2+n3 {fig['n2']['s']:.1f}, "
+        f"n4 {fig['n4']['s']:.1f}, n5 {fig['n5']['wall_s']:.1f}")
+    return fig
+
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -5895,6 +6507,10 @@ def main() -> int:
     sharded = phase_shards(args.seed, args.spans, torch, card, stored)
     torch.cuda.empty_cache()
     log(f"phase m done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    wired = phase_wire(args.seed, torch, card, stored, fast)
+    torch.cuda.empty_cache()
+    log(f"phase n done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -5918,7 +6534,9 @@ def main() -> int:
     # server with the tier, l4's eleven runs; launches_phase_l_parts) and
     # launches_phase_m those of the shard mesh's (m1's 8-shard aggregator,
     # m2a's and m2b's 8-shard stores; launches_phase_m_parts adds m1's
-    # one-shard twin, which launches once a step).
+    # one-shard twin, which launches once a step) and launches_phase_n
+    # those of the wire entry points' (n1's four transport legs, n2's
+    # scribe server; launches_phase_n_parts).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -5936,6 +6554,7 @@ def main() -> int:
              launches_phase_k=served_k["update_launches"],
              launches_phase_l=admitted["update_launches"],
              launches_phase_m=0,
+             launches_phase_n=wired["update_launches"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -5966,6 +6585,8 @@ def main() -> int:
                                      "m2a": sharded["m2"]["m2a"]["launches"],
                                      "m2b": sharded["m2"]["m2b"]["launches"]},
              max_abs_err_phase_m=sharded["m1"]["max_abs_err"],
+             launches_phase_n=wired["launches"],
+             launches_phase_n_parts={"n1": wired["n1"]["launches"], "n2": wired["n2"]["launches"]},
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

@@ -59,7 +59,6 @@ def retained(store):
 def assert_leaves_equal(port, ref) -> None:
     """Integer leaves bit for bit; digest weights exact, means rtol 1e-5."""
     for name, g, w in zip(AggState._fields, port.agg.state_arrays(), ref.agg.state_arrays()):
-        w = w[0]
         if name in ("digest", "tb_digest"):
             np.testing.assert_array_equal(g[..., 1], w[..., 1], err_msg=name)
             np.testing.assert_allclose(g[..., 0], w[..., 0], rtol=1e-5, err_msg=name)

@@ -201,4 +201,4 @@ def test_ingest_step_raises_the_registers_with_one_update_step(monkeypatch):
         for lo in range(0, 512, 128):
             agg.ingest(slice_columns(cols, lo, lo + 128))
         assert calls == [time_buckets > 0] * 4
-        assert int(agg.state.hll.sum()) > 0
+        assert int(agg.states[0].hll.sum()) > 0

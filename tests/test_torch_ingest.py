@@ -50,10 +50,9 @@ def traffic():
 
 
 def assert_states_match(port: TorchAggregator, ref: ShardedAggregator, where: str) -> None:
-    got = convert.state_to_numpy(port.state)
+    got = convert.state_to_numpy(port.states)
     want = ref.state_arrays()
     for name, g, w in zip(AggState._fields, got, want):
-        w = w[0]  # one shard
         assert g.dtype == w.dtype and g.shape == w.shape, (name, g.dtype, w.dtype, g.shape, w.shape)
         if name in FLOAT_LEAVES:
             np.testing.assert_array_equal(g[..., 1], w[..., 1], err_msg=f"{name} weights {where}")
@@ -137,18 +136,18 @@ def test_aggregator_matches_reference_through_flush_rollup_and_wraps(traffic):
 
 
 def test_state_round_trips_through_convert(traffic):
-    """Reference leaves -> port state -> leaves: identical arrays, with
-    the one-shard axis stripped; the port continues from that state."""
+    """Reference leaves -> port state -> leaves: identical arrays, the
+    one-shard axis kept; the port continues from that state."""
     ref = ShardedAggregator(JCFG, mesh=make_mesh(1))
     ref.ingest(slice_columns(traffic.cols, 0, 200, pad_to=256))
     leaves = ref.state_arrays()
-    state = convert.state_from_numpy(leaves, CFG, device="cpu")
-    back = convert.state_to_numpy(state)
+    states = convert.state_from_numpy(leaves, CFG, device="cpu")
+    back = convert.state_to_numpy(states)
     for name, b, w in zip(AggState._fields, back, leaves):
         assert b.dtype == LEAF_DTYPES[name]
-        np.testing.assert_array_equal(b, w[0], err_msg=name)
+        np.testing.assert_array_equal(b, w, err_msg=name)
     port = TorchAggregator(CFG, device="cpu")
-    port.state = state
+    port.states = states
     port._pend_lanes = ref._pend_lanes
     port._lanes_since_rollup = ref._lanes_since_rollup
     batch = slice_columns(traffic.cols, 200, 400, pad_to=256)

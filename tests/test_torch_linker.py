@@ -164,10 +164,10 @@ CTX_LEAVES = [f for f in AggState._fields if f.startswith("ctx_")]
 
 
 def _assert_state_leaves(pstate, jstate, names, where):
-    pleaves = dict(zip(AggState._fields, convert.state_to_numpy(pstate)))
+    pleaves = dict(zip(AggState._fields, convert.state_to_numpy([pstate])))
     for name in names:
         np.testing.assert_array_equal(
-            pleaves[name], np.asarray(getattr(jstate, name)), err_msg=f"{name} {where}")
+            pleaves[name], np.asarray(getattr(jstate, name))[None], err_msg=f"{name} {where}")
 
 
 @pytest.mark.parametrize("seed,ring_pow", [(0, 6), (2, 7)])
@@ -188,7 +188,7 @@ def test_incremental_ctx_interleavings(seed, ring_pow):
     jfresh = jax.jit(lambda s: jing.fresh_link_context(jcfg, s))
 
     jstate = jinit_state(jcfg)
-    pstate = convert.state_from_numpy([np.asarray(a) for a in jstate], cfg, device="cpu")
+    (pstate,) = convert.state_from_numpy([np.asarray(a)[None] for a in jstate], cfg, device="cpu")
     rnd = random.Random(seed * 101 + 7)
     lo, since, checks = 0, 0, 0
     ring = [f for f in AggState._fields if f.startswith("r_")] + ["ring_pos"]

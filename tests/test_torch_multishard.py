@@ -184,8 +184,7 @@ class TestEightShards:
         port = eight.port
         assert port.n_shards == eight.ref.n_shards == 8 and len(port.states) == 8
         assert all(s.hll.device.type == "cpu" for s in port.states)
-        with pytest.raises(AttributeError, match="per-shard"):
-            port.state  # noqa: B018
+        assert not hasattr(port, "state")  # one layout: the per-shard list
 
     def test_counters_step_every_shard(self, eight):
         _, _, ctr = eight.port.merged_sketches()
@@ -419,3 +418,27 @@ def test_shards_without_live_lanes_step_as_the_reference_does():
     assert_leaves_match(port.state_arrays(), ref.state_arrays(), "after a one-trace batch")
     assert [int(s.counters[CTR_BATCHES]) for s in port.states] == [3] * 8
     assert_reads_match(port, ref)
+
+
+def test_one_shard_state_arrays_have_the_references_shard_axis():
+    """One state layout: at one shard the port's leaves carry the leading
+    shard axis of one, as ``ShardedAggregator(cfg, make_mesh(1))`` gives
+    them, leaf for leaf in shape and dtype, before and after the same
+    batch, and ``state_clone`` gives the list of per-shard states."""
+    port = TorchAggregator(TINY, device="cpu")
+    ref = ShardedAggregator(JTINY, mesh=jax_mesh(1))
+    batch = slice_columns(traffic(n=256, services=12, minutes=20).cols, 0, 256)
+    for when in ("fresh", "after a batch"):
+        if when != "fresh":
+            port.ingest(batch)
+            ref.ingest(batch)
+        got, want = port.state_arrays(), [np.asarray(w) for w in ref.state_arrays()]
+        assert len(got) == len(want) == len(AggState._fields)
+        for name, g, w in zip(AggState._fields, got, want):
+            assert g.shape == w.shape and g.shape[0] == 1, (when, name, g.shape, w.shape)
+            assert g.dtype == w.dtype, (when, name, g.dtype, w.dtype)
+        assert_leaves_match(got, want, when)
+    clone, _, _ = port.state_clone()
+    assert isinstance(clone, list) and len(clone) == 1 and isinstance(clone[0], AggState)
+    (back,) = convert.state_from_numpy(port.state_arrays(), TINY, device="cpu")
+    assert_leaves_match(convert.state_to_numpy([back]), port.state_arrays(), "round trip")

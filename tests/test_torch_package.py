@@ -103,7 +103,7 @@ def test_aggregator_defaults_to_cuda_and_raises_without_it(monkeypatch):
         TorchAggregator(small)
     with pytest.raises(RuntimeError):
         TorchAggregator(small, device="cuda")
-    assert TorchAggregator(small, device="cpu").state.hll.device.type == "cpu"
+    assert TorchAggregator(small, device="cpu").states[0].hll.device.type == "cpu"
 
 
 def test_storage_defaults_to_cuda_and_raises_without_it(monkeypatch):
@@ -119,7 +119,7 @@ def test_storage_defaults_to_cuda_and_raises_without_it(monkeypatch):
         TorchStorage(config=small, pad_to_multiple=32, device="cuda")
     store = TorchStorage(config=small, pad_to_multiple=32, device="cpu")
     store.clear()
-    assert store.agg.device.type == "cpu" and store.agg.state.hll.device.type == "cpu"
+    assert store.agg.device.type == "cpu" and store.agg.states[0].hll.device.type == "cpu"
 
 
 def _small_config():
@@ -141,7 +141,7 @@ def test_state_builders_default_to_cuda_and_raise_without_it(monkeypatch, entry)
     cfg = _small_config()
     build = {
         "state_from_numpy": lambda **kw: convert.state_from_numpy(
-            convert.state_to_numpy(init_state(cfg, device="cpu")), cfg, **kw).hll,
+            convert.state_to_numpy([init_state(cfg, device="cpu")]), cfg, **kw)[0].hll,
         "init_state": lambda **kw: init_state(cfg, **kw).hll,
         "new_registers": lambda **kw: hll.new_registers(4, 4, **kw),
         "new_histograms": lambda **kw: histogram.new_histograms(8, **kw),
@@ -216,10 +216,10 @@ def test_resume_adapter_defaults_to_cuda_and_raises_without_it(monkeypatch, tmp_
         TorchStorage(config=_small_config(), batch_size=32, device="cuda", **dirs)
     assert not (tmp_path / "wal").exists()
     store = TorchStorage(config=_small_config(), batch_size=32, device="cpu", **dirs)
-    assert store.agg.state.hll.device.type == "cpu" and store.snapshot()
+    assert store.agg.states[0].hll.device.type == "cpu" and store.snapshot()
     store.close()
     again = TorchStorage(config=_small_config(), batch_size=32, device="cpu", **dirs)
-    assert again.agg.state.hll.device.type == "cpu"
+    assert again.agg.states[0].hll.device.type == "cpu"
     again.close()
 
 

@@ -224,7 +224,7 @@ def test_state_clone_matches_reference_and_is_a_copy(pair):
     rclone, rseq, rcounters = ref.state_clone()
     assert (seq, counters) == (rseq, rcounters)
     for name, g, w in zip(AggState._fields, convert.state_to_numpy(clone), rclone):
-        w = np.asarray(w)[0]
+        w = np.asarray(w)
         if name in ("digest", "tb_digest"):
             np.testing.assert_array_equal(g[..., 1], w[..., 1], err_msg=name)
             np.testing.assert_allclose(g[..., 0], w[..., 0], rtol=1e-5, err_msg=name)
@@ -236,9 +236,9 @@ def test_state_clone_matches_reference_and_is_a_copy(pair):
     assert port.host_counters["spans"] > 0
     for name, a, b in zip(AggState._fields, before, convert.state_to_numpy(clone)):
         np.testing.assert_array_equal(a, b, err_msg=name)  # ingest left the clone alone
-    assert all(x.data_ptr() != y.data_ptr() for x, y in zip(clone, port.state))
+    assert all(x.data_ptr() != y.data_ptr() for x, y in zip(clone[0], port.states[0]))
     # state_arrays reads through a clone: the same leaves as the live state
-    for a, b in zip(port.state_arrays(), convert.state_to_numpy(port.state)):
+    for a, b in zip(port.state_arrays(), convert.state_to_numpy(port.states)):
         np.testing.assert_array_equal(a, b)
 
 
@@ -250,7 +250,7 @@ def _bookkeeping(agg):
 def test_sync_pend_lanes_matches_reference(pair):
     port, ref, cols = pair
     leaves = ref.state_arrays()
-    port.state = convert.state_from_numpy(leaves, CFG, device="cpu")
+    port.states = convert.state_from_numpy(leaves, CFG, device="cpu")
     port._tt_max_epoch = ref._tt_max_epoch = -1
     port._pend_lanes = ref._pend_lanes = 0
     t0, r0 = readpack.transfer_count(), port.read_stats["host_transfers"]
@@ -265,7 +265,7 @@ def test_sync_pend_lanes_matches_reference(pair):
     _feed([port, ref], cols, 1400, 1600)
     for name, g, w in zip(AggState._fields, port.state_arrays(), ref.state_arrays()):
         if name not in ("digest", "tb_digest"):
-            np.testing.assert_array_equal(g, w[0], err_msg=name)
+            np.testing.assert_array_equal(g, w, err_msg=name)
 
 
 def test_warm_programs_matches_reference():
@@ -280,7 +280,6 @@ def test_warm_programs_matches_reference():
     assert port.ctx_stats["ctx_advances"] == ref.ctx_stats["ctx_advances"]
     assert _bookkeeping(port)[:2] == _bookkeeping(ref)[:2]
     for name, g, w in zip(AggState._fields, port.state_arrays(), ref.state_arrays()):
-        w = w[0]
         if name in ("digest", "tb_digest"):
             np.testing.assert_array_equal(g[..., 1], w[..., 1], err_msg=name)
             np.testing.assert_allclose(g[..., 0], w[..., 0], rtol=1e-5, err_msg=name)

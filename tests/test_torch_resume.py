@@ -136,7 +136,7 @@ def test_sampling_tables_verdicts_and_counters_restore(tmp_path):
                        ref=dict(config=ref_cfg, **kw))
     for got, want in zip((port.sampler.rate, port.sampler.tail, port.sampler.link), tables):
         np.testing.assert_array_equal(got, want)
-    s = port.agg.state
+    s = port.agg.states[0]
     for leaf, want in zip((s.s_rate, s.s_tail, s.s_link), tables):
         np.testing.assert_array_equal(leaf.numpy().astype(np.uint32), want)
     assert port.agg.host_counters == counters

@@ -150,7 +150,6 @@ def assert_states_match(port, ref, where, skip=()):
     for name, g, w in zip(AggState._fields, port.state_arrays(), ref.state_arrays()):
         if name in skip:
             continue
-        w = w[0]
         assert g.dtype == w.dtype and g.shape == w.shape, name
         if name in FLOAT_LEAVES:
             np.testing.assert_array_equal(g[..., 1], w[..., 1], err_msg=f"{name} weights {where}")
@@ -190,7 +189,7 @@ def sampled_pair():
 def test_sampled_aggregator_matches_reference(sampled_pair):
     port, ref = sampled_pair
     assert_states_match(port, ref, "at the end")
-    ctr = port.state_arrays()[AggState._fields.index("counters")]
+    ctr = port.state_arrays()[AggState._fields.index("counters")][0]
     kept, dropped = int(ctr[CTR_SAMPLED_KEPT]), int(ctr[CTR_SAMPLED_DROPPED])
     assert kept > 0 and dropped > 0
     assert port.host_counters == ref.host_counters
@@ -230,8 +229,8 @@ def test_r_keep_follows_the_ring_append_order():
         want[(cursor + np.arange(keep.size)) % CFG.ring_capacity] = keep
         cursor += keep.size
         agg.ingest(batch)
-        got = dict(zip(AggState._fields, convert.state_to_numpy(agg.state)))
-        np.testing.assert_array_equal(got["r_keep"], want, err_msg=f"batch {lo}:{hi}")
+        got = dict(zip(AggState._fields, convert.state_to_numpy(agg.states)))
+        np.testing.assert_array_equal(got["r_keep"][0], want, err_msg=f"batch {lo}:{hi}")
     assert cursor > 3 * CFG.ring_capacity and want.any() and not want.all()
 
 
@@ -244,9 +243,9 @@ def test_rate_controller_tick_publishes_identical_tables(sampled_pair):
         np.testing.assert_array_equal(getattr(port.sampler, name), getattr(ref.sampler, name), err_msg=name)
     assert (port.sampler.rate < RATE_ONE).any()
     leaves = dict(zip(AggState._fields, port.state_arrays()))
-    np.testing.assert_array_equal(leaves["s_rate"], port.sampler.rate)
-    np.testing.assert_array_equal(leaves["s_tail"], port.sampler.tail)
-    np.testing.assert_array_equal(leaves["s_link"], port.sampler.link)
+    np.testing.assert_array_equal(leaves["s_rate"][0], port.sampler.rate)
+    np.testing.assert_array_equal(leaves["s_tail"][0], port.sampler.tail)
+    np.testing.assert_array_equal(leaves["s_link"][0], port.sampler.link)
     assert ctl_p.publishes == ctl_r.publishes == 1
     assert ctl_p.counters() == {k: v for k, v in ctl_r.counters().items()}
     assert_states_match(port, ref, "after one controller tick")
@@ -270,8 +269,8 @@ def test_sampled_sketches_equal_unsampled_on_port():
     for name, a, b in zip(AggState._fields, off.state_arrays(), on.state_arrays()):
         if name not in skip:
             np.testing.assert_array_equal(a, b, err_msg=name)
-    leaves_on = dict(zip(AggState._fields, on.state_arrays()))
-    leaves_off = dict(zip(AggState._fields, off.state_arrays()))
+    leaves_on = {k: v[0] for k, v in zip(AggState._fields, on.state_arrays())}
+    leaves_off = {k: v[0] for k, v in zip(AggState._fields, off.state_arrays())}
     assert not leaves_off["r_keep"].any() and leaves_on["r_keep"].any()
     np.testing.assert_array_equal(leaves_off["counters"][:5], leaves_on["counters"][:5])
     assert leaves_off["counters"][CTR_SAMPLED_KEPT] == leaves_off["counters"][CTR_SAMPLED_DROPPED] == 0
@@ -287,8 +286,8 @@ def test_set_sampler_tables_swaps_leaves_and_keeps_write_version():
     link = np.eye(CFG.max_services, dtype=np.uint32)
     agg.set_sampler_tables(rate, tail, link)
     assert agg.write_version == v
-    st = convert.state_to_numpy(agg.state)
-    got = dict(zip(AggState._fields, st))
+    st = convert.state_to_numpy(agg.states)
+    got = {k: v[0] for k, v in zip(AggState._fields, st)}
     np.testing.assert_array_equal(got["s_rate"], rate)
     np.testing.assert_array_equal(got["s_tail"], tail)
     np.testing.assert_array_equal(got["s_link"], link)

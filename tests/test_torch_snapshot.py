@@ -66,10 +66,9 @@ def loaded(kind: str, seed: int = 7):
 
 
 def leaves(store):
-    """Every leaf as the file holds it: the reference's dtypes, no shard
-    axis."""
-    out = store.agg.state_arrays()
-    return [a[0] for a in out] if isinstance(store, TpuStorage) else out
+    """Every leaf as the file holds it: the reference's dtypes and the
+    leading shard axis."""
+    return store.agg.state_arrays()
 
 
 def meta_of(d):

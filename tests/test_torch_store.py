@@ -251,7 +251,7 @@ def test_restored_vocab_and_state_answer_the_same():
     port.vocab = convert.vocab_from_reference(
         v.services._names, v.span_names._names, v._key_list,
         max_services=SMALL.max_services, max_keys=SMALL.max_keys)
-    port.agg.state = convert.state_from_numpy(ref.agg.state_arrays(), SMALL, device="cpu")
+    port.agg.states = convert.state_from_numpy(ref.agg.state_arrays(), SMALL, device="cpu")
     port.agg.sync_pend_lanes()
     end_ts = max(s.timestamp for s in spans) // 1000 + 60_000
     assert links(port.get_dependencies(end_ts, WEEK_MS).execute()) == \

@@ -1,8 +1,9 @@
 """Collector core: the decode -> sample -> store pipeline every transport
-uses (the port's copy of ``zipkin_tpu/collector/core.py:36-328``).
+uses, and the transports' lifecycle base (the port's copy of
+``zipkin_tpu/collector/core.py:36-345``).
 
 Reference semantics: ``zipkin2/collector/Collector.java``,
-``CollectorSampler.java``, ``CollectorMetrics.java`` and
+``CollectorComponent.java``, ``CollectorSampler.java``, ``CollectorMetrics.java`` and
 ``InMemoryCollectorMetrics.java``. The counter taxonomy (messages,
 messages_dropped, bytes, spans, spans_dropped) is kept name for name so
 dashboards translate.
@@ -37,6 +38,7 @@ the multi-process tier as an argument of ``submit``.
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import threading
 import time
@@ -50,6 +52,7 @@ from zipkin_tpu_torch.model.span import Span
 from zipkin_tpu_torch.storage.spi import FastIngestError, StorageComponent
 from zipkin_tpu_torch.storage.throttle import RejectedExecutionError
 from zipkin_tpu_torch.tpu.mp_ingest import IngestBackpressure
+from zipkin_tpu_torch.utils.component import Component
 
 logger = logging.getLogger(__name__)
 
@@ -297,3 +300,19 @@ class Collector:
             logger.exception("cannot store %d spans", len(sampled))
             return 0
         return len(sampled)
+
+
+@dataclasses.dataclass
+class CollectorComponent(Component):
+    """Lifecycle contract for transports (start/check/close), the port of
+    ``zipkin_tpu/collector/core.py:331-345``.
+
+    Reference: ``CollectorComponent.java``. Concrete transports: HTTP (in
+    the server), gRPC, scribe and the queue consumers in
+    :mod:`zipkin_tpu_torch.collector.transports`.
+    """
+
+    collector: Collector
+
+    def start(self) -> "CollectorComponent":
+        return self

@@ -1,20 +1,20 @@
 """Carry aggregate state between the JAX package's leaves and the port.
 
 ``state_from_numpy`` takes the reference's ``AggState`` leaves as numpy
-arrays (what ``ShardedAggregator.state_arrays()`` returns) and builds the
-port's state: one shard's (the leading shard axis of one, or none) on
-``device`` (the card unless the caller names another), or, with ``mesh``,
-one state per mesh device, shard ``s`` from row ``s`` of the leading shard
-axis of S. ``state_to_numpy`` gives the leaves back with the reference's
-dtypes: one state's without a shard axis, a list of per-shard states
-stacked on a leading axis of S, so two states can be diffed leaf by leaf.
+arrays with their leading shard axis of S (what
+``ShardedAggregator.state_arrays()`` returns) and builds the port's list
+of per-shard states, shard ``s`` from row ``s`` on ``mesh[s]`` (without a
+mesh, one shard on ``device``: the card unless the caller names another).
+``state_to_numpy`` takes such a list and gives the leaves back with the
+reference's dtypes, stacked on the leading shard axis, so two states can
+be diffed leaf by leaf.
 ``vocab_from_reference`` carries the store's host state, the name and key
 interners, from plain lists. numpy and torch only.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -25,45 +25,31 @@ from zipkin_tpu_torch.tpu.state import LEAF_DTYPES, AggConfig, AggState, init_st
 
 
 def state_from_numpy(leaves: Sequence[np.ndarray], config: AggConfig, device=None,
-                     mesh=None):
-    """The port's state from reference leaves (in AggState order): one
-    AggState on ``device``, or with ``mesh`` the list of per-shard states,
-    shard ``s`` on ``mesh[s]``, from leaves whose leading axis is
-    ``len(mesh)`` (a one-shard mesh also takes leaves without it)."""
+                     mesh=None) -> List[AggState]:
+    """The port's per-shard states from reference leaves (in AggState
+    order, each with the leading shard axis of ``len(mesh)``): shard ``s``
+    on ``mesh[s]``; without ``mesh``, one shard on ``device``."""
     if len(leaves) != len(AggState._fields):
         raise ValueError(f"expected {len(AggState._fields)} leaves, got {len(leaves)}")
-    if mesh is None:
-        device = resolve_device(device)
-    else:
-        mesh = [resolve_device(d) for d in mesh]
+    mesh = [resolve_device(device)] if mesh is None else [resolve_device(d) for d in mesh]
     template = init_state(config, "meta")
-    shards = None if mesh is None else len(mesh)
-    per_shard = [[] for _ in range(shards or 1)]
+    per_shard = [[] for _ in mesh]
     for name, leaf, want in zip(AggState._fields, leaves, template):
         a = np.asarray(leaf)
-        if a.ndim == want.dim() + 1 and (shards is None or a.shape[0] == shards):
-            rows = a  # the leading shard axis
-        else:
-            rows = a[None]
-        if (shards or 1) != rows.shape[0]:
-            raise ValueError(f"leaf {name}: {rows.shape[0]} shards, the mesh has {shards or 1}")
-        if tuple(rows.shape[1:]) != tuple(want.shape):
-            raise ValueError(f"leaf {name}: shape {a.shape}, expected {tuple(want.shape)}")
-        for i, row in enumerate(rows):
+        if a.ndim != want.dim() + 1:
+            raise ValueError(f"leaf {name}: shape {a.shape} lacks the leading shard axis")
+        if a.shape[0] != len(mesh):
+            raise ValueError(f"leaf {name}: {a.shape[0]} shards, the mesh has {len(mesh)}")
+        if tuple(a.shape[1:]) != tuple(want.shape):
+            raise ValueError(f"leaf {name}: shape {a.shape}, expected (S, *{tuple(want.shape)})")
+        for i, row in enumerate(a):
             row = np.array(row, dtype=LEAF_DTYPES[name], copy=True)
             t = torch.from_numpy(row).to(torch_dtype(LEAF_DTYPES[name]))
-            per_shard[i].append(t.to(device if mesh is None else mesh[i]))
-    states = [AggState(*out) for out in per_shard]
-    return states[0] if mesh is None else states
+            per_shard[i].append(t.to(mesh[i]))
+    return [AggState(*out) for out in per_shard]
 
 
-def state_to_numpy(state) -> list:
-    """Every leaf as numpy with the reference's dtype: an AggState's with
-    its own shape, a list of per-shard states' stacked on a leading shard
-    axis."""
-    if not isinstance(state, AggState):
-        shards = [state_to_numpy(s) for s in state]
-        return [np.stack(rows) for rows in zip(*shards)]
+def _leaves(state: AggState) -> list:
     out = []
     for name, t in zip(AggState._fields, state):
         a = t.detach().cpu().numpy()
@@ -73,6 +59,15 @@ def state_to_numpy(state) -> list:
             a = a.astype(LEAF_DTYPES[name])
         out.append(a)
     return out
+
+
+def state_to_numpy(states: Sequence[AggState]) -> list:
+    """Every leaf of the per-shard states as numpy with the reference's
+    dtype, stacked on a leading shard axis of ``len(states)``."""
+    if isinstance(states, AggState):
+        raise TypeError("state_to_numpy takes the list of per-shard states")
+    shards = [_leaves(s) for s in states]
+    return [np.stack(rows) for rows in zip(*shards)]
 
 
 def vocab_from_reference(services: Sequence[str], span_names: Sequence[str],

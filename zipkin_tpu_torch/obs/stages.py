@@ -9,9 +9,7 @@ and dashboards can rely on the label set being stable across builds.
 To add a stage: append the name here, give it a budget in
 ``DEFAULT_BUDGETS_US``, and instrument the host-side call site —
 never inside a device program. The catalogue equals the reference's,
-including the stages the port does not stamp yet (``grpc_boundary``,
-``wire_to_durable``, ``query_mirror``, ``mirror_publish``,
-``reader_serve``), so ``/prometheus`` label sets match across packages.
+so ``/prometheus`` label sets match across packages.
 
 Budgets are the slow-span thresholds in µs: an observation exceeding
 its stage budget lands in the recorder's slow-event ring and, when the

@@ -308,26 +308,6 @@ class TorchAggregator:
             for f in (False, True) for r in (False, True)
         }
 
-    # -- the per-shard states --------------------------------------------
-
-    @property
-    def state(self) -> AggState:
-        """The one shard's state of a one-shard aggregator (an S-shard one
-        has ``states``, one per mesh device)."""
-        if self.n_shards != 1:
-            raise AttributeError(f"a {self.n_shards}-shard aggregator has per-shard `states`")
-        return self.states[0]
-
-    @state.setter
-    def state(self, value: AggState) -> None:
-        if self.n_shards != 1:
-            raise AttributeError(f"a {self.n_shards}-shard aggregator has per-shard `states`")
-        self.states = [value]
-
-    def _shard_form(self, states: List[AggState]):
-        """One shard's AggState as it is, S shards' as the list."""
-        return states[0] if self.n_shards == 1 else states
-
     # -- write path ------------------------------------------------------
 
     def ingest(self, cols: SpanColumns) -> None:
@@ -675,20 +655,19 @@ class TorchAggregator:
             self.write_version += 1
 
     def state_clone(self):
-        """(device clone of every leaf, wal_seq, host_counters copy), all
-        taken under the lock: one instant for a snapshot. The clone is an
-        :class:`AggState` for one shard and the list of per-shard states
-        for more. Callers copy the clone to the host without the lock while
-        ingest goes on."""
+        """(device clone of every shard's state, wal_seq, host_counters
+        copy), all taken under the lock: one instant for a snapshot. The
+        clone is the list of per-shard states, one for a one-shard mesh.
+        Callers copy the clone to the host without the lock while ingest
+        goes on."""
         with self.lock:
             clone = self._p["spmd_snap_copy"](self.states)
-            return self._shard_form(clone), self.wal_seq, dict(self.host_counters)
+            return clone, self.wal_seq, dict(self.host_counters)
 
     def state_arrays(self) -> list:
-        """Host copy of every state leaf with the reference's dtypes, from
-        one :meth:`state_clone`: with a leading shard axis of S, the
-        reference's layout, on an S-shard mesh; a one-shard aggregator
-        gives the leaves without it."""
+        """Host copy of every state leaf with the reference's dtypes and a
+        leading shard axis of S (one on a one-shard mesh), the reference's
+        layout, from one :meth:`state_clone`."""
         clone, _, _ = self.state_clone()
         return convert.state_to_numpy(clone)
 

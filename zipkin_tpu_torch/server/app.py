@@ -17,6 +17,10 @@ Routes and status codes follow the reference:
   storage serves sketch reads, and ``POST /api/v2/tpu/snapshot`` (200
   ``{"snapshot": dir}``, 409 without a checkpoint dir, 501 on a store that
   cannot snapshot);
+- ``GET /zipkin``, ``/zipkin/`` and ``/zipkin/static/{name}`` (the built-in
+  UI, :mod:`zipkin_tpu_torch.server.ui`, with the reference's
+  ``Content-Security-Policy``; an unknown asset is 404) and ``GET
+  /config.json`` (the UI's settings, the reference's body);
 - ``GET /health``, ``/info`` and ``/metrics`` (the reference's
   ``counter.zipkin_collector.<name>.<transport>`` taxonomy, with the boot's
   restore figures, the scrubber's and archive's quarantine tallies, the
@@ -74,8 +78,24 @@ own scrubber thread re-verifies its files every ``TPU_SCRUB_INTERVAL_S``.
 ``stop()`` answers new requests 503, waits for those in flight (the
 reference's ``runner.cleanup()``), drains and closes the multi-process tier
 within the same limit, stops the scrubber, and takes a final snapshot after
-the listener and both tickers have stopped. Left out, against the
-reference: gRPC, scribe, the UI and ``/config.json``. The routes, the
+the listener and both tickers have stopped.
+
+The wire collectors beside HTTP, from the reference's environment:
+``COLLECTOR_SCRIBE_ENABLED`` starts the scribe server
+(:mod:`zipkin_tpu_torch.collector.scribe`, ``COLLECTOR_SCRIBE_PORT``) and
+``COLLECTOR_GRPC_ENABLED`` the ``SpanService/Report`` server
+(:mod:`zipkin_tpu_torch.server.grpc`, ``COLLECTOR_GRPC_PORT``), both on
+one asyncio loop on a thread of its own (``zipkin-transports``) that
+``start()`` runs only when one of them is on. Port 0 binds a free port,
+read back from ``scribe_port`` and ``grpc_port``. The gRPC collector
+shares the HTTP one's sampler, line-rate path, fan-out tier, shadow and
+admission; the scribe collector takes the object path with the sampler and
+the shadow and, as in the reference, no admission. ``grpc`` is imported
+only when gRPC is asked for, and without it ``start()`` refuses. ``stop()``
+stops scribe, then gRPC, before the listener's drain, so every frame and
+``Report`` answered ``OK`` is in the final snapshot. ``post_hook`` (None on
+a normal server; the test kit's failure injection) is consulted by a POST
+before its body is read. The routes, the
 windows' counter source and the ticker's subscribers reach the server
 weakly, so a stopped, dropped server and its
 store are freed without the cycle collector.
@@ -83,6 +103,7 @@ store are freed without the cycle collector.
 
 from __future__ import annotations
 
+import asyncio
 import contextvars
 import json
 import logging
@@ -113,6 +134,14 @@ logger = logging.getLogger(__name__)
 JSON = "application/json"
 MAX_BODY = 64 * 1024 * 1024  # compressed request bytes, as the reference's client_max_size
 DRAIN_TIMEOUT_S = 30.0  # how long stop() waits for the requests in flight
+# the built-in UI's policy (zipkin_tpu/server/app.py:549-557): span fields
+# are attacker-controlled and the app renders them, so only same-origin
+# scripts run; inline styles stay allowed for the app's positioned bars
+UI_CSP = (
+    "default-src 'self'; script-src 'self'; style-src 'self' "
+    "'unsafe-inline'; img-src 'self' data:; object-src 'none'; "
+    "base-uri 'none'; frame-ancestors 'none'"
+)
 # the caller's X-Request-Timeout-Ms deadline (monotonic s; None: none), set
 # by the handler on the request's thread at its earliest instant
 REQUEST_DEADLINE: contextvars.ContextVar = contextvars.ContextVar(
@@ -169,6 +198,15 @@ class PayloadTooLarge(ValueError):
 
 class BadLength(ValueError):
     """A Content-Length or chunk size that is negative or not a number."""
+
+
+class RawBody:
+    """A route's answer sent as it is: bytes, their type and extra headers."""
+
+    __slots__ = ("body", "ctype", "headers")
+
+    def __init__(self, body: bytes, ctype: str, headers: Optional[Dict[str, str]] = None) -> None:
+        self.body, self.ctype, self.headers = body, ctype, headers
 
 
 class HttpError(Exception):
@@ -352,6 +390,9 @@ class ZipkinServer:
             "/info": self.get_info,
             "/metrics": self.get_metrics,
             "/prometheus": self.get_prometheus,
+            "/config.json": self.get_ui_config,
+            "/zipkin": self.get_ui,
+            "/zipkin/": self.get_ui,
             # the recorder is process-global: served whatever the store
             "/api/v2/tpu/statusz": self.get_tpu_statusz,
         }
@@ -375,6 +416,15 @@ class ZipkinServer:
                 "/api/v1/spans": lambda body, ctype, t0: post(body, ctype, True, t0),
             })
         self._snapshots = False  # a periodic snapshot thread runs
+        # the scribe and gRPC servers and the loop that hosts them
+        self._transport_loop: Optional[asyncio.AbstractEventLoop] = None
+        self._transport_thread: Optional[threading.Thread] = None
+        self._scribe = self._grpc = None
+        self.scribe_port: Optional[int] = None
+        self.grpc_port: Optional[int] = None
+        # (handler, path) -> True when it answered the POST itself; the
+        # test kit's failure injection (None: one attribute read a POST)
+        self.post_hook = None
 
     def _build_mp_ingester(self, sampler, metrics):
         """The multi-process tier for ``TPU_MP_WORKERS`` > 0, over the core
@@ -720,6 +770,16 @@ class ZipkinServer:
     # -- lifecycle ---------------------------------------------------------
 
     def start(self) -> "ZipkinServer":
+        grpc_server = None
+        if self.config.grpc_collector_enabled:
+            # before anything binds: a server asked for gRPC never boots
+            # without it
+            try:
+                from zipkin_tpu_torch.server import grpc as grpc_server
+            except ImportError as e:
+                raise RuntimeError(
+                    "COLLECTOR_GRPC_ENABLED is set but the grpc package cannot be imported "
+                    f"({e}); install grpc or unset COLLECTOR_GRPC_ENABLED") from e
         self._httpd = _HTTPServer((self.config.host, self.config.port),
                                   _handler_for(weakref.ref(self)))
         self.port = self._httpd.server_address[1]
@@ -743,10 +803,79 @@ class ZipkinServer:
                 name="zipkin-snapshot", daemon=True))
         for t in self._threads:
             t.start()
+        if grpc_server is not None or self.config.scribe_enabled:
+            try:
+                self._start_transports(grpc_server)
+            except BaseException:
+                self._stopping.set()
+                self._stop_transports()
+                self._httpd.shutdown()
+                self._httpd.server_close()
+                self._httpd = None
+                raise
         if self._obs_windows is not None:
             self._obs_windows.start_ticker()
         logger.info("zipkin-tpu-torch listening on %s:%d", self.config.host, self.port)
         return self
+
+    def _on_transports(self, coro, timeout: float = DRAIN_TIMEOUT_S):
+        return asyncio.run_coroutine_threadsafe(coro, self._transport_loop).result(timeout)
+
+    def _start_transports(self, grpc_server) -> None:
+        """The transport loop's thread, then the gRPC server and the scribe
+        server on it, with their collectors built as the reference's
+        (``zipkin_tpu/server/app.py:586-628``)."""
+        loop = self._transport_loop = asyncio.new_event_loop()
+        t = threading.Thread(target=_run_loop, args=(loop,), name="zipkin-transports",
+                             daemon=True)
+        t.start()
+        self._transport_thread = t
+        cfg = self.config
+        if grpc_server is not None:
+            collector = Collector(
+                self.storage, sampler=self.collector.sampler,
+                metrics=self.metrics.for_transport("grpc"),
+                fast_ingest=cfg.tpu_fast_ingest, mp_ingester=self._mp_ingester,
+                shadow=self._obs_shadow)
+            # the same admission as HTTP: no transport-shaped hole in the ladder
+            collector.overload = self._overload
+            self._grpc = grpc_server.GrpcCollectorServer(
+                collector, host=cfg.host, port=cfg.grpc_port,
+                deadlines=cfg.deadline_propagation_enabled)
+            self._on_transports(self._grpc.start())
+            self.grpc_port = self._grpc.port
+        if cfg.scribe_enabled:
+            from zipkin_tpu_torch.collector.scribe import ScribeCollector
+
+            # no overload controller, as the reference builds it: scribe
+            # bypasses admission there, and the port keeps that
+            collector = Collector(
+                self.storage, sampler=self.collector.sampler,
+                metrics=self.metrics.for_transport("scribe"), shadow=self._obs_shadow)
+            self._scribe = ScribeCollector(collector, host=cfg.host, port=cfg.scribe_port)
+            self._on_transports(self._scribe.start())
+            self.scribe_port = self._scribe.port
+            self.components["scribe"] = self._scribe
+
+    def _stop_transports(self) -> None:
+        """Scribe, then gRPC (the reference's order), then the loop; the
+        loop's worker threads are joined, so every accept they ran has
+        returned."""
+        loop = self._transport_loop
+        if loop is None:
+            return
+        for name in ("_scribe", "_grpc"):
+            server = getattr(self, name)
+            if server is not None:
+                try:
+                    self._on_transports(server.stop())
+                except Exception:
+                    logger.exception("stopping the %s collector failed", name[1:])
+                setattr(self, name, None)
+        self.components.pop("scribe", None)
+        loop.call_soon_threadsafe(loop.stop)
+        self._transport_thread.join(timeout=DRAIN_TIMEOUT_S)
+        self._transport_loop = None
 
     def _seal_if_due(self, core) -> None:
         """The ticker's seal: at most once a ``seal_interval_s``."""
@@ -793,6 +922,9 @@ class ZipkinServer:
             # first: the ticker reads the store, which the end closes
             self._obs_windows.stop_ticker()
         self._stopping.set()
+        # the wire collectors first: what they answered OK lands before
+        # the final snapshot
+        self._stop_transports()
         with self._idle:
             self._draining = True  # a keep-alive connection's next request gets 503
         if self._httpd is not None:
@@ -1049,6 +1181,34 @@ class ZipkinServer:
 
     # -- ops ---------------------------------------------------------------
 
+    # -- the built-in UI (zipkin_tpu/server/app.py:543-578,1547-1557) -----
+
+    def get_ui(self, q):
+        from zipkin_tpu_torch.server.ui import index_page
+
+        return 200, RawBody(index_page().encode(), "text/html; charset=utf-8",
+                            {"Content-Security-Policy": UI_CSP})
+
+    def get_ui_asset(self, name: str):
+        from zipkin_tpu_torch.server.ui import asset
+
+        found = asset(name)
+        if found is None:
+            raise HttpError(404, "no such asset")
+        body, ctype = found
+        return 200, RawBody(body, ctype, {"Content-Security-Policy": UI_CSP})
+
+    def get_ui_config(self, q):
+        cfg = self.config
+        return 200, {
+            "environment": "",
+            "queryLimit": cfg.query_limit,
+            "defaultLookback": cfg.default_lookback,
+            "searchEnabled": cfg.search_enabled,
+            "autocompleteKeys": list(cfg.autocomplete_keys),
+            "dependency": {"enabled": True},
+        }
+
     def get_health(self, q):
         results, up = {}, True
         for name, component in self.components.items():
@@ -1295,6 +1455,8 @@ def _handler_for(server_ref):
                 return
             if body is None:
                 self._send(status)
+            elif isinstance(body, RawBody):
+                self._send(status, body.body, body.ctype, body.headers)
             elif isinstance(body, str):  # the exposition format
                 self._send(status, body.encode(), "text/plain; version=0.0.4; charset=utf-8")
             else:
@@ -1384,6 +1546,8 @@ def _handler_for(server_ref):
                 self._answer(fn, query)
             elif url.path.startswith("/api/v2/trace/") and url.path.count("/") == 4:
                 self._answer(self._server.get_trace, unquote(url.path[len("/api/v2/trace/"):]))
+            elif url.path.startswith("/zipkin/static/") and url.path.count("/") == 3:
+                self._answer(self._server.get_ui_asset, unquote(url.path[len("/zipkin/static/"):]))
             else:
                 self._send(404, b"404: Not Found")
 
@@ -1393,6 +1557,9 @@ def _handler_for(server_ref):
             if route is None:
                 self._send(405 if path in self._server.get_routes else 404)
                 self.close_connection = True
+                return
+            hook = self._server.post_hook
+            if hook is not None and hook(self, path):
                 return
             t0 = time.perf_counter()
             try:
@@ -1802,9 +1969,26 @@ def _prom_slo(verdicts) -> List[str]:
     return lines
 
 
+def _run_loop(loop: asyncio.AbstractEventLoop) -> None:
+    """The transport loop's thread: serve until stopped, then join the
+    loop's worker threads (the scribe and gRPC accepts) and close it."""
+    asyncio.set_event_loop(loop)
+    try:
+        loop.run_forever()
+        loop.run_until_complete(loop.shutdown_default_executor())
+    finally:
+        loop.close()
+
+
 def run_server(config: Optional[ServerConfig] = None, stop: Optional[threading.Event] = None) -> None:
-    """Serve until ``stop`` is set, then shut down cleanly."""
-    server = ZipkinServer(config or ServerConfig.from_env()).start()
+    """Serve until ``stop`` is set, then shut down cleanly. A server that
+    cannot start closes its store and raises."""
+    server = ZipkinServer(config or ServerConfig.from_env())
+    try:
+        server.start()
+    except BaseException:
+        server.storage.close()
+        raise
     try:
         (stop or threading.Event()).wait()
     finally:

@@ -7,7 +7,10 @@ The environment names and defaults are the reference's, but for one:
 without one, as every entry point of the port does; ``mem`` is the
 in-memory store, taken only when asked for by name. The others are
 ``QUERY_PORT``,
-``COLLECTOR_SAMPLE_RATE``, ``QUERY_LOOKBACK``, ``QUERY_LIMIT``,
+``COLLECTOR_SAMPLE_RATE``, the wire collectors' ``COLLECTOR_HTTP_ENABLED``,
+``COLLECTOR_GRPC_ENABLED``, ``COLLECTOR_GRPC_PORT``,
+``COLLECTOR_SCRIBE_ENABLED`` and ``COLLECTOR_SCRIBE_PORT``
+(``zipkin_tpu/server/config.py:69-73,325-329``), ``QUERY_LOOKBACK``, ``QUERY_LIMIT``,
 ``MEM_MAX_SPANS``, ``STORAGE_THROTTLE_*``, ``TPU_FAST_INGEST``,
 ``TPU_FAST_ARCHIVE_SAMPLE``, ``TPU_SAMPLING*``, ``TPU_MAX_DEVICE_BATCH``,
 ``TPU_DEPS_MAX_STALE_MS``, the ``TPU_<AggConfig field>`` sizes and the
@@ -118,6 +121,10 @@ class ServerConfig:
     query_limit: int = 10
     sample_rate: float = 1.0
     http_collector_enabled: bool = True
+    grpc_collector_enabled: bool = False
+    grpc_port: int = 9412  # 0 binds an ephemeral port
+    scribe_enabled: bool = False
+    scribe_port: int = 9410  # 0 binds an ephemeral port
     throttle_enabled: bool = False
     throttle_max_concurrency: int = 8
     # self-tracing: one SERVER span per request, stored through the
@@ -292,6 +299,10 @@ class ServerConfig:
             query_limit=_env_int("QUERY_LIMIT", 10),
             sample_rate=_env_float("COLLECTOR_SAMPLE_RATE", 1.0),
             http_collector_enabled=_env_bool("COLLECTOR_HTTP_ENABLED", True),
+            grpc_collector_enabled=_env_bool("COLLECTOR_GRPC_ENABLED", False),
+            grpc_port=_env_int("COLLECTOR_GRPC_PORT", 9412),
+            scribe_enabled=_env_bool("COLLECTOR_SCRIBE_ENABLED", False),
+            scribe_port=_env_int("COLLECTOR_SCRIBE_PORT", 9410),
             throttle_enabled=_env_bool("STORAGE_THROTTLE_ENABLED", False),
             throttle_max_concurrency=_env_int("STORAGE_THROTTLE_MAX_CONCURRENCY", 8),
             self_tracing_enabled=_env_bool("SELF_TRACING_ENABLED", False),

@@ -173,8 +173,6 @@ def save(store, directory: str, keep: Optional[int] = None) -> str:
     # the clone is a second 0.906 GiB on the card for the pull's duration.
     clone, wal_seq, counters = store.agg.state_clone()
     leaves = convert.state_to_numpy(clone)
-    if store.agg.n_shards == 1:
-        leaves = [a[None] for a in leaves]
     arrays = {f"f{i}": a for i, a in enumerate(leaves)}
     del clone
 
@@ -373,8 +371,8 @@ def _restore_one(store, directory: str, meta: dict, state_name: str) -> str:
         store._nvocab = None
     agg.wal_seq = int(meta.get("wal_seq", 0))
     # host mirrors of restored leaves (the sampling tier's tables, the same
-    # on every shard), given as shard 0's
-    store.on_restored_leaves({name: leaf[0] for name, leaf in zip(fields, leaves)})
+    # on every shard), given with the shard axis
+    store.on_restored_leaves(dict(zip(fields, leaves)))
     logger.info("restored the sketch snapshot from %s", directory)
     return "ok"
 

@@ -445,11 +445,12 @@ class TorchStorage(
     def on_restored_leaves(self, leaves: dict) -> None:
         """Snapshot-restore callback (port of ``zipkin_tpu/tpu/store.py:476-485``):
         seed the sampling tier's host tables from the restored leaves.
-        ``leaves`` maps leaf names to numpy arrays without the shard axis
-        (the reference's callback gets the axis and takes shard 0)."""
+        ``leaves`` maps leaf names to numpy arrays with the leading shard
+        axis; the tables are replicated across shards, so shard 0's copy
+        seeds them."""
         if self.sampler is None or "s_rate" not in leaves:
             return
-        self.sampler.restore_tables(leaves["s_rate"], leaves["s_tail"], leaves["s_link"])
+        self.sampler.restore_tables(leaves["s_rate"][0], leaves["s_tail"][0], leaves["s_link"][0])
 
     def apply_sctl(self, delta: dict) -> None:
         """WAL-replay callback: apply one replayed controller publish to the
