@@ -139,7 +139,17 @@ Builds the hand-written kernels from the sources in the checkout, then:
     decoded frames through accept, then stop() and a boot from the
     checkpoint (n2); the UI's routes on that server (n3); the entry point
     with scribe, and with gRPC (refused where grpc is missing) (n4); and
-    the ZipkinMock test kit (n5).
+    the ZipkinMock test kit (n5);
+(o) the port's ZT-lint and what the card says of it: ``python -m
+    zipkin_tpu_torch.lint zipkin_tpu_torch --format json --stats`` in a
+    subprocess, zero findings and nothing of torch, numpy, jax or
+    zipkin_tpu loaded (o1); a census of every synchronizing CUDA call
+    under ``torch.cuda.set_sync_debug_mode("warn")`` over 16 plain steps of
+    one 4,096-span image, the step that flushes and rolls up, the three
+    reads, one line-rate accept and one mirror serve, each site held to
+    the readpack pull, a suppressed ZT01/ZT02/ZT06 finding or a row of
+    SYNCS_THE_LINT_CANNOT_SEE (o2); and one hll_update_step captured in a
+    CUDA graph and replayed on fresh registers against an eager call (o3).
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -6401,6 +6411,388 @@ def phase_wire(seed: int, torch, card: str, stored: dict, fast: dict, cfg=None, 
 
 
 
+# -- (o) ZT-lint on the card's machine, the host-sync census, a CUDA-graph probe
+
+# host syncs the card reports at sites no syntactic rule of the port's lint
+# can see: (path, line) -> why the sync is there. Empty: every form the card
+# reported (copies, uploads, host numbers stored into device tensors) is one
+# ZT01 sees, so each site is a suppressed finding or the readpack pull.
+SYNCS_THE_LINT_CANNOT_SEE = {}
+
+_LINT_PROBE = r"""
+import json, runpy, sys
+HEAVY = ("torch", "numpy", "jax", "zipkin_tpu")
+def heavy():
+    return sorted(m for m in sys.modules if m.split(".")[0] in HEAVY)
+sys.argv = ["zipkin_tpu_torch.lint", "zipkin_tpu_torch", "--format", "json", "--stats"]
+import zipkin_tpu_torch.lint  # noqa: F401
+after_import = heavy()
+try:
+    runpy.run_module("zipkin_tpu_torch.lint", run_name="__main__", alter_sys=True)
+    rc = 0
+except SystemExit as e:
+    rc = e.code
+sys.stdout.flush()
+print(json.dumps({"rc": rc, "after_import": after_import, "after_run": heavy()}), file=sys.stderr)
+"""
+
+
+def phase_lint(timeout_s: float = 120.0) -> dict:
+    """(o1) ``python -m zipkin_tpu_torch.lint zipkin_tpu_torch --format json
+    --stats`` in a subprocess on this machine: exit 0, zero findings; and
+    in the same process, no torch, numpy, jax or zipkin_tpu module loaded
+    by importing the lint nor by running it. Returns the lint's document."""
+    import collections
+
+    import os
+
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-c", _LINT_PROBE], capture_output=True, text=True,
+                         timeout=timeout_s, cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall_s = time.perf_counter() - t0
+    try:
+        probe = json.loads(out.stderr.strip().splitlines()[-1])
+        doc = json.loads(out.stdout)
+    except (IndexError, ValueError):
+        raise AssertionError(f"phase o1: the lint did not run (exit {out.returncode}): "
+                             f"{out.stderr[-2000:]}") from None
+    if probe["rc"] != 0 or doc["findings"] or doc["errors"]:
+        raise AssertionError(f"phase o1: the lint exited {probe['rc']} with "
+                             f"{len(doc['findings'])} findings, errors {doc['errors']}: "
+                             + "; ".join(f"{f['path']}:{f['line']} {f['rule']}"
+                                         for f in doc["findings"][:10]))
+    if probe["after_import"] or probe["after_run"]:
+        raise AssertionError(f"phase o1: the lint loaded {probe['after_import']} on import, "
+                             f"{probe['after_run']} when run")
+    s = doc["stats"]
+    pragmas = dict(sorted(collections.Counter(f["rule"] for f in doc["suppressed"]).items()))
+    log(f"phase o1: zt-lint clean: {s['files']} files, {s['functions']} functions, {s['edges']} "
+        f"call edges, {s['rules']} rules in {s['elapsed_ms']} ms (subprocess {wall_s:.1f} s); "
+        f"{len(doc['suppressed'])} findings suppressed by pragma, by rule {pragmas}; nothing of "
+        "torch, numpy, jax or zipkin_tpu loaded")
+    return doc
+
+
+class SyncCensus:
+    """Every synchronizing CUDA call under ``torch.cuda.set_sync_debug_mode
+    ("warn")``, by section and by the port's line that made it: the
+    warning's own location when it is in ``zipkin_tpu_torch/``, else the
+    innermost frame there (a ``showwarning`` hook walks the stack)."""
+
+    def __init__(self, torch, pkg: str = "zipkin_tpu_torch"):
+        import collections
+
+        self.torch, self.pkg = torch, pkg
+        self.section = "outside a section"
+        self.sites = collections.defaultdict(collections.Counter)
+        self.stacks = {}  # a site outside the port -> the stack that reached it
+        self.own = 0
+
+    def _rel(self, filename: str):
+        path = filename.replace("\\", "/")
+        i = path.rfind(f"/{self.pkg}/")
+        if i < 0:
+            return None
+        rel = path[i + 1:]
+        return None if rel.startswith(f"{self.pkg}/lint/") else rel
+
+    def _site(self, filename: str, lineno: int):
+        import os
+        import traceback
+
+        rel = self._rel(filename)
+        if rel is not None:
+            return rel, lineno
+        stack = traceback.extract_stack()[:-3]
+        for fr in reversed(stack):
+            rel = self._rel(fr.filename)
+            if rel is not None:
+                return rel, fr.lineno
+        site = (filename, lineno)
+        for fr in reversed(stack):  # not the port's: the script's own line
+            if "/torch/" not in fr.filename and not fr.filename.endswith("warnings.py"):
+                site = (os.path.basename(fr.filename), fr.lineno)
+                break
+        import threading
+
+        self.stacks.setdefault(site, f"thread {threading.current_thread().name}: " + " <- ".join(
+            f"{os.path.basename(fr.filename)}:{fr.lineno} {fr.name}" for fr in reversed(stack[-8:])))
+        return site
+
+    def _hook(self, message, category, filename, lineno, file=None, line=None):
+        import traceback
+
+        if "synchroniz" not in str(message):
+            return self._showwarning(message, category, filename, lineno, file, line)
+        if any(fr.name == "set_sync_debug_mode" for fr in traceback.extract_stack()):
+            self.own += 1  # raised by switching the mode on: the census's, not the port's
+            return
+        self.sites[self.section][self._site(filename, lineno)] += 1
+
+    def __enter__(self):
+        import warnings
+
+        self._catch = warnings.catch_warnings()
+        self._catch.__enter__()
+        warnings.simplefilter("always")  # every sync, not the first at a site
+        self._showwarning = warnings.showwarning
+        warnings.showwarning = self._hook
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self.torch.cuda.set_sync_debug_mode(0)
+        finally:
+            self._catch.__exit__(*exc)
+        return False
+
+
+def _source_line(path: str, line: int) -> str:
+    import linecache
+
+    return linecache.getline(path, line).strip()[:70]
+
+
+def explain_sites(sites, lint_doc: dict) -> dict:
+    """site -> why the census may see a sync there: the counted readpack
+    pull, a line that a pragma of a suppressed ZT01/ZT02/ZT06 finding
+    governs (the lint's own span for it: the pragma's line, or the whole
+    def, class or with block it heads), or a row of
+    SYNCS_THE_LINT_CANNOT_SEE; None when nothing explains it."""
+    spans = {}
+    for f in lint_doc["suppressed"]:
+        if f["rule"] in ("ZT01", "ZT02", "ZT06"):
+            spans.setdefault(f["path"], []).append(f)
+    out = {}
+    for path, line in sites:
+        if path == "zipkin_tpu_torch/readpack.py":
+            out[(path, line)] = "readpack: the read's one counted pull"
+            continue
+        why = SYNCS_THE_LINT_CANNOT_SEE.get((path, line))
+        for f in spans.get(path, ()):
+            lo, hi = f["pragma"]["governs"]
+            if lo <= line <= hi:
+                why = f"lint {f['rule']} pragma (line {f['pragma']['line']}): {f['pragma']['reason']}"
+                break
+        out[(path, line)] = why
+    return out
+
+
+def phase_census(torch, card: str, stored: dict, lint_doc: dict, cfg=None, device=None,
+                 chunk: int = 4096, plain_steps: int = 16) -> dict:
+    """(o2) every host sync of the port's main path, counted by the card:
+    a fresh TorchAggregator at the default AggConfig takes ``2 *
+    plain_steps`` steps of one ``chunk``-span image (f1's payload size; the
+    first half warms up), then the step that flushes the digest buffer and
+    rolls the ring up, then one each of the three reads; a TorchStorage
+    takes one of phase e's payloads through the line-rate path and serves
+    one read from its published mirror. Each sync site must be explained
+    (:func:`explain_sites`)."""
+    from zipkin_tpu_torch.collector import Collector
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.tpu.store import TorchStorage
+    from zipkin_tpu_torch.workload import generate
+
+    cfg = cfg or AggConfig()
+    steps_total = 2 * plain_steps + 1
+    if cfg.digest_buffer != plain_steps * 2 * chunk or cfg.rollup_segment != cfg.digest_buffer:
+        raise AssertionError("phase o2 wants the flush and the rollup due at step "
+                             f"{steps_total} of {chunk}-span steps: {cfg}")
+    traffic = generate(steps_total * chunk, seed=1)
+    cols = traffic.cols
+    agg = TorchAggregator(cfg, device=device)
+    ts = cols.ts_min[cols.valid]
+    lo, hi = int(ts.min()), int(ts.max())
+    census = SyncCensus(torch)
+
+    def step(i):
+        parts, counts = step_parts(cols, i * chunk, (i + 1) * chunk, chunk, cfg, agg.n_shards)
+        lanes = parts[0][0].shape[-1]
+        due = (agg._pend_lanes + lanes > cfg.digest_buffer,
+               agg._lanes_since_rollup + lanes > cfg.rollup_segment)
+        agg.ingest_fused_multi(parts, *counts)
+        return due
+
+    reads = {"quantiles": lambda: agg.quantiles(QS), "cardinalities": agg.cardinalities,
+             "dependencies": lambda: agg.dependency_edges(lo, hi)}
+    for fn in reads.values():  # first-read work (headers, caches) is warm-up
+        fn()
+    hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+    for i in range(plain_steps):
+        if step(i) != (False, False):
+            raise AssertionError(f"phase o2: warm-up step {i} was a maintenance step")
+    agg.block_until_ready()
+    with census:
+        census.section = "plain step"
+        for i in range(plain_steps, 2 * plain_steps):
+            if step(i) != (False, False):
+                raise AssertionError(f"phase o2: step {i} was a maintenance step")
+        census.section = "flush+rollup step"
+        if step(2 * plain_steps) != (True, True):
+            raise AssertionError("phase o2: the last step did not flush and roll up")
+        for name, fn in reads.items():
+            census.section = f"read {name}"
+            fn()
+        census.section = "outside a section"
+    agg.block_until_ready()
+    launches = {"update": hll_kernel.update.launches, "update_step": hll_kernel.update_step.launches}
+    if launches != {"update": 0, "update_step": steps_total}:
+        raise AssertionError(f"phase o2: {launches} launches in {steps_total} steps, want one "
+                             "update_step a step")
+    del agg
+
+    store = TorchStorage(config=cfg, device=device)
+    store.mirror.enabled = True
+    collector = Collector(store, fast_ingest=True)
+    wire = stored["wire"]
+    batches = [0]
+    ingest = store.agg.ingest
+
+    def count_batch(c):  # counts device batches; adds no sync of its own
+        batches[0] += 1
+        return ingest(c)
+    store.agg.ingest = count_batch
+    hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+    for p in wire[:2]:  # warm-up: the parser, the first batch, the caches
+        collector.accept_spans_bytes(p)
+    store.trace_cardinalities()  # registers the key with the mirror
+    store.agg.block_until_ready()
+    serves0 = store.mirror.serves
+    with census:
+        census.section = "accept"
+        collector.accept_spans_bytes(wire[2])
+        census.section = "outside a section"
+    store.agg.block_until_ready()
+    if not store.publish_mirror(force=True):  # the publisher's reads are not serves
+        raise AssertionError("phase o2: the mirror did not publish")
+    with census:
+        census.section = "mirror serve"
+        store.trace_cardinalities(staleness_ms=600_000.0)
+        census.section = "outside a section"
+    if store.mirror.serves != serves0 + 1:
+        raise AssertionError(f"phase o2: {store.mirror.serves - serves0} mirror serves, want 1")
+    store_launches = {"update": hll_kernel.update.launches,
+                      "update_step": hll_kernel.update_step.launches}
+    if store_launches != {"update": 0, "update_step": batches[0]} or not batches[0]:
+        raise AssertionError(f"phase o2: the store's {store_launches} launches in {batches[0]} "
+                             "device batches, want one update_step a batch")
+    store.close()
+    torch.cuda.synchronize()
+
+    every = sorted({s for c in census.sites.values() for s in c})
+    why = explain_sites(every, lint_doc)
+    per = {"plain step": plain_steps}
+    fig = {"card": card, "per_unit": {}, "sites": {}}
+    for section, counter in census.sites.items():
+        n = sum(counter.values())
+        fig["per_unit"][section] = n / per.get(section, 1)
+        fig["sites"][section] = {f"{p}:{ln}": c for (p, ln), c in sorted(counter.items())}
+        log(f"phase o2: {section}: {n / per.get(section, 1):g} syncs each "
+            f"({n} in {per.get(section, 1)}) at " + "; ".join(
+                f"{p}:{ln} `{_source_line(p, ln)}` x{c} [{why[(p, ln)] or 'UNEXPLAINED'}]"
+                for (p, ln), c in sorted(counter.items())))
+    for section in ("plain step", "flush+rollup step", "read quantiles", "read cardinalities",
+                    "read dependencies", "accept", "mirror serve"):
+        fig["per_unit"].setdefault(section, 0)
+    bad = sorted(f"{p}:{ln}" for (p, ln), w in why.items() if w is None)
+    for site in sorted(census.stacks):
+        log(f"phase o2: {site[0]}:{site[1]} reached by {census.stacks[site]}")
+    if census.own:
+        log(f"phase o2: {census.own} sync warnings raised inside set_sync_debug_mode itself "
+            "(switching the census on), not counted")
+    log(f"phase o2 on {card}: syncs per plain step {fig['per_unit']['plain step']:g}, per "
+        f"flush+rollup step {fig['per_unit']['flush+rollup step']:g}, per read "
+        f"(quantiles/cardinalities/dependencies) {fig['per_unit']['read quantiles']:g}/"
+        f"{fig['per_unit']['read cardinalities']:g}/{fig['per_unit']['read dependencies']:g}, "
+        f"per accept {fig['per_unit']['accept']:g}, per mirror serve "
+        f"{fig['per_unit']['mirror serve']:g}; {len(every)} sites, {len(bad)} unexplained; "
+        f"{launches['update_step']} update_step launches in {steps_total} steps, "
+        f"{store_launches['update_step']} in the store's {batches[0]} device batches, "
+        f"{launches['update'] + store_launches['update']} update launches")
+    if bad:
+        raise AssertionError(f"phase o2: syncs at sites nothing explains: {bad}")
+    fig["launches"] = launches["update_step"] + store_launches["update_step"]
+    fig["update_launches"] = launches["update"] + store_launches["update"]
+    return fig
+
+
+def phase_graph_probe(seed: int, torch, cfg=None, device=None, n: int = 4096) -> dict:
+    """(o3) one ``hll_update_step`` captured in a ``torch.cuda.CUDAGraph``
+    and replayed twice on fresh registers, each replay held bit for bit
+    against an eager call on the same lanes. A capture the CUDA runtime refuses
+    (the kernel is a cooperative launch) is a finding, printed; any other
+    error, or a replay that differs, fails the run."""
+    from zipkin_tpu_torch.obs.device import OBSERVATORY
+    from zipkin_tpu_torch.ops import hll_kernel
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    dev = torch.device(device or "cuda:0")
+    g = torch.Generator().manual_seed(seed)
+    rows, m, slots = cfg.hll_rows, 1 << cfg.hll_precision, cfg.time_buckets
+    lanes = (
+        torch.randint(-(1 << 31), 1 << 31, (n,), generator=g).to(torch.int32).to(dev),
+        torch.randint(0, cfg.max_services + 1, (n,), generator=g).to(torch.int32).to(dev),
+        (torch.rand(n, generator=g) < 0.9).to(dev),
+        (torch.rand(n, generator=g) < 0.8).to(dev),
+        torch.randint(0, slots, (n,), generator=g).to(torch.uint8).to(dev),
+    )
+    kw = dict(max_services=cfg.max_services, hll_rows=rows, global_row=cfg.global_hll_row)
+
+    def fresh():
+        return (torch.zeros((rows, m), dtype=torch.uint8, device=dev),
+                torch.zeros((slots * rows, m), dtype=torch.uint8, device=dev))
+
+    eager = fresh()
+    hll_kernel.update_step(*eager, *lanes, **kw)
+    static = fresh()
+    graph = torch.cuda.CUDAGraph()
+    OBSERVATORY.set_enabled(False)  # no event pairs inside the capture
+    try:
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):  # warm on a side stream first, as capture wants
+            hll_kernel.update_step(*fresh(), *lanes, **kw)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        try:
+            with torch.cuda.graph(graph):
+                hll_kernel.update_step(*static, *lanes, **kw)
+        except RuntimeError as e:
+            reason = " ".join(str(e).split())[:300]
+            torch.cuda.synchronize(dev)
+            if not torch.equal(eager[0], eager[0].clone()):
+                raise AssertionError("phase o3: the card is unusable after the refusal")
+            log(f"phase o3: graph_capture: refused ({reason})")
+            return {"capture": "refused", "error": reason}
+        for rep in range(2):
+            static[0].zero_()
+            static[1].zero_()
+            graph.replay()
+            torch.cuda.synchronize(dev)
+            if not (torch.equal(static[0], eager[0]) and torch.equal(static[1], eager[1])):
+                raise AssertionError(f"phase o3: replay {rep} differs from the eager call")
+    finally:
+        OBSERVATORY.set_enabled(True)
+    t_replay = cuda_ms(lambda i: graph.replay(), 20, torch)
+    t_eager = cuda_ms(lambda i: hll_kernel.update_step(*static, *lanes, **kw), 20, torch)
+    log(f"phase o3: graph_capture: ok (two replays on fresh registers equal the eager call; "
+        f"replay {t_replay:.4f} ms vs eager {t_eager:.4f} ms a call, {n} lanes)")
+    return {"capture": "ok", "replay_ms": t_replay, "eager_ms": t_eager}
+
+
+def phase_lint_census(seed: int, torch, card: str, stored: dict, cfg=None, device=None) -> dict:
+    """(o) o1, o2 and o3 in order."""
+    doc = phase_lint()
+    census = phase_census(torch, card, stored, doc, cfg=cfg, device=device)
+    probe = phase_graph_probe(seed, torch, cfg=cfg, device=device)
+    return {"o1": doc["stats"], "o2": census, "o3": probe, "launches": census["launches"],
+            "update_launches": census["update_launches"]}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -6511,6 +6903,10 @@ def main() -> int:
     wired = phase_wire(args.seed, torch, card, stored, fast)
     torch.cuda.empty_cache()
     log(f"phase n done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    linted = phase_lint_census(args.seed, torch, card, stored)
+    torch.cuda.empty_cache()
+    log(f"phase o done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -6555,6 +6951,7 @@ def main() -> int:
              launches_phase_l=admitted["update_launches"],
              launches_phase_m=0,
              launches_phase_n=wired["update_launches"],
+             launches_phase_o=linted["update_launches"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -6587,6 +6984,7 @@ def main() -> int:
              max_abs_err_phase_m=sharded["m1"]["max_abs_err"],
              launches_phase_n=wired["launches"],
              launches_phase_n_parts={"n1": wired["n1"]["launches"], "n2": wired["n2"]["launches"]},
+             launches_phase_o=linted["launches"],
              cases=step_cases, card=card),
     ]
     print(json.dumps({"kernels": records}))

@@ -32,23 +32,27 @@ def state_from_numpy(leaves: Sequence[np.ndarray], config: AggConfig, device=Non
     if len(leaves) != len(AggState._fields):
         raise ValueError(f"expected {len(AggState._fields)} leaves, got {len(leaves)}")
     mesh = [resolve_device(device)] if mesh is None else [resolve_device(d) for d in mesh]
-    template = init_state(config, "meta")
+    shapes = [tuple(t.shape) for t in init_state(config, "meta")]
     per_shard = [[] for _ in mesh]
-    for name, leaf, want in zip(AggState._fields, leaves, template):
+    for name, leaf, want in zip(AggState._fields, leaves, shapes):
         a = np.asarray(leaf)
-        if a.ndim != want.dim() + 1:
+        if a.ndim != len(want) + 1:
             raise ValueError(f"leaf {name}: shape {a.shape} lacks the leading shard axis")
         if a.shape[0] != len(mesh):
             raise ValueError(f"leaf {name}: {a.shape[0]} shards, the mesh has {len(mesh)}")
-        if tuple(a.shape[1:]) != tuple(want.shape):
-            raise ValueError(f"leaf {name}: shape {a.shape}, expected (S, *{tuple(want.shape)})")
+        if tuple(a.shape[1:]) != want:
+            raise ValueError(f"leaf {name}: shape {a.shape}, expected (S, *{want})")
         for i, row in enumerate(a):
             row = np.array(row, dtype=LEAF_DTYPES[name], copy=True)
             t = torch.from_numpy(row).to(torch_dtype(LEAF_DTYPES[name]))
+            # zt-lint: disable=ZT01 — a restore uploads each leaf once, at boot
             per_shard[i].append(t.to(mesh[i]))
     return [AggState(*out) for out in per_shard]
 
 
+# zt-lint: disable=ZT01 — a snapshot copies every leaf once (snapshots,
+# state_arrays and parity checks, never a read), as the reference's
+# state_arrays does with one np.asarray a leaf
 def _leaves(state: AggState) -> list:
     out = []
     for name, t in zip(AggState._fields, state):

@@ -135,6 +135,11 @@ def arm_resource(site: str, nth: int = 1, count: int = 1, latency_ms: float = 25
                              tenant or None]
 
 
+def armed_site() -> Optional[str]:
+    """First armed crashpoint site (None when disarmed)."""
+    return next(iter(_armed), None)
+
+
 def disarm() -> None:
     _armed.clear()
     _corrupt_armed.clear()

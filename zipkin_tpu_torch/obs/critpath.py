@@ -208,7 +208,7 @@ class CritPathLedger:
 
     # -- slot lifecycle (main process only) -------------------------------
 
-    def alloc(self, pid: int, widx: int, wire_t0_ns: int, tenant: int = 0) -> int:
+    def alloc(self, pid: int, widx: int, wire_t0_ns: int, tenant: int = 0) -> int:  # zt-lint: disable=ZT11 — the slot is FREE (invisible to readers) until the trailing _OFF_STATE=_ST_OPEN store publishes it; interval counts are RESET here, not mutated under readers, so no gen bracket applies
         """Claim a slot for payload ``pid`` routed to worker ``widx``.
         Returns -1 (trace skipped, counted) when the ledger is full."""
         with self._lock:
@@ -231,7 +231,7 @@ class CritPathLedger:
         a[b + _OFF_STATE] = _ST_OPEN
         return s
 
-    def stamp(self, slot: int, code: int, t0_ns: int, t1_ns: int, pid: int = -1) -> None:
+    def stamp(self, slot: int, code: int, t0_ns: int, t1_ns: int, pid: int = -1) -> None:  # zt-dispatch-critical: appends one interval on the dispatcher/boundary hot path; seqlock bump + 3 word stores, no allocation
         if slot < 0 or self._closed:
             return
         a, b = self._a, self._base + slot * SLOT_WORDS
@@ -251,7 +251,7 @@ class CritPathLedger:
         a[b + _OFF_N_D] = n + 1
         a[b + _OFF_GEN_D] += 1
 
-    def ack(self, slot: int, pid: int = -1, t_ns: int = 0) -> None:
+    def ack(self, slot: int, pid: int = -1, t_ns: int = 0) -> None:  # zt-dispatch-critical: final durable-ack stamp; two word stores
         if slot < 0 or self._closed:
             return
         a, b = self._a, self._base + slot * SLOT_WORDS
@@ -364,7 +364,7 @@ class CritPathWorkerView:
         alignment bridge tracks NTP slew instead of drifting from it."""
         _write_cal(self._a, self._cal_off)
 
-    def stamp(self, slot: int, code: int, t0_ns: int, t1_ns: int) -> None:
+    def stamp(self, slot: int, code: int, t0_ns: int, t1_ns: int) -> None:  # zt-dispatch-critical: worker-region interval append on the parse hot path; seqlock bump + 3 word stores, no allocation
         if slot < 0:
             return
         a, b = self._a, self._base + slot * SLOT_WORDS
@@ -398,12 +398,12 @@ def set_active(ledger: Optional[CritPathLedger], slot: int, pid: int) -> None:
     _active.group = None
 
 
-def set_active_group(ledger: Optional[CritPathLedger], pairs) -> None:
+def set_active_group(ledger: Optional[CritPathLedger], pairs) -> None:  # zt-dispatch-critical: arms the coalesced-flush timeline map on the dispatch core
     """Arm ``stamp_active`` for a COALESCED flush: ``pairs`` is a list of
     ``(slot, pid)`` timelines sharing one device/WAL interval. Each
     traced member gets the same stamped wall window — the flush really
     did serve all of them at once, so per-timeline conservation holds."""
-    pairs = [(s, p) for s, p in pairs if s >= 0]
+    pairs = [(s, p) for s, p in pairs if s >= 0]  # zt-lint: disable=ZT09 — per traced group MEMBER (≤ coalesce_max), tuple filter only
     _active.ledger = ledger if pairs else None
     _active.slot = -1
     _active.pid = -1
@@ -416,7 +416,7 @@ def clear_active() -> None:
     _active.group = None
 
 
-def stamp_active(code: int, t0_ns: int, t1_ns: int) -> None:
+def stamp_active(code: int, t0_ns: int, t1_ns: int) -> None:  # zt-dispatch-critical: no-op unless a traced payload is being flushed on this thread
     led = getattr(_active, "ledger", None)
     if led is None:
         return
@@ -424,7 +424,7 @@ def stamp_active(code: int, t0_ns: int, t1_ns: int) -> None:
     if group is None:
         led.stamp(_active.slot, code, t0_ns, t1_ns, _active.pid)
         return
-    for slot, pid in group:
+    for slot, pid in group:  # zt-lint: disable=ZT09 — bounded by coalesce_max traced members, word stores only
         led.stamp(slot, code, t0_ns, t1_ns, pid)
 
 

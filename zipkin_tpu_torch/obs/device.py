@@ -145,8 +145,10 @@ class ProgramStats:
         self.calls = self.compiles = 0
         self.call_wall_s = self.compile_wall_s = self.last_compile_s = self.max_call_s = 0.0
         self.device_ms = self.max_device_ms = self.min_device_ms = 0.0
-        self.device_calls = self.events_dropped = 0
+        self.device_calls = 0
         with self._qlock:
+            # the drop count moves with the queue, under the queue's lock
+            self.events_dropped = 0
             self._pending.clear()
 
     def as_dict(self) -> Dict:

@@ -139,7 +139,7 @@ def active() -> Optional[QueryTrace]:
     return getattr(_active, "trace", None)
 
 
-def stamp_active(code: int, t0_ns: int, t1_ns: int) -> None:
+def stamp_active(code: int, t0_ns: int, t1_ns: int) -> None:  # zt-dispatch-critical: one thread-local read + list append when armed; pure no-op otherwise
     # one thread-local read + list append when armed; a no-op otherwise
     tr = getattr(_active, "trace", None)
     if tr is None:

@@ -104,6 +104,7 @@ def _resolve_core(x: linker.LinkInput, cs: CtxStruct, seg: int):
         rsvc=g(x.rsvc), err=g(x.err), valid=g(x.valid) & live_j,
     )
     d_id, d_svc, d_hasp = linker.union_key_lanes(sub)
+    # zt-lint: disable=ZT07 — sorts only the delta segment: 2·Δ union lanes (Δ = rollup_segment = R/2), half the oracle's 2·R full-ring union; the ring-wide order is maintained at rollup cadence by advance()
     suid = u32.lexsort(d_id + [d_svc])
     dkeys = [d_id[0][suid], d_id[1][suid], d_id[2][suid], d_svc[suid]]
     sk3 = dkeys[3]

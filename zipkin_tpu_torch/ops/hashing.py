@@ -32,6 +32,11 @@ def hash2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return fmix32(a ^ fmix32(u32.add(b.to(u32.DTYPE), _GOLDEN)))
 
 
+def hash4(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, d: torch.Tensor) -> torch.Tensor:
+    """Mix four u32 lanes (one 128-bit id) into one u32."""
+    return hash2(hash2(a, b), hash2(c, d))
+
+
 def floor_log2(x: torch.Tensor) -> torch.Tensor:
     """``floor(log2(x))`` for u32 ``x >= 1``, integer-only; 0 maps to 0.
     Returns int64 (the reference returns int32 of the same value)."""

@@ -54,7 +54,7 @@ def bucket_bounds(idx: torch.Tensor):
     )
 
 
-def update(histograms, key_ids, durations_us, valid) -> torch.Tensor:
+def update(histograms, key_ids, durations_us, valid) -> torch.Tensor:  # zt-in-place: histograms — counts are added in place
     """Count valid durations into ``histograms[key, bucket]`` IN PLACE
     (u32 counts: the touched cells are reduced mod 2**32)."""
     b = bucket_of(durations_us)

@@ -28,7 +28,7 @@ def new_registers(rows: int, precision: int = 11, device=None) -> torch.Tensor:
     return torch.zeros((rows, 1 << precision), dtype=torch.uint8, device=resolve_device(device))
 
 
-def update(registers, row_ids, hashes, valid) -> torch.Tensor:
+def update(registers, row_ids, hashes, valid) -> torch.Tensor:  # zt-in-place: registers — scatter-max into the file
     """Scatter-max ``rho`` of each hash into ``registers[row, bucket]``,
     IN PLACE (the reference returns a new array; the port saves the copy
     of the register file). Invalid lanes are inert."""
@@ -36,7 +36,7 @@ def update(registers, row_ids, hashes, valid) -> torch.Tensor:
 
 
 def update_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
-                max_services: int, hll_rows: int, global_row: int):
+                max_services: int, hll_rows: int, global_row: int):  # zt-in-place: hll — every register file of the step is raised in place
     """The ingest step's four register updates in one pass, IN PLACE:
     ``hll`` at ``clamp(svc, 0, max_services-1)`` (lanes ``valid & svc > 0``)
     and at ``global_row`` (``valid``); with the time tier (``tb_flat``

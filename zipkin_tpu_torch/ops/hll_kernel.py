@@ -132,7 +132,7 @@ def _check_lanes(what: str, dev, n: int, lanes) -> None:
             raise ValueError(f"{what}: {name} must be a contiguous [{n}] vector")
 
 
-def update(registers, row_ids, hashes, valid) -> torch.Tensor:
+def update(registers, row_ids, hashes, valid) -> torch.Tensor:  # zt-in-place: registers — the kernel raises the file in place
     """Raise ``registers[row, bucket]`` to ``rho`` of each valid lane.
 
     ``registers``: u8 ``[rows, 2**p]``, contiguous. ``row_ids``: int32
@@ -227,7 +227,7 @@ def check_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
 
 
 def update_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
-                max_services: int, hll_rows: int, global_row: int):
+                max_services: int, hll_rows: int, global_row: int):  # zt-in-place: hll — one launch raises every register file in place
     """One launch that raises every HLL register of an ingest step.
 
     ``hll``: u8 ``[hll_rows, 2**p]``. ``tb_flat``: u8 ``[slots * hll_rows,

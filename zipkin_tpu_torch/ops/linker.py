@@ -63,7 +63,7 @@ class LinkInput(NamedTuple):
 def _run_starts(key_lanes: Sequence[torch.Tensor]) -> torch.Tensor:
     n = key_lanes[0].shape[0]
     change = torch.zeros(n, dtype=torch.bool, device=key_lanes[0].device)
-    change[0] = True
+    change[:1].fill_(True)  # a stored scalar would wait for the stream
     for lane in key_lanes:
         change = change | segment_starts(lane)
     return change
@@ -114,8 +114,12 @@ def _seg_min_scan(vals: torch.Tensor, flags: torch.Tensor, reverse: bool = False
     if reverse:
         vals, flags = torch.flip(vals, [0]), torch.flip(flags, [0])
     rid = torch.cumsum(flags.to(torch.int64), 0)
-    span = int(vals.max().item() - vals.min().item()) + 1 if vals.numel() else 1
-    lift = (rid[-1] - rid) * span if vals.numel() else rid
+    if vals.numel():
+        # the value range stays on the device: no host round trip per scan
+        wide = vals.to(torch.int64)
+        lift = (rid[-1] - rid) * (wide.max() - wide.min() + 1)
+    else:
+        lift = rid
     out = torch.cummin(vals.to(torch.int64) + lift, 0).values - lift
     out = out.to(vals.dtype)
     return torch.flip(out, [0]) if reverse else out
@@ -155,6 +159,7 @@ def resolve_parents(x: LinkInput) -> Tuple[torch.Tensor, torch.Tensor]:
     val_ns = torch.cat([torch.where(nonshared, seq, sent), far])
     qsh = torch.cat([torch.zeros(n, dtype=torch.bool, device=dev), sharedv])
 
+    # zt-lint: disable=ZT07 — fresh entrypoints reach this only through dependency_links' ctx=None fallback, which they never take (they always pass the delta ctx from fresh_link_context); the full-ring sort runs at rollup cadence / cold rebuilds only
     sord = u32.lexsort(id_lanes + [svc_lane])
     s_ids = [lane[sord] for lane in id_lanes]
     s_svc, sh_s, ns_s, s_qsh = svc_lane[sord], val_sh[sord], val_ns[sord], qsh[sord]
@@ -212,13 +217,16 @@ def chase_ancestors(parent: torch.Tensor, kind: torch.Tensor) -> Tuple[torch.Ten
     par_ext = torch.cat([par, torch.full((1,), sent, dtype=torch.int64, device=dev)])
 
     jump = torch.where(kind_ext != 0, torch.arange(n + 1, device=dev), par_ext)
-    jump[sent] = sent
+    jump[sent:].fill_(sent)  # the sentinel lane (the last); no stored scalar
     root = par_ext
     max_passes = _doubling_passes(n)
     i, changed = 0, True
     while changed and i < max_passes:
         j2 = jump[jump]
         r2 = root[root]
+        # zt-lint: disable=ZT01 — the chase's per-pass host convergence
+        # test (one bool a pass, at most log2(n)+1 passes): the loop's trip
+        # count is data-dependent; ROADMAP lists the fixed-pass form
         changed = bool(((j2 != jump).any() | (r2 != root).any()).item())
         jump, root = j2, r2
         i += 1

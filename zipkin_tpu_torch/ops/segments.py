@@ -45,3 +45,16 @@ def sorted_segment_total(values: torch.Tensor, sorted_ids: torch.Tensor) -> torc
                                                 device=values.device)])
     return cum[nxt - 1]
 
+
+def segment_sum_scatter(values: torch.Tensor, ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Plain scatter-add segment sum (ids need not be sorted). As the
+    reference's ``.at[ids].add``: a negative id counts from the end and an
+    id out of range is dropped (its lane adds zero to segment 0)."""
+    ids = ids.to(torch.int64)
+    ids = torch.where(ids < 0, ids + num_segments, ids)
+    keep = (ids >= 0) & (ids < num_segments)
+    mask = keep.reshape(keep.shape + (1,) * (values.dim() - 1))
+    out = torch.zeros((num_segments,) + tuple(values.shape[1:]), dtype=values.dtype,
+                      device=values.device)
+    return out.index_add_(0, torch.where(keep, ids, 0),
+                          torch.where(mask, values, torch.zeros_like(values)))

@@ -198,7 +198,7 @@ class TorchAggregator:
         cfg = self.config
 
         def step(need_flush, need_rollup):
-            def run(states, batches, lives):
+            def run(states, batches, lives):  # zt-in-place: states — each shard's state is stepped in place
                 out = []
                 for s, batch, live in zip(states, batches, lives):
                     if need_flush:
@@ -302,6 +302,7 @@ class TorchAggregator:
         self._p = {name: OBSERVATORY.wrap(name, fn, device=self.device)
                    for name, fn in programs.items()}
         # the step's variants by (flush due, rollup due), as the reference's
+        # zt-in-place: states — every variant steps the states in place
         self._step = {
             (f, r): OBSERVATORY.wrap("spmd_step" + ("_flush" if f else "") + ("_rollup" if r else ""),
                                      step(f, r), device=self.device)
@@ -331,7 +332,7 @@ class TorchAggregator:
         return min(self.config.digest_buffer, self.config.rollup_segment)
 
     def ingest_fused(self, fused: np.ndarray, n_spans: int, n_dur: int, n_err: int,
-                     ts_range=None) -> None:
+                     ts_range=None) -> None:  # zt-dispatch-critical: the per-chunk device entry point — one host→device copy per shard + one step program under the state lock
         """Fold one routed wire image ``[S, 11, per]`` (u32) into the
         states, shard ``s``'s slice into ``states[s]``; the caller supplies
         the live/duration/error counts. Every shard steps, one that got no
@@ -347,8 +348,10 @@ class TorchAggregator:
                 f"({self.config.rollup_segment}); chunk before ingest"
             )
         live_per_shard = (fused[:, 10, :] & 1).sum(axis=1, dtype=np.int64)
+        # zt-lint: disable=ZT09 — per SHARD (mesh-sized): one host→device
+        # copy of each shard's wire image
         batches = [unfuse_columns(u32.from_numpy(fused[i], d)) for i, d in enumerate(self.mesh)]
-        lives = [int(x) for x in live_per_shard]
+        lives = [int(x) for x in live_per_shard]  # zt-lint: disable=ZT09 — per SHARD, host ints
         with self.lock:
             # the contention ledger's holder: this hold is the write path
             self.lock.relabel("ingest_fused")
@@ -383,6 +386,7 @@ class TorchAggregator:
             if n_spans > 0:
                 self._resident.append((lo, hi, self._shard_cursor.copy()))
                 self._shard_cursor = self._shard_cursor + live_per_shard
+            # zt-lint: disable=ZT09 — per RETIRED resident range (ring-wrap bookkeeping, one pop per overwritten batch), never per span
             while self._resident and (
                 (self._shard_cursor - self._resident[0][2]).min() >= self.config.ring_capacity
             ):
@@ -395,7 +399,7 @@ class TorchAggregator:
                 c["sampledKept"] += kept_b
                 c["sampledDropped"] += seen_b - kept_b
                 if self.wal_hook is not None:
-                    compacted = self.sampler.compact_fused(fused, keep2d)
+                    compacted = self.sampler.compact_fused(fused, keep2d)  # zt-lint: disable=ZT09 — per SHARD (mesh-sized) fancy-index gather; the per-lane work inside is vectorized
                     if compacted is not None:
                         cf, k_spans, k_dur, k_err, k_ts = compacted
                         # pre-compaction tallies restore the host counters
@@ -409,7 +413,7 @@ class TorchAggregator:
                 self.wal_seq = self.wal_hook(fused, n_spans, n_dur, n_err, ts_range)
 
     def ingest_fused_multi(self, parts, n_spans: int, n_dur: int, n_err: int,
-                           ts_range=None, pad_to_multiple: int = 256) -> None:
+                           ts_range=None, pad_to_multiple: int = 256) -> None:  # zt-dispatch-critical: the coalesced multi-chunk device entry point
         """Coalesce ``(fused, svc_map, key_map)`` chunk images into one
         bucket-padded batch (the :func:`lane_bucket` ladder keeps shapes
         few) and fold it with one step."""
@@ -420,6 +424,8 @@ class TorchAggregator:
             obs.record("mp_lut_remap", time.perf_counter() - t0)
             self.ingest_fused(fused, n_spans, n_dur, n_err, ts_range)
             return
+        # zt-lint: disable=ZT09 — per CHUNK of the coalesced run (bounded
+        # by coalesce_max), integer shape reads only
         total = sum(int(p[0].shape[-1]) for p in parts)
         cap = self.lane_cap
         if total > cap:
@@ -455,7 +461,7 @@ class TorchAggregator:
         self._pend_lanes = 0
         self._wal_marker("ttflush")
 
-    def _wal_marker(self, tag: str) -> None:
+    def _wal_marker(self, tag: str) -> None:  # zt-lint: disable=ZT04 — called from _flush_now/rollup_now, both under self.lock (same critical section as the state swap being recorded)
         """Log a zero-lane WAL record at an explicit flush or rollup
         (callers hold the lock): digest folding depends on where flushes
         fall, so replay re-applies them at the same stream position."""
@@ -514,9 +520,22 @@ class TorchAggregator:
             # for the same work (a CPU tensor is ready when made)
             t0 = time.perf_counter_ns()
             if packed.device.type == "cuda":
+                # zt-lint: disable=ZT06 — measurement IS the contract: only
+                # a traced query takes this branch, and the pull below would
+                # block identically; the split makes device wall observable
                 torch.cuda.current_stream(packed.device).synchronize()
             querytrace.stamp_active(querytrace.QSEG_DEVICE_WALL, t0, time.perf_counter_ns())
         return readpack.pull(packed)
+
+    def _quantile_list(self, qs) -> torch.Tensor:
+        """The read's quantile list on the state's device. It goes up from
+        pinned memory without waiting for the stream, so the read's one
+        sync is its pull: a pageable upload would block on the work queued
+        before it."""
+        q = torch.tensor(np.asarray(qs, np.float32))
+        if self.device.type == "cuda":
+            q = q.pin_memory()
+        return q.to(self.device, non_blocking=True)
 
     def quantiles(self, qs, source: str = "digest", ts_lo_min: Optional[int] = None,
                   ts_hi_min: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
@@ -527,7 +546,7 @@ class TorchAggregator:
                 "ts_lo_min and ts_hi_min must be given together "
                 f"(got ts_lo_min={ts_lo_min!r}, ts_hi_min={ts_hi_min!r})"
             )
-        qarr = torch.as_tensor(np.asarray(qs, np.float32), device=self.device)
+        qarr = self._quantile_list(qs)
         with self.lock:
             if ts_lo_min is not None:
                 packed = self._p["spmd_quant_whist"](self.states, qarr, ts_lo_min, ts_hi_min)
@@ -553,7 +572,7 @@ class TorchAggregator:
 
     def sketch_overview(self, qs) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """([K, Q] digest quantiles, [K] counts, [S+1] HLL estimates)."""
-        qarr = torch.as_tensor(np.asarray(qs, np.float32), device=self.device)
+        qarr = self._quantile_list(qs)
         with self.lock:
             if self._pend_lanes:
                 self._flush_now()

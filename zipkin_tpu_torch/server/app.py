@@ -784,7 +784,10 @@ class ZipkinServer:
                                   _handler_for(weakref.ref(self)))
         self.port = self._httpd.server_address[1]
         self._stopping.clear()
-        self._draining = self._abandoned = False
+        with self._idle:
+            # a restart after stop(): late handler threads of the last run
+            # read these under the same lock
+            self._draining = self._abandoned = False
         self._threads = [threading.Thread(target=self._httpd.serve_forever, name="zipkin-http",
                                           daemon=True)]
         core = getattr(self.storage, "delegate", self.storage)
@@ -997,6 +1000,10 @@ class ZipkinServer:
             remaining = d.unused_data
         return b"".join(chunks)
 
+    # zt-ingest-boundary: HTTP POST /api/v{1,2}/spans is a wire
+    # entrypoint — the handler put the X-Tenant-Id identity into
+    # CURRENT_TENANT before this runs, and the collector chokepoint runs
+    # admission
     def post_spans(self, body: bytes, content_type: str, v1: bool, t0: float):
         # the critical path's wire anchor: the instant http_boundary
         # measures from, in the ledger's ns domain; submit() reads it on

@@ -120,7 +120,7 @@ class ReaderApp:
         raw = query.get("staleness_ms")
         return float(raw) if raw is not None else None
 
-    def _serve(self, fn, *args) -> Answer:
+    def _serve(self, fn, *args) -> Answer:  # zt-reader-process: the 503 contract — miss/over-bound/torn all surface, none serve silently
         """The 503 contract: a miss, an over-bound age and a torn or
         unpublished segment all surface; none serves silently."""
         try:
@@ -286,7 +286,7 @@ def serve_until_signalled(httpd: ThreadingHTTPServer) -> None:
 
 
 def run_reader(seg_params: dict, reader_idx: int, port: int,
-               default_lookback: int = 86400000) -> None:
+               default_lookback: int = 86400000) -> None:  # zt-reader-process: spawn entry — attaches the segment and serves; imports numpy and the standard library, never torch or the store
     """Blocking reader main (the supervisor's spawn target): attaches the
     segment and serves; imports numpy and the standard library, never
     torch or the store."""

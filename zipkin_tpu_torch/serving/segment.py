@@ -345,7 +345,7 @@ class MirrorSegment:
 
     def read_frame(
         self, spins: int = _TORN_RETRIES, spin_sleep_s: float = _SPIN_SLEEP_S
-    ) -> SegmentFrame:
+    ) -> SegmentFrame:  # zt-reader-process: seqlock spin + one buffer copy + CRC check — no lock of any kind, in any process
         """One consistent epoch copy via the seqlock read protocol,
         with the CRC as the two-publish-race backstop. Raises
         :class:`SegmentUnavailable` (the 503 path) when no consistent
@@ -398,7 +398,7 @@ class MirrorSegment:
         g = r * self.demand_slots + (seq % self.demand_slots)
         return self._slots_off + g * self.slot_bytes
 
-    def demand_push(self, r: int, key: str) -> bool:
+    def demand_push(self, r: int, key: str) -> bool:  # zt-reader-process: SPSC stripe write — key bytes land before the head fence moves; no lock
         """Register a missed mirror key back to the publisher. Bounded:
         a full stripe refuses (counted by the caller) — a key-churning
         client cannot wedge its reader, only lose the registration."""
@@ -442,7 +442,7 @@ class MirrorSegment:
     def heartbeat(
         self, r: int, *, gen_seen: int, serves: int, age_us: int,
         demands: int, demand_overflow: int, errors: int,
-    ) -> None:
+    ) -> None:  # zt-reader-process: plain word stores on the mapped buffer; torn reads tolerated (debug-gauge contract)
         a = self._a
         base = self._stripe_base(r)
         a[base + R_PID] = os.getpid()

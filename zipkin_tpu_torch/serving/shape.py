@@ -106,7 +106,7 @@ def quantile_rows(
     counts: np.ndarray,
     service_name: Optional[str],
     span_name: Optional[str],
-) -> List[dict]:
+) -> List[dict]:  # zt-reader-process: pure shaping over the decoded payload — replicates store._quantile_rows_inner byte-for-byte
     want_svc = vv.svc_ids.get(service_name.lower()) if service_name else None
     if service_name and want_svc is None:
         return []
@@ -138,7 +138,7 @@ def quantile_rows(
 
 def cardinality_rows(
     vv: _VocabView, est: np.ndarray, global_row: int
-) -> dict:
+) -> dict:  # zt-reader-process: pure shaping — replicates store._cardinality_rows output (envelope accounting is ingest-side)
     out = {"_global": float(est[global_row])}
     for name in vv.services[1:]:
         sid = vv.svc_ids.get(name)
@@ -149,7 +149,7 @@ def cardinality_rows(
 
 def dependency_rows(
     vv: _VocabView, calls: np.ndarray, errs: np.ndarray
-) -> List[dict]:
+) -> List[dict]:  # zt-reader-process: pure shaping — store._tt_dependency_links + json_v2.link_to_dict, fused
     dense_c = np.asarray(calls)
     dense_e = np.asarray(errs)
     p_idx, c_idx = np.nonzero(dense_c)
@@ -242,7 +242,7 @@ class SegmentView:
         ep = self._ep
         return ep.gen if ep is not None else -1
 
-    def refresh(self) -> dict:
+    def refresh(self) -> dict:  # zt-reader-process: seqlock frame read + unpickle; memoized per segment generation
         """The current epoch's decoded payload."""
         return self._epoch().p
 
@@ -339,7 +339,7 @@ class SegmentView:
         self, end_ts: int, lookback: int,
         staleness_ms: Optional[float] = None,
         tenant: Optional[str] = None,
-    ) -> Tuple[List[dict], float]:
+    ) -> Tuple[List[dict], float]:  # zt-reader-process: route selection + shaping over the decoded epoch; no lock in any process
         t0 = time.perf_counter()
         t0_ns = time.perf_counter_ns()
         ep = self._epoch()
@@ -379,7 +379,7 @@ class SegmentView:
         lookback: Optional[int] = None,
         staleness_ms: Optional[float] = None,
         tenant: Optional[str] = None,
-    ) -> Tuple[List[dict], float]:
+    ) -> Tuple[List[dict], float]:  # zt-reader-process: store.latency_quantiles route selection, replicated over the epoch
         t0 = time.perf_counter()
         t0_ns = time.perf_counter_ns()
         ep = self._epoch()
@@ -438,7 +438,7 @@ class SegmentView:
         end_ts: Optional[int] = None,
         lookback: Optional[int] = None,
         tenant: Optional[str] = None,
-    ) -> Tuple[dict, float]:
+    ) -> Tuple[dict, float]:  # zt-reader-process: store.trace_cardinalities route selection, replicated over the epoch
         t0 = time.perf_counter()
         t0_ns = time.perf_counter_ns()
         ep = self._epoch()
@@ -480,7 +480,7 @@ class SegmentView:
         span_name: Optional[str] = None,
         staleness_ms: Optional[float] = None,
         tenant: Optional[str] = None,
-    ) -> Tuple[dict, float]:
+    ) -> Tuple[dict, float]:  # zt-reader-process: one-key overview serve; counters are the publish-instant snapshot, stamped as such
         t0 = time.perf_counter()
         t0_ns = time.perf_counter_ns()
         ep = self._epoch()

@@ -169,6 +169,10 @@ class Vocab:
     def key_pair(self, key_id: int) -> Tuple[int, int]:
         return self._key_list[key_id] if 0 <= key_id < len(self._key_list) else (0, 0)
 
+    def key_ids_for_service(self, service_id: int) -> List[int]:
+        """The sketch-row ids of one service's (service, spanName) keys."""
+        return [k for k, (s, _) in enumerate(self._key_list) if s == service_id and k]
+
     @property
     def num_keys(self) -> int:
         return len(self._key_list)
@@ -199,6 +203,19 @@ class SpanColumns(NamedTuple):
     @property
     def size(self) -> int:
         return int(self.valid.shape[0])
+
+    @property
+    def live(self) -> int:
+        """The batch's count of valid lanes. Host columns only: on a device
+        batch the count would be a hidden wait for the card."""
+        if not isinstance(self.valid, np.ndarray):
+            raise TypeError("SpanColumns.live counts host columns; a device batch's "
+                            "count is a host sync, take it where the batch was packed")
+        return int(self.valid.sum())
+
+    def concat(self, other: "SpanColumns") -> "SpanColumns":
+        """This batch's lanes, then ``other``'s (host columns)."""
+        return SpanColumns(*(np.concatenate([a, b]) for a, b in zip(self, other)))
 
 
 def fuse_columns(cols: SpanColumns) -> np.ndarray:
@@ -385,25 +402,26 @@ def _assemble(parsed, n: int, cap: int, svc, rsvc, key) -> SpanColumns:
     )
 
 
-def _route_order(shard_of: np.ndarray, n_shards: int, pad_to_multiple: int):
-    """(order, counts, starts, per): lanes stably sorted by shard id, so
-    shard ``s`` owns ``order[starts[s] : starts[s] + counts[s]]`` in
-    insertion order; ``per`` is the largest count rounded up to
-    ``pad_to_multiple`` (port of ``zipkin_tpu/tpu/columnar.py:429``)."""
+def _shard_of(cols: SpanColumns, n_shards: int) -> np.ndarray:
+    """Trace-affine shard id per lane; invalid lanes go to the sink
+    ``n_shards`` (all spans of a trace land on one shard)."""
+    return np.where(cols.valid, cols.trace_h % np.uint32(n_shards), n_shards).astype(np.int32)
+
+
+def _routed_lanes(cols: SpanColumns, n_shards: int, pad_to_multiple: int):
+    """(per, lanes): the trace-affine routing that :func:`route_fused` and
+    :func:`route_columns` both gather with. Shard ``s`` takes ``lanes[s]``,
+    its live lanes in insertion order, then zero (invalid) lanes up to
+    ``per``, the largest count rounded up to ``pad_to_multiple`` (port of
+    ``zipkin_tpu/tpu/columnar.py:429``)."""
+    shard_of = _shard_of(cols, n_shards)
     key_dtype = np.uint8 if n_shards < 255 else np.uint16
     order = np.argsort(shard_of.astype(key_dtype), kind="stable")
     counts = np.bincount(shard_of, minlength=n_shards + 1)[:n_shards]
     per = max(int(counts.max()), 1)
     per = ((per + pad_to_multiple - 1) // pad_to_multiple) * pad_to_multiple
-    starts = np.zeros(n_shards, np.int64)
-    np.cumsum(counts[:-1], out=starts[1:])
-    return order, counts, starts, per
-
-
-def _shard_of(cols: SpanColumns, n_shards: int) -> np.ndarray:
-    """Trace-affine shard id per lane; invalid lanes go to the sink
-    ``n_shards`` (all spans of a trace land on one shard)."""
-    return np.where(cols.valid, cols.trace_h % np.uint32(n_shards), n_shards).astype(np.int32)
+    ends = np.cumsum(counts)
+    return per, [order[e - c : e] for c, e in zip(counts, ends)]
 
 
 def route_fused(cols: SpanColumns, n_shards: int, pad_to_multiple: int = 256) -> np.ndarray:
@@ -414,16 +432,31 @@ def route_fused(cols: SpanColumns, n_shards: int, pad_to_multiple: int = 256) ->
     fz = fuse_columns(cols)
     if n_shards == 1:
         return fz[None]
-    order, counts, starts, per = _route_order(_shard_of(cols, n_shards), n_shards, pad_to_multiple)
+    per, lanes = _routed_lanes(cols, n_shards, pad_to_multiple)
     out = np.zeros((n_shards, fz.shape[0], per), np.uint32)
-    for s in range(n_shards):
-        c = int(counts[s])
-        if c:
-            np.take(fz, order[starts[s] : starts[s] + c], axis=1, out=out[s, :, :c])
+    for s, idx in enumerate(lanes):
+        if len(idx):
+            np.take(fz, idx, axis=1, out=out[s, :, : len(idx)])
     return out
 
 
-def remap_fused(fused: np.ndarray, svc_map: np.ndarray, key_map: np.ndarray) -> None:
+def route_columns(cols: SpanColumns, n_shards: int, pad_to_multiple: int = 256) -> SpanColumns:
+    """Trace-affine routing of host columns: ``n_shards`` stacked
+    sub-batches ``[shards, per]``, the lanes :func:`route_fused` gives each
+    shard, in its order, padded with zero (invalid) lanes, at one shard too
+    (port of ``zipkin_tpu/tpu/columnar.py:540``)."""
+    per, lanes = _routed_lanes(cols, n_shards, pad_to_multiple)
+
+    def route(field: np.ndarray) -> np.ndarray:
+        out = np.zeros((n_shards, per), field.dtype)
+        for s, idx in enumerate(lanes):
+            out[s, : len(idx)] = field[idx]
+        return out
+
+    return SpanColumns(*(route(f) for f in cols))
+
+
+def remap_fused(fused: np.ndarray, svc_map: np.ndarray, key_map: np.ndarray) -> None:  # zt-dispatch-critical: per-span id remap on the dispatch core
     """Remap a packed image's service/key id lanes in place through
     ``svc_map``/``key_map`` (u32 lookup tables indexed by old id)."""
     sr = fused[..., 9, :]
@@ -432,12 +465,12 @@ def remap_fused(fused: np.ndarray, svc_map: np.ndarray, key_map: np.ndarray) -> 
     fused[..., 10, :] = (key_map[kf >> _U32(8)] << _U32(8)) | (kf & _U32(0xFF))
 
 
-def concat_remap(parts, out: np.ndarray) -> int:
+def concat_remap(parts, out: np.ndarray) -> int:  # zt-dispatch-critical: the coalesce gather — one pass per chunk over the whole coalesced image
     """Gather ``(fused, svc_map, key_map)`` chunk images lane-contiguously
     into the zeroed bucket image ``out`` (trailing pad lanes stay zero,
     valid=0), remapping ids on the copied lanes. Returns lanes used."""
     off = 0
-    for fused, svc_map, key_map in parts:
+    for fused, svc_map, key_map in parts:  # zt-lint: disable=ZT09 — bounded by coalesce_max chunks; each iteration is whole-image vectorized
         per = fused.shape[-1]
         dst = out[..., off:off + per]
         dst[:] = fused

@@ -47,17 +47,17 @@ RING_COLUMNS = (
 )
 
 
-def lane_bucket(lanes: int, pad_to_multiple: int, cap: int) -> int:
+def lane_bucket(lanes: int, pad_to_multiple: int, cap: int) -> int:  # zt-dispatch-critical: shape-bucket pick on the coalesced dispatch path
     """Static-shape bucket for a coalesced multi-chunk lane count: the
     doubling ladder ``pad * 2^k`` capped at the aggregator's lane cap."""
     b = max(1, int(pad_to_multiple))
-    while b < lanes:
+    while b < lanes:  # zt-lint: disable=ZT09 — doubling ladder: ≤ log2(cap/pad)+1 trips, independent of span count
         b *= 2
     return min(b, cap) if cap >= lanes else b
 
 
-def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
-                live: Optional[int] = None) -> AggState:
+def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,  # zt-device: batch — the unpacked wire image, tensors on the card
+                live: Optional[int] = None) -> AggState:  # zt-in-place: state — the sketch planes, registers, ring columns and pending buffer are written in place
     """Fold one unpacked batch (torch columns) into the state.
 
     ``live`` is the batch's count of valid lanes when the caller already
@@ -69,6 +69,9 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
     valid = batch.valid
     dev = valid.device
     if live is None:
+        # zt-lint: disable=ZT01 — the live count read back when the caller
+        # does not pass it (direct library callers; the aggregator always
+        # counts it on the host from the wire image); ROADMAP lists it
         live = int(valid.sum().item())
 
     # --- latency sketches per (service, spanName) key -------------------
@@ -101,13 +104,15 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
     for name in RING_COLUMNS:
         col = getattr(state, f"r_{name}")
         col[pos] = getattr(batch, name)[order].to(col.dtype)
-    state.r_rolled[pos] = False
+    # host numbers go in as kernel arguments (fill), never as a stored
+    # scalar: ``x[i] = n`` copies n up and waits for the stream
+    state.r_rolled.index_fill_(0, pos, False)
 
     add = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=dev)
-    add[CTR_SPANS] = live
+    add[CTR_SPANS:CTR_SPANS + 1].fill_(live)
     add[CTR_WITH_DURATION] = has_dur.sum()
     add[CTR_ERRORS] = (valid & batch.err).sum()
-    add[CTR_BATCHES] = 1
+    add[CTR_BATCHES:CTR_BATCHES + 1].fill_(1)
 
     # --- tail-sampling verdicts: the ring's lanes in the append's order
     if config.sampling:
@@ -131,7 +136,7 @@ def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,
     )
 
 
-def hll_lanes(config: AggConfig, tb_epoch, batch: SpanColumns):
+def hll_lanes(config: AggConfig, tb_epoch, batch: SpanColumns):  # zt-device: batch — the step's columns on the card
     """The lane columns of the step's one HLL update in the form the kernel
     reads (``hashes`` the u32 hash bits as int32, ``svc`` int32, ``valid``,
     and with the time tier ``tb_keep`` and the u8 ``slot``), then the time
@@ -223,7 +228,7 @@ def _flush_pending_tt(config: AggConfig, tb_epoch, tb_digest, pend_key, pend_val
     return merged.reshape(w_tt, k, cw, 2)
 
 
-def flush_digest(config: AggConfig, state: AggState) -> AggState:
+def flush_digest(config: AggConfig, state: AggState) -> AggState:  # zt-in-place: state — the pending buffer is emptied in place
     """Fold every pending value into the digests and empty the buffer."""
     d = _flush_pending_digest(config, state.digest, state.pend_key, state.pend_val)
     tt = {}
@@ -270,7 +275,7 @@ def fresh_link_context(config: AggConfig, state: AggState) -> linker.LinkContext
     )
 
 
-def rollup_step(config: AggConfig, state: AggState) -> AggState:
+def rollup_step(config: AggConfig, state: AggState) -> AggState:  # zt-in-place: state — the rollup matrices and the ring's rolled flags are written in place
     """Link the half-ring the cursor overwrites next, fold its edges into
     the per-time-bucket rollup matrices, mark those lanes rolled, and
     advance the incremental link ctx (one resolve serves both)."""
@@ -321,6 +326,7 @@ def dependency_links(config: AggConfig, state: AggState, ts_lo: int, ts_hi: int,
     live-ring links merged with the rolled-up buckets in the window.
     Without ``ctx`` the from-scratch link context is built."""
     if ctx is None:
+        # zt-lint: disable=ZT07 — dead branch on the fresh path: spmd_edges_fresh always passes the delta ctx (fresh_link_context); this fallback serves warm-read/test callers where the full rebuild is the point
         ctx = linker.link_context(ring_link_input(state))
     in_window = (state.r_ts_min >= ts_lo) & (state.r_ts_min <= ts_hi)
     calls, errors = linker.emit_links(ctx, state.r_valid & ~state.r_rolled & in_window,

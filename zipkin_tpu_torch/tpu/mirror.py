@@ -200,7 +200,7 @@ class ReadMirror:
 
     # -- reader side (lock-free) -----------------------------------------
 
-    def snapshot(self) -> Optional[MirrorSnapshot]:
+    def snapshot(self) -> Optional[MirrorSnapshot]:  # zt-mirror-served: seqlock spin + one reference copy; no lock of any kind
         """The current stable snapshot via the seqlock read protocol."""
         for _ in range(_TORN_RETRIES):
             g1 = self.gen
@@ -213,7 +213,7 @@ class ReadMirror:
 
     def serve(self, key: str, bound_ms: Optional[float],
               live_version: int,
-              allow_stale: bool = True) -> Optional[Tuple[object, float]]:
+              allow_stale: bool = True) -> Optional[Tuple[object, float]]:  # zt-mirror-served: the lock-free read path — ZT10 proves no aggregator-lock acquire can appear here
         """Serve ``key`` from the published epoch: ``(value, age_ms)``,
         or None on a miss (no snapshot, key not carried, or the age
         exceeds ``bound_ms``; ``bound_ms=None`` serves any age — the

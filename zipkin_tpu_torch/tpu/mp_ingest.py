@@ -718,7 +718,7 @@ class MultiProcessIngester:
                 self._check_liveness(eof_set)
                 last_liveness = time.monotonic()
 
-    def _pass(self, eof_set: set) -> bool:
+    def _pass(self, eof_set: set) -> bool:  # zt-dispatch-critical: one drain pass — consume ready slots, flush completed payloads coalesced, free slots
         """One dispatcher pass: drain the control queue, pump every live
         stripe's run of ready slots in wseq order, flush the payloads that
         completed (coalesced), copy out any view still buffered for an
@@ -726,6 +726,8 @@ class MultiProcessIngester:
         across passes, so a multi-chunk payload cannot starve its own
         worker of ring capacity."""
         activity = False
+        # zt-lint: disable=ZT09 — per queued control MESSAGE (chunk- or
+        # payload-granular), never per span
         while True:
             try:
                 msg = self._result_q.get_nowait()
@@ -736,21 +738,25 @@ class MultiProcessIngester:
         ready: List[tuple] = []
         consumed: Dict[int, int] = {}
         self._pump(ready, consumed)
+        # zt-lint: disable=ZT09 — O(n_workers) stripe-depth word reads
         self._ring_high = max(self._ring_high, self._ring.occupancy())
         if ready:
             self._flush_ready(ready)
         if consumed:
-            self._materialize_views()
+            self._materialize_views()  # zt-lint: disable=ZT09 — per straddling-payload CHUNK copy, bounded by stripe depth × workers, not span count
+            # zt-lint: disable=ZT09 — per worker STRIPE with consumed slots
             for w, cnt in consumed.items():
-                for _ in range(cnt):
+                for _ in range(cnt):  # zt-lint: disable=ZT09 — per consumed SLOT (chunk-sized), a word store + counter bump each
                     self._ring.free_next(w)
             activity = True
         if self._reap_later and not self._reaping:
+            # zt-lint: disable=ZT09 — per deferred-reap WORKER
             dead = [w for w in self._reap_later if w not in eof_set]
             self._reap_later = []
             if dead:
-                self._reap_dead_workers(dead, eof_set)
+                self._reap_dead_workers(dead, eof_set)  # zt-lint: disable=ZT09 — rare worker-death recovery path, trips per dead worker / inflight payload, not steady-state dispatch
                 activity = True
+        # zt-lint: disable=ZT09 — per EOF-pending WORKER, two integer reads
         for w in list(self._pending_eof):
             if self._ring.stripe_depth(w) == 0 and not self._holdback[w]:
                 self._pending_eof.discard(w)
@@ -787,15 +793,16 @@ class MultiProcessIngester:
             return
         self._holdback[widx][wseq] = msg
 
-    def _pump(self, ready: List[tuple], consumed: Dict[int, int]) -> None:
+    def _pump(self, ready: List[tuple], consumed: Dict[int, int]) -> None:  # zt-dispatch-critical: in-order merge of ring slots + queue stragglers per worker
         """Apply each worker's available chunks strictly in wseq order,
         merging its stripe with its held-back queue messages; stop at the
         first missing sequence (in flight on the other channel)."""
+        # zt-lint: disable=ZT09 — per WORKER stripe
         for w in range(self.workers):
             if w in self._dead:
                 continue
             budget = self._ring.stripe_slots + len(self._holdback[w]) + 1
-            while budget > 0:
+            while budget > 0:  # zt-lint: disable=ZT09 — bounded by stripe depth + holdback, each iteration applies one chunk
                 budget -= 1
                 exp = self._expected[w]
                 hb = self._holdback[w].pop(exp, None)
@@ -813,7 +820,7 @@ class MultiProcessIngester:
                 consumed[w] = consumed.get(w, 0) + 1
                 self._expected[w] = exp + 1
 
-    def _consume_ring_chunk(self, w: int, hdr: np.ndarray, seq: int, ready: List[tuple]) -> None:
+    def _consume_ring_chunk(self, w: int, hdr: np.ndarray, seq: int, ready: List[tuple]) -> None:  # zt-dispatch-critical: zero-copy slot consume — header decode + vocab replay, no image copy
         """Decode a slot's header and sidecar; the image stays a view."""
         t0 = time.perf_counter()
         pid = int(hdr[ring_mod._S_PIDX])
@@ -827,6 +834,11 @@ class MultiProcessIngester:
         # could publish, so this fills only a pid no other thread touches
         tidx = int(hdr[ring_mod._S_TENANT])
         if tidx and pid not in self._tenant_of:
+            # zt-lint: disable=ZT04 — single-writer-per-pid: submit()
+            # records the mapping under _cv BEFORE the worker can publish
+            # a chunk; this dispatcher-thread write only fills pids whose
+            # submit-side record was skipped (tidx==0 fast path), and no
+            # other thread touches that pid's key
             self._tenant_of[pid] = tidx
         per = int(hdr[ring_mod._S_PER])
         fused = self._ring.image(w, seq, self._n_shards * self._wire_rows * per).reshape(
@@ -865,7 +877,7 @@ class MultiProcessIngester:
 
     def _apply_chunk(self, widx, pid, fused, n_spans, n_dur, n_err, dropped,
                      svc_new, name_new, pairs_new, arch, ts_range, rec,
-                     parse_s, pack_s, route_s, is_view, consume_s, ready) -> None:
+                     parse_s, pack_s, route_s, is_view, consume_s, ready) -> None:  # zt-dispatch-critical: per-chunk apply — vocab journal replay + buffer append on the single dispatch thread
         """Replay the chunk's vocab journal into the global vocab and buffer
         the chunk until its payload's last chunk arrives. ``consume_s`` is
         the time the slot's decode took, billed to the payload's
@@ -878,8 +890,13 @@ class MultiProcessIngester:
         if svc_new or name_new or pairs_new:
             tv0 = time.perf_counter()
             with store._intern_lock:
+                # zt-lint: disable=ZT09 — journal replay is per NEWLY
+                # INTERNED STRING (bounded by vocab capacity, amortized
+                # zero per span), not per span
                 m.svc = _IdMaps._append(m.svc, [vocab.services.intern(s) for s in svc_new])
+                # zt-lint: disable=ZT09 — per new string, as above
                 m.name = _IdMaps._append(m.name, [vocab.span_names.intern(s) for s in name_new])
+                # zt-lint: disable=ZT09 — per new (svc, name) pair
                 m.key = _IdMaps._append(
                     m.key, [vocab.key_id(int(m.svc[sl]), int(m.name[nl])) for sl, nl in pairs_new])
             tv1 = time.perf_counter()
@@ -899,6 +916,7 @@ class MultiProcessIngester:
         ws = self._wstats[widx]
         ws["chunks"] += 1
         ws["spans"] += n_spans
+        # zt-lint: disable=ZT09 — three fixed worker stages per chunk
         for stage, sec in (("parse", parse_s), ("pack", pack_s), ("route", route_s)):
             us = int(sec * 1e6 + 0.5)
             ws[stage + "Us"] += us
@@ -943,7 +961,7 @@ class MultiProcessIngester:
 
     # -- coalesced flush --------------------------------------------------
 
-    def _flush_ready(self, ready: List[tuple]) -> None:
+    def _flush_ready(self, ready: List[tuple]) -> None:  # zt-dispatch-critical: applies completed payloads to the device + durability path, coalesced
         """Flush the payloads completed this pass: their chunks are packed
         into groups of up to ``coalesce_max`` chunks (bounded by the lane
         cap), and each group takes one ``ingest_fused_multi``, whose step
@@ -955,17 +973,20 @@ class MultiProcessIngester:
         store = self.store
         plans: Dict[int, dict] = {}
         flat: List[tuple] = []
+        # zt-lint: disable=ZT09 — per completed PAYLOAD
         for pid, dropped in ready:
             entries = self._buffered.pop(pid, [])
+            # zt-lint: disable=ZT09 — per buffered CHUNK of one payload
             plans[pid] = {"dropped": dropped, "left": len(entries),
                           "spans": sum(e[1] for e in entries),
                           "consume_s": sum(e[9] for e in entries), "flush_s": 0.0}
+            # zt-lint: disable=ZT09 — per buffered CHUNK, a list append
             flat.extend((e, pid) for e in entries)
         cap = store.agg.lane_cap
         groups: List[List[tuple]] = []
         cur: List[tuple] = []
         lanes = 0
-        for e, pid in flat:
+        for e, pid in flat:  # zt-lint: disable=ZT09 — per chunk: greedy group packing, integer bookkeeping only
             per = int(e[0].shape[-1])
             if cur and (len(cur) >= self.coalesce_max or lanes + per > cap):
                 groups.append(cur)
@@ -980,18 +1001,19 @@ class MultiProcessIngester:
             # waits for the block's end, and so does every group's ack
             done: List[int] = []
             with wal.batched():
-                for g in groups:
+                for g in groups:  # zt-lint: disable=ZT09 — per coalesced GROUP (one device step each)
                     done.extend(self._flush_group(g, plans))
             self._ack_done(done, plans)
         else:
-            for g in groups:
+            for g in groups:  # zt-lint: disable=ZT09 — per coalesced GROUP (one device step each)
                 self._ack_done(self._flush_group(g, plans), plans)
         # payloads with no device chunk (every span sampled away, or empty)
+        # zt-lint: disable=ZT09 — per completed PAYLOAD, dict reads only
         empty = [pid for pid, p in plans.items() if p["left"] == 0 and not p.get("acked")]
         if empty:
             self._ack_done(empty, plans)
 
-    def _flush_group(self, group: List[tuple], plans: Dict[int, dict]) -> List[int]:
+    def _flush_group(self, group: List[tuple], plans: Dict[int, dict]) -> List[int]:  # zt-dispatch-critical: one coalesced group -> one remap+step+WAL record
         """One coalesced group -> one gather, one device step, one WAL
         record. Returns the payloads whose last chunk it held."""
         store = self.store
@@ -1000,10 +1022,11 @@ class MultiProcessIngester:
         pairs = []
         if led is not None:
             seen: Set[int] = set()
-            for _, pid in group:
+            for _, pid in group:  # zt-lint: disable=ZT09 — per group member, set lookups only
                 if pid not in seen:
                     seen.add(pid)
                     pairs.append((self._cslots.get(pid, -1), pid))
+            # zt-lint: disable=ZT09 — per traced group MEMBER
             traced = [(s, p) for s, p in pairs if s >= 0]
             # arm the thread-local, so the WAL's append and fsync stamps
             # land in these payloads' timelines (the WAL rides the step)
@@ -1014,17 +1037,17 @@ class MultiProcessIngester:
         n_spans = n_dur = n_err = 0
         lo = hi = None
         parts = []
-        for e, pid in group:
+        for e, pid in group:  # zt-lint: disable=ZT09 — per group member, dict bookkeeping only
             fused, c_spans, c_dur, c_err, ts_range, arch, rec, is_view, widx, _ = e
             if arch:
-                self._archive(arch)
+                self._archive(arch)  # zt-lint: disable=ZT09 — per archive SLICE = the 1-in-N sampled raw spans; decode/gate IS the retention surface, bounded by the sampling rate
             if rec is not None and getattr(store, "_disk", None) is not None:
                 # the sampling gate: the sketches below see every span, the
                 # disk keeps the verdict-kept ones; gated here, at flush
                 # time, so the verdicts see the synchronous path's tables
                 sampler = store.agg.sampler
                 if sampler is not None:
-                    rec = sampler.gate_record(rec)
+                    rec = sampler.gate_record(rec)  # zt-lint: disable=ZT09 — vectorized verdict; the per-kept-span byte compaction runs only when spans are gated away, on ONE record
                 if rec is not None:
                     store.disk_append_record(rec)
             if self.shadow is not None:
@@ -1056,7 +1079,7 @@ class MultiProcessIngester:
                 _critpath.clear_active()
         tf1 = time.perf_counter()
         obs.record("mp_device_feed", tf1 - tf0)
-        for s, p in pairs:
+        for s, p in pairs:  # zt-lint: disable=ZT09 — per traced group member, 3 word stores each
             if s >= 0:
                 led.stamp(s, _critpath.SEG_DEVICE_FEED, int(tf0 * 1e9), int(tf1 * 1e9), p)
         self.stage_us["deviceFeed"] += int((tf1 - tf0) * 1e6 + 0.5)
@@ -1067,9 +1090,11 @@ class MultiProcessIngester:
         # the group's wall is billed to its chunks by span weight, so
         # mp_record stays a per-payload handling time
         g_wall = time.perf_counter() - t_g0
+        # zt-lint: disable=ZT09 — per group MEMBER (bounded by
+        # coalesce_max), integer header reads only
         g_spans = sum(e[1] for e, _ in group) or len(group)
         done = []
-        for e, pid in group:
+        for e, pid in group:  # zt-lint: disable=ZT09 — per group member, dict bookkeeping only
             p = plans[pid]
             p["flush_s"] += g_wall * (e[1] or 1) / g_spans
             p["left"] -= 1
@@ -1078,10 +1103,10 @@ class MultiProcessIngester:
         self.stage_us["flush"] += int(g_wall * 1e6 + 0.5)
         return done
 
-    def _ack_done(self, pids: List[int], plans: Dict[int, dict]) -> None:
+    def _ack_done(self, pids: List[int], plans: Dict[int, dict]) -> None:  # zt-dispatch-critical: post-durability ack fan-in on the dispatch core — O(payloads per pass)
         """Ack payloads whose last chunk is durable: counters, metrics and
         the in-flight release."""
-        for pid in pids:
+        for pid in pids:  # zt-lint: disable=ZT09 — per completed PAYLOAD, counter updates only
             p = plans[pid]
             if p.get("acked"):
                 continue

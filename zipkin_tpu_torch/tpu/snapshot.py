@@ -131,6 +131,7 @@ def _quarantine(path: str) -> bool:
     """Rename ``path`` aside with the quarantine suffix, never delete it:
     it is the evidence of what rotted."""
     try:
+        # zt-lint: disable=ZT12 — quarantine moves already-corrupt bytes ASIDE; the poison file's durability is not a recovery invariant (a lost rename just re-quarantines next boot)
         os.replace(path, path + QUARANTINE_SUFFIX)
         return True
     except OSError:

@@ -355,6 +355,9 @@ class TorchStorage(
         # replay re-adds the tail
         self._load_archive_vocab()
 
+    # zt-lint: disable=ZT04 — runs once from __init__, before any other
+    # thread holds a reference to the store; _persist_archive_vocab's
+    # lock protects later concurrent writers, not construction
     def _load_archive_vocab(self) -> None:
         """Take the vocab and the name maps from the sidecar (port of
         ``zipkin_tpu/tpu/store.py:350-413``); runs once from ``__init__``.
@@ -1052,7 +1055,7 @@ class TorchStorage(
             return None
         return bound
 
-    def _mirror_serve(self, key: str, bound_ms, allow_stale: bool = True):
+    def _mirror_serve(self, key: str, bound_ms, allow_stale: bool = True):  # zt-mirror-served: the whole point — a mirror serve must never acquire the aggregator lock (ZT10)
         """Serve ``key`` from the published epoch without the aggregator
         lock: a seqlock snapshot read and a staleness check against the
         live write version, stamped as ``query_mirror`` and the traced
@@ -1534,7 +1537,8 @@ class TorchStorage(
         # published epoch was cut against versions that no longer compare
         # (its demand keys stay: the next publish refills)
         self.invalidate_read_cache()
-        self._read_cache_version = -1
+        with self._read_cache_lock:
+            self._read_cache_version = -1
         self._shape_memo = (-1, {})
         self.mirror.reset()
         # the swap replaced the instrumented lock: drop what was stitched

@@ -379,10 +379,11 @@ class TimeTier:
         self.counters["ttDiskLoads"] += 1
         return seg
 
-    def _quarantine(self, epoch: int) -> None:
+    def _quarantine(self, epoch: int) -> None:  # zt-lint: disable=ZT04 — caller holds self._lock
         path = os.path.join(self.directory, self._seg_name(epoch))
         for victim in (path, path[:-4] + ".meta.json"):
             try:
+                # zt-lint: disable=ZT12 — quarantine moves already-corrupt bytes ASIDE; the poison file's durability is not a recovery invariant (a lost rename just re-quarantines next boot)
                 os.replace(victim, victim + QUARANTINE_SUFFIX)
             except OSError:
                 pass

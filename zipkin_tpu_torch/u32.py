@@ -76,7 +76,12 @@ def from_numpy(arr: np.ndarray, device) -> torch.Tensor:
     the card moves 4 bytes a value (the bits travel as int32) and widens
     there."""
     a = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
-    t = torch.from_numpy(a.copy()).to(device)
+    t = torch.from_numpy(a.copy())
+    if torch.device(device).type == "cuda":
+        # from pinned memory the copy queues behind the stream's work; a
+        # pageable one would wait for that work before it returns
+        t = t.pin_memory()
+    t = t.to(device, non_blocking=True)
     return t.to(DTYPE) & MASK
 
 
