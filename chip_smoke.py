@@ -149,7 +149,17 @@ Builds the hand-written kernels from the sources in the checkout, then:
     reads, one line-rate accept and one mirror serve, each site held to
     the readpack pull, a suppressed ZT01/ZT02/ZT06 finding or a row of
     SYNCS_THE_LINT_CANNOT_SEE (o2); and one hll_update_step captured in a
-    CUDA graph and replayed on fresh registers against an eager call (o3).
+    CUDA graph and replayed on fresh registers against an eager call (o3);
+(p) the reference's compiled step on the card: the hand kernels for its XLA
+    programs against their plain twins, bit for bit (p1: ring_append on
+    full, all-pad, pads-in-the-middle and ring-wrapping batches, link_chase
+    on random forests, chains 200 deep and malformed cycles, and
+    hll_update_step across its tag wrap); 70 steps of one 4,096-span image
+    through the aggregator's captured graphs beside eager ingest_step /
+    flush_digest / rollup_step calls on a clone, every integer leaf equal
+    and digests in their rank band, each variant's replay timed (p2); the
+    graph count and their pool's bytes (p3). Every earlier phase steps
+    through the graphs too.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -526,18 +536,39 @@ def drive(agg, traffic, step_spans: int, chunk: int, cfg, after=None) -> list:
     return walls
 
 
+def step_buckets(agg, traffic, step_spans: int, chunk: int, cfg) -> list:
+    """The lane counts a shard's steps take when :func:`drive` delivers
+    ``traffic``: each step's coalesced image's ``lane_bucket``."""
+    from zipkin_tpu_torch.tpu.ingest import lane_bucket
+
+    cols, out = traffic.cols, set()
+    for lo in range(0, cols.size, step_spans):
+        parts, _ = step_parts(cols, lo, min(lo + step_spans, cols.size), chunk, cfg, agg.n_shards)
+        total = sum(int(p[0].shape[-1]) for p in parts)
+        out.add(total if len(parts) == 1 else lane_bucket(total, 256, agg.lane_cap))
+    return sorted(out)
+
+
 def counted(agg, fn):
-    """(fn(), readpack transfers it made, read_stats["host_transfers"] it
-    added)."""
+    """(fn(), the read's own readpack transfers, read_stats["host_transfers"]
+    it added). The read's own: the pulls this thread made, and those made
+    inside a traced query on another thread (a read over HTTP runs on the
+    server's request thread); a background thread's pull in the window
+    (the ticker's mirror publish) is not the read's. ``read_stats`` counts
+    every pull of the aggregator, so it is the read's own or more."""
     from zipkin_tpu_torch import readpack
 
-    t0, r0 = readpack.transfer_count(), agg.read_stats["host_transfers"]
+    c0, r0 = readpack.transfer_counts(), agg.read_stats["host_transfers"]
     out = fn()
-    return out, readpack.transfer_count() - t0, agg.read_stats["host_transfers"] - r0
+    c1 = readpack.transfer_counts()
+    d = {k: c1[k] - c0[k] for k in c0}
+    own = d["thread"] + d["traced"] - d["thread_traced"]
+    return out, own, agg.read_stats["host_transfers"] - r0
 
 
 def one_transfer(agg, fn, what: str):
-    """fn() on the card, which must make exactly one counted transfer."""
+    """fn() on the card, with no other thread reading the aggregator: it
+    must make exactly one counted transfer, and read_stats count that one."""
     out, n, r = counted(agg, fn)
     if (n, r) != (1, 1):
         raise AssertionError(f"{what}: {n} transfers ({r} counted by read_stats), want 1")
@@ -763,9 +794,11 @@ def median_ms(fn, reps: int = 5) -> float:
 def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, device=None):
     """(c) the main path (default AggConfig, 8 chunks of ``chunk`` spans
     per step, on the card unless ``device`` says otherwise); returns the
-    kernel launches of the run by wrapper, the aggregator and the traffic."""
-    from zipkin_tpu_torch.ops import hll_kernel, tdigest
+    kernel launches of the run by wrapper, the aggregator and the traffic.
+    Each step replays its variant's captured graph after the first."""
+    from zipkin_tpu_torch.ops import chase_kernel, hll_kernel, ring_kernel, tdigest
     from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
+    from zipkin_tpu_torch.tpu import ingest as ing
     from zipkin_tpu_torch.tpu.state import CTR_BATCHES, CTR_ERRORS, CTR_SPANS, AggConfig, state_bytes
     from zipkin_tpu_torch.workload import BASE_MINUTE, generate
 
@@ -775,17 +808,31 @@ def phase_main(seed: int, n_spans: int, torch, cfg=None, chunk: int = 8192, devi
     agg = TorchAggregator(cfg, device=device)
     agg.block_until_ready()
     log(f"state: {state_bytes(agg.states[0]) / 2**30:.3f} GiB on {agg.device} for {cfg}")
+    # the step's graphs at its lane count, as a server captures at boot:
+    # no capture lands in the timed steps
+    t0 = time.perf_counter()
+    boot = agg.capture_steps([ing.lane_bucket(8 * chunk, 256, agg.lane_cap)])
+    agg.block_until_ready()
+    log(f"phase c: {boot} step graphs captured before the steps in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms ({agg.graphs.warmups} warm-ups)")
 
     hll_kernel.update.launches = hll_kernel.update_step.launches = 0
+    ring_kernel.append.launches = chase_kernel.chase.launches = 0
     walls = drive(agg, traffic, 8 * chunk, chunk, cfg)
-    launches = {"update": hll_kernel.update.launches, "update_step": hll_kernel.update_step.launches}
+    launches = {"update": hll_kernel.update.launches, "update_step": hll_kernel.update_step.launches,
+                "ring_append": ring_kernel.append.launches, "link_chase": chase_kernel.chase.launches}
     steps = len(walls)
-    if launches != {"update": 0, "update_step": steps}:
-        raise AssertionError(f"hll kernel launches over {steps} steps: {launches}, "
-                             f"want update_step once a step and update never")
+    rollups = agg.ctx_stats["ctx_advances"]
+    if launches != {"update": 0, "update_step": steps, "ring_append": steps, "link_chase": rollups} \
+            or not rollups:
+        raise AssertionError(f"kernel launches over {steps} steps with {rollups} rollups: {launches}, "
+                             f"want update_step and ring_append once a step, link_chase once a "
+                             f"rollup and update never")
     log(f"ingest: {n_spans} spans in {steps} steps, {n_spans / (sum(walls) / 1e3):.0f} spans/s "
         f"(first step {walls[0]:.1f} ms, median step {statistics.median(walls):.2f} ms); "
-        f"{agg.ctx_stats['ctx_advances']} rollups; step walls ms {[round(w, 2) for w in walls]}")
+        f"{rollups} rollups; {len(agg.graphs)} step graphs, {agg.graphs.captures - boot} captured "
+        f"in the steps, {agg.graphs.replays} "
+        f"replays; step walls ms {[round(w, 2) for w in walls]}")
 
     # --- reads, timed (median wall of a few, each ending in a host copy)
     reads = {}
@@ -912,6 +959,26 @@ def profile_steps(agg, traffic, chunk: int, cfg, torch) -> None:
         f"({100 * busy / wall:.1f}% of wall)")
     log("top device ops over those steps (ms): " + json.dumps(
         [[k[:60], round(v, 3)] for k, v in rows[:12]]))
+    # the same 4 steps without the profiler: each step's host wall to the
+    # end of its launches, its stream time (CUDA events around the call:
+    # the upload and the graph's kernels) and its wall to the device's end
+    rows_ev = []
+    for i in range(4):
+        parts, counts = step_parts(sub.cols, i * 8 * chunk, (i + 1) * 8 * chunk, chunk, cfg, agg.n_shards)
+        due = agg._pend_lanes + 8 * chunk > cfg.digest_buffer
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        agg.ingest_fused_multi(parts, *counts)
+        e1.record()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3
+        rows_ev.append(("flush+rollup" if due else "plain", host, e0.elapsed_time(e1), total))
+    log("4 steps on CUDA events (kind, host ms to the last launch, stream ms, wall ms to the "
+        "device's end, stream share of that wall): " + json.dumps(
+            [[k, round(h, 3), round(st, 3), round(t, 3), round(st / t, 3)] for k, h, st, t in rows_ev]))
 
 
 def np_registers(cols, mask, cfg) -> np.ndarray:
@@ -1154,7 +1221,7 @@ def link_map(links):
 
 
 def check_store_answers(store, agg, truth, spans, traces, what: str, per_trace: int = 8,
-                        archived=None) -> dict:
+                        archived=None, served: bool = False) -> dict:
     """The store's answers (or an adapter over its HTTP routes) against
     the generator: ``traces`` (trace indices) read back span for span,
     every edge exact, cardinalities within phase c's HLL band, histogram
@@ -1162,7 +1229,9 @@ def check_store_answers(store, agg, truth, spans, traces, what: str, per_trace: 
     (1/32 of an octave), digest p99s inside the digest's rank band for keys
     with >= 1000 points, the overview equal to the reads it coalesces,
     service and span names: those of ``archived`` (the spans the archive
-    holds) when given, else every generated one. Returns the figures."""
+    holds) when given, else every generated one. ``served``: a server's
+    ticker may read the aggregator meanwhile, so read_stats may count its
+    pulls beside the read's own. Returns the figures."""
     from zipkin_tpu_torch.model import json_v2
     from zipkin_tpu_torch.ops import tdigest
     from zipkin_tpu_torch.ops.histogram import SUB
@@ -1177,11 +1246,13 @@ def check_store_answers(store, agg, truth, spans, traces, what: str, per_trace: 
             raise AssertionError(f"{what}: get_trace({spans[t * per_trace].trace_id}) != the generated spans")
 
     # 2. dependencies over the whole window: every edge, exact counts (the
-    # first read builds the link context: one transfer)
+    # first read builds the link context: one transfer of its own; a
+    # server's ticker may read the same aggregator meanwhile)
     t0 = time.perf_counter()
     deps, *first = counted(agg, lambda: store.get_dependencies(truth.t_end, truth.lookback).execute())
     fig["dependencies_first_ms"] = (time.perf_counter() - t0) * 1e3
-    if tuple(first) != (1, 1) or link_map(deps) != truth.edges:
+    want_first = first[0] == 1 and (first[1] >= 1 if served else first[1] == 1)
+    if not want_first or link_map(deps) != truth.edges:
         raise AssertionError(f"{what}: get_dependencies: {len(deps)} links != {len(truth.edges)} "
                              f"generated, transfers {first}")
 
@@ -1326,7 +1397,11 @@ def phase_store(seed: int, n_spans: int, torch, card: str, cfg=None, per_payload
         raise AssertionError(f"hll launches {launches} over {len(batches)} device batches")
     # the leaves as ingest left them (a digest read flushes into them); the
     # host archive, which holds every span, is phase h's query oracle
-    fig.update(wire=wire, traffic=traffic, spans=spans, state=agg.state_arrays(),
+    # the lanes a shard's step takes for each payload through a store
+    # (a batch is padded to the store's pad multiple)
+    payload_lanes = sorted({-(-min(k, store.max_batch) // store._pad) * store._pad
+                            for k in (min(per_payload, n_spans - i) for i in range(0, n_spans, per_payload))})
+    fig.update(wire=wire, traffic=traffic, spans=spans, state=agg.state_arrays(), payload_lanes=payload_lanes,
                archive=store._archive)
     fig.update(device_batches=len(batches), launches=launches["update_step"],
                update_launches=launches["update"], wall_ms=wall_ms,
@@ -1502,8 +1577,15 @@ def phase_fast(seed: int, torch, card: str, stored: dict, cfg=None, device=None)
     store = TorchStorage(config=cfg, device=device)
     store._deps_max_stale_ms = 0.0
     agg = store.agg
+    # the step graphs at the store's lane ladder, as a server's boot does
+    t0 = time.perf_counter()
+    boot_captures = store.capture_steps()
+    agg.block_until_ready()
+    boot_ms = (time.perf_counter() - t0) * 1e3
     stage = {"fast_parse": 0.0, "pack_parsed": 0.0, "archive_sample": 0.0, "device_step": 0.0}
     batches, results = [], []
+
+    per_batch = []  # device_step ms of each batch
 
     def timed(fn, name, sync=False):
         def run(*a, **k):
@@ -1512,6 +1594,8 @@ def phase_fast(seed: int, torch, card: str, stored: dict, cfg=None, device=None)
             if sync:
                 agg.block_until_ready()
             stage[name] += (time.perf_counter() - t) * 1e3
+            if name == "device_step":
+                per_batch.append((time.perf_counter() - t) * 1e3)
             return out
         return run
 
@@ -1569,7 +1653,14 @@ def phase_fast(seed: int, torch, card: str, stored: dict, cfg=None, device=None)
                spans_per_s=n_spans / (wall_ms / 1e3), stage_ms=stage,
                stage_spans_per_s={k: n_spans / (v / 1e3) for k, v in stage.items()},
                device_batches=len(batches), launches=launches["update_step"],
-               update_launches=launches["update"], archived_traces=len(picked), **checked)
+               update_launches=launches["update"], archived_traces=len(picked),
+               device_step_median_ms=statistics.median(per_batch), boot_captures=boot_captures,
+               boot_capture_ms=boot_ms, captures=agg.graphs.captures - boot_captures, **checked)
+    log(f"phase f1: device_step a batch (to the device's end): median "
+        f"{fig['device_step_median_ms']:.3f} ms, the {len(batches)} in order "
+        f"{[round(x, 2) for x in per_batch]}; {boot_captures} step graphs captured at "
+        f"{store.step_lanes()} lanes before the window in {boot_ms:.1f} ms, "
+        f"{fig['captures']} captures in the window")
     log(f"phase f1 ({card}): {n_spans} spans in {len(wire)} payloads through Collector(fast_ingest) -> "
         f"ingest_json_fast: {fig['spans_per_s']:.0f} spans/s end to end ({wall_ms:.0f} ms; phase e "
         f"{stored['spans_per_s']:.0f}); per stage ms {json.dumps({k: round(v, 1) for k, v in stage.items()})}"
@@ -1750,7 +1841,8 @@ def phase_server(seed: int, torch, card: str, stored: dict, cfg=None, device=Non
         picked = sampled_traces(traffic)
         checked = check_store_answers(http, agg, truth, spans,
                                       np.random.default_rng(seed + 1).choice(picked, 16, replace=False),
-                                      "phase f2", archived=[s for t in picked for s in spans[8 * t:8 * t + 8]])
+                                      "phase f2", archived=[s for t in picked for s in spans[8 * t:8 * t + 8]],
+                                      served=True)
 
         # the other encodings and the error answers
         ts_us = (truth.t_end - 30 * 60_000) * 1000
@@ -3244,10 +3336,12 @@ def phase_obs_cost(torch, card: str, stored: dict, a2_ms: float, cfg=None, devic
     cfg = cfg or AggConfig()
     wire, n_spans = stored["wire"], len(stored["spans"])
     OBSERVATORY.reset_counters()
-    on_totals = dict(launches=0, records=0, calls=0, payloads=0, wall_s=0.0)
+    on_totals = dict(launches=0, warmups=0, records=0, calls=0, payloads=0, wall_s=0.0)
 
     def run(on):
         store = TorchStorage(config=cfg, device=device)
+        store.capture_steps(stored["payload_lanes"])  # as a server's boot: none in the window
+        captures0 = store.agg.graphs.captures
         obs_switch(on, store)
         if on:
             store.shadow = HostShadow(max_services=cfg.max_services,
@@ -3266,10 +3360,14 @@ def phase_obs_cost(torch, card: str, stored: dict, a2_ms: float, cfg=None, devic
         launches = hll_kernel.update_step.launches
         if store.agg.host_counters["spans"] != n_spans:
             raise AssertionError(f"phase j1: {store.agg.host_counters['spans']} spans landed")
+        if store.agg.graphs.captures != captures0:
+            raise AssertionError(f"phase j1: {store.agg.graphs.captures - captures0} step graphs "
+                                 "captured in the window")
         if on:
             if store.shadow.counters()["shadowOfferedBatches"] != launches:
                 raise AssertionError("phase j1: the shadow tap missed a device batch")
             on_totals["launches"] += launches
+            on_totals["warmups"] += store.agg.graphs.warmups
             on_totals["records"] += obs.RECORDER.snapshot().total_count - records0
             on_totals["calls"] += OBSERVATORY.totals()["calls"] - calls0
             on_totals["payloads"] += len(wire)
@@ -3286,13 +3384,19 @@ def phase_obs_cost(torch, card: str, stored: dict, a2_ms: float, cfg=None, devic
         obs_switch(True)
     torch.cuda.synchronize()
     progs = OBSERVATORY.programs()
-    prog = progs["hll_update_step"]
-    launches_on = on_totals["launches"]
-    if prog["calls"] != launches_on or prog["deviceCalls"] != launches_on or prog["eventsDropped"]:
-        raise AssertionError(f"phase j1: the observatory saw {prog}, update_step launched "
-                             f"{launches_on} times in the on runs")
-    if prog["minDeviceMs"] <= 0.0:
-        raise AssertionError(f"phase j1: a CUDA event pair resolved to {prog['minDeviceMs']} ms")
+    prog, steps = progs["hll_update_step"], step_rows(progs)
+    launches_on, warm_on = on_totals["launches"], on_totals["warmups"]
+    # a step is one spmd_step* call (a graph replay) and one update_step
+    # launch; the kernel's own row sees only eager launches: the warm-ups
+    # before a process's first capture of a shape (none once f1 warmed it)
+    if steps["calls"] != launches_on or steps["deviceCalls"] != launches_on or steps["eventsDropped"] \
+            or prog["calls"] != warm_on or prog["deviceCalls"] != warm_on or prog["eventsDropped"]:
+        raise AssertionError(f"phase j1: the observatory saw steps {steps} and hll_update_step {prog}; "
+                             f"update_step launched {launches_on} times in the on runs, "
+                             f"{warm_on} warm-ups")
+    if steps["minDeviceMs"] <= 0.0 or (warm_on and prog["minDeviceMs"] <= 0.0):
+        raise AssertionError(f"phase j1: a CUDA event pair resolved to {prog['minDeviceMs']} / "
+                             f"{steps['minDeviceMs']} ms")
     verdict = on_off_verdict(runs)
     rec_ns = obs.RECORDER.measure_overhead()
     wrap_ns = wrap_cost_ns(torch, device or "cuda")
@@ -3307,8 +3411,7 @@ def phase_obs_cost(torch, card: str, stored: dict, a2_ms: float, cfg=None, devic
                wrap_ns_per_call=wrap_ns, records_per_payload=records_pp,
                wrapped_calls_per_payload=calls_pp, plane_host_us_per_payload=plane_us_pp,
                wall_us_per_payload=wall_us_pp, call_wall_ms=call_wall_ms,
-               kernel_calls=prog["calls"], kernel_event_ms=prog["meanDeviceMs"],
-               kernel_event_min_ms=prog["minDeviceMs"], kernel_event_max_ms=prog["maxDeviceMs"],
+               warmup_calls=prog["calls"], warmup_event_ms=prog["meanDeviceMs"],
                a2_profiler_ms=a2_ms, launches=sum(r["launches"] for r in runs),
                update_launches=sum(r["update_launches"] for r in runs))
     log(f"phase j1 ({card}): f1's path, a warm-up and five pairs, plane on/off: spans/s "
@@ -3320,11 +3423,22 @@ def phase_obs_cost(torch, card: str, stored: dict, a2_ms: float, cfg=None, devic
         f"record x {records_pp:.1f} records a payload + observatory wrapper {wrap_ns:.0f} ns a "
         f"call x {calls_pp:.1f} wrapped calls a payload = {plane_us_pp:.1f} us of a payload's "
         f"{wall_us_pp:.0f} us ({100 * plane_us_pp / wall_us_pp:.2f}%); host wall a call, ms: "
-        f"{json.dumps({k: round(v, 4) for k, v in call_wall_ms.items()})}; hll_update_step "
-        f"observed {prog['calls']} calls = {launches_on} launches, every event pair resolved: "
-        f"{prog['meanDeviceMs']:.5f} ms a call on CUDA events (min {prog['minDeviceMs']:.5f}, "
-        f"max {prog['maxDeviceMs']:.5f}) beside phase a2's profiler {a2_ms:.5f} ms")
+        f"{json.dumps({k: round(v, 4) for k, v in call_wall_ms.items()})}; step programs "
+        f"observed {steps['calls']} calls = {launches_on} update_step launches ({steps['meanDeviceMs']:.4f} "
+        f"ms a step on CUDA events), hll_update_step {prog['calls']} eager calls = {warm_on} "
+        f"warm-ups before a capture; phase a2's profiler {a2_ms:.5f} ms a launch")
     return fig
+
+
+def step_rows(progs: dict) -> dict:
+    """The device observatory's ``spmd_step*`` rows summed: calls, device
+    calls, events dropped, and the least and mean device ms of a call."""
+    rows = [v for k, v in progs.items() if k.startswith("spmd_step") and v["calls"]]
+    dev_calls = sum(v["deviceCalls"] for v in rows)
+    return {"calls": sum(v["calls"] for v in rows), "deviceCalls": dev_calls,
+            "eventsDropped": sum(v["eventsDropped"] for v in rows),
+            "minDeviceMs": min((v["minDeviceMs"] for v in rows if v["deviceCalls"]), default=0.0),
+            "meanDeviceMs": sum(v["deviceMs"] for v in rows) / dev_calls if dev_calls else 0.0}
 
 
 def obs_server_config(cfg, **extra):
@@ -3446,7 +3560,9 @@ def phase_obs_server(seed: int, torch, card: str, stored: dict, cfg=None, device
     torch.cuda.synchronize()
     # stopped: the emitter flushed its last spans, so the counts are final
     launches, update_launches = hll_kernel.update_step.launches, hll_kernel.update.launches
-    final = OBSERVATORY.programs()["hll_update_step"]
+    final_progs = OBSERVATORY.programs()
+    final, final_steps = final_progs["hll_update_step"], step_rows(final_progs)
+    warmups = server.storage.agg.graphs.warmups
 
     stages = st["stages"]
     want = ("http_boundary", "parse", "pack", "device_dispatch", "archive_write", "query_fresh",
@@ -3456,12 +3572,18 @@ def phase_obs_server(seed: int, torch, card: str, stored: dict, cfg=None, device
     progs = st["device"]["programs"]
     if not any(k.startswith("spmd_step") and v["calls"] for k, v in progs.items()):
         raise AssertionError("phase j2: no spmd_step program in the device section")
-    kern = progs.get("hll_update_step", {})
-    if not seen_before <= kern.get("calls", -1) <= seen_after or final["calls"] != launches \
-            or final["deviceCalls"] != launches or not launches or final["minDeviceMs"] <= 0.0:
-        raise AssertionError(f"phase j2: statusz shows {kern.get('calls')} hll_update_step calls "
-                             f"(launches {seen_before}..{seen_after} around it), {final['calls']} at "
-                             f"the end against {launches} launches")
+    # one shard: a step is one spmd_step* call (a graph replay) and one
+    # update_step launch; the kernel's own row sees the eager launches
+    # alone: the warm-ups before a process's first capture of a shape
+    seen = step_rows(progs)["calls"]
+    if not seen_before <= seen <= seen_after or final_steps["calls"] != launches \
+            or final_steps["deviceCalls"] != launches or not launches \
+            or final_steps["minDeviceMs"] <= 0.0 or final["calls"] != warmups \
+            or final["deviceCalls"] != warmups:
+        raise AssertionError(f"phase j2: statusz shows {seen} step programs (launches "
+                             f"{seen_before}..{seen_after} around it), {final_steps} at the end "
+                             f"against {launches} launches; hll_update_step {final['calls']} eager "
+                             f"calls against {warmups} warm-ups")
     if st["device"]["hbm"].get("bytesInUse", 0) <= 0:
         raise AssertionError(f"phase j2: device memory {st['device']['hbm']}")
     rates = st["windows"]["lookbacks"]["60s"]["rates"]
@@ -3491,7 +3613,7 @@ def phase_obs_server(seed: int, torch, card: str, stored: dict, cfg=None, device
     if not [f for f in families if f.startswith("zipkin_tpu_device_")]:
         raise AssertionError("phase j2: /prometheus lacks zipkin_tpu_device_*")
     fig = dict(card=card, post_s=post_s, post_spans_per_s=len(stored["spans"]) / post_s,
-               launches=launches, update_launches=update_launches, kernel_event_ms=final["meanDeviceMs"],
+               launches=launches, update_launches=update_launches,
                hll_rel_err=g["accuracyHllRelErr"], hll_band=band,
                digest_p99_rel_err=g["accuracyDigestP99RelErr"], link_recall=g["accuracyLinkRecall"],
                rollup_ms=g["accuracyRollupMs"], ticks=st["windows"]["ticks"],
@@ -4554,6 +4676,26 @@ def admission_payloads(stored: dict, per: int = 1024, every: int = 8):
     return out
 
 
+def idle_serve(rbase: str, route: str, core, max_stale_ms: float):
+    """(status, staleness ms) of a reader's answer to ``route`` on an idle
+    server, which must be a 200 within ``max_stale_ms``. Otherwise raises
+    with what says why: the answer's body (the reader names a miss, an
+    over-bound age or an unavailable segment), the reader's ``/metrics``
+    (its generation, errors and unavailable counts) and the server's
+    segment and mirror counters (publishes, re-stamps, skips)."""
+    status, headers, body = http_get(rbase + route)
+    staleness = headers.get("X-Staleness-Ms")
+    if status == 200 and staleness is not None and float(staleness) <= max_stale_ms:
+        return status, float(staleness)
+    m_status, _, m_body = http_get(rbase + "/metrics")
+    server = {k: v for k, v in core.ingest_counters().items()
+              if k.startswith(("segment", "mirror")) and not isinstance(v, dict)}
+    raise AssertionError(
+        f"phase l0: an idle server's reader answered {status} {staleness}: "
+        f"{body.decode(errors='replace')!r}; the reader's /metrics ({m_status}): "
+        f"{m_body.decode(errors='replace')}; the server's counters: {json.dumps(server, sort_keys=True)}")
+
+
 def phase_admission_repairs(torch, card: str, stored: dict, mirror_fig: dict, cfg=None,
                             device=None, serving_argv=None, max_stale_ms: int = 1500,
                             segment_bytes: int = 4 << 20) -> dict:
@@ -4644,12 +4786,9 @@ def phase_admission_repairs(torch, card: str, stored: dict, mirror_fig: dict, cf
             # idle past the bound: the skipped publishes re-stamp the epoch
             publishes, restamps = c["segmentPublishes"], c["segmentRestamps"]
             time.sleep(max_stale_ms / 1000.0 + 1.0)
-            status, headers, _ = http_get(rbase + routes[0])
+            status, staleness = idle_serve(rbase, routes[0], core, max_stale_ms)
             c = core.ingest_counters()
-            if status != 200 or float(headers["X-Staleness-Ms"]) > max_stale_ms:
-                raise AssertionError(f"phase l0: an idle server's reader answered {status} "
-                                     f"{headers.get('X-Staleness-Ms')}")
-            fig.update(idle_status=status, idle_staleness_ms=float(headers["X-Staleness-Ms"]),
+            fig.update(idle_status=status, idle_staleness_ms=staleness,
                        idle_publishes=c["segmentPublishes"] - publishes,
                        idle_restamps=c["segmentRestamps"] - restamps)
             proc.send_signal(signal.SIGTERM)
@@ -4791,10 +4930,10 @@ rt.start()
 flood(spec["flood_s"], spec["clients"])
 marks["flood_end"] = time.monotonic()
 stop_reads.set()
+rt.join()  # the flood's last read lands before the flood's end is signalled
 open(spec["flood_done"], "w").close()
 n, s = paced("trickle", spec["trickle_rate"], stop_file=spec["stop"], error_only=True)
 marks["trickle_end"] = time.monotonic()
-rt.join()
 with open(spec["out"], "w") as f:
     json.dump(dict(posts=posts, reads=reads, marks=marks), f)
 '''
@@ -4813,10 +4952,11 @@ def phase_ladder(torch, card: str, stored: dict, i2_spans_per_s: float, cfg=None
     limit), then ``clients`` clients back to back for ``flood_s`` (a bulk
     payload is not retried; an error payload is retried after a full tier
     until 202, and the ladder must never shed one) while one reader client
-    polls the four aggregate routes every 0.1 s, then a trickle of
-    error-class payloads (``trickle_rate`` a second, which the ladder admits
-    at any level, so the critical-path gauges keep folding) until the
-    ladder is back at B0. Prints each tick's level and top signal, sheds by
+    polls the four aggregate routes every 0.1 s (the flood ends when its
+    last read has landed), then a trickle of error-class payloads
+    (``trickle_rate`` a second, which the ladder admits at any level, so the
+    critical-path gauges keep folding) until the ladder is back at B0,
+    three ticks or more after the flood. Prints each tick's level and top signal, sheds by
     class and cause, the error class's admitted share (1.0), that every 429
     carried ``Retry-After``, read p99 at B0 against B1 or higher and the
     seconds back to B0 once the flood stops. After a drain every acked span
@@ -4848,6 +4988,7 @@ def phase_ladder(torch, card: str, stored: dict, i2_spans_per_s: float, cfg=None
                           tpu_archive_dir=os.path.join(root, "archive"),
                           tpu_agg=dataclasses.asdict(cfg))
     server = ZipkinServer(config, device=device, seal_interval_s=0.25).start()
+    boot_captures = server.storage.agg.graphs.captures  # the server's boot captures
     base = f"http://127.0.0.1:{server.port}"
     ctl = server._overload
     core = server.storage
@@ -4890,6 +5031,13 @@ def phase_ladder(torch, card: str, stored: dict, i2_spans_per_s: float, cfg=None
                                      f"{proc.stderr.read().decode(errors='replace')[-2000:]}")
             time.sleep(0.05)
         t_end = time.monotonic()
+        # the flood's reads have landed (the reader is joined first): three
+        # ticks fold their walls into the signals before the level is read
+        n_ticks = len(ticks)
+        while len(ticks) < n_ticks + 3:
+            if time.monotonic() - t_end > 30:
+                raise AssertionError("phase l1: the windows ticker stopped ticking")
+            time.sleep(0.02)
         # back to B0 under the trickle
         while ctl.level != 0:
             if time.monotonic() - t_end > 90 or proc.poll() is not None:
@@ -5009,6 +5157,8 @@ def phase_ladder(torch, card: str, stored: dict, i2_spans_per_s: float, cfg=None
                        if k.startswith(("overload", "deadline"))}
     fig["update_launches"] = hll_kernel.update.launches
     fig["launches"] = hll_kernel.update_step.launches
+    fig["boot_captures"] = boot_captures
+    fig["captures"] = server.storage.agg.graphs.captures - boot_captures
     fig["root"] = root
     log(f"phase l1 ({card}): ticks (s:level/top signal/load index): {tick_text(ticks, t_start)}")
     log(f"phase l1: a load generator in its own process; one client paced at a quarter of i2's "
@@ -5024,7 +5174,8 @@ def phase_ladder(torch, card: str, stored: dict, i2_spans_per_s: float, cfg=None
         f" the archive's index holds all {fig['index_traces']} acked traces with their acked rows "
         f"({fig['index_s']:.2f} s), {fig['readback_traces']} of them read back in full in "
         f"{fig['readback_s']:.2f} s; controller {json.dumps(fig['counters'])}; update_step "
-        f"launches {fig['launches']}")
+        f"launches {fig['launches']}; {fig['boot_captures']} step graphs captured at the "
+        f"server's boot, {fig['captures']} while serving (each under the aggregator lock)")
     return fig, server
 
 
@@ -5378,9 +5529,18 @@ def phase_shards_agg(seed: int, n_spans: int, torch, card: str, cfg=None, device
     aggs, walls, launches = {}, {}, {}
     for label, m in (("S", mesh), ("one", mesh[:1])):
         agg = TorchAggregator(cfg, mesh=m)
+        # every shard's step graphs at the steps' lane counts, as a
+        # server's boot captures them: none lands in the timed steps
+        t0 = time.perf_counter()
+        lanes = step_buckets(agg, traffic, 8 * chunk, chunk, cfg)
+        fig[f"boot_captures_{label}"] = (agg.capture_steps(lanes), lanes)
         agg.block_until_ready()
+        fig[f"boot_capture_s_{label}"] = time.perf_counter() - t0
         hll_kernel.update.launches = hll_kernel.update_step.launches = 0
         walls[label] = drive(agg, traffic, 8 * chunk, chunk, cfg)
+        if agg.graphs.captures != fig[f"boot_captures_{label}"][0]:
+            raise AssertionError(f"phase m1: {agg.graphs.captures} captures at {label}, want only "
+                                 f"the {fig[f'boot_captures_{label}'][0]} before the steps")
         launches[label] = (hll_kernel.update.launches, hll_kernel.update_step.launches)
         aggs[label] = agg
     big, one = aggs["S"], aggs["one"]
@@ -5399,7 +5559,9 @@ def phase_shards_agg(seed: int, n_spans: int, torch, card: str, cfg=None, device
         f"at one shard ({sps['S'] / sps['one']:.3f}x); median step {fig['step_ms']:.2f} ms against "
         f"{fig['one_step_ms']:.2f} ms (first {walls['S'][0]:.1f} ms); update_step launches "
         f"{launches['S'][1]} = {n_shards} x {steps} steps; {fig['rollups']} rollup rounds; "
-        f"step walls ms {[round(w, 2) for w in walls['S']]}")
+        f"step walls ms {[round(w, 2) for w in walls['S']]}; step graphs captured before the "
+        f"steps (graphs, lanes): {fig['boot_captures_S']} in {fig['boot_capture_s_S']:.2f} s, at "
+        f"one shard {fig['boot_captures_one']} in {fig['boot_capture_s_one']:.2f} s")
 
     # --- each shard's lanes of the last step: kernel against plain
     lo = (steps - 1) * 8 * chunk
@@ -6607,6 +6769,16 @@ def phase_census(torch, card: str, stored: dict, lint_doc: dict, cfg=None, devic
     ts = cols.ts_min[cols.valid]
     lo, hi = int(ts.min()), int(ts.max())
     census = SyncCensus(torch)
+    # every step variant captured at the steps' lane count first (a capture
+    # synchronizes the card: the serving path's warm-up, not a step's);
+    # it leaves the flush and the rollup due again at step steps_total
+    from zipkin_tpu_torch.workload import slice_columns
+
+    agg.warm_programs(slice_columns(cols, 0, chunk))
+    if len(agg.graphs) != (4 if agg.device.type == "cuda" else 0) or agg._pend_lanes \
+            or agg._lanes_since_rollup:
+        raise AssertionError(f"phase o2: warm_programs left {len(agg.graphs)} graphs, "
+                             f"{agg._pend_lanes} pending lanes, {agg._lanes_since_rollup} since a rollup")
 
     def step(i):
         parts, counts = step_parts(cols, i * chunk, (i + 1) * chunk, chunk, cfg, agg.n_shards)
@@ -6714,6 +6886,13 @@ def phase_census(torch, card: str, stored: dict, lint_doc: dict, cfg=None, devic
         f"{launches['update'] + store_launches['update']} update launches")
     if bad:
         raise AssertionError(f"phase o2: syncs at sites nothing explains: {bad}")
+    # a step replays its graph: no sync; a read makes its one pull, the
+    # dependency read's fresh chase included (it converges on the card)
+    want = {"plain step": 0, "flush+rollup step": 0, "read quantiles": 1,
+            "read cardinalities": 1, "read dependencies": 1, "accept": 0, "mirror serve": 0}
+    got = {k: fig["per_unit"][k] for k in want}
+    if got != want:
+        raise AssertionError(f"phase o2: syncs {got}, want {want}")
     fig["launches"] = launches["update_step"] + store_launches["update_step"]
     fig["update_launches"] = launches["update"] + store_launches["update"]
     return fig
@@ -6791,6 +6970,421 @@ def phase_lint_census(seed: int, torch, card: str, stored: dict, cfg=None, devic
     probe = phase_graph_probe(seed, torch, cfg=cfg, device=device)
     return {"o1": doc["stats"], "o2": census, "o3": probe, "launches": census["launches"],
             "update_launches": census["update_launches"]}
+
+
+def host_loop_chase(torch, parent, kind):
+    """The chase as the port ran it before its kernel: the same passes,
+    each reading the convergence test back to the host (one sync a pass).
+    Kept here only as the yardstick of the ``link_chase`` row."""
+    from zipkin_tpu_torch.ops.chase_kernel import doubling_passes
+
+    n = parent.shape[0]
+    dev = parent.device
+    par = torch.where(parent >= 0, parent, n)
+    kind_ext = torch.cat([kind, torch.zeros(1, dtype=torch.int64, device=dev)])
+    par_ext = torch.cat([par, torch.full((1,), n, dtype=torch.int64, device=dev)])
+    jump = torch.where(kind_ext != 0, torch.arange(n + 1, device=dev), par_ext)
+    root = par_ext
+    i, changed = 0, True
+    while changed and i < doubling_passes(n):
+        j2, r2 = jump[jump], root[root]
+        changed = bool(((j2 != jump).any() | (r2 != root).any()).item())
+        jump, root = j2, r2
+        i += 1
+    anc = jump[par]
+    anc = torch.where(anc == n, -1, anc)
+    anc = torch.where((anc >= 0) & (kind_ext[torch.where(anc >= 0, anc, 0)] != 0), anc, -1)
+    return anc, root[:n] == n
+
+
+def eager_ring_append(torch, ring, lanes, valid, ring_pos, live: int):
+    """The ring append as the port ran it before its kernel: a stable sort
+    of ``~valid`` cut at the host's live count, then one ``index_put_`` a
+    column. Kept here only as the yardstick of the ``ring_append`` row."""
+    cap = ring[0].shape[0]
+    order = torch.sort((~valid).to(torch.uint8), stable=True).indices[:live]
+    pos = (ring_pos + torch.arange(live, dtype=torch.int64, device=valid.device)) % cap
+    for dst, src in zip(ring, lanes):
+        if src is None:
+            dst.index_fill_(0, pos, 0)
+        else:
+            dst[pos] = src[order]
+
+
+def ring_case(torch, rng, cfg, dev, n: int, pattern: str, start: int):
+    """One ring append's inputs at the default layout: the 14 ring columns,
+    r_keep and r_rolled of an R-lane ring holding earlier values, and ``n``
+    lanes of the unpacked wire image's dtypes with ``pattern``'s pads."""
+    from zipkin_tpu_torch.tpu.ingest import RING_COLUMNS
+
+    r = cfg.ring_capacity
+    bools = {"shared", "err", "valid", "keep", "rolled"}
+    names = list(RING_COLUMNS) + ["keep", "rolled"]
+    ring, lanes = [], []
+    for name in names:
+        if name in bools:
+            ring.append(torch.from_numpy(rng.random(r) < 0.5).to(dev))
+            lanes.append(None if name == "rolled" else torch.from_numpy(rng.random(n) < 0.5).to(dev))
+        else:
+            ring.append(torch.from_numpy(rng.integers(0, 1 << 32, r, dtype=np.int64)).to(dev))
+            lanes.append(torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.int64)).to(dev))
+    if pattern == "full":
+        valid = np.ones(n, bool)
+    elif pattern == "all_pad":
+        valid = np.zeros(n, bool)
+    elif pattern == "pads_in_the_middle":
+        valid = rng.random(n) < 0.7
+        valid[n // 3: n // 3 + n // 8] = False
+    else:  # a trailing pad run, as a padded chunk has
+        valid = np.arange(n) < n - n // 5
+    v = torch.from_numpy(valid).to(dev)
+    lanes[names.index("valid")] = v
+    pos = torch.tensor(start, dtype=torch.int64, device=dev)
+    return ring, lanes, v, pos, int(valid.sum())
+
+
+def step_image(parts, pad: int, cap: int) -> np.ndarray:
+    """Shard 0's ``[11, lanes]`` u32 image of one step as
+    ``ingest_fused_multi`` builds it from ``step_parts``' chunks (identity
+    id maps): one chunk as it is, several coalesced into their
+    ``lane_bucket``."""
+    from zipkin_tpu_torch.tpu.columnar import concat_remap
+    from zipkin_tpu_torch.tpu.ingest import lane_bucket
+
+    if len(parts) == 1:
+        return parts[0][0][0]
+    total = sum(int(p[0].shape[-1]) for p in parts)
+    out = np.zeros((1, parts[0][0].shape[1], lane_bucket(total, pad, cap)), np.uint32)
+    concat_remap(parts, out)
+    return out[0]
+
+
+def path_ring_case(torch, rng, cfg, dev, image: np.ndarray, start: int):
+    """The ring append's inputs as ``ingest_step`` hands them to the
+    kernel for ``image`` (unpacked on the card as the step unpacks it;
+    sampling off, so no r_keep), into a ring of earlier values."""
+    from zipkin_tpu_torch import u32
+    from zipkin_tpu_torch.parallel.aggregator import unfuse_columns
+    from zipkin_tpu_torch.tpu.ingest import RING_COLUMNS
+
+    r = cfg.ring_capacity
+    batch = unfuse_columns(u32.widen(u32.upload_bits(image, dev)))
+    lanes = [getattr(batch, name) for name in RING_COLUMNS] + [None]  # r_rolled is cleared
+    ring = []
+    for src in lanes:
+        if src is None or src.dtype == torch.bool:
+            ring.append(torch.from_numpy(rng.random(r) < 0.5).to(dev))
+        else:
+            ring.append(torch.from_numpy(rng.integers(0, 1 << 32, r, dtype=np.int64)).to(dev).to(src.dtype))
+    pos = torch.tensor(start, dtype=torch.int64, device=dev)
+    return ring, lanes, batch.valid, pos, int(batch.valid.sum())
+
+
+def ring_bound_bytes(ring, lanes, n: int, live: int) -> int:
+    """What the ring append must move for this run's data: the valid
+    flags of every lane, and a live lane's source columns read and its
+    ring cells written once, plus the cursor."""
+    return (n + live * sum(t.element_size() for t in lanes if t is not None)
+            + live * sum(c.element_size() for c in ring) + 8)
+
+
+def chase_case(torch, rng, n: int, shape: str, dev):
+    """(parent, kind) int64 on ``dev``: random forests (most spans kindless,
+    parents earlier in the window), chains 200 deep, or a forest with
+    malformed cycles (3-cycles and a long ring) that run to the cap."""
+    idx = np.arange(n)
+    if shape == "forest":
+        parent = np.where(rng.random(n) < 0.1, -1, (rng.random(n) * idx).astype(np.int64))
+        parent[0] = -1
+    elif shape == "chains_200":
+        parent = np.where(idx % 200 == 0, -1, idx - 1)
+    else:
+        parent = np.where(rng.random(n) < 0.1, -1, (rng.random(n) * idx).astype(np.int64))
+        parent[0] = -1
+        for a in range(0, n - 3, 997):  # 3-cycles
+            parent[a], parent[a + 1], parent[a + 2] = a + 1, a + 2, a
+        ring_len = min(n // 4, 1 << 14)  # one long ring
+        base = n // 2
+        parent[base:base + ring_len] = base + (np.arange(ring_len) + 1) % ring_len
+    kind = np.where(rng.random(n) < 0.3, rng.integers(1, 5, n), 0)
+    return (torch.from_numpy(parent.astype(np.int64)).to(dev),
+            torch.from_numpy(kind.astype(np.int64)).to(dev))
+
+
+def phase_kernels_xla(seed: int, torch, cfg=None, iters: int = 20) -> dict:
+    """(p1) the hand kernels for the reference's XLA programs against their
+    plain twins on the card, bit for bit, at the main path's shapes:
+    ``ring_append`` on a full, an all-pad, a pads-in-the-middle and a
+    ring-wrapping batch of lane_cap lanes into a 2^18-lane ring (and a
+    4,096-lane batch), then on the path's own images: phase c's coalesced
+    65,536-lane step and a step at each lane count of the store's ladder
+    (f1's 4,096-lane batches, the fan-out tier's buckets), each built by
+    ``step_parts`` and ``ingest_fused_multi``'s coalescing and unpacked on
+    the card; ``link_chase`` on 2^18 lanes of random forests, chains 200
+    deep and malformed cycles, and ``hll_update_step`` across its tag
+    wrap. Each is timed (CUDA events) beside its plain twin and the eager
+    torch sequence it replaces."""
+    from zipkin_tpu_torch.ops import chase_kernel, hll_kernel, ring_kernel
+    from zipkin_tpu_torch.ops.chase_kernel import doubling_passes
+    from zipkin_tpu_torch.tpu.ingest import lane_bucket
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.workload import generate
+
+    cfg = cfg or AggConfig()
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed + 15)
+    r = cfg.ring_capacity
+    lane_cap = min(cfg.digest_buffer, cfg.rollup_segment)
+    launches0 = (ring_kernel.append.launches, chase_kernel.chase.launches)
+    ring_cases, chase_cases = [], []
+    builds = [(f"{pattern}, {n} lanes", start,
+               (lambda n=n, pattern=pattern, start=start: ring_case(torch, rng, cfg, dev, n, pattern, start)))
+              for n, pattern, start in ((lane_cap, "full", 12345), (lane_cap, "all_pad", 777),
+                                        (lane_cap, "pads_in_the_middle", 4242),
+                                        (lane_cap, "ring_wrap", r - lane_cap // 3),
+                                        (4096, "pads_in_the_middle", r - 1000))]
+    # the path's images: phase c's step (8 x 8,192-span chunks, pad 256) and
+    # the store's ladder (pad 1,024: 1,024 .. lane_cap lanes), from phase
+    # c's traffic
+    cols = generate(lane_cap, seed=seed).cols
+    ladder = sorted({lane_bucket(k, 1024, lane_cap) for k in range(1024, lane_cap + 1, 1024)})
+    for label, total, chunk, pad in [("phase c step", 8 * 8192, 8192, 256)] + [
+            ("ladder step", k, min(k, 8192), 1024) for k in ladder]:
+        parts, _ = step_parts(cols, 0, total, chunk, cfg)
+        image = step_image(parts, pad, lane_cap)
+        start = int(rng.integers(0, r))
+        builds.append((f"{label}, {image.shape[-1]} lanes", start,
+                       (lambda image=image, start=start: path_ring_case(torch, rng, cfg, dev, image, start))))
+    for pattern, start, build in builds:
+        ring, lanes, valid, pos, live = build()
+        n = valid.shape[0]
+        got = [c.clone() for c in ring]
+        want = [c.clone() for c in ring]
+        ring_kernel.append(got, lanes, valid, pos)
+        ring_kernel.append_plain(want, lanes, valid, pos)
+        old = [c.clone() for c in ring]
+        eager_ring_append(torch, old, lanes, valid, pos, live)
+        torch.cuda.synchronize()
+        err = max(int((a.long() - b.long()).abs().max()) for a, b in zip(got, want))
+        if err or not all(torch.equal(a, b) for a, b in zip(got, old)):
+            raise AssertionError(f"phase p1: ring_append ({pattern}) differs from its "
+                                 f"plain twin or the eager sequence (max abs {err})")
+        work = [c.clone() for c in ring]
+        ms = cuda_ms(lambda i: ring_kernel.append(work, lanes, valid, pos), iters, torch)
+        plain_ms = cuda_ms(lambda i: ring_kernel.append_plain(work, lanes, valid, pos), iters, torch)
+        library_ms = cuda_ms(lambda i: eager_ring_append(torch, work, lanes, valid, pos, live), iters, torch)
+        nbytes = ring_bound_bytes(ring, lanes, n, live)
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ring_cases.append(dict(pattern=pattern, lanes=n, live=live, start=start, ms=ms,
+                               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                               bound_bytes=nbytes, max_abs_err=err))
+        log(f"phase p1: ring_append {pattern} ({live} live) from cursor {start} into {r}: "
+            f"equal to its plain twin and the eager sort + index_put_ sequence; kernel "
+            f"{ms:.5f} ms, plain {plain_ms:.5f} ms, eager sequence {library_ms:.5f} ms, bound "
+            f"{bound_ms:.6f} ms ({nbytes} B: the valid flags, a live lane's columns read and "
+            f"its ring cells written)")
+    for shape in ("forest", "chains_200", "cycles"):
+        parent, kind = chase_case(torch, rng, r, shape, dev)
+        passes, passes_plain = (torch.zeros((), dtype=torch.int32, device=dev) for _ in range(2))
+        anc, ok = chase_kernel.chase(parent, kind, passes)
+        anc_p, ok_p = chase_kernel.chase_plain(parent, kind, passes_plain)
+        anc_h, ok_h = host_loop_chase(torch, parent, kind)
+        torch.cuda.synchronize()
+        ran = int(passes)
+        if not (torch.equal(anc, anc_p) and torch.equal(ok, ok_p) and ran == int(passes_plain)
+                and torch.equal(anc, anc_h) and torch.equal(ok, ok_h)):
+            raise AssertionError(f"phase p1: link_chase ({shape}) differs from its plain twin or "
+                                 f"the host loop (passes {ran} vs {int(passes_plain)})")
+        if shape == "cycles" and ran != doubling_passes(r):
+            raise AssertionError(f"phase p1: link_chase on cycles ran {ran} passes, want the cap")
+        err = int((anc - anc_p).abs().max())
+        ms = cuda_ms(lambda i: chase_kernel.chase(parent, kind), iters, torch)
+        plain_ms = cuda_ms(lambda i: chase_kernel.chase_plain(parent, kind), iters, torch)
+        library_ms = cuda_ms(lambda i: host_loop_chase(torch, parent, kind), iters, torch)
+        # the bound: parent and kind read once, anc and root_ok written once
+        # (the passes' pointer arrays, 2 x (n+1) x 8 B read and written a
+        # pass, stay in the 50 MB L2, whose rate the data sheet does not
+        # give; at the HBM rate they would take pass_traffic_hbm_ms)
+        nbytes = r * (8 + 8 + 8 + 1) + 4
+        bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        pass_ms = ran * 2 * 2 * (r + 1) * 8 / HBM_BYTES_PER_S * 1e3
+        chase_cases.append(dict(shape=shape, lanes=r, passes=ran, ms=ms, plain_ms=plain_ms,
+                                library_ms=library_ms, bound_ms=bound_ms, bound_bytes=nbytes,
+                                pass_traffic_hbm_ms=pass_ms, max_abs_err=err))
+        log(f"phase p1: link_chase {shape}, {r} lanes: {ran} passes (cap {doubling_passes(r)}), "
+            f"equal to its plain twin and the host loop; kernel {ms:.5f} ms, plain (every pass of "
+            f"the cap) {plain_ms:.5f} ms, host loop {library_ms:.5f} ms, bound {bound_ms:.6f} ms "
+            f"({nbytes} B in and out); the passes' pointer traffic at the HBM rate {pass_ms:.6f} ms")
+
+    # hll_update_step across its tag wrap: the tag lives on the card
+    m, rows, slots = 1 << cfg.hll_precision, cfg.hll_rows, cfg.time_buckets
+    kw = dict(max_services=cfg.max_services, hll_rows=rows, global_row=cfg.global_hll_row)
+    n = 4096
+    lanes_h = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n, dtype=np.int64)).to(torch.int32).to(dev),
+               torch.from_numpy(rng.integers(0, cfg.max_services + 1, n)).to(torch.int32).to(dev),
+               torch.from_numpy(rng.random(n) < 0.9).to(dev), torch.from_numpy(rng.random(n) < 0.8).to(dev),
+               torch.from_numpy(rng.integers(0, slots, n)).to(torch.uint8).to(dev))
+    files = (torch.zeros((rows, m), dtype=torch.uint8, device=dev),
+             torch.zeros((slots * rows, m), dtype=torch.uint8, device=dev))
+    want = tuple(f.clone() for f in files)
+    hll_kernel.update_step_plain(*want, *lanes_h, **kw)
+    scratch = hll_kernel.scratch_of(*files)
+    tags = []
+    for tag in (hll_kernel.TAG_LIMIT - 1, None):  # the last tag, then the wrap
+        if tag is not None:
+            torch.cuda.synchronize()
+            scratch[hll_kernel.TAG_WORD:hll_kernel.TAG_WORD + 1].fill_(tag)
+        got = tuple(torch.zeros_like(f) for f in files)
+        hll_kernel.update_step(*got, *lanes_h, **kw)
+        torch.cuda.synchronize()
+        tags.append(int(scratch[hll_kernel.TAG_WORD]))
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"phase p1: hll_update_step across the tag wrap differs ({tags})")
+    if tags != [0, 2]:
+        raise AssertionError(f"phase p1: the tag word after the wrap reads {tags}, want [0, 2]")
+    log(f"phase p1: hll_update_step from tag {hll_kernel.TAG_LIMIT - 1} across the wrap equals "
+        f"its plain twin; the tag word read {tags} after the two launches")
+    launches = (ring_kernel.append.launches - launches0[0], chase_kernel.chase.launches - launches0[1])
+    return dict(ring=ring_cases, chase=chase_cases, tag_words=tags, launches=launches)
+
+
+def phase_step_graphs(seed: int, torch, cfg=None, device=None, chunk: int = 4096) -> dict:
+    """(p2, p3) the aggregator's captured step graphs against eager calls:
+    one ``chunk``-span image stepped through a TorchAggregator at the
+    default AggConfig (step 33 flushes and rolls up, as does step 66, a
+    replay), then a forced flush, rollup, flush and rollup (the last two
+    replays); beside it the same calls of ``ingest.ingest_step`` /
+    ``flush_digest`` / ``rollup_step`` on a clone of the initial state.
+    Every integer leaf must be equal, digests within their rank band. Each
+    variant's replay (and capture) is timed; then the graph count and the
+    bytes in their pool (p3)."""
+    from zipkin_tpu_torch import u32
+    from zipkin_tpu_torch.ops import chase_kernel, hll_kernel, ring_kernel, tdigest
+    from zipkin_tpu_torch.parallel.aggregator import TorchAggregator, unfuse_columns
+    from zipkin_tpu_torch.tpu import ingest as ing
+    from zipkin_tpu_torch.tpu.columnar import route_fused
+    from zipkin_tpu_torch.tpu.state import AggConfig, AggState
+    from zipkin_tpu_torch.workload import generate
+
+    cfg = cfg or AggConfig()
+    if cfg.digest_buffer != 32 * chunk or cfg.rollup_segment != cfg.digest_buffer:
+        raise AssertionError(f"phase p2 wants the flush and the rollup due at step 33: {cfg}")
+    cols = generate(chunk, seed=seed + 2).cols
+    wire = route_fused(cols, 1)
+    counts = (int(cols.valid.sum()), int((cols.valid & cols.has_dur).sum()),
+              int((cols.valid & cols.err).sum()))
+    ts = cols.ts_min[cols.valid]
+    agg = TorchAggregator(cfg, device=device)
+    twin = [AggState(*(t.clone() for t in s)) for s in agg.states]
+    dev = agg.device
+    counters = (hll_kernel.update_step, ring_kernel.append, chase_kernel.chase)
+    launches0 = [w.launches for w in counters]
+
+    def eager(variant):
+        bits = u32.upload_bits(wire[0], dev)
+        st = twin[0]
+        if variant[0]:
+            ing.flush_digest(cfg, st)
+        if variant[1]:
+            ing.rollup_step(cfg, st)
+        ing.ingest_step(cfg, st, unfuse_columns(u32.widen(bits)))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        fn()
+        e1.record()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        return host, e0.elapsed_time(e1)
+
+    schedule = [None] * 66 + [(True, False), (False, True), (True, False), (False, True)]
+    walls = {}
+    for i, forced in enumerate(schedule):
+        lanes = wire.shape[-1]
+        if forced is not None:
+            with agg.lock:
+                agg._pend_lanes = cfg.digest_buffer if forced[0] else agg._pend_lanes
+                agg._lanes_since_rollup = cfg.rollup_segment if forced[1] else agg._lanes_since_rollup
+        variant = (agg._pend_lanes + lanes > cfg.digest_buffer,
+                   agg._lanes_since_rollup + lanes > cfg.rollup_segment)
+        captures = agg.graphs.captures
+        host, dev_ms = timed(lambda: agg.ingest_fused(wire, *counts, (int(ts.min()), int(ts.max()))))
+        kind = "capture" if agg.graphs.captures > captures else "replay"
+        e_host, e_dev = timed(lambda: eager(variant))
+        walls.setdefault(variant, {}).setdefault(kind, []).append((host, dev_ms))
+        walls[variant].setdefault("eager", []).append((e_host, e_dev))
+        if i in (32, 65, len(schedule) - 1):
+            check_twin_leaves(torch, cfg, agg.states[0], twin[0], tdigest, f"phase p2 after step {i + 1}")
+    launches = [w.launches - l0 for w, l0 in zip(counters, launches0)]
+    torch.cuda.synchronize()
+    fig = {"steps": len(schedule), "graphs": len(agg.graphs), "captures": agg.graphs.captures,
+           "replays": agg.graphs.replays, "pool_bytes": agg.graphs.pool_bytes(),
+           "reserved_bytes": torch.cuda.memory_reserved(dev),
+           "launches": dict(zip(("hll_update_step", "ring_append", "link_chase"), launches)),
+           "variants": {}}
+    names = {(False, False): "plain", (True, False): "flush", (False, True): "rollup",
+             (True, True): "flush_rollup"}
+    for variant, kinds in walls.items():
+        row = {}
+        for kind, xs in kinds.items():
+            row[kind] = {"n": len(xs), "host_ms": statistics.median(x[0] for x in xs),
+                         "device_ms": statistics.median(x[1] for x in xs)}
+        fig["variants"][names[variant]] = row
+    log(f"phase p2: {len(schedule)} steps of one {wire.shape[-1]}-lane image through the "
+        f"aggregator's graphs and eagerly on a clone: every integer leaf equal, digests inside "
+        f"their rank band; per variant, median host wall / stream ms (CUDA events around the "
+        f"call, upload included): " + json.dumps(
+            {v: {k: [x["n"], round(x["host_ms"], 4), round(x["device_ms"], 4)] for k, x in row.items()}
+             for v, row in fig["variants"].items()}))
+    if fig["launches"]["hll_update_step"] != 2 * len(schedule) or \
+            fig["launches"]["ring_append"] != 2 * len(schedule):
+        raise AssertionError(f"phase p2: launches {fig['launches']} in {len(schedule)} steps on "
+                             "each side, want one hll_update_step and one ring_append a step")
+    log(f"phase p3: {fig['graphs']} captured graphs ({fig['captures']} captures, {fig['replays']} "
+        f"replays), {fig['pool_bytes']} bytes in their pool, {fig['reserved_bytes']} bytes reserved "
+        f"on the card; kernel launches over both sides: {json.dumps(fig['launches'])}")
+    del agg, twin
+    torch.cuda.empty_cache()
+    return fig
+
+
+def check_twin_leaves(torch, cfg, got, want, tdigest, what: str) -> None:
+    """Every integer leaf of two states equal (and the pending values);
+    each float digest's row weights equal and its quantiles inside the
+    other's rank band (``tdigest.cluster_q_width``) at QS."""
+    from zipkin_tpu_torch.tpu.state import AggState
+
+    qs = torch.tensor(QS, dtype=torch.float32, device=got.hll.device)
+    for name, a, b in zip(AggState._fields, got, want):
+        if a.dtype != torch.float32 or name == "pend_val":
+            if not torch.equal(a, b):
+                raise AssertionError(f"{what}: leaf {name} differs between the graphs and the eager steps")
+            continue
+        c = a.shape[-2]
+        ga, gb = a.reshape(-1, c, 2), b.reshape(-1, c, 2)
+        if not torch.equal(ga[..., 1].sum(-1), gb[..., 1].sum(-1)):
+            raise AssertionError(f"{what}: {name} row weights differ")
+        q = tdigest.quantile(ga, qs)
+        for j, x in enumerate(QS):
+            w = tdigest.cluster_q_width(c, x)
+            band = torch.tensor([max(x - w, 0.0), min(x + w, 1.0)], dtype=torch.float32, device=qs.device)
+            lo_hi = tdigest.quantile(gb, band)
+            slack = 1e-5 * lo_hi.abs().max(1).values
+            if bool(((q[:, j] < lo_hi[:, 0] - slack) | (q[:, j] > lo_hi[:, 1] + slack)).any()):
+                raise AssertionError(f"{what}: {name} q{x} outside the eager digest's rank band")
+
+
+def phase_graphs(seed: int, torch, cfg=None) -> dict:
+    """(p) p1, then p2 and p3."""
+    t0 = time.perf_counter()
+    kernels_fig = phase_kernels_xla(seed, torch, cfg=cfg)
+    graphs_fig = phase_step_graphs(seed, torch, cfg=cfg)
+    wall = time.perf_counter() - t0
+    log(f"phase p: {wall:.1f} s")
+    return {"p1": kernels_fig, "p2": graphs_fig, "wall_s": wall}
 
 
 def main() -> int:
@@ -6907,6 +7501,10 @@ def main() -> int:
     linted = phase_lint_census(args.seed, torch, card, stored)
     torch.cuda.empty_cache()
     log(f"phase o done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    graphed = phase_graphs(args.seed, torch)
+    torch.cuda.empty_cache()
+    log(f"phase p done in {time.perf_counter() - t0:.1f} s")
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -6971,7 +7569,6 @@ def main() -> int:
                                      "i4": fanned["i4"]["launches"], "i5": fanned["i5"]["launches"]},
              launches_phase_j=observed["launches"],
              launches_phase_j_parts={k: observed[k]["launches"] for k in ("j1", "j2", "j3", "j5")},
-             event_ms_phase_j1=observed["j1"]["kernel_event_ms"],
              launches_phase_k=served_k["launches"],
              launches_phase_k_parts={k: served_k[k]["launches"] for k in ("k1", "k2", "k3")},
              launches_phase_l=admitted["launches"],
@@ -6985,8 +7582,26 @@ def main() -> int:
              launches_phase_n=wired["launches"],
              launches_phase_n_parts={"n1": wired["n1"]["launches"], "n2": wired["n2"]["launches"]},
              launches_phase_o=linted["launches"],
+             launches_phase_p=graphed["p2"]["launches"]["hll_update_step"],
              cases=step_cases, card=card),
     ]
+    # the hand kernels for the reference's XLA programs: their p1 cases at
+    # the main path's shapes (lane_cap and 4,096 lanes into the 2^18 ring,
+    # phase c's 65,536-lane step and the store's ladder; the 2^18-lane
+    # chase); launches are phase c's, launches_phase_p both sides of p2's
+    # steps. library_ms times the eager torch sequence each replaced: the
+    # sort + index_put_ append, the chase with a host test a pass
+    for name, src, ref, cs_ in (
+            ("ring_append", "zipkin_tpu_torch/csrc/ring_append.cu", "zipkin_tpu/tpu/ingest.py:138",
+             graphed["p1"]["ring"]),
+            ("link_chase", "zipkin_tpu_torch/csrc/link_chase.cu", "zipkin_tpu/ops/linker.py:320",
+             graphed["p1"]["chase"])):
+        records.append(dict(
+            name=name, route="cuda", source=src, replaces=ref, launches=launches[name],
+            max_abs_err=max(c["max_abs_err"] for c in cs_), ms=mean(cs_, "ms"),
+            plain_ms=mean(cs_, "plain_ms"), bound_ms=mean(cs_, "bound_ms"), bound_by="bytes",
+            library_ms=mean(cs_, "library_ms"),
+            launches_phase_p=graphed["p2"]["launches"][name], cases=cs_, card=card))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -683,6 +683,36 @@ def test_zt03_accepts_the_kernel_loaders_memo(tmp_path):
     assert rules(result) == []
 
 
+def test_zt03_accepts_the_step_graphs_memo(tmp_path):
+    # tpu/graphs.py: one graph per key in a mapping the instance holds,
+    # tested before the capture; a graph built on every call is still found
+    result = lint(
+        tmp_path,
+        """
+        import torch
+
+        class StepGraphs:
+            def __init__(self):
+                self._graphs = {}
+
+            def step(self, key, program):
+                captured = self._graphs.get(key)
+                if captured is None:
+                    graph = torch.cuda.CUDAGraph()
+                    self._graphs[key] = graph
+                    return
+                captured.replay()
+
+            def every_call(self, key):
+                graph = torch.cuda.CUDAGraph()
+                self._graphs[key] = graph
+                return graph
+        """,
+        select={"ZT03"},
+    )
+    assert [f.line for f in result.findings] == [17]
+
+
 def test_zt03_flags_varying_scalars_into_a_compiled_callable(tmp_path):
     result = lint(
         tmp_path,

@@ -61,18 +61,8 @@ DEPARTURES = {
         "once, as the reference's state_arrays does with one np.asarray a "
         "leaf (a list comprehension its taint pass did not follow)"
     ),
-    ("ops/linker.py", "chase_ancestors", "ZT01"): (
-        "the pointer-doubling chase tests convergence on the host once a "
-        "pass (the reference's lax.while_loop keeps it on the device); "
-        "ROADMAP lists the fixed-pass form"
-    ),
     ("convert.py", "state_from_numpy", "ZT01"): (
         "a snapshot restore uploads each leaf once, at boot"
-    ),
-    ("tpu/ingest.py", "ingest_step", "ZT01"): (
-        "the live count is read back when the caller does not pass it (the "
-        "reference traces it; the aggregator always passes it); ROADMAP "
-        "lists it"
     ),
 }
 

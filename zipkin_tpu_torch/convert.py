@@ -14,7 +14,7 @@ interners, from plain lists. numpy and torch only.
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -25,16 +25,22 @@ from zipkin_tpu_torch.tpu.state import LEAF_DTYPES, AggConfig, AggState, init_st
 
 
 def state_from_numpy(leaves: Sequence[np.ndarray], config: AggConfig, device=None,
-                     mesh=None) -> List[AggState]:
+                     mesh=None, into: Optional[List[AggState]] = None) -> List[AggState]:
     """The port's per-shard states from reference leaves (in AggState
     order, each with the leading shard axis of ``len(mesh)``): shard ``s``
-    on ``mesh[s]``; without ``mesh``, one shard on ``device``."""
+    on ``mesh[s]``; without ``mesh``, one shard on ``device``. With
+    ``into`` (live per-shard states on that mesh) each leaf is copied into
+    the tensor ``into`` already holds, which keeps its storage, and
+    ``into`` is returned."""
+    if into is not None and len(into) != (1 if mesh is None else len(mesh)):
+        raise ValueError(f"into holds {len(into)} states for a mesh of "
+                         f"{1 if mesh is None else len(mesh)}")
     if len(leaves) != len(AggState._fields):
         raise ValueError(f"expected {len(AggState._fields)} leaves, got {len(leaves)}")
     mesh = [resolve_device(device)] if mesh is None else [resolve_device(d) for d in mesh]
     shapes = [tuple(t.shape) for t in init_state(config, "meta")]
     per_shard = [[] for _ in mesh]
-    for name, leaf, want in zip(AggState._fields, leaves, shapes):
+    for f, (name, leaf, want) in enumerate(zip(AggState._fields, leaves, shapes)):
         a = np.asarray(leaf)
         if a.ndim != len(want) + 1:
             raise ValueError(f"leaf {name}: shape {a.shape} lacks the leading shard axis")
@@ -45,9 +51,12 @@ def state_from_numpy(leaves: Sequence[np.ndarray], config: AggConfig, device=Non
         for i, row in enumerate(a):
             row = np.array(row, dtype=LEAF_DTYPES[name], copy=True)
             t = torch.from_numpy(row).to(torch_dtype(LEAF_DTYPES[name]))
+            if into is not None:
+                into[i][f].copy_(t)
+                continue
             # zt-lint: disable=ZT01 — a restore uploads each leaf once, at boot
             per_shard[i].append(t.to(mesh[i]))
-    return [AggState(*out) for out in per_shard]
+    return into if into is not None else [AggState(*out) for out in per_shard]
 
 
 # zt-lint: disable=ZT01 — a snapshot copies every leaf once (snapshots,

@@ -51,7 +51,12 @@
 //     is done -- the common case once files fill; a stale read costs only
 //     work), and a lane that raises does a fire-and-forget atomicMax of
 //     (tag << 5 | rho) into a u32 scratch copy of the files, tagged with the
-//     launch so the scratch is never cleared. After a grid barrier (a
+//     launch so the scratch is never cleared. The tag lives in a device word
+//     of the scratch's header: every launch reads it, and the last block to
+//     leave writes the next launch's tag and resets the barrier counters, so
+//     a CUDA graph that captured the launch replays it with a fresh tag each
+//     time and nothing outside the kernel touches the scratch. At the wrap
+//     (tag 0) the launch clears the scratch files itself first. After a grid barrier (a
 //     cooperative launch keeps every block resident) each raising lane
 //     stores the register's byte from the scratch: every lane that stores it
 //     stores the same maximum, so the bytes need no atomics. Blocks with no
@@ -81,6 +86,12 @@ constexpr int kTargets = 4;
 constexpr unsigned kRhoBits = 5;  // rho <= 33 - p <= 31
 constexpr int kScratchHeader = 32;  // u32 words ahead of the scratch files
                                     // (SCRATCH_HEADER in ops/hll_kernel.py)
+// header words of the step's scratch (TAG_WORD in ops/hll_kernel.py)
+constexpr int kRoundCtr = 0;   // grid-barrier arrivals, cumulative over rounds
+constexpr int kDepartCtr = 1;  // blocks that finished
+constexpr int kTagWord = 2;    // this launch's tag; 0: clear the files first
+constexpr int kClearCtr = 3;   // arrivals at the clear's barrier
+constexpr unsigned kTagLimit = 1u << 27;  // TAG_LIMIT in ops/hll_kernel.py
 
 struct Params {
   uint8_t* hll;          // [rows, m]: the one target file, or the step's hll
@@ -90,14 +101,13 @@ struct Params {
   const uint8_t* valid;  // bool
   const uint8_t* keep;   // step with tier: bool
   const uint8_t* slot;   // step with tier: u8 slot
-  unsigned int* ctr;     // step: two barrier counters, by tag parity
+  unsigned int* ctr;     // step: the scratch header (kRoundCtr .. kClearCtr)
   unsigned int* shll;    // step: u32 scratch of hll, then of tb
   unsigned int* stb;
   int64_t n;
   int64_t n_rows;        // one target: rows of hll
   int max_services, hll_rows, global_row, n_slots;
   int p;
-  unsigned int tag;      // step: this launch's scratch tag, 1 .. 2^27 - 1
 };
 
 __device__ __forceinline__ unsigned int* word_of(uint8_t* regs, int64_t off) {
@@ -181,13 +191,39 @@ __global__ void __launch_bounds__(kThreads) hll_step_kernel(const Params P) {
   // did this block raise anything this round (two, by round parity: thread
   // 0 clears the next round's flag while others may still read this one)
   __shared__ int raised_by_round[2];
+  __shared__ unsigned int launch_tag;
   const int p = P.p;
   const int64_t m = int64_t(1) << p;
   const bool tier = P.tb != nullptr;
-  const unsigned int tag = P.tag << kRhoBits;
-  const unsigned int tag_mask = ~((1u << kRhoBits) - 1u);
   const unsigned int lane_id = threadIdx.x & 31u;
-  if (blockIdx.x == 0 && threadIdx.x == 0) P.ctr[(P.tag + 1) & 1] = 0u;  // the next launch's
+  volatile unsigned int* vctr = P.ctr;
+
+  // this launch's tag, from the device word the previous launch left
+  if (threadIdx.x == 0) launch_tag = vctr[kTagWord];
+  __syncthreads();
+  unsigned int this_tag = launch_tag;
+  if (this_tag == 0u) {
+    // the wrap (or a fresh scratch): tags are about to repeat, so every
+    // stale scratch word goes first, then the launch runs as tag 1
+    const int64_t words = (int64_t(P.hll_rows) << p) * (1 + P.n_slots);
+    for (int64_t i = int64_t(blockIdx.x) * blockDim.x + threadIdx.x; i < words;
+         i += int64_t(gridDim.x) * blockDim.x)
+      P.shll[i] = 0u;  // shll and stb are one run of words
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      __threadfence();
+      atomicAdd(P.ctr + kClearCtr, 1u);
+      for (unsigned int spins = 0; vctr[kClearCtr] < gridDim.x; ++spins) {
+        if (spins > (1u << 25)) __trap();
+        __nanosleep(32);
+      }
+      __threadfence();
+    }
+    __syncthreads();
+    this_tag = 1u;
+  }
+  const unsigned int tag = this_tag << kRhoBits;
+  const unsigned int tag_mask = ~((1u << kRhoBits) - 1u);
 
   const int64_t per_round = int64_t(gridDim.x) * blockDim.x;
   const int64_t rounds = (P.n + per_round - 1) / per_round;
@@ -240,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) hll_step_kernel(const Params P) {
     __syncthreads();
     const bool last = round == rounds - 1;
     if (threadIdx.x == 0) {
-      unsigned int* ctr = P.ctr + (P.tag & 1);
+      unsigned int* ctr = P.ctr + kRoundCtr;
       if (raised) __threadfence();
       atomicAdd(ctr, 1u);
       if (raised || !last) {
@@ -266,6 +302,20 @@ __global__ void __launch_bounds__(kThreads) hll_step_kernel(const Params P) {
 #pragma unroll
     for (int t = 0; t < kTargets; ++t)
       if (rho[t] && (top[t] & tag_mask) == tag) (t < 2 ? P.hll : P.tb)[off[t]] = uint8_t(top[t] & ~tag_mask);
+  }
+
+  // the last block to leave: every block has read the tag and passed every
+  // barrier, so the counters go back to 0 and the next launch gets its tag
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(P.ctr + kDepartCtr, 1u) == gridDim.x - 1) {
+      const unsigned int next = this_tag + 1u;
+      atomicExch(P.ctr + kRoundCtr, 0u);
+      atomicExch(P.ctr + kClearCtr, 0u);
+      atomicExch(P.ctr + kDepartCtr, 0u);
+      atomicExch(P.ctr + kTagWord, next >= kTagLimit ? 0u : next);
+    }
   }
 }
 
@@ -334,14 +384,15 @@ extern "C" int hll_update(void* regs, const void* rows, const void* hashes,
   return launch_rows(P, static_cast<cudaStream_t>(stream));
 }
 
-// scratch: kScratchHeader u32 words (two barrier counters), then one u32 per
-// register of hll, then of tb; zeroed once by the caller, then left to the
-// kernel. tag: 1 .. 2^27 - 1, one more each launch on the same scratch (the
-// caller zeroes the scratch again before a tag repeats).
+// scratch: kScratchHeader u32 words (the barrier counters and the tag word),
+// then one u32 per register of hll, then of tb; zeroed once by the caller,
+// then left to the kernel: each launch takes its tag (1 .. 2^27 - 1) from the
+// tag word and leaves the next one there, clearing the files itself when the
+// word reads 0 (a fresh scratch, or the wrap).
 extern "C" int hll_update_step(void* hll, void* tb, const void* hashes,
                                const void* svc, const void* valid,
                                const void* keep, const void* slot,
-                               void* scratch, unsigned int tag, long long n,
+                               void* scratch, long long n,
                                int max_services, int hll_rows, int global_row,
                                int n_slots, int p, void* stream) {
   if (n <= 0) return 0;
@@ -356,7 +407,6 @@ extern "C" int hll_update_step(void* hll, void* tb, const void* hashes,
   P.ctr = static_cast<unsigned int*>(scratch);
   P.shll = P.ctr + kScratchHeader;
   P.stb = P.shll + (int64_t(hll_rows) << p);
-  P.tag = tag;
   P.n = n;
   P.max_services = max_services;
   P.hll_rows = hll_rows;

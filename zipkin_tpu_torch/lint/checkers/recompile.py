@@ -16,9 +16,11 @@ Two shapes are flagged:
    factory: an enclosing function decorated with
    ``functools.lru_cache``/``cache``/``cached_property``, or one that
    memoizes by hand — it stores the result in a memo that outlives the
-   call (a ``global`` it assigns, or an item of a module-level mapping)
+   call (a ``global`` it assigns, an item of a module-level mapping, or
+   an item of a mapping the instance holds, ``self._graphs[key] = ...``)
    and tests that memo before building (``kernels.load``'s per-name
-   cache under its lock, ``native._load``'s singleton).
+   cache under its lock, ``native._load``'s singleton, ``StepGraphs``'
+   graph per step variant, lane count and shard).
 2. a callable bound from ``torch.compile(...)`` without ``dynamic=``
    invoked with a varying Python scalar positionally — a loop variable,
    or an ``int()``/``float()`` coercion at the call site. The compiled
@@ -74,38 +76,51 @@ def _local_names(fn: ast.AST) -> Set[str]:
     return out
 
 
+def _instance_memo(node: ast.AST):
+    """``self.attr`` (the chain as a string) when ``node`` reads a
+    mapping the instance holds, else None."""
+    if isinstance(node, ast.Attribute):
+        path = _attr_chain(node)
+        if path is not None and len(path) == 2 and path[0] == "self":
+            return ".".join(path)
+    return None
+
+
 def _memoizes(fn: ast.AST) -> bool:
     """The hand-made cached factory: fn stores into a memo that outlives
-    the call (an assigned ``global``, or an item of a mapping it does not
-    bind itself) and tests that memo — or a name read from it — in an
-    ``if`` before building."""
+    the call (an assigned ``global``, an item of a mapping it does not
+    bind itself, or an item of ``self.<attr>``) and tests that memo — or a
+    name read from it — in an ``if`` before building."""
     memo: Set[str] = set()
+    attrs: Set[str] = set()
     for node in ast.walk(fn):
         if isinstance(node, ast.Global):
             memo.update(node.names)
     local = _local_names(fn) - memo
     for node in ast.walk(fn):
-        if isinstance(node, ast.Subscript) and isinstance(
-            node.ctx, ast.Store
-        ) and isinstance(node.value, ast.Name) \
-                and node.value.id not in local:
-            memo.add(node.value.id)
-    if not memo:
+        if isinstance(node, ast.Subscript) and isinstance(node.ctx, ast.Store):
+            if isinstance(node.value, ast.Name) and node.value.id not in local:
+                memo.add(node.value.id)
+            elif _instance_memo(node.value) is not None:
+                attrs.add(_instance_memo(node.value))
+    if not memo and not attrs:
         return False
+
+    def reads_memo(expr: ast.AST, names: Set[str]) -> bool:
+        return any(
+            (isinstance(n, ast.Name) and n.id in names)
+            or _instance_memo(n) in attrs
+            for n in ast.walk(expr)
+        )
+
     derived = set(memo)
     for node in ast.walk(fn):
-        if isinstance(node, ast.Assign) and any(
-            isinstance(n, ast.Name) and n.id in memo
-            for n in ast.walk(node.value)
-        ):
+        if isinstance(node, ast.Assign) and reads_memo(node.value, memo):
             derived.update(
                 t.id for t in node.targets if isinstance(t, ast.Name)
             )
     return any(
-        isinstance(node, ast.If) and any(
-            isinstance(n, ast.Name) and n.id in derived
-            for n in ast.walk(node.test)
-        )
+        isinstance(node, ast.If) and reads_memo(node.test, derived)
         for node in ast.walk(fn)
     )
 

@@ -16,16 +16,17 @@ Each launches the kernel for a CUDA tensor and runs its plain twin
 (:func:`update_plain`, :func:`update_step_plain`) for a CPU tensor — the
 CPU is the only reason it takes the plain path; there is no switch and no
 fallback. All update the registers in place. ``update.launches`` and
-``update_step.launches`` count kernel launches. Each launch runs inside
-the device observatory's wrapper (:mod:`zipkin_tpu_torch.obs.device`) under
-``hll_update`` or ``hll_update_step``, which counts the same launches and
-times each on the card with a pair of CUDA events.
+``update_step.launches`` count kernel launches (:func:`kernels.count_launch`:
+a replay of a CUDA graph adds the launches it holds). Each eager launch runs
+inside the device observatory's wrapper (:mod:`zipkin_tpu_torch.obs.device`)
+under ``hll_update`` or ``hll_update_step``, which counts the same launches
+and times each on the card with a pair of CUDA events; a launch captured
+into a graph is not observed (the graph's replay is, as its step program).
 """
 
 from __future__ import annotations
 
 import ctypes
-import threading
 
 import torch
 
@@ -34,9 +35,12 @@ from zipkin_tpu_torch.obs.device import OBSERVATORY
 from zipkin_tpu_torch.ops.hashing import floor_log2
 
 # update_step's scratch, as csrc/hll_update.cu lays it out: kScratchHeader
-# u32 words (the barrier counters), then one u32 per register; each launch
-# tags what it writes with 1 .. TAG_LIMIT - 1 (27 bits above rho's 5)
+# u32 words (the barrier counters and, at TAG_WORD, the tag of the next
+# launch), then one u32 per register; each launch tags what it writes with
+# 1 .. TAG_LIMIT - 1 (27 bits above rho's 5) and leaves the next tag in the
+# tag word, 0 at the wrap (the next launch clears the files first)
 SCRATCH_HEADER = 32
+TAG_WORD = 2
 TAG_LIMIT = 1 << 27
 
 
@@ -86,11 +90,6 @@ def update_step_plain(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
 
 
 _fn = {}  # the bound C entry points, loaded at the first launch
-# (device, stream, file shapes) -> [u32 scratch, last tag]: launches that
-# share a scratch run in order on one stream, and take their tags in that
-# order (under _launch_lock: a launch zeroes the next tag's barrier counter)
-_scratch = {}
-_launch_lock = threading.Lock()
 
 
 def _entry(name: str):
@@ -102,7 +101,7 @@ def _entry(name: str):
                 ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p
             ]
         else:
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_uint, ctypes.c_longlong] + [
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_longlong] + [
                 ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn[name] = fn
@@ -152,8 +151,9 @@ def update(registers, row_ids, hashes, valid) -> torch.Tensor:  # zt-in-place: r
         ("valid", valid, torch.bool)))
     if n == 0:
         return registers
-    _launch_update_observed(registers, row_ids, hashes, valid, n, p)
-    update.launches += 1
+    launch = _launch_update if torch.cuda.is_current_stream_capturing() else _launch_update_observed
+    launch(registers, row_ids, hashes, valid, n, p)
+    kernels.count_launch(update)
     return registers
 
 
@@ -179,19 +179,13 @@ def _launch_update(registers, row_ids, hashes, valid, n: int, p: int) -> None:
 _launch_update_observed = OBSERVATORY.wrap("hll_update", _launch_update, compile_probe=_builds)
 
 
-def _scratch_and_tag(hll, tb_flat, stream: int):
-    """The u32 scratch of these file shapes on this stream (zeroed when
-    made) and the tag of the launch about to use it."""
-    key = (hll.device, stream, tuple(hll.shape), None if tb_flat is None else tb_flat.shape[0])
-    entry = _scratch.get(key)
-    if entry is None:
-        words = SCRATCH_HEADER + hll.numel() + (0 if tb_flat is None else tb_flat.numel())
-        entry = _scratch[key] = [torch.zeros(words, dtype=torch.int32, device=hll.device), 0]
-    entry[1] += 1
-    if entry[1] >= TAG_LIMIT:  # a tag is about to repeat: start the scratch over
-        entry[0].zero_()
-        entry[1] = 1
-    return key, entry[0], entry[1]
+def scratch_of(hll, tb_flat) -> torch.Tensor:
+    """The u32 scratch of these file shapes on their device
+    (:func:`zipkin_tpu_torch.kernels.device_words`): its first launch
+    starts with tag 0, clears the files' marks and runs as tag 1."""
+    words = SCRATCH_HEADER + hll.numel() + (0 if tb_flat is None else tb_flat.numel())
+    key = ("hll_update_step", tuple(hll.shape), None if tb_flat is None else tb_flat.shape[0])
+    return kernels.device_words(key, hll.device, words)
 
 
 def check_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
@@ -237,8 +231,9 @@ def update_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
     with the tier off). On a CUDA tensor everything must be on the same
     card in exactly these types (11 B a lane); the plain path also takes
     int64 ids. The kernel keeps a u32 scratch of one word per register
-    (cached per device, stream and file shapes: 42 MB at the default
-    config). Returns ``(hll, tb_flat)``.
+    (cached per device and file shapes: 42 MB at the default
+    config), which also holds the launch's tag: a launch captured in a
+    CUDA graph takes a fresh tag at every replay. Returns ``(hll, tb_flat)``.
     """
     kw = dict(max_services=max_services, hll_rows=hll_rows, global_row=global_row)
     if hll.device.type == "cpu":
@@ -249,8 +244,9 @@ def update_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, *,
     n = hashes.shape[0]
     if n == 0:
         return hll, tb_flat
-    _launch_step_observed(hll, tb_flat, hashes, svc, valid, tb_keep, slot, n, slots, **kw)
-    update_step.launches += 1
+    launch = _launch_step if torch.cuda.is_current_stream_capturing() else _launch_step_observed
+    launch(hll, tb_flat, hashes, svc, valid, tb_keep, slot, n, slots, **kw)
+    kernels.count_launch(update_step)
     return hll, tb_flat
 
 
@@ -262,16 +258,14 @@ def _launch_step(hll, tb_flat, hashes, svc, valid, tb_keep, slot, n: int, slots:
     fn = _entry("hll_update_step")
     stream = torch.cuda.current_stream(hll.device).cuda_stream
     ptr = lambda t: 0 if t is None else t.data_ptr()
+    scratch = scratch_of(hll, tb_flat)
     # the launch goes to the current device: make it the registers'
-    with _launch_lock, torch.cuda.device(hll.device):
-        key, scratch, tag = _scratch_and_tag(hll, tb_flat, stream)
+    with torch.cuda.device(hll.device):
         err = fn(
             hll.data_ptr(), ptr(tb_flat), hashes.data_ptr(), svc.data_ptr(), valid.data_ptr(),
-            ptr(tb_keep), ptr(slot), scratch.data_ptr(), tag, n, max_services, hll_rows,
+            ptr(tb_keep), ptr(slot), scratch.data_ptr(), n, max_services, hll_rows,
             global_row, slots, int(hll.shape[1]).bit_length() - 1, stream,
         )
-        if err != 0:  # a launch that did not run leaves its barrier counter unset
-            del _scratch[key]
     if err != 0:
         raise RuntimeError(f"hll_update_step kernel launch failed: CUDA error {err}")
 

@@ -15,8 +15,9 @@ Torch idiom where the reference leans on XLA:
 - per-run minima broadcast by a scatter-min on the run id and a gather
   (the reference's shift-doubling ladder computes the same values);
 - the convergence-bounded ``lax.while_loop`` of :func:`chase_ancestors`
-  is a Python loop with the same pass cap and test. On the card each pass
-  reads the ``changed`` flag back: one host sync per pass.
+  is one launch of a hand kernel (:mod:`zipkin_tpu_torch.ops.chase_kernel`)
+  that tests convergence and counts passes on the card, with the same pass
+  cap; no pass reads a value back to the host.
 """
 
 from __future__ import annotations
@@ -26,14 +27,8 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from zipkin_tpu_torch import u32
+from zipkin_tpu_torch.ops import chase_kernel
 from zipkin_tpu_torch.ops.segments import segment_starts
-
-
-def _doubling_passes(n: int) -> int:
-    """Pointer-doubling passes that resolve chains of any depth in an
-    n-lane window: ceil(log2(n+1)). Also the cap that makes malformed
-    parent cycles terminate."""
-    return max((n).bit_length(), 1)
 
 
 KIND_NONE, KIND_CLIENT, KIND_SERVER, KIND_PRODUCER, KIND_CONSUMER = range(5)
@@ -207,34 +202,10 @@ def chase_ancestors(parent: torch.Tensor, kind: torch.Tensor) -> Tuple[torch.Ten
     """Both pointer-doubling chases in one convergence-bounded loop:
     (anc [n] — nearest strict ancestor with a kind, else -1; root_ok [n]
     bool — the parent chain terminates at a root). Capped at
-    ``_doubling_passes(n)`` so parent cycles terminate; capped cyclic
-    lanes end mid-cycle, never at the sentinel, so root_ok stays False."""
-    n = parent.shape[0]
-    dev = parent.device
-    sent = n
-    par = torch.where(parent >= 0, parent, sent)
-    kind_ext = torch.cat([kind.to(torch.int64), torch.zeros(1, dtype=torch.int64, device=dev)])
-    par_ext = torch.cat([par, torch.full((1,), sent, dtype=torch.int64, device=dev)])
-
-    jump = torch.where(kind_ext != 0, torch.arange(n + 1, device=dev), par_ext)
-    jump[sent:].fill_(sent)  # the sentinel lane (the last); no stored scalar
-    root = par_ext
-    max_passes = _doubling_passes(n)
-    i, changed = 0, True
-    while changed and i < max_passes:
-        j2 = jump[jump]
-        r2 = root[root]
-        # zt-lint: disable=ZT01 — the chase's per-pass host convergence
-        # test (one bool a pass, at most log2(n)+1 passes): the loop's trip
-        # count is data-dependent; ROADMAP lists the fixed-pass form
-        changed = bool(((j2 != jump).any() | (r2 != root).any()).item())
-        jump, root = j2, r2
-        i += 1
-
-    anc = jump[par]
-    anc = torch.where(anc == sent, -1, anc)
-    anc = torch.where((anc >= 0) & (kind_ext[torch.where(anc >= 0, anc, 0)] != 0), anc, -1)
-    return anc, root[:n] == sent
+    ``chase_kernel.doubling_passes(n)`` so parent cycles terminate; capped
+    cyclic lanes end mid-cycle, never at the sentinel, so root_ok stays
+    False. One launch of :func:`chase_kernel.chase` on the card."""
+    return chase_kernel.chase(parent.to(torch.int64).contiguous(), kind.to(torch.int64).contiguous())
 
 
 def reaches_root(parent: torch.Tensor) -> torch.Tensor:

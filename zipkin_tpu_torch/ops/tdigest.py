@@ -79,7 +79,7 @@ def update(digests: torch.Tensor, slot_ids, values, weights) -> torch.Tensor:
     digests of the same shape."""
     u, c, _ = digests.shape
     dev = digests.device
-    st_slot = torch.arange(u, dtype=torch.int64, device=dev).repeat_interleave(c)
+    st_slot = torch.arange(u * c, dtype=torch.int64, device=dev) // c
     mean = torch.cat([digests[..., 0].reshape(-1), values.to(torch.float32).to(dev)])
     w = torch.cat([digests[..., 1].reshape(-1), weights.to(torch.float32).to(dev)])
     slot = torch.cat([st_slot, slot_ids.to(torch.int64).to(dev)])

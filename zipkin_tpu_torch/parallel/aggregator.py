@@ -12,6 +12,12 @@ image; each shard's slice is unpacked on its device
 in front of every shard's step exactly where the reference fuses it into
 the step program, and every shard steps, empty ones included.
 
+On a card each shard's step of each variant is one captured CUDA graph,
+replayed for every batch of its lane count (:class:`StepGraphs`, the
+counterpart of the reference's compiled step); on the CPU the same
+static-shape step runs eagerly. The states' leaves are written in place
+and never swapped: replacing ``states`` drops the captured graphs.
+
 Every read computes each shard's partial on its device, moves the partials
 to ``mesh[0]`` and merges them there with the reference's collectives:
 the u32 (wrapping) sum for its ``psum`` (histograms, counters, edge
@@ -59,6 +65,7 @@ from zipkin_tpu_torch.ops import histogram, hll, tdigest
 from zipkin_tpu_torch.parallel.mesh import make_mesh
 from zipkin_tpu_torch.tpu import ingest as ing
 from zipkin_tpu_torch.tpu.columnar import SpanColumns, concat_remap, remap_fused, route_fused
+from zipkin_tpu_torch.tpu.graphs import StepGraphs
 from zipkin_tpu_torch.tpu.state import AggConfig, AggState, init_state
 
 
@@ -80,6 +87,20 @@ def unfuse_columns(fz: torch.Tensor) -> SpanColumns:
         ts_min=fz[8],
         valid=(kf & 1) != 0,
     )
+
+
+def shard_program(cfg: AggConfig, need_flush: bool, need_rollup: bool):
+    """One shard's step of a variant over its ``[11, lanes]`` int32 wire
+    image: widen and unpack the image, the due flush and rollup, the
+    ingest step, all in place on the state (what a captured graph holds)."""
+    def program(state: AggState, bits: torch.Tensor) -> None:  # zt-in-place: state — flushed, rolled up and stepped in place
+        batch = unfuse_columns(u32.widen(bits))
+        if need_flush:
+            ing.flush_digest(cfg, state)
+        if need_rollup:
+            ing.rollup_step(cfg, state)
+        ing.ingest_step(cfg, state, batch)
+    return program
 
 
 def _edge_topk(calls: torch.Tensor, errors: torch.Tensor, e: int):
@@ -149,7 +170,9 @@ class TorchAggregator:
         self.device = mesh[0]
         self.config = config
         self._wrap_programs()
-        self.states: List[AggState] = self._p["spmd_init"](config, self.mesh)
+        # each step variant's captured graph per lane count and shard (on a card)
+        self.graphs = StepGraphs()
+        self.states = self._p["spmd_init"](config, self.mesh)
         # the per-shard device LinkContexts of the current write_version
         self._ctx_cache = (-1, None)
         # exact host counters (the device counters are u32 and wrap)
@@ -197,16 +220,21 @@ class TorchAggregator:
         shard's device."""
         cfg = self.config
 
+        # one shard's step program of each variant (flush due, rollup due)
+        shard_programs = {(f, r): shard_program(cfg, f, r) for f in (False, True) for r in (False, True)}
+        self._programs = shard_programs
+
         def step(need_flush, need_rollup):
-            def run(states, batches, lives):  # zt-in-place: states — each shard's state is stepped in place
-                out = []
-                for s, batch, live in zip(states, batches, lives):
-                    if need_flush:
-                        s = ing.flush_digest(cfg, s)
-                    if need_rollup:
-                        s = ing.rollup_step(cfg, s)
-                    out.append(ing.ingest_step(cfg, s, batch, live=live))
-                return out
+            variant = (need_flush, need_rollup)
+            program = shard_programs[variant]
+
+            def run(states, wires, graphs):  # zt-in-place: states — each shard's state is stepped in place
+                for shard, (state, wire) in enumerate(zip(states, wires)):
+                    if state.hll.device.type == "cuda":
+                        graphs.step(variant, shard, state, wire, program)
+                    else:
+                        program(state, u32.upload_bits(wire, state.hll.device))
+                return states
             return run
 
         def each(fn):
@@ -348,10 +376,6 @@ class TorchAggregator:
                 f"({self.config.rollup_segment}); chunk before ingest"
             )
         live_per_shard = (fused[:, 10, :] & 1).sum(axis=1, dtype=np.int64)
-        # zt-lint: disable=ZT09 — per SHARD (mesh-sized): one host→device
-        # copy of each shard's wire image
-        batches = [unfuse_columns(u32.from_numpy(fused[i], d)) for i, d in enumerate(self.mesh)]
-        lives = [int(x) for x in live_per_shard]  # zt-lint: disable=ZT09 — per SHARD, host ints
         with self.lock:
             # the contention ledger's holder: this hold is the write path
             self.lock.relabel("ingest_fused")
@@ -360,7 +384,7 @@ class TorchAggregator:
             if (0 if need_flush else self._pend_lanes) + lanes > self.config.digest_buffer:
                 raise AssertionError("pending digest buffer would overflow")
             t0 = time.perf_counter()
-            self.states = self._step[(need_flush, need_rollup)](self.states, batches, lives)
+            self._step[(need_flush, need_rollup)](self.states, fused, self.graphs)
             # the host wall of the step: its host work and its launches
             # (the device runs them after this returns)
             step_wall = time.perf_counter() - t0
@@ -442,22 +466,42 @@ class TorchAggregator:
         self.ingest_fused(out, n_spans, n_dur, n_err, ts_range)
 
     def set_sampler_tables(self, rate: np.ndarray, tail: np.ndarray, link: np.ndarray) -> None:
-        """Publish host-computed sampling tables to every shard's table
+        """Publish host-computed sampling tables into every shard's table
         leaves under the lock; every later step scores against them.
         Verdicts gate retention only, so write_version stays."""
         with self.lock:
-            self.states = [
-                s._replace(s_rate=u32.from_numpy(rate, d), s_tail=u32.from_numpy(tail, d),
-                           s_link=u32.from_numpy(link, d))
-                for s, d in zip(self.states, self.mesh)
-            ]
+            for s, d in zip(self.states, self.mesh):
+                s.s_rate.copy_(u32.from_numpy(rate, d))
+                s.s_tail.copy_(u32.from_numpy(tail, d))
+                s.s_link.copy_(u32.from_numpy(link, d))
+
+    @property
+    def states(self) -> List[AggState]:
+        """The per-shard states (shard ``s`` on ``mesh[s]``)."""
+        return self._states
+
+    @states.setter
+    def states(self, states: List[AggState]) -> None:
+        """Replace the per-shard states wholesale: the captured step graphs
+        read the old leaves' addresses, so they go with them."""
+        self.graphs.drop()
+        self._states = states
+
+    def load_states(self, leaves) -> None:
+        """Copy the reference's leaves (with the leading shard axis, as
+        ``state_arrays()`` gives them) into the live states under the lock,
+        keeping every leaf's storage (a snapshot restore), then re-derive
+        the host bookkeeping (:meth:`sync_pend_lanes`)."""
+        with self.lock:
+            convert.state_from_numpy(leaves, self.config, mesh=self.mesh, into=self.states)
+            self.sync_pend_lanes()
 
     # -- maintenance -----------------------------------------------------
 
     def _flush_now(self) -> None:
         """Flush the pending digest buffer (callers hold the lock). Query
         invisible, so write_version stays."""
-        self.states = self._p["spmd_flush"](self.states)
+        self._p["spmd_flush"](self.states)
         self._pend_lanes = 0
         self._wal_marker("ttflush")
 
@@ -477,20 +521,37 @@ class TorchAggregator:
         """Run the link rollup (which also advances the link ctx)."""
         with self.lock:
             t0 = time.perf_counter()
-            self.states = self._p["spmd_rollup"](self.states)
+            self._p["spmd_rollup"](self.states)
             self._lanes_since_rollup = 0
             self.ctx_stats["ctx_advances"] += 1
             self.ctx_stats["ctx_maintenance_ms"] = (time.perf_counter() - t0) * 1000.0
             self.write_version += 1
             self._wal_marker("ttroll")
 
+    def capture_steps(self, lane_counts) -> int:
+        """Capture every step variant of every shard at each of
+        ``lane_counts`` lanes a shard, running nothing on the states (a
+        store or server calls this at boot, so no capture lands in a
+        serving window); returns the graphs captured. On the CPU there is
+        nothing to capture."""
+        with self.lock:
+            before = self.graphs.captures
+            for lanes in lane_counts:
+                if not 0 < lanes <= self.lane_cap:
+                    raise ValueError(f"{lanes} lanes a shard: outside (0, {self.lane_cap}]")
+                for shard, state in enumerate(self.states):
+                    if state.hll.device.type == "cuda":
+                        for variant, program in self._programs.items():
+                            self.graphs.capture(variant, shard, state, lanes, program)
+            return self.graphs.captures - before
+
     def warm_programs(self, cols: SpanColumns) -> None:
         """Run every maintenance combination the ingest loop can take
         (step alone, with a flush, with a rollup, with both), then the
         standalone rollup and flush, on a real batch, and wait for the
-        device: first-use costs (allocator growth, kernel build) land here
-        and not in a timed or serving window. Ingests ``cols`` four
-        times."""
+        device: first-use costs (allocator growth, kernel build, each step
+        variant's graph capture at this batch's lane count) land here and
+        not in a timed or serving window. Ingests ``cols`` four times."""
         for force_flush, force_rollup in ((False, False), (True, False), (False, True), (True, True)):
             with self.lock:
                 if force_flush:

@@ -8,9 +8,11 @@ ends in exactly one device->host copy:
   the dtype the reference returns for it and flattened into 32-bit words
   behind a fixed header, and the whole answer is one ``torch.cat``;
 - :func:`device_get` is the one counted pull (one ``.cpu()`` per call),
-  so transfers per read can be read off :func:`transfer_count`; its wall
-  is the flight recorder's ``readpack_transfer`` stage and a traced
-  query's transfer segment;
+  so transfers per read can be read off :func:`transfer_count` (every
+  thread's) or :func:`transfer_counts` (also the pulls made inside a
+  traced query, on any thread: a store read's, not a background
+  thread's; and the calling thread's); its wall is the flight recorder's
+  ``readpack_transfer`` stage and a traced query's transfer segment;
 - :func:`unpack` splits the pulled buffer into zero-copy numpy views.
 
 The wire format is the reference's ZPK1, word for word, so a buffer
@@ -62,16 +64,22 @@ CODE_DTYPES = {v: k for k, v in DTYPE_CODES.items()}
 
 _counter_lock = threading.Lock()
 _transfers = 0
+_traced_transfers = 0
 _transfer_bytes = 0
+_thread = threading.local()
 
 
 def device_get(buf: torch.Tensor) -> np.ndarray:
     """THE device->host pull of the read path: one ``.cpu()``, counted
     with its bytes. ``buf`` is a packed int32 buffer; returns its words as
     numpy ``uint32``."""
-    global _transfers, _transfer_bytes
+    global _transfers, _traced_transfers, _transfer_bytes
+    traced = querytrace.active() is not None
+    _thread.transfers = getattr(_thread, "transfers", 0) + 1
+    _thread.traced = getattr(_thread, "traced", 0) + traced
     with _counter_lock:
         _transfers += 1
+        _traced_transfers += traced
     t0 = time.perf_counter_ns()
     out = buf.cpu().numpy().view(np.uint32)
     t1 = time.perf_counter_ns()
@@ -86,6 +94,20 @@ def transfer_count() -> int:
     """Process-wide device->host transfer count (monotonic)."""
     with _counter_lock:
         return _transfers
+
+
+def transfer_counts() -> Dict[str, int]:
+    """Monotonic transfer counts: ``all`` (every thread's), ``traced``
+    (those made inside a traced query, a store read's query trace of
+    :mod:`zipkin_tpu_torch.obs.querytrace`, on any thread), ``thread`` and
+    ``thread_traced`` (the calling thread's). A read's own pulls are its
+    thread's and its query's: a background thread's, such as the windows
+    ticker's mirror publish, are in ``all`` alone."""
+    with _counter_lock:
+        out = {"all": _transfers, "traced": _traced_transfers}
+    out["thread"] = getattr(_thread, "transfers", 0)
+    out["thread_traced"] = getattr(_thread, "traced", 0)
+    return out
 
 
 def transfer_bytes() -> int:

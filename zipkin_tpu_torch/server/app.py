@@ -339,7 +339,9 @@ class ZipkinServer:
     no seal): with the windows on, the seal rides their ticker at the first
     tick at least ``seal_interval_s`` after the last seal; with them off
     (``TPU_OBS_WINDOWS=0``) a thread of its own seals every
-    ``seal_interval_s``."""
+    ``seal_interval_s``. A device store captures its step graphs here, at
+    the lane counts it pads to (``TorchStorage.capture_steps``), so no
+    capture lands in a request."""
 
     MAX_INFLATED = 256 * 1024 * 1024  # decompression-bomb guard
 
@@ -348,6 +350,14 @@ class ZipkinServer:
                  device=None) -> None:
         self.config = config or ServerConfig()
         self.storage = storage if storage is not None else build_storage(self.config, device)
+        core = getattr(self.storage, "delegate", self.storage)
+        if hasattr(core, "capture_steps"):
+            # every step variant at the lanes the store pads to, before the
+            # first request (nothing to capture on the CPU)
+            captured = core.capture_steps()
+            if captured:
+                logger.info("captured %d step graphs at %s lanes a shard", captured,
+                            core.step_lanes())
         if self.config.throttle_enabled:
             self.storage = ThrottledStorage(
                 self.storage, max_concurrency=self.config.throttle_max_concurrency)

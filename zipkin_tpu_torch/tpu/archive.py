@@ -579,6 +579,8 @@ class SpanArchive:
                 self._live_fh = open(path, "ab")
                 if good < os.path.getsize(path):
                     self._live_fh.truncate(good)
+                    # the cut stays cut across a crash before the next seal
+                    os.fsync(self._live_fh.fileno())
                 self._live_bytes = good
                 self._live_rows = rows
                 self.spans_written += int(sum(r.shape[0] for r in rows))

@@ -1,12 +1,20 @@
 """The ingest step, maintenance and reads over :class:`AggState`
 (port of ``zipkin_tpu/tpu/ingest.py``).
 
-The reference's pure functions become functions that update the large
-state leaves IN PLACE and return the state (``state._replace`` for the
-leaves they rebuild): the sketch planes, ring columns and pending buffer
-are hundreds of MB at the default config, and a copy per step would
-double the traffic. Callers keep only the returned state. Reads never
-mutate.
+The reference's pure functions become functions that update the state
+IN PLACE and return it: every leaf a step, a flush or a rollup changes is
+written into the tensor the state already holds (``copy_``, ``add_``,
+scatters), never swapped for a new one. The sketch planes, ring columns
+and pending buffer are hundreds of MB at the default config, and a copy
+per step would double the traffic; and a CUDA graph that captured a step
+(:mod:`zipkin_tpu_torch.tpu.graphs`) replays the addresses it captured, so
+a leaf swapped for a new tensor would leave the next replay reading a
+stale one. Reads never mutate.
+
+The step is static-shape as the reference's is: the live count stays on
+the device (``valid.sum()``) and the ring append takes every lane of the
+batch, pad lanes dropped (:func:`zipkin_tpu_torch.ops.ring_kernel.append`),
+so one captured graph serves every batch of a lane count.
 
 The HLL registers of a step (per service and global, in ``hll`` and in
 the time tier's ``tb_hll``) are raised by one launch,
@@ -26,7 +34,7 @@ from typing import Optional, Tuple
 import torch
 
 from zipkin_tpu_torch import u32
-from zipkin_tpu_torch.ops import delta_linker, hashing, histogram, hll, linker, tdigest
+from zipkin_tpu_torch.ops import delta_linker, hashing, histogram, hll, linker, ring_kernel, tdigest
 from zipkin_tpu_torch.sampling.device import device_verdict
 from zipkin_tpu_torch.tpu.columnar import SpanColumns
 from zipkin_tpu_torch.tpu.state import (
@@ -56,84 +64,74 @@ def lane_bucket(lanes: int, pad_to_multiple: int, cap: int) -> int:  # zt-dispat
     return min(b, cap) if cap >= lanes else b
 
 
-def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns,  # zt-device: batch — the unpacked wire image, tensors on the card
-                live: Optional[int] = None) -> AggState:  # zt-in-place: state — the sketch planes, registers, ring columns and pending buffer are written in place
-    """Fold one unpacked batch (torch columns) into the state.
-
-    ``live`` is the batch's count of valid lanes when the caller already
-    knows it (the aggregator counts it from the wire image on the host);
-    otherwise it is read back from the device. The digest append needs
-    ``pend_pos + n <= digest_buffer`` — the aggregator keeps that
-    invariant and an index past the buffer raises.
-    """
+def ingest_step(config: AggConfig, state: AggState, batch: SpanColumns) -> AggState:  # zt-device: batch — the unpacked wire image, tensors on the card  # zt-in-place: state — every leaf the step changes is written in place
+    """Fold one unpacked batch (torch columns) into the state in place and
+    return it. The digest append needs ``pend_pos + n <= digest_buffer``
+    (n the batch's lanes) — the aggregator keeps that invariant and an
+    index past the buffer raises on the CPU (the reference's
+    dynamic_update_slice would clamp the start instead)."""
     valid = batch.valid
     dev = valid.device
-    if live is None:
-        # zt-lint: disable=ZT01 — the live count read back when the caller
-        # does not pass it (direct library callers; the aggregator always
-        # counts it on the host from the wire image); ROADMAP lists it
-        live = int(valid.sum().item())
+    live = valid.sum()
 
     # --- latency sketches per (service, spanName) key -------------------
     has_dur = valid & batch.has_dur
     histogram.update(state.hist, batch.key, batch.dur, has_dur)
-    hist_t_epoch = _hist_slice_update(config, state, batch, has_dur)
-    pend_pos, pend_ep = _digest_append(
-        config, state, batch.key, batch.dur.to(torch.float32), has_dur, batch.ts_min
-    )
+    state.hist_t_epoch.copy_(_hist_slice_update(config, state, batch, has_dur))
+    _digest_append(config, state, batch.key, batch.dur.to(torch.float32), has_dur, batch.ts_min)
 
     # --- time-disaggregated current-bucket leaves ------------------------
     lanes, tb_epoch, tb_wipe = hll_lanes(config, state.tb_epoch, batch)
-    tt, tb_flat = {}, None
+    tb_flat = None
     if config.timetier_enabled:
         state.tb_hll.masked_fill_(tb_wipe[:, None, None], 0)
         tb_flat = state.tb_hll.view(config.time_buckets * config.hll_rows, -1)
         state.tb_digest.masked_fill_(tb_wipe[:, None, None, None], 0.0)
         state.tb_calls.masked_fill_(tb_wipe[:, None, None], 0)
         state.tb_errs.masked_fill_(tb_wipe[:, None, None], 0)
-        tt = dict(tb_epoch=tb_epoch, pend_ep=pend_ep)
+        state.tb_epoch.copy_(tb_epoch)
 
     # --- HLL: distinct traces per service + globally, and per time bucket:
     # one launch for all four register targets
     hll.update_step(state.hll, tb_flat, **lanes, max_services=config.max_services,
                     hll_rows=config.hll_rows, global_row=config.global_hll_row)
 
-    # --- ring append (valid lanes first, advance by live count) ---------
-    order = torch.sort((~valid).to(torch.uint8), stable=True).indices[:live]
-    pos = (state.ring_pos + torch.arange(live, dtype=torch.int64, device=dev)) % config.ring_capacity
-    for name in RING_COLUMNS:
-        col = getattr(state, f"r_{name}")
-        col[pos] = getattr(batch, name)[order].to(col.dtype)
-    # host numbers go in as kernel arguments (fill), never as a stored
-    # scalar: ``x[i] = n`` copies n up and waits for the stream
-    state.r_rolled.index_fill_(0, pos, False)
-
-    add = torch.zeros(NUM_COUNTERS, dtype=torch.int64, device=dev)
-    add[CTR_SPANS:CTR_SPANS + 1].fill_(live)
-    add[CTR_WITH_DURATION] = has_dur.sum()
-    add[CTR_ERRORS] = (valid & batch.err).sum()
-    add[CTR_BATCHES:CTR_BATCHES + 1].fill_(1)
-
     # --- tail-sampling verdicts: the ring's lanes in the append's order
+    keep = None
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    kept = dropped = zero
     if config.sampling:
         keep = device_verdict(
             batch.trace_h, batch.svc, batch.rsvc, batch.key,
             batch.dur, batch.has_dur, batch.err, valid,
             state.s_rate, state.s_tail, state.s_link, config.sample_rare_min,
         )
-        n_keep = keep.sum()
-        add[CTR_SAMPLED_KEPT] = n_keep
-        add[CTR_SAMPLED_DROPPED] = live - n_keep
-        state.r_keep[pos] = keep[order]
+        kept = keep.sum()
+        dropped = live - kept
 
-    return state._replace(
-        hist_t_epoch=hist_t_epoch,
-        pend_pos=pend_pos,
-        ring_pos=(state.ring_pos + live) % config.ring_capacity,
-        ctx_delta=state.ctx_delta + live,
-        counters=u32.add(state.counters, add),
-        **tt,
-    )
+    # --- ring append: the valid lanes in order from the cursor, pads
+    # dropped; the cursor advances by the live count
+    ring = [getattr(state, f"r_{name}") for name in RING_COLUMNS]
+    new = [getattr(batch, name) for name in RING_COLUMNS]
+    if keep is not None:
+        ring.append(state.r_keep)
+        new.append(keep)
+    ring.append(state.r_rolled)
+    new.append(None)  # appended lanes are not rolled up yet
+    ring_kernel.append(ring, new, valid, state.ring_pos)
+    state.ring_pos.add_(live).remainder_(config.ring_capacity)
+    state.ctx_delta.add_(live)
+
+    add = [zero] * NUM_COUNTERS
+    add[CTR_SPANS] = live
+    add[CTR_WITH_DURATION] = has_dur.sum()
+    add[CTR_ERRORS] = (valid & batch.err).sum()
+    add[CTR_BATCHES] = torch.ones((), dtype=torch.int64, device=dev)
+    if config.sampling:
+        add[CTR_SAMPLED_KEPT] = kept
+        add[CTR_SAMPLED_DROPPED] = dropped
+    state.counters.add_(torch.stack(add)).bitwise_and_(u32.MASK)
+    return state
 
 
 def hll_lanes(config: AggConfig, tb_epoch, batch: SpanColumns):  # zt-device: batch — the step's columns on the card
@@ -198,11 +196,12 @@ def _flush_pending_digest(config: AggConfig, digest, pend_key, pend_val):
     return tdigest.row_merge(digest, partial)
 
 
-def _digest_append(config: AggConfig, state: AggState, key, val, has_dur, ts_min=None):
-    """Write the batch's (key, value) points at ``pend_pos`` in place;
-    returns (new pend_pos, pend_ep). Needs pend_pos + n <= digest_buffer
-    (the reference's dynamic_update_slice would clamp the start and
-    overwrite the buffer tail; here an index past the end raises)."""
+def _digest_append(config: AggConfig, state: AggState, key, val, has_dur, ts_min=None) -> None:
+    """Write the batch's (key, value) points at ``pend_pos`` and advance it,
+    in place. Needs pend_pos + n <= digest_buffer (the reference's
+    dynamic_update_slice would clamp the start and overwrite the buffer
+    tail; here an index past the end raises on the CPU, and on the card
+    would write past the buffer: the aggregator flushes first)."""
     n = key.shape[0]
     idx = state.pend_pos + torch.arange(n, dtype=torch.int64, device=key.device)
     batch_key = torch.where(has_dur, torch.clamp(key, 0, config.max_keys - 1), -1)
@@ -211,7 +210,7 @@ def _digest_append(config: AggConfig, state: AggState, key, val, has_dur, ts_min
     if config.timetier_enabled and ts_min is not None:
         ep = ts_min // config.time_bucket_minutes
         state.pend_ep.index_copy_(0, idx, torch.where(has_dur, ep, -1))
-    return state.pend_pos + n, state.pend_ep
+    state.pend_pos.add_(n)
 
 
 def _flush_pending_tt(config: AggConfig, tb_epoch, tb_digest, pend_key, pend_val, pend_ep):
@@ -228,19 +227,21 @@ def _flush_pending_tt(config: AggConfig, tb_epoch, tb_digest, pend_key, pend_val
     return merged.reshape(w_tt, k, cw, 2)
 
 
-def flush_digest(config: AggConfig, state: AggState) -> AggState:  # zt-in-place: state — the pending buffer is emptied in place
-    """Fold every pending value into the digests and empty the buffer."""
+def flush_digest(config: AggConfig, state: AggState) -> AggState:  # zt-in-place: state — the digests and the emptied pending buffer are written in place
+    """Fold every pending value into the digests and empty the buffer, in
+    place; returns the state."""
     d = _flush_pending_digest(config, state.digest, state.pend_key, state.pend_val)
-    tt = {}
     if config.timetier_enabled:
-        tt = dict(tb_digest=_flush_pending_tt(
+        state.tb_digest.copy_(_flush_pending_tt(
             config, state.tb_epoch, state.tb_digest,
             state.pend_key, state.pend_val, state.pend_ep,
         ))
         state.pend_ep.fill_(-1)
+    state.digest.copy_(d)
     state.pend_key.fill_(-1)
     state.pend_val.zero_()
-    return state._replace(digest=d, pend_pos=torch.zeros_like(state.pend_pos), **tt)
+    state.pend_pos.zero_()
+    return state
 
 
 def ring_link_input(state: AggState) -> linker.LinkInput:
@@ -275,10 +276,11 @@ def fresh_link_context(config: AggConfig, state: AggState) -> linker.LinkContext
     )
 
 
-def rollup_step(config: AggConfig, state: AggState) -> AggState:  # zt-in-place: state — the rollup matrices and the ring's rolled flags are written in place
+def rollup_step(config: AggConfig, state: AggState) -> AggState:  # zt-in-place: state — the rollup matrices, the rolled flags and the ctx leaves are written in place
     """Link the half-ring the cursor overwrites next, fold its edges into
     the per-time-bucket rollup matrices, mark those lanes rolled, and
-    advance the incremental link ctx (one resolve serves both)."""
+    advance the incremental link ctx (one resolve serves both), in place;
+    returns the state."""
     x = ring_link_input(state)
     to_roll = state.r_valid & ~state.r_rolled & (x.seq < config.rollup_segment)
 
@@ -302,14 +304,16 @@ def rollup_step(config: AggConfig, state: AggState) -> AggState:  # zt-in-place:
         state.tb_calls.add_(calls_tt).bitwise_and_(u32.MASK)
         state.tb_errs.add_(errs_tt).bitwise_and_(u32.MASK)
     state.r_rolled.logical_or_(to_roll)
-    return state._replace(
-        rollup_epoch=new_epoch,
-        ctx_order=cs.order, ctx_keys=cs.keys,
-        ctx_rid_c=cs.rid_c, ctx_rid_f=cs.rid_f, ctx_inv=cs.inv,
-        ctx_safe_sh=cs.safe_sh, ctx_safe_ns=cs.safe_ns, ctx_safe_fsh=cs.safe_fsh,
-        ctx_parent=parent, ctx_anc=anc, ctx_root=root_ok,
-        ctx_pos=cs.pos, ctx_delta=cs.delta,
-    )
+    state.rollup_epoch.copy_(new_epoch)
+    for leaf, value in ((state.ctx_order, cs.order), (state.ctx_keys, cs.keys),
+                        (state.ctx_rid_c, cs.rid_c), (state.ctx_rid_f, cs.rid_f),
+                        (state.ctx_inv, cs.inv), (state.ctx_safe_sh, cs.safe_sh),
+                        (state.ctx_safe_ns, cs.safe_ns), (state.ctx_safe_fsh, cs.safe_fsh),
+                        (state.ctx_parent, parent), (state.ctx_anc, anc),
+                        (state.ctx_root, root_ok), (state.ctx_pos, cs.pos),
+                        (state.ctx_delta, cs.delta)):
+        leaf.copy_(value)
+    return state
 
 
 def rolled_links(config: AggConfig, state: AggState, ts_lo: int, ts_hi: int) -> Tuple[torch.Tensor, torch.Tensor]:

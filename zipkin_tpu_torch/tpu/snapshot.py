@@ -347,12 +347,9 @@ def _restore_one(store, directory: str, meta: dict, state_name: str) -> str:
                                directory, name, got_crc, int(want_crc), state_name)
                 return "integrity"
     agg = store.agg
-    # straight onto the store's mesh, shard s onto mesh[s] (the card
-    # unless the caller named another)
-    states = convert.state_from_numpy(leaves, store.config, mesh=agg.mesh)
-    with agg.lock:
-        agg.states = states
-        agg.sync_pend_lanes()
+    # into the live leaves on the store's mesh, shard s on mesh[s]: every
+    # leaf keeps its storage, so the captured step graphs stay valid
+    agg.load_states(leaves)
 
     saved = meta.get("counters", {})
     for key in agg.host_counters:

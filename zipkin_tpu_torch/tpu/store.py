@@ -239,6 +239,8 @@ class TorchStorage(
             autocomplete_keys=autocomplete_keys,
         )
         self._pad = pad_to_multiple
+        # the lane counts capture_steps captured at (clear captures them again)
+        self._captured_lanes: List[int] = []
         # largest device batch after padding: the digest pending buffer and
         # the rollup segment bound it (the port's pending append does not
         # clamp, so no chunk past this may reach the device); rounded down
@@ -689,6 +691,28 @@ class TorchStorage(
         spans = decode_raw_spans(sample_slices(parsed, self._fast_archive_every))
         if spans:
             self._archive.accept(spans).execute()
+
+    def step_lanes(self) -> List[int]:
+        """The lane counts a shard's coalesced step pads to: the
+        :func:`~zipkin_tpu_torch.tpu.ingest.lane_bucket` ladder from the pad
+        multiple to the aggregator's lane cap (a power-of-two payload of at
+        least the pad multiple lands on it too)."""
+        cap = self.agg.lane_cap
+        out, b = [], self._pad
+        while b < cap:
+            out.append(b)
+            b *= 2
+        return out + [cap]
+
+    def capture_steps(self, lane_counts: Optional[Sequence[int]] = None) -> int:
+        """Capture the aggregator's step graphs, every variant at each of
+        ``lane_counts`` (default :meth:`step_lanes`), touching no state: a
+        server does this at boot, so no capture lands in a serving window.
+        Returns the graphs captured (0 on the CPU)."""
+        lanes = list(self.step_lanes() if lane_counts is None else lane_counts)
+        made = self.agg.capture_steps(lanes)
+        self._captured_lanes = sorted(set(self._captured_lanes) | set(lanes))
+        return made
 
     def warm(self, data: bytes) -> None:
         """Run every ingest-path program once on a real payload (the payload
@@ -1528,7 +1552,10 @@ class TorchStorage(
         """Drop the host archive and reset the device state, on the same
         mesh; the disk archive stays, as in the reference."""
         self._archive.clear()
+        self.agg.graphs.drop()  # the new aggregator's leaves are new tensors
         self.agg = TorchAggregator(self.config, mesh=self.agg.mesh)
+        if self._captured_lanes:
+            self.agg.capture_steps(self._captured_lanes)
         # sealed segments were cut from the old aggregator's buckets
         if self.timetier is not None:
             self.timetier.clear()

@@ -71,18 +71,32 @@ def bits32(x: torch.Tensor) -> torch.Tensor:
     return as_int32(x).to(torch.int32)
 
 
+def upload_bits(arr: np.ndarray, device, out=None) -> torch.Tensor:
+    """A numpy ``uint32`` array -> the int32 tensor of its bits on
+    ``device`` (4 bytes a value), or written into ``out`` (an int32 tensor
+    of the same shape there) and returned."""
+    a = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
+    if torch.device(device).type == "cuda":
+        # from pinned memory the copy queues behind the stream's work; a
+        # pageable one would wait for that work before it returns
+        t = torch.empty(a.shape, dtype=torch.int32, pin_memory=True).copy_(torch.from_numpy(a))
+    else:
+        t = torch.from_numpy(a.copy())
+    if out is None:
+        return t.to(device, non_blocking=True)
+    return out.copy_(t, non_blocking=True)
+
+
+def widen(bits: torch.Tensor) -> torch.Tensor:
+    """The int64 u32 values of an int32 tensor of bits."""
+    return bits.to(DTYPE) & MASK
+
+
 def from_numpy(arr: np.ndarray, device) -> torch.Tensor:
     """A numpy ``uint32`` array -> int64 tensor on ``device``. The copy to
     the card moves 4 bytes a value (the bits travel as int32) and widens
     there."""
-    a = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
-    t = torch.from_numpy(a.copy())
-    if torch.device(device).type == "cuda":
-        # from pinned memory the copy queues behind the stream's work; a
-        # pageable one would wait for that work before it returns
-        t = t.pin_memory()
-    t = t.to(device, non_blocking=True)
-    return t.to(DTYPE) & MASK
+    return widen(upload_bits(arr, device))
 
 
 def pack_order_lanes(lanes: Sequence[torch.Tensor]) -> List[torch.Tensor]:
