@@ -151,15 +151,20 @@ Builds the hand-written kernels from the sources in the checkout, then:
     SYNCS_THE_LINT_CANNOT_SEE (o2); and one hll_update_step captured in a
     CUDA graph and replayed on fresh registers against an eager call (o3);
 (p) the reference's compiled step on the card: the hand kernels for its XLA
-    programs against their plain twins, bit for bit (p1: ring_append on
-    full, all-pad, pads-in-the-middle and ring-wrapping batches, link_chase
-    on random forests, chains 200 deep and malformed cycles, and
+    programs against their plain twins, bit for bit, each timed as a
+    Python call, as a graph replay and by the profiler (p1: ring_append on
+    full, all-pad, pads-in-the-middle, ring-wrapping, 1-lane and
+    one-tile batches and the path's images; link_chase on 1, 2 and 1,000
+    lanes, 2^18-lane roots, random forests, chains 200 deep and malformed
+    cycles, and malformed cycles at each register width's largest n; and
     hll_update_step across its tag wrap); 70 steps of one 4,096-span image
     through the aggregator's captured graphs beside eager ingest_step /
     flush_digest / rollup_step calls on a clone, every integer leaf equal
     and digests in their rank band, each variant's replay timed (p2); the
-    graph count and their pool's bytes (p3). Every earlier phase steps
-    through the graphs too.
+    graph count and their pool's bytes, and each capture a compile in the
+    device observatory, with one recompile after an off-ladder step past
+    the boot captures (p3). Every earlier phase steps through the graphs
+    too. ``--only p1`` or ``--only p`` runs that phase alone.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -249,6 +254,55 @@ def busy_ms(fn, iters: int, torch, reset=lambda: None):
         if busy > 0:
             return busy, rows
     raise RuntimeError("the profiler saw no device time in three traces")
+
+
+def replay_ms(fn, iters: int, torch, reps: int = 5) -> float:
+    """Mean ms a call on the stream when ``iters`` calls ``fn(0..iters-1)``
+    are captured into one CUDA graph on a side stream, as a step graph is
+    captured (``tpu/graphs.py``), and the graph is replayed ``reps`` times
+    between CUDA events: the calls' device work as a replay runs it, with
+    none of the host's per-call work. ``fn`` ran eagerly first (its device
+    words exist); the capture's launches are not counted."""
+    from zipkin_tpu_torch import kernels
+
+    fn(iters)
+    torch.cuda.synchronize()
+    graph, side = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with kernels.recording_launches(), torch.cuda.stream(side):
+        graph.capture_begin(capture_error_mode="thread_local")
+        try:
+            for i in range(iters):
+                fn(i)
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the call's error is the one to report
+            raise
+        graph.capture_end()
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def kernel_ms(fn, iters: int, torch, name: str) -> float:
+    """ms a call of the profiler's rows whose kernel name holds ``name``
+    over calls ``fn(0..iters-1)`` (:func:`busy_ms`): the kernel's own
+    device time, without the host's launch gaps."""
+    _, rows = busy_ms(fn, iters, torch)
+    mine = [ms for key, ms in rows if name in key]
+    if not mine:
+        raise RuntimeError(f"the profiler saw no {name} kernel: {[k for k, _ in rows]}")
+    return sum(mine)
 
 
 def time_calls(fn, reset, iters: int, torch):
@@ -4367,7 +4421,10 @@ def phase_readers(torch, card: str, stored: dict, cfg=None, device=None, n_paylo
             ticks = server._obs_windows.ticks
             while server._obs_windows.ticks < ticks + 2:
                 time.sleep(0.05)
-            gen = seg.generation()
+            # the live epoch (its CRC and mirror generation): an idle tick's
+            # re-stamp moves the seqlock generation and the publish time,
+            # never the epoch the readers serve
+            gen, epoch = seg.generation(), seg.read_stamp()[1:3]
             for i, b in enumerate(rbase):
                 for path, params in routes:
                     want = answer(base, path, params)
@@ -4377,8 +4434,8 @@ def phase_readers(torch, card: str, stored: dict, cfg=None, device=None, n_paylo
                                              f"from the ingest server's")
                     if float(got[1]["X-Staleness-Ms"]) < 0.0:
                         raise AssertionError("phase k3: a negative staleness")
-            if seg.generation() != gen:
-                raise AssertionError("phase k3: the segment moved during the comparison")
+            if seg.read_stamp()[1:3] != epoch:
+                raise AssertionError("phase k3: the segment's epoch moved during the comparison")
             # a fresh read is not a reader's to serve
             status, headers, _ = http_get(rbase[0] + "/api/v2/tpu/cardinalities?staleness_ms=0")
             if status != 503 or headers.get("Retry-After") != "1":
@@ -7090,10 +7147,13 @@ def ring_bound_bytes(ring, lanes, n: int, live: int) -> int:
 
 def chase_case(torch, rng, n: int, shape: str, dev):
     """(parent, kind) int64 on ``dev``: random forests (most spans kindless,
-    parents earlier in the window), chains 200 deep, or a forest with
-    malformed cycles (3-cycles and a long ring) that run to the cap."""
+    parents earlier in the window), chains 200 deep, every span a root (one
+    pass: the launch's floor), or a forest with malformed cycles (3-cycles
+    and a long ring) that run to the cap."""
     idx = np.arange(n)
-    if shape == "forest":
+    if shape == "roots":
+        parent = np.full(n, -1)
+    elif shape == "forest":
         parent = np.where(rng.random(n) < 0.1, -1, (rng.random(n) * idx).astype(np.int64))
         parent[0] = -1
     elif shape == "chains_200":
@@ -7115,15 +7175,23 @@ def phase_kernels_xla(seed: int, torch, cfg=None, iters: int = 20) -> dict:
     """(p1) the hand kernels for the reference's XLA programs against their
     plain twins on the card, bit for bit, at the main path's shapes:
     ``ring_append`` on a full, an all-pad, a pads-in-the-middle and a
-    ring-wrapping batch of lane_cap lanes into a 2^18-lane ring (and a
-    4,096-lane batch), then on the path's own images: phase c's coalesced
-    65,536-lane step and a step at each lane count of the store's ladder
-    (f1's 4,096-lane batches, the fan-out tier's buckets), each built by
-    ``step_parts`` and ``ingest_fused_multi``'s coalescing and unpacked on
-    the card; ``link_chase`` on 2^18 lanes of random forests, chains 200
-    deep and malformed cycles, and ``hll_update_step`` across its tag
-    wrap. Each is timed (CUDA events) beside its plain twin and the eager
-    torch sequence it replaces."""
+    ring-wrapping batch of lane_cap lanes into a 2^18-lane ring, a
+    4,096-lane batch, a 1-lane batch and batches of one tile's n and
+    n + 1 lanes, then on the path's own images: phase
+    c's coalesced 65,536-lane step and a step at each lane count of the
+    store's ladder (f1's 4,096-lane batches, the fan-out tier's buckets),
+    each built by ``step_parts`` and ``ingest_fused_multi``'s coalescing
+    and unpacked on the card; ``link_chase`` on 1, 2 and 1,000 lanes and
+    on 2^18 lanes of random forests, chains 200 deep and malformed
+    cycles, on the largest chase each register width takes (2, 4, 8 and
+    16 lanes a thread), and ``hll_update_step`` across its tag wrap. Each kernel case
+    is timed three ways: ``call_ms`` (CUDA events around Python calls of
+    the wrapper, the host's enqueue included), ``replay_ms`` (the calls
+    captured into one CUDA graph and replayed, as a step graph runs the
+    kernel) and ``device_ms`` (the kernel's own row in the profiler),
+    beside its plain twin and the eager torch sequence it replaces; a
+    2^18-lane chase where every span is a root gives the launch's floor
+    beside which the cycles case prices a pass."""
     from zipkin_tpu_torch.ops import chase_kernel, hll_kernel, ring_kernel
     from zipkin_tpu_torch.ops.chase_kernel import doubling_passes
     from zipkin_tpu_torch.tpu.ingest import lane_bucket
@@ -7135,14 +7203,16 @@ def phase_kernels_xla(seed: int, torch, cfg=None, iters: int = 20) -> dict:
     rng = np.random.default_rng(seed + 15)
     r = cfg.ring_capacity
     lane_cap = min(cfg.digest_buffer, cfg.rollup_segment)
+    tile = ring_kernel.TILE_LANES
     launches0 = (ring_kernel.append.launches, chase_kernel.chase.launches)
     ring_cases, chase_cases = [], []
     builds = [(f"{pattern}, {n} lanes", start,
                (lambda n=n, pattern=pattern, start=start: ring_case(torch, rng, cfg, dev, n, pattern, start)))
-              for n, pattern, start in ((lane_cap, "full", 12345), (lane_cap, "all_pad", 777),
-                                        (lane_cap, "pads_in_the_middle", 4242),
-                                        (lane_cap, "ring_wrap", r - lane_cap // 3),
-                                        (4096, "pads_in_the_middle", r - 1000))]
+              for n, pattern, start in (
+                  (lane_cap, "full", 12345), (lane_cap, "all_pad", 777),
+                  (lane_cap, "pads_in_the_middle", 4242), (lane_cap, "ring_wrap", r - lane_cap // 3),
+                  (4096, "pads_in_the_middle", r - 1000), (1, "full", r - 1),
+                  (tile, "pads_in_the_middle", 99), (tile + 1, "full", r - 5))]
     # the path's images: phase c's step (8 x 8,192-span chunks, pad 256) and
     # the store's ladder (pad 1,024: 1,024 .. lane_cap lanes), from phase
     # c's traffic
@@ -7170,21 +7240,38 @@ def phase_kernels_xla(seed: int, torch, cfg=None, iters: int = 20) -> dict:
             raise AssertionError(f"phase p1: ring_append ({pattern}) differs from its "
                                  f"plain twin or the eager sequence (max abs {err})")
         work = [c.clone() for c in ring]
-        ms = cuda_ms(lambda i: ring_kernel.append(work, lanes, valid, pos), iters, torch)
+        kernel = lambda i: ring_kernel.append(work, lanes, valid, pos)
+        call_ms = cuda_ms(kernel, iters, torch)
+        graph_ms = replay_ms(kernel, iters, torch)
+        device_ms = kernel_ms(kernel, iters, torch, "ring_append")
         plain_ms = cuda_ms(lambda i: ring_kernel.append_plain(work, lanes, valid, pos), iters, torch)
-        library_ms = cuda_ms(lambda i: eager_ring_append(torch, work, lanes, valid, pos, live), iters, torch)
+        eager_ms = cuda_ms(lambda i: eager_ring_append(torch, work, lanes, valid, pos, live), iters, torch)
         nbytes = ring_bound_bytes(ring, lanes, n, live)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        ring_cases.append(dict(pattern=pattern, lanes=n, live=live, start=start, ms=ms,
-                               plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
-                               bound_bytes=nbytes, max_abs_err=err))
+        case = dict(pattern=pattern, lanes=n, live=live, start=start, path=" step, " in pattern,
+                    call_ms=call_ms,
+                    replay_ms=graph_ms, device_ms=device_ms, plain_ms=plain_ms, eager_ms=eager_ms,
+                    bound_ms=bound_ms, bound_bytes=nbytes, max_abs_err=err)
+        ring_cases.append(case)
         log(f"phase p1: ring_append {pattern} ({live} live) from cursor {start} into {r}: "
-            f"equal to its plain twin and the eager sort + index_put_ sequence; kernel "
-            f"{ms:.5f} ms, plain {plain_ms:.5f} ms, eager sequence {library_ms:.5f} ms, bound "
+            f"equal to its plain twin and the eager sort + index_put_ sequence; kernel on the "
+            f"profiler {device_ms:.5f} ms, in a graph replay {graph_ms:.5f} ms, a Python call "
+            f"{call_ms:.5f} ms; plain {plain_ms:.5f} ms, eager sequence {eager_ms:.5f} ms, bound "
             f"{bound_ms:.6f} ms ({nbytes} B: the valid flags, a live lane's columns read and "
             f"its ring cells written)")
-    for shape in ("forest", "chains_200", "cycles"):
-        parent, kind = chase_case(torch, rng, r, shape, dev)
+    # the largest chase each register width holds: n + 1 lanes at 4, 8 and
+    # 16 (MAX_OWNED) a thread of one block an SM (2^18 takes two a thread)
+    threads = chase_kernel.THREADS * torch.cuda.get_device_properties(dev).multi_processor_count
+    wide = [(k * threads - 1, "cycles") for k in (4, 8, chase_kernel.MAX_OWNED)]
+    try:
+        n = chase_kernel.MAX_OWNED * threads
+        chase_kernel.chase(*chase_case(torch, rng, n, "roots", dev))
+        raise AssertionError(f"phase p1: link_chase took {n} lanes, past one launch's registers")
+    except ValueError:
+        pass
+    for n, shape in [(1, "forest"), (2, "forest"), (1000, "forest"), (r, "roots"), (r, "forest"),
+                     (r, "chains_200"), (r, "cycles")] + wide:
+        parent, kind = chase_case(torch, rng, n, shape, dev)
         passes, passes_plain = (torch.zeros((), dtype=torch.int32, device=dev) for _ in range(2))
         anc, ok = chase_kernel.chase(parent, kind, passes)
         anc_p, ok_p = chase_kernel.chase_plain(parent, kind, passes_plain)
@@ -7193,28 +7280,42 @@ def phase_kernels_xla(seed: int, torch, cfg=None, iters: int = 20) -> dict:
         ran = int(passes)
         if not (torch.equal(anc, anc_p) and torch.equal(ok, ok_p) and ran == int(passes_plain)
                 and torch.equal(anc, anc_h) and torch.equal(ok, ok_h)):
-            raise AssertionError(f"phase p1: link_chase ({shape}) differs from its plain twin or "
-                                 f"the host loop (passes {ran} vs {int(passes_plain)})")
-        if shape == "cycles" and ran != doubling_passes(r):
+            raise AssertionError(f"phase p1: link_chase ({shape}, {n} lanes) differs from its plain "
+                                 f"twin or the host loop (passes {ran} vs {int(passes_plain)})")
+        if shape == "cycles" and ran != doubling_passes(n):
             raise AssertionError(f"phase p1: link_chase on cycles ran {ran} passes, want the cap")
         err = int((anc - anc_p).abs().max())
-        ms = cuda_ms(lambda i: chase_kernel.chase(parent, kind), iters, torch)
+        kernel = lambda i: chase_kernel.chase(parent, kind)
+        call_ms = cuda_ms(kernel, iters, torch)
+        graph_ms = replay_ms(kernel, iters, torch)
+        device_ms = kernel_ms(kernel, iters, torch, "link_chase")
         plain_ms = cuda_ms(lambda i: chase_kernel.chase_plain(parent, kind), iters, torch)
-        library_ms = cuda_ms(lambda i: host_loop_chase(torch, parent, kind), iters, torch)
+        eager_ms = cuda_ms(lambda i: host_loop_chase(torch, parent, kind), iters, torch)
         # the bound: parent and kind read once, anc and root_ok written once
-        # (the passes' pointer arrays, 2 x (n+1) x 8 B read and written a
-        # pass, stay in the 50 MB L2, whose rate the data sheet does not
-        # give; at the HBM rate they would take pass_traffic_hbm_ms)
-        nbytes = r * (8 + 8 + 8 + 1) + 4
+        # (the passes' pointer arrays, read and written a pass, stay in the
+        # 50 MB L2, whose rate the data sheet does not give; at the HBM rate
+        # they would take pass_traffic_hbm_ms)
+        nbytes = n * (8 + 8 + 8 + 1) + 4
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        pass_ms = ran * 2 * 2 * (r + 1) * 8 / HBM_BYTES_PER_S * 1e3
-        chase_cases.append(dict(shape=shape, lanes=r, passes=ran, ms=ms, plain_ms=plain_ms,
-                                library_ms=library_ms, bound_ms=bound_ms, bound_bytes=nbytes,
-                                pass_traffic_hbm_ms=pass_ms, max_abs_err=err))
-        log(f"phase p1: link_chase {shape}, {r} lanes: {ran} passes (cap {doubling_passes(r)}), "
-            f"equal to its plain twin and the host loop; kernel {ms:.5f} ms, plain (every pass of "
-            f"the cap) {plain_ms:.5f} ms, host loop {library_ms:.5f} ms, bound {bound_ms:.6f} ms "
-            f"({nbytes} B in and out); the passes' pointer traffic at the HBM rate {pass_ms:.6f} ms")
+        pass_ms = ran * 2 * 2 * (n + 1) * 4 / HBM_BYTES_PER_S * 1e3
+        chase_cases.append(dict(shape=shape, lanes=n, path=n == r and shape != "roots", passes=ran,
+                                call_ms=call_ms,
+                                replay_ms=graph_ms,
+                                device_ms=device_ms, plain_ms=plain_ms, eager_ms=eager_ms,
+                                bound_ms=bound_ms, bound_bytes=nbytes, pass_traffic_hbm_ms=pass_ms,
+                                max_abs_err=err))
+        log(f"phase p1: link_chase {shape}, {n} lanes: {ran} passes (cap {doubling_passes(n)}), "
+            f"equal to its plain twin and the host loop; kernel on the profiler {device_ms:.5f} ms, "
+            f"in a graph replay {graph_ms:.5f} ms, a Python call {call_ms:.5f} ms; plain (every "
+            f"pass of the cap) {plain_ms:.5f} ms, host loop {eager_ms:.5f} ms, bound {bound_ms:.6f} "
+            f"ms ({nbytes} B in and out); the passes' int32 pointer traffic at the HBM rate "
+            f"{pass_ms:.6f} ms")
+    # what a pass costs once its lanes are in registers: the cycles case's
+    # passes past the roots case's single one, at the same 2^18 lanes
+    by = {c["shape"]: c for c in chase_cases if c["lanes"] == r}
+    per_pass = (by["cycles"]["device_ms"] - by["roots"]["device_ms"]) / (by["cycles"]["passes"] - 1)
+    log(f"phase p1: link_chase at {r} lanes, one pass (every span a root) {by['roots']['device_ms']:.5f} "
+        f"ms; each of the cycles case's other {by['cycles']['passes'] - 1} passes {per_pass:.5f} ms")
 
     # hll_update_step across its tag wrap: the tag lives on the card
     m, rows, slots = 1 << cfg.hll_precision, cfg.hll_rows, cfg.time_buckets
@@ -7245,7 +7346,7 @@ def phase_kernels_xla(seed: int, torch, cfg=None, iters: int = 20) -> dict:
     log(f"phase p1: hll_update_step from tag {hll_kernel.TAG_LIMIT - 1} across the wrap equals "
         f"its plain twin; the tag word read {tags} after the two launches")
     launches = (ring_kernel.append.launches - launches0[0], chase_kernel.chase.launches - launches0[1])
-    return dict(ring=ring_cases, chase=chase_cases, tag_words=tags, launches=launches)
+    return dict(ring=ring_cases, chase=chase_cases, chase_pass_ms=per_pass, tag_words=tags, launches=launches)
 
 
 def phase_step_graphs(seed: int, torch, cfg=None, device=None, chunk: int = 4096) -> dict:
@@ -7346,6 +7447,31 @@ def phase_step_graphs(seed: int, torch, cfg=None, device=None, chunk: int = 4096
     log(f"phase p3: {fig['graphs']} captured graphs ({fig['captures']} captures, {fig['replays']} "
         f"replays), {fig['pool_bytes']} bytes in their pool, {fig['reserved_bytes']} bytes reserved "
         f"on the card; kernel launches over both sides: {json.dumps(fig['launches'])}")
+    # a capture is the port's compile: each one above is a compile of its
+    # variant's program in the device observatory and none a recompile (no
+    # boot yet); the boot captures (every variant at the image's lane count:
+    # nothing new) leave recompiles at 0, and a step at a lane count off
+    # that ladder captures inside the step: one recompile
+    stats = [agg._step[v].program_stats for v in sorted(agg._step)]
+    counts = lambda: (sum(x.compiles for x in stats), sum(x.recompiles for x in stats))
+    compiled = counts()
+    booted = agg.capture_steps([wire.shape[-1]])
+    after_boot = counts()
+    off = generate(chunk // 2, seed=seed + 3).cols
+    off_wire = route_fused(off, 1)
+    off_ts = off.ts_min[off.valid]
+    agg.ingest_fused(off_wire, int(off.valid.sum()), int((off.valid & off.has_dur).sum()),
+                     int((off.valid & off.err).sum()), (int(off_ts.min()), int(off_ts.max())))
+    torch.cuda.synchronize()
+    off_ladder = counts()
+    fig["compiles"] = {"before_boot": compiled, "boot_captures": booted, "after_boot": after_boot,
+                       "off_ladder_lanes": int(off_wire.shape[-1]), "after_off_ladder": off_ladder}
+    log(f"phase p3: step programs' compiles / recompiles in the device observatory: {compiled} after "
+        f"p2's {fig['captures']} captures, {after_boot} after the boot captures ({booted} new), "
+        f"{off_ladder} after one step at {off_wire.shape[-1]} lanes, off the ladder")
+    if compiled != (fig["captures"], 0) or after_boot != compiled or off_ladder != (compiled[0] + 1, 1):
+        raise AssertionError(f"phase p3: compiles / recompiles {fig['compiles']}, want each capture a "
+                             "compile, 0 recompiles after boot and 1 after an off-ladder lane count")
     del agg, twin
     torch.cuda.empty_cache()
     return fig
@@ -7393,6 +7519,10 @@ def main() -> int:
     parser.add_argument("--spans", type=int, default=1 << 20)
     parser.add_argument("--store-spans", type=int, default=1 << 18,
                         help="spans through the store's object path (phase e)")
+    parser.add_argument("--only", choices=("p1", "p"),
+                        help="run one phase alone (p1: the hand kernels for the reference's XLA "
+                             "programs; p: p1, then the step graphs' p2 and p3) and print its "
+                             "figures as a JSON line before the last")
     args = parser.parse_args()
 
     import torch
@@ -7419,6 +7549,15 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.1f} s: {', '.join(kernels.SOURCES)}")
     for name, out in kernels.BUILD_LOGS.items():  # -Xptxas=-v: registers, shared memory, spills
         log(f"nvcc {name}: " + " | ".join(ln.strip() for ln in out.splitlines() if "ptxas info" in ln))
+
+    if args.only:
+        t0 = time.perf_counter()
+        fig = phase_kernels_xla(args.seed, torch) if args.only == "p1" else phase_graphs(args.seed, torch)
+        log(f"phase {args.only} done in {time.perf_counter() - t0:.1f} s")
+        print(json.dumps({args.only: fig, "card": card}))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
 
     # the kernels are timed without the device observatory's event pairs
     # around each launch; phase j1 measures what the plane costs
@@ -7585,22 +7724,28 @@ def main() -> int:
              launches_phase_p=graphed["p2"]["launches"]["hll_update_step"],
              cases=step_cases, card=card),
     ]
-    # the hand kernels for the reference's XLA programs: their p1 cases at
-    # the main path's shapes (lane_cap and 4,096 lanes into the 2^18 ring,
-    # phase c's 65,536-lane step and the store's ladder; the 2^18-lane
-    # chase); launches are phase c's, launches_phase_p both sides of p2's
-    # steps. library_ms times the eager torch sequence each replaced: the
-    # sort + index_put_ append, the chase with a host test a pass
+    # the hand kernels for the reference's XLA programs: the means over
+    # their p1 cases at the main path's shapes (phase c's 65,536-lane step
+    # and the store's ladder into the 2^18 ring; the 2^18-lane chase),
+    # every case beside them; ms is the kernel's own device time (the
+    # profiler), call_ms and replay_ms the same calls timed on the stream
+    # as Python calls and as a graph replay. launches are phase c's,
+    # launches_phase_p both sides of p2's steps. No one torch call computes
+    # either function (library_ms null); eager_ms times the torch sequence
+    # each replaced: the sort + index_put_ append, the chase with a host
+    # test a pass
     for name, src, ref, cs_ in (
             ("ring_append", "zipkin_tpu_torch/csrc/ring_append.cu", "zipkin_tpu/tpu/ingest.py:138",
              graphed["p1"]["ring"]),
             ("link_chase", "zipkin_tpu_torch/csrc/link_chase.cu", "zipkin_tpu/ops/linker.py:320",
              graphed["p1"]["chase"])):
+        on_path = [c for c in cs_ if c["path"]]
         records.append(dict(
             name=name, route="cuda", source=src, replaces=ref, launches=launches[name],
-            max_abs_err=max(c["max_abs_err"] for c in cs_), ms=mean(cs_, "ms"),
-            plain_ms=mean(cs_, "plain_ms"), bound_ms=mean(cs_, "bound_ms"), bound_by="bytes",
-            library_ms=mean(cs_, "library_ms"),
+            max_abs_err=max(c["max_abs_err"] for c in cs_), ms=mean(on_path, "device_ms"),
+            call_ms=mean(on_path, "call_ms"), replay_ms=mean(on_path, "replay_ms"),
+            plain_ms=mean(on_path, "plain_ms"), bound_ms=mean(on_path, "bound_ms"), bound_by="bytes",
+            library_ms=None, eager_ms=mean(on_path, "eager_ms"),
             launches_phase_p=graphed["p2"]["launches"][name], cases=cs_, card=card))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

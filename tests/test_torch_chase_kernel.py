@@ -172,14 +172,21 @@ def test_ring_append_checks_its_columns():
 
 
 @pytest.mark.parametrize("source,pairs", [
-    ("ring_append.cu", [("kMaxCols", ring_kernel.MAX_COLUMNS)]),
-    ("link_chase.cu", [("kMaxPasses", chase_kernel.MAX_PASSES)]),
+    ("ring_append.cu", [("kMaxCols", ring_kernel.MAX_COLUMNS),
+                        ("kTileLanes", ring_kernel.TILE_LANES), ("kMaxTiles", ring_kernel.MAX_TILES),
+                        ("kHeaderWords", ring_kernel.HEADER_WORDS)]),
+    ("link_chase.cu", [("kMaxPasses", chase_kernel.MAX_PASSES), ("kThreads", chase_kernel.THREADS),
+                       ("kMaxOwned", chase_kernel.MAX_OWNED)]),
     ("hll_update.cu", [("kScratchHeader", hll_kernel.SCRATCH_HEADER), ("kTagWord", hll_kernel.TAG_WORD),
                        ("kTagLimit", hll_kernel.TAG_LIMIT)]),
 ])
 def test_wrapper_constants_match_the_kernel_sources(source, pairs):
+    # every single ``constexpr <type> kName = <expr>;`` at the source's
+    # namespace scope, each evaluated with the ones before it
     text = (CSRC / source).read_text()
+    known = {}
+    for name, expr in re.findall(r"^constexpr \w+ (k\w+) = ([^;,=]+);", text, re.M):
+        known[name] = eval(re.sub(r"(\d)u\b", r"\1", expr), {}, dict(known))  # noqa: S307
     for name, value in pairs:
-        m = re.search(rf"constexpr \w+ {name} = ([^;]+);", text)
-        assert m is not None, name
-        assert eval(m.group(1).replace("1u", "1")) == value, (name, m.group(1))  # noqa: S307
+        assert name in known, name
+        assert known[name] == value, (name, known[name])

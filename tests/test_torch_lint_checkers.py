@@ -924,6 +924,46 @@ def test_zt08_flags_hooks_reached_from_graphed_or_compiled_callables(tmp_path):
     assert [f.line for f in result.findings] == [8, 16, 24]
 
 
+def test_zt08_sees_capture_begin_end_regions_and_the_step_programs(tmp_path):
+    # the port's one capture site records between capture_begin and
+    # capture_end around a program parameter (tpu/graphs.py), and the
+    # programs it captures are the closures of a def marked zt-captured
+    # (shard_program); an unmarked def's closures are host code
+    result = lint(
+        tmp_path,
+        """
+        import torch
+
+        from zipkin_tpu_torch import obs
+        from zipkin_tpu_torch.obs.device import OBSERVATORY
+
+        def step(x):
+            obs.record("device_dispatch", 0.0)
+            return x
+
+        def capture(graph, program, x):
+            graph.capture_begin(capture_error_mode="thread_local")
+            step(x)
+            program(x)
+            OBSERVATORY.observe("hll_update_step", 0.0)
+            graph.capture_end()
+            obs.record("device_dispatch", 0.0)
+
+        def step_programs(cfg):  # zt-captured: the step programs a graph captures
+            def program(state, bits):
+                obs.record("device_dispatch", 0.0)
+            return program
+
+        def host_programs(cfg):
+            def program(state, bits):
+                obs.record("device_dispatch", 0.0)
+            return program
+        """,
+        select={"ZT08"},
+    )
+    assert [f.line for f in result.findings] == [8, 15, 21]
+
+
 def test_zt08_taxonomy_half_flags_unknown_and_dynamic_stages(tmp_path):
     result = lint(
         tmp_path,

@@ -28,7 +28,8 @@ torch:
   the from-scratch ctx rebuilds reachable from fresh-read entrypoints
   — only the since-rollup delta segment may be sorted at query time.
 - ZT08 obs stage discipline: ``obs.record`` reachable from code that
-  runs once and replays (CUDA-graph capture, ``make_graphed_callables``,
+  runs once and replays (CUDA-graph capture, a program nested in a def
+  marked ``# zt-captured``, ``make_graphed_callables``,
   ``torch.compile``), or a stage argument outside the closed taxonomy in
   ``obs/stages.py``.
 - ZT09 dispatch-critical loops: Python ``for``/``while``/comprehensions

@@ -9,9 +9,16 @@ Two shapes are flagged:
 1. ``record()`` reachable from code that runs its Python once and
    replays later. In the port that is:
 
-   - a function called inside a ``with torch.cuda.graph(...)`` capture
-     block (the block itself included): capture records the kernels,
-     and every replay runs them without the Python;
+   - a function called inside a capture region (the region itself
+     included): a ``with torch.cuda.graph(...)`` block, or the statements
+     between ``<graph>.capture_begin(...)`` and ``<graph>.capture_end()``
+     in one block (``tpu/graphs.py:StepGraphs.capture``); capture records
+     the kernels, and every replay runs them without the Python;
+   - a step program, which that capture calls through a ``program``
+     parameter the call graph cannot resolve: every def nested in a def
+     whose signature lines carry a ``# zt-captured`` marker
+     (``parallel/aggregator.py:shard_program``, whose closures are the step
+     variants ``StepGraphs`` captures);
    - a function passed to ``torch.cuda.make_graphed_callables``;
    - a function passed to ``torch.compile`` or decorated with it: the
      compiled code may skip the Python a guard already proved.
@@ -23,8 +30,9 @@ Two shapes are flagged:
    (lexical/self/import resolution) at cross-module depth. Fallback
    name-keyed edges are excluded: a traced ``x.m()`` on an unknown
    receiver must not smear "traced" onto every same-named host method.
-   The port captures nothing today; this half is the guard a CUDA-graph
-   ingest step needs.
+   The port's ingest step is such a graph (one per step variant), so this
+   half holds everything ``ingest_step``, ``flush_digest`` and
+   ``rollup_step`` reach.
 2. A ``record()`` stage argument that is not a string literal from the
    taxonomy. Literal-only keeps every stage name greppable and lets this
    rule verify membership statically. To add a stage, extend
@@ -47,6 +55,7 @@ from those modules).
 from __future__ import annotations
 
 import ast
+import re
 
 from zipkin_tpu_torch.lint.core import Checker, Module, register
 from zipkin_tpu_torch.lint.taint import _attr_chain, _root_name
@@ -89,6 +98,9 @@ _HOOK_MODULES = {
 # callables whose Python runs once and replays: compiled or graphed
 _TRACE_CALLS = (["torch", "compile"], ["make_graphed_callables"],
                 ["torch", "cuda", "make_graphed_callables"])
+# on a def's signature lines: its nested defs are programs a CUDA graph
+# captures
+_CAPTURED_RE = re.compile(r"#\s*zt-captured\b")
 
 
 def _is_trace_call(node: ast.AST) -> bool:
@@ -109,6 +121,51 @@ def _is_trace_call(node: ast.AST) -> bool:
     ):
         return True
     return False
+
+
+def _marked_captured(module: Module, fn: ast.AST) -> bool:
+    """Whether a ``# zt-captured`` marker sits on ``fn``'s signature lines
+    (a comment line before the body's first statement belongs to the
+    body)."""
+    end = fn.body[0].lineno if fn.body else fn.lineno + 1
+    for line_no in range(fn.lineno, end):
+        text = module.line_text(line_no)
+        if line_no > fn.lineno and text.startswith("#"):
+            break
+        if _CAPTURED_RE.search(text):
+            return True
+    return False
+
+
+def _graph_call(stmt: ast.stmt, method: str) -> bool:
+    """``<graph>.capture_begin(...)`` / ``<graph>.capture_end()`` as a
+    statement."""
+    return (isinstance(stmt, ast.Expr) and isinstance(stmt.value, ast.Call)
+            and isinstance(stmt.value.func, ast.Attribute)
+            and stmt.value.func.attr == method)
+
+
+def _capture_regions(tree: ast.AST):
+    """(anchor node, statements) of every capture region: the body of a
+    ``with torch.cuda.graph(...)`` block, and the statements from a
+    ``capture_begin`` statement up to the ``capture_end`` statement of
+    the same block (or the block's end)."""
+    for node in ast.walk(tree):
+        if _is_capture_block(node):
+            yield node, node.body
+        for field in ("body", "orelse", "finalbody"):
+            stmts = getattr(node, field, None)
+            if not isinstance(stmts, list):
+                continue
+            for i, stmt in enumerate(stmts):
+                if not _graph_call(stmt, "capture_begin"):
+                    continue
+                region = []
+                for later in stmts[i + 1:]:
+                    if _graph_call(later, "capture_end"):
+                        break
+                    region.append(later)
+                yield stmt, region
 
 
 def _is_capture_block(node: ast.AST) -> bool:
@@ -162,15 +219,13 @@ class ObsStageDiscipline(Checker):
                         program.qual_of, self._traced_defs(module)
                     ) if q
                 )
-                for block in ast.walk(module.tree):
-                    if not _is_capture_block(block):
-                        continue
-                    # the capture block's own body runs once, and every
-                    # function it calls is a traced root
-                    fn = next(iter(module.enclosing(block, _FUNC_KINDS)),
+                for anchor, region in _capture_regions(module.tree):
+                    # the capture region runs once, and every function it
+                    # calls is a traced root
+                    fn = next(iter(module.enclosing(anchor, _FUNC_KINDS)),
                               None)
                     label = f"{fn.name}()'s capture" if fn else "capture"
-                    for stmt in block.body:
+                    for stmt in region:
                         yield from self._scan_traced(
                             module, stmt, label, bare, bare_hooks
                         )
@@ -265,12 +320,18 @@ class ObsStageDiscipline(Checker):
 
     def _traced_defs(self, module: Module):
         """Defs decorated with (or passed by name to) torch.compile /
-        make_graphed_callables."""
+        make_graphed_callables, and the programs nested in a def marked
+        ``# zt-captured``."""
         defs = {}
         for node in ast.walk(module.tree):
             if isinstance(node, _FUNC_KINDS):
                 defs.setdefault(node.name, node)
-        traced = []
+        traced = [
+            inner
+            for fn in ast.walk(module.tree)
+            if isinstance(fn, _FUNC_KINDS) and _marked_captured(module, fn)
+            for inner in fn.body if isinstance(inner, _FUNC_KINDS)
+        ]
         for fn in defs.values():
             if any(_is_trace_call(d) or _trace_target(d) for d in fn.decorator_list):
                 traced.append(fn)

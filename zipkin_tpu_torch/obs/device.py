@@ -21,11 +21,19 @@ captures:
   measures from the first to the last work the call queued, gaps
   included; queued work of other threads on the same stream lands inside
   it too;
-- **compiles**: the port has no jit, so nothing recompiles
-  (``recompiles`` stays 0). ``compiles`` counts the first-use ``nvcc``
-  build of the hand kernel's library when a wrapped kernel call ran it,
-  and is 0 for every other program. ``cost`` and ``memory`` are absent, as
-  the reference leaves them when its analysis fails;
+- **compiles and recompiles**: the port's compile is the capture of a
+  step variant's CUDA graph (``tpu/graphs.py``), as the reference's is a
+  jit cache entry. Each capture counts one compile of that variant's
+  ``spmd_step*`` program (:meth:`ProgramStats.compiled`, called by the
+  aggregator for every capture, at boot or inside a step), with the
+  capture's wall; a capture that a step had to make after the store's
+  boot captures (``capture_steps``: a lane count off the ladder) also
+  counts one recompile, the case the reference pages on after warm-up.
+  For the hand kernel's wrappers ``compiles`` counts the first-use
+  ``nvcc`` build of its library when a wrapped call ran it
+  (``compile_probe``). Every other program compiles nothing. ``cost`` and
+  ``memory`` are absent, as the reference leaves them when its analysis
+  fails;
 - **live device memory and host-transfer gauges**:
   ``torch.cuda.memory_stats()`` and ``torch.cuda.mem_get_info()`` on the
   card (``{}`` on the CPU), and the readpack transfer count and bytes.
@@ -60,7 +68,7 @@ EVENT_QUEUE = 4096
 class ProgramStats:
     """Counters for one wrapped program build."""
 
-    __slots__ = ("name", "calls", "compiles", "call_wall_s", "compile_wall_s",
+    __slots__ = ("name", "calls", "compiles", "recompiles", "call_wall_s", "compile_wall_s",
                  "last_compile_s", "max_call_s", "device_ms", "device_calls",
                  "max_device_ms", "min_device_ms", "events_dropped", "_pending",
                  "_qlock", "_compile_probe")
@@ -69,6 +77,7 @@ class ProgramStats:
         self.name = name
         self.calls = 0
         self.compiles = 0
+        self.recompiles = 0
         self.call_wall_s = 0.0
         self.compile_wall_s = 0.0
         self.last_compile_s = 0.0
@@ -84,7 +93,13 @@ class ProgramStats:
         self._qlock = threading.Lock()
         self._compile_probe = compile_probe
 
-    recompiles = 0  # no jit: a shape change never rebuilds anything
+    def compiled(self, n: int, wall_s: float, recompiles: int = 0) -> None:
+        """``n`` compiles that took ``wall_s``, ``recompiles`` of them
+        after warm-up."""
+        self.compiles += n
+        self.recompiles += recompiles
+        self.compile_wall_s += wall_s
+        self.last_compile_s = wall_s
 
     def observe(self, fn: Callable, device, args: tuple, kw: dict) -> Any:
         probe = self._compile_probe
@@ -118,9 +133,7 @@ class ProgramStats:
         if probe is not None:
             built = probe() - before
             if built > 0:
-                self.compiles += built
-                self.compile_wall_s += dt
-                self.last_compile_s = dt
+                self.compiled(built, dt)
         return out
 
     def resolve(self) -> None:
@@ -142,7 +155,7 @@ class ProgramStats:
                 self.max_device_ms = ms
 
     def reset(self) -> None:
-        self.calls = self.compiles = 0
+        self.calls = self.compiles = self.recompiles = 0
         self.call_wall_s = self.compile_wall_s = self.last_compile_s = self.max_call_s = 0.0
         self.device_ms = self.max_device_ms = self.min_device_ms = 0.0
         self.device_calls = 0

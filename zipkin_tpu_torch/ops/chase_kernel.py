@@ -27,7 +27,10 @@ import torch
 
 from zipkin_tpu_torch import kernels
 
-MAX_PASSES = 64  # kMaxPasses in csrc/link_chase.cu
+MAX_PASSES = 64  # kMaxPasses in csrc/link_chase.cu (int32 pointers need <= 31)
+THREADS = 1024  # kThreads: one cooperative block of this many threads an SM
+MAX_OWNED = 16  # kMaxOwned: lanes a thread keeps in registers
+MAX_LANES = (1 << 31) - 1  # n + 1 lanes, the sentinel's included, as int32 pointers
 
 
 def doubling_passes(n: int) -> int:
@@ -67,17 +70,34 @@ def chase_plain(parent: torch.Tensor, kind: torch.Tensor,
     return anc, root[:n] == sent
 
 
-_fn = []  # the bound C entry point, loaded at the first launch
+_fn = []  # the bound C entry points, loaded at the first launch
+_capacity = []  # lanes one launch holds on this process's cards
 
 
 def _entry():
     if not _fn:
-        fn = kernels.load("link_chase").link_chase
+        lib = kernels.load("link_chase")
+        fn = lib.link_chase
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [
-            ctypes.c_void_p] * 7
+            ctypes.c_void_p] * 6
         fn.restype = ctypes.c_int
+        cap = lib.link_chase_capacity
+        cap.argtypes = []
+        cap.restype = ctypes.c_longlong
+        _capacity.append(int(cap()))
         _fn.append(fn)
     return _fn[0]
+
+
+def check_lanes(n: int, capacity: Optional[int] = None) -> None:
+    """Refuse a chase the kernel cannot take: ``n + 1`` lanes (the
+    sentinel's included) must fit its int32 pointers, and, where
+    ``capacity`` is given, the lanes one launch holds in registers
+    (``MAX_OWNED`` a thread, one ``THREADS``-thread block an SM)."""
+    if n + 1 > MAX_LANES:
+        raise ValueError(f"link chase: {n} lanes, the kernel's int32 pointers take n + 1 <= {MAX_LANES}")
+    if capacity is not None and n + 1 > capacity:
+        raise ValueError(f"link chase: {n} lanes, one launch holds n + 1 <= {capacity} on this card")
 
 
 def chase(parent: torch.Tensor, kind: torch.Tensor,
@@ -97,20 +117,18 @@ def chase(parent: torch.Tensor, kind: torch.Tensor,
     if passes is not None and (passes.device != dev or passes.dtype != torch.int32
                                or passes.numel() != 1):
         raise ValueError(f"link chase: passes must be one int32 on {dev}")
-    cap = doubling_passes(n)
-    if cap > MAX_PASSES:
-        raise ValueError(f"link chase: {n} lanes need {cap} passes, the kernel runs <= {MAX_PASSES}")
+    check_lanes(n)
     anc = torch.empty(n, dtype=torch.int64, device=dev)
     root_ok = torch.empty(n, dtype=torch.bool, device=dev)
     if n == 0:
         return anc, root_ok
     fn = _entry()
+    check_lanes(n, _capacity[0])
     bar = kernels.device_words("link_chase", dev, 2)  # the barrier words
-    scratch = torch.empty(4 * (n + 1), dtype=torch.int64, device=dev)
-    flags = torch.empty(MAX_PASSES + 1, dtype=torch.int32, device=dev)
-    ran = flags[MAX_PASSES:] if passes is None else passes
+    scratch = torch.empty(4 * (n + 1), dtype=torch.int32, device=dev)
+    ran = torch.empty(1, dtype=torch.int32, device=dev) if passes is None else passes
     with torch.cuda.device(dev):
-        err = fn(parent.data_ptr(), kind.data_ptr(), n, cap, scratch.data_ptr(), flags.data_ptr(),
+        err = fn(parent.data_ptr(), kind.data_ptr(), n, doubling_passes(n), scratch.data_ptr(),
                  ran.data_ptr(), anc.data_ptr(), root_ok.data_ptr(), bar.data_ptr(),
                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:

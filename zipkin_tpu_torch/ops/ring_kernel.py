@@ -26,7 +26,9 @@ import torch
 from zipkin_tpu_torch import kernels
 
 MAX_COLUMNS = 16  # kMaxCols in csrc/ring_append.cu
-MAX_BLOCKS = 4096  # block counts the kernel may publish (it runs <= 132 * 8)
+TILE_LANES = 256  # kTileLanes: lanes (and threads) of a block
+MAX_TILES = 4096  # kMaxTiles: the status words (batches up to 2^20 lanes)
+HEADER_WORDS = 2  # kHeaderWords: the u32 words (epoch, blocks past their look-back) before them
 
 
 def append_plain(ring: Sequence[torch.Tensor], lanes: Sequence[Optional[torch.Tensor]],
@@ -58,7 +60,7 @@ def _entry():
         fn = kernels.load("ring_append").ring_append
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
                        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _fn.append(fn)
     return _fn[0]
@@ -76,6 +78,8 @@ def _check(ring, lanes, valid, ring_pos) -> int:
         raise ValueError(f"{what}: ring_pos must be one int64 on {dev}")
     if n > cap:
         raise ValueError(f"{what}: {n} lanes into a ring of {cap}")
+    if n > TILE_LANES * MAX_TILES:
+        raise ValueError(f"{what}: {n} lanes, the kernel takes <= {TILE_LANES * MAX_TILES}")
     for i, (dst, src) in enumerate(zip(ring, lanes)):
         if dst.device != dev or dst.dim() != 1 or dst.shape[0] != cap or not dst.is_contiguous():
             raise ValueError(f"{what}: ring column {i} must be a contiguous [{cap}] vector on {dev}")
@@ -104,17 +108,15 @@ def append(ring: Sequence[torch.Tensor], lanes: Sequence[Optional[torch.Tensor]]
     if n == 0:
         return None
     fn = _entry()
-    # the barrier words [2] and the per-block valid counts [MAX_BLOCKS]
-    words = kernels.device_words("ring_append", valid.device, 2 + MAX_BLOCKS)
-    bar, block_live = words[:2], words[2:]
+    # the epoch and finish words, then the tiles' u64 status words
+    words = kernels.device_words("ring_append", valid.device, HEADER_WORDS + 2 * MAX_TILES)
     k = len(ring)
     srcs = (ctypes.c_void_p * k)(*[0 if t is None else t.data_ptr() for t in lanes])
     dsts = (ctypes.c_void_p * k)(*[t.data_ptr() for t in ring])
     sizes = (ctypes.c_int * k)(*[t.element_size() for t in ring])
     with torch.cuda.device(valid.device):
         err = fn(valid.data_ptr(), ring_pos.data_ptr(), n, cap, k, srcs, dsts, sizes,
-                 bar.data_ptr(), block_live.data_ptr(), MAX_BLOCKS,
-                 torch.cuda.current_stream(valid.device).cuda_stream)
+                 words.data_ptr(), torch.cuda.current_stream(valid.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ring_append kernel launch failed: CUDA error {err}")
     kernels.count_launch(append)

@@ -89,7 +89,7 @@ def unfuse_columns(fz: torch.Tensor) -> SpanColumns:
     )
 
 
-def shard_program(cfg: AggConfig, need_flush: bool, need_rollup: bool):
+def shard_program(cfg: AggConfig, need_flush: bool, need_rollup: bool):  # zt-captured: the step programs StepGraphs captures
     """One shard's step of a variant over its ``[11, lanes]`` int32 wire
     image: widen and unpack the image, the due flush and rollup, the
     ingest step, all in place on the state (what a captured graph holds)."""
@@ -101,6 +101,19 @@ def shard_program(cfg: AggConfig, need_flush: bool, need_rollup: bool):
             ing.rollup_step(cfg, state)
         ing.ingest_step(cfg, state, batch)
     return program
+
+
+def _capture_counter(steps):
+    """The step graphs' ``on_capture``: a capture of a variant is one
+    compile of that variant's wrapped program in the device observatory,
+    and a recompile when a step had to make it after the boot captures.
+    Holds the programs' stats, not the aggregator (no reference cycle)."""
+    stats = {variant: wrapped.program_stats for variant, wrapped in steps.items()}
+
+    def count(variant, seconds: float, recompile: bool) -> None:
+        if OBSERVATORY.enabled:
+            stats[variant].compiled(1, seconds, int(recompile))
+    return count
 
 
 def _edge_topk(calls: torch.Tensor, errors: torch.Tensor, e: int):
@@ -170,8 +183,9 @@ class TorchAggregator:
         self.device = mesh[0]
         self.config = config
         self._wrap_programs()
-        # each step variant's captured graph per lane count and shard (on a card)
-        self.graphs = StepGraphs()
+        # each step variant's captured graph per lane count and shard (on a
+        # card); a capture is a compile of the variant's program
+        self.graphs = StepGraphs(on_capture=_capture_counter(self._step))
         self.states = self._p["spmd_init"](config, self.mesh)
         # the per-shard device LinkContexts of the current write_version
         self._ctx_cache = (-1, None)
@@ -533,7 +547,8 @@ class TorchAggregator:
         ``lane_counts`` lanes a shard, running nothing on the states (a
         store or server calls this at boot, so no capture lands in a
         serving window); returns the graphs captured. On the CPU there is
-        nothing to capture."""
+        nothing to capture. From then on a capture a step has to make is
+        a recompile."""
         with self.lock:
             before = self.graphs.captures
             for lanes in lane_counts:
@@ -543,6 +558,7 @@ class TorchAggregator:
                     if state.hll.device.type == "cuda":
                         for variant, program in self._programs.items():
                             self.graphs.capture(variant, shard, state, lanes, program)
+            self.graphs.booted = True
             return self.graphs.captures - before
 
     def warm_programs(self, cols: SpanColumns) -> None:

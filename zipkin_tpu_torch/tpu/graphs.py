@@ -48,6 +48,12 @@ the callers already pad to (``route_fused``'s pad multiple, the
   replaced (:meth:`StepGraphs.drop`).
 - A replay adds to each kernel wrapper's ``launches`` the launches its
   graph holds (:func:`zipkin_tpu_torch.kernels.recording_launches`).
+- A capture is the port's compile (the reference's jit cache growing): its
+  owner's ``on_capture(variant, seconds, recompile)`` hears of each one.
+  Once ``booted`` is set (the owner's boot captures are done) a capture
+  that a step has to make, for a lane count nobody captured, is a
+  recompile, as a shape the reference's warm-up missed compiles inside a
+  request.
 
 Only CUDA states are captured; on the CPU the aggregator runs the same
 static-shape step eagerly. Nothing here runs the observatory or the flight
@@ -57,7 +63,8 @@ recorder: the aggregator's ``spmd_step*`` wrapper times the replays.
 from __future__ import annotations
 
 import threading
-from typing import Callable, Dict, NamedTuple, Tuple
+import time
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,11 +105,13 @@ class StepGraphs:
     """The captured step programs of one aggregator, by (variant, lanes,
     shard)."""
 
-    def __init__(self) -> None:
+    def __init__(self, on_capture: Optional[Callable[[tuple, float, bool], None]] = None) -> None:
         self._graphs: Dict[tuple, Captured] = {}
         self._inputs: Dict[tuple, torch.Tensor] = {}  # (lanes, shard) -> [11, lanes] int32
         self._pools: Dict[torch.device, object] = {}
         self._streams: Dict[torch.device, torch.cuda.Stream] = {}
+        self._on_capture = on_capture
+        self.booted = False  # the owner's boot captures are done
         self.captures = 0
         self.replays = 0
         self.warmups = 0
@@ -135,7 +144,7 @@ class StepGraphs:
         key = (variant, lanes, shard)
         captured = self._graphs.get(key)
         if captured is None:
-            captured = self.capture(variant, shard, state, lanes, program)
+            captured = self.capture(variant, shard, state, lanes, program, in_step=True)
         elif captured.leaves != addresses(state):
             raise RuntimeError(f"step graph {key}: a state leaf was swapped for another tensor "
                                "since the capture (leaves must be written in place)")
@@ -143,15 +152,18 @@ class StepGraphs:
         kernels.add_launches(captured.launches)
         self.replays += 1
 
-    def capture(self, variant, shard: int, state, lanes: int, program: Callable) -> Captured:
+    def capture(self, variant, shard: int, state, lanes: int, program: Callable,
+                in_step: bool = False) -> Captured:
         """Capture ``program``'s step of ``variant`` for ``state`` at
         ``lanes`` (or return the graph already captured), running nothing
         on ``state``; the first capture of its kind in the process warms
         up on a scratch copy of the state first. Raises if the capture
-        fails, and keeps no graph then."""
+        fails, and keeps no graph then. ``in_step``: a step's batch asked
+        for it (a recompile once booted)."""
         key = (variant, lanes, shard)
         if key in self._graphs:
             return self._graphs[key]
+        t0 = time.perf_counter()
         dev = state.hll.device
         buf = self._input(lanes, shard, dev)
         graph = torch.cuda.CUDAGraph()
@@ -173,6 +185,8 @@ class StepGraphs:
                 graph.capture_end()
         captured = self._graphs[key] = Captured(graph, dict(tally), addresses(state))
         self.captures += 1
+        if self._on_capture is not None:
+            self._on_capture(variant, time.perf_counter() - t0, in_step and self.booted)
         return captured
 
     def _warm_up(self, variant, lanes: int, state, buf, program) -> None:
