@@ -164,7 +164,18 @@ Builds the hand-written kernels from the sources in the checkout, then:
     graph count and their pool's bytes, and each capture a compile in the
     device observatory, with one recompile after an off-ladder step past
     the boot captures (p3). Every earlier phase steps through the graphs
-    too. ``--only p1`` or ``--only p`` runs that phase alone.
+    too. ``--only p1`` or ``--only p`` runs that phase alone;
+(q) the reference's BASELINE evals on the card: ``python -m
+    zipkin_tpu_torch.evals.run_configs config0 ... config4`` as a
+    subprocess at the reference's scales (the server smoke; 1M spans'
+    digest quantiles against exact truth in rank space; 10M spans' links
+    through the ring's rollups against closed-form truth and a host-linker
+    sample; 100M distinct trace ids' HLL within 3 sigma, globally and per
+    service; a 2M-span line-rate replay with the disk archive live, vocab
+    churn and mixed reads, each read program's device time from the
+    observatory under 50 ms): every config must pass within the time limit,
+    and its kernels' launches join the ``kernels`` line. ``--only q`` runs
+    it alone.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -7513,16 +7524,104 @@ def phase_graphs(seed: int, torch, cfg=None) -> dict:
     return {"p1": kernels_fig, "p2": graphs_fig, "wall_s": wall}
 
 
+EVAL_CONFIGS = ("config0", "config1", "config2", "config3", "config4")
+EVAL_TIMEOUT_S = 420.0  # phase q's limit on the evals' subprocess
+# each config's rate key in its JSON line (config0 has none)
+EVAL_RATES = {"config1": "wall_spans_per_sec", "config2": "spans_per_sec",
+              "config3": "ingest_spans_per_sec", "config4": "sustained_spans_per_sec"}
+
+
+def eval_verdict(out: str, rc, timed_out: bool) -> dict:
+    """Phase q's verdict on the evals' run: ``out`` its standard output,
+    ``rc`` its exit code. It passes only when the run ended within its limit
+    with exit code 0, printed one line ``{"config": ..., "passed": true,
+    ...}`` for each of :data:`EVAL_CONFIGS` and its ``{"launches": ...}``
+    line, each device config stepped through the hand kernels
+    (``hll_update_step`` and ``ring_append`` once a step, ``link_chase`` in
+    the configs that link), and config4 ran on the native parser with its
+    distinct-identity gate armed; returns ``{"configs": {name: line},
+    "launches": ...}``."""
+    if timed_out:
+        raise AssertionError("phase q: the evals ran past their time limit")
+    lines, launches = {}, None
+    for text in out.splitlines():
+        try:
+            doc = json.loads(text)
+        except ValueError:
+            continue
+        if isinstance(doc, dict) and "config" in doc:
+            lines[doc["config"]] = doc
+        elif isinstance(doc, dict) and "launches" in doc:
+            launches = doc["launches"]
+    missing = [c for c in EVAL_CONFIGS if c not in lines]
+    failed = [c for c in EVAL_CONFIGS if c in lines and lines[c].get("passed") is not True]
+    if missing or failed or rc != 0 or launches is None:
+        raise AssertionError(f"phase q: exit code {rc}; configs without a line {missing}, not passed "
+                             f"{failed}; launches line {'found' if launches is not None else 'missing'}")
+    unlaunched = [c for c in EVAL_CONFIGS if c != "config0" and (
+        not launches[c]["hll_update_step"]
+        or launches[c]["ring_append"] != launches[c]["hll_update_step"]
+        or (c in ("config2", "config4") and not launches[c]["link_chase"]))]
+    if unlaunched:
+        raise AssertionError(f"phase q: configs {unlaunched} missed a hand kernel: "
+                             f"{json.dumps(launches)}")
+    replay = lines["config4"]
+    if replay.get("fast_path") is not True or replay.get("distinct_identity_gate") is None:
+        raise AssertionError(f"phase q: config4 ran without the native parser or its distinct-identity "
+                             f"gate: fast_path {replay.get('fast_path')}, distinct_identity_gate "
+                             f"{replay.get('distinct_identity_gate')}")
+    return {"configs": {c: lines[c] for c in EVAL_CONFIGS}, "launches": launches}
+
+
+def phase_evals(card: str) -> dict:
+    """(q) the port's BASELINE evals, ``python -m
+    zipkin_tpu_torch.evals.run_configs config0 ... config4``, as a
+    subprocess on the card at the reference's scales (1M, 10M, 100M and 2M
+    spans; it inherits this process's environment and with it the evals'
+    env vars): every config's line must say passed, the run must exit 0
+    within :data:`EVAL_TIMEOUT_S` and every device config must have
+    launched its hand kernels (:func:`eval_verdict`). Logs each config's line,
+    its spans/s and config4's query programs' device ms, and returns the
+    lines, the kernels' launches in the run and its wall."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "zipkin_tpu_torch.evals.run_configs", *EVAL_CONFIGS]
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=EVAL_TIMEOUT_S)
+        out, err, rc, timed_out = proc.stdout, proc.stderr, proc.returncode, False
+    except subprocess.TimeoutExpired as e:  # run() has killed and reaped it; its output is bytes
+        out, err = (b.decode(errors="replace") if b else "" for b in (e.stdout, e.stderr))
+        rc, timed_out = None, True
+    wall = time.perf_counter() - t0
+    for text in out.splitlines():
+        log(f"phase q: {text}")
+    try:
+        fig = eval_verdict(out, rc, timed_out)
+    except AssertionError:
+        log("phase q: the evals' standard error:\n" + err[-6000:])
+        raise
+    for name, line in fig["configs"].items():
+        rate = line.get(EVAL_RATES.get(name, ""), None)
+        log(f"phase q ({card}): {name} passed" + (f", {rate} spans/s" if rate is not None else ""))
+    log(f"phase q: config4 query programs' device ms (observatory): "
+        f"{json.dumps(fig['configs']['config4']['query_program_device_ms'])}")
+    fig["wall_s"] = wall
+    log(f"phase q: {wall:.1f} s; launches {json.dumps(fig['launches'])}")
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--spans", type=int, default=1 << 20)
     parser.add_argument("--store-spans", type=int, default=1 << 18,
                         help="spans through the store's object path (phase e)")
-    parser.add_argument("--only", choices=("p1", "p"),
+    parser.add_argument("--only", choices=("p1", "p", "q"),
                         help="run one phase alone (p1: the hand kernels for the reference's XLA "
-                             "programs; p: p1, then the step graphs' p2 and p3) and print its "
-                             "figures as a JSON line before the last")
+                             "programs; p: p1, then the step graphs' p2 and p3; q: the BASELINE "
+                             "evals) and print its figures as a JSON line before the last")
     args = parser.parse_args()
 
     import torch
@@ -7552,7 +7651,8 @@ def main() -> int:
 
     if args.only:
         t0 = time.perf_counter()
-        fig = phase_kernels_xla(args.seed, torch) if args.only == "p1" else phase_graphs(args.seed, torch)
+        fig = {"p1": lambda: phase_kernels_xla(args.seed, torch), "p": lambda: phase_graphs(args.seed, torch),
+               "q": lambda: phase_evals(card)}[args.only]()
         log(f"phase {args.only} done in {time.perf_counter() - t0:.1f} s")
         print(json.dumps({args.only: fig, "card": card}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7644,6 +7744,10 @@ def main() -> int:
     graphed = phase_graphs(args.seed, torch)
     torch.cuda.empty_cache()
     log(f"phase p done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    evals = phase_evals(card)
+    log(f"phase q done in {time.perf_counter() - t0:.1f} s")
+    q_launches = evals["launches"]["total"]
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -7669,7 +7773,8 @@ def main() -> int:
     # m2a's and m2b's 8-shard stores; launches_phase_m_parts adds m1's
     # one-shard twin, which launches once a step) and launches_phase_n
     # those of the wire entry points' (n1's four transport legs, n2's
-    # scribe server; launches_phase_n_parts).
+    # scribe server; launches_phase_n_parts) and launches_phase_q those of
+    # the evals' subprocess (each config's in launches_phase_q_parts).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -7689,6 +7794,7 @@ def main() -> int:
              launches_phase_m=0,
              launches_phase_n=wired["update_launches"],
              launches_phase_o=linted["update_launches"],
+             launches_phase_q=q_launches["hll_update"],
              cases=cases, card=card),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
@@ -7722,6 +7828,8 @@ def main() -> int:
              launches_phase_n_parts={"n1": wired["n1"]["launches"], "n2": wired["n2"]["launches"]},
              launches_phase_o=linted["launches"],
              launches_phase_p=graphed["p2"]["launches"]["hll_update_step"],
+             launches_phase_q=q_launches["hll_update_step"],
+             launches_phase_q_parts={c: evals["launches"][c]["hll_update_step"] for c in EVAL_CONFIGS},
              cases=step_cases, card=card),
     ]
     # the hand kernels for the reference's XLA programs: the means over
@@ -7730,7 +7838,8 @@ def main() -> int:
     # every case beside them; ms is the kernel's own device time (the
     # profiler), call_ms and replay_ms the same calls timed on the stream
     # as Python calls and as a graph replay. launches are phase c's,
-    # launches_phase_p both sides of p2's steps. No one torch call computes
+    # launches_phase_p both sides of p2's steps, launches_phase_q the
+    # evals' (each config's in launches_phase_q_parts). No one torch call computes
     # either function (library_ms null); eager_ms times the torch sequence
     # each replaced: the sort + index_put_ append, the chase with a host
     # test a pass
@@ -7746,7 +7855,9 @@ def main() -> int:
             call_ms=mean(on_path, "call_ms"), replay_ms=mean(on_path, "replay_ms"),
             plain_ms=mean(on_path, "plain_ms"), bound_ms=mean(on_path, "bound_ms"), bound_by="bytes",
             library_ms=None, eager_ms=mean(on_path, "eager_ms"),
-            launches_phase_p=graphed["p2"]["launches"][name], cases=cs_, card=card))
+            launches_phase_p=graphed["p2"]["launches"][name], launches_phase_q=q_launches[name],
+            launches_phase_q_parts={c: evals["launches"][c][name] for c in EVAL_CONFIGS},
+            cases=cs_, card=card))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

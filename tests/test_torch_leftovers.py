@@ -3,7 +3,9 @@ called, ported for completeness and held to the reference on seeded
 inputs, integers bit for bit: ``columnar.route_columns`` (and the same
 routing as ``route_fused``), ``SpanColumns.concat``/``.live``,
 ``Vocab.key_ids_for_service``, ``hashing.hash4``,
-``segments.segment_sum_scatter`` and ``faults.armed_site``."""
+``segments.segment_sum_scatter``, ``faults.armed_site`` and
+``tpu/ingest.py``'s ``key_quantiles``, ``key_quantiles_digest`` and
+``cardinalities``."""
 
 from __future__ import annotations
 
@@ -151,3 +153,46 @@ def test_armed_site_matches_reference():
         faults.disarm()
         jfaults.disarm()
     assert faults.armed_site() is None
+
+
+def test_ingest_reads_match_reference():
+    """``tpu/ingest.py``'s three one-line reads on one state's leaves in
+    both packages: histogram quantiles bit for bit; HLL estimates within
+    1e-6 (a float32 harmonic sum in another order than XLA's); digest
+    quantiles inside the digest's own rank band of each other."""
+    from zipkin_tpu.tpu import ingest as jingest
+    from zipkin_tpu.tpu.state import AggState as JState
+    from zipkin_tpu_torch import convert
+    from zipkin_tpu_torch.ops import tdigest
+    from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
+    from zipkin_tpu_torch.tpu import ingest
+    from zipkin_tpu_torch.tpu.state import AggConfig
+    from zipkin_tpu_torch.workload import generate, slice_columns
+
+    cfg = AggConfig(max_services=16, max_keys=64, hll_precision=6, digest_centroids=8,
+                    digest_buffer=512, ring_capacity=512, time_buckets=0)
+    agg = TorchAggregator(cfg, device="cpu")
+    cols = generate(1200, seed=5, services=12, names_per_service=4).cols
+    for lo in range(0, cols.size, 100):
+        agg.ingest(slice_columns(cols, lo, min(lo + 100, cols.size), pad_to=128))
+    agg.flush_now()
+    leaves = convert.state_to_numpy(agg.states)
+    state = agg.states[0]
+    jstate = JState(*(jnp.asarray(leaf[0]) for leaf in leaves))
+    qs = np.array([0.1, 0.5, 0.9, 0.99], np.float32)
+
+    got = ingest.key_quantiles(state, torch.from_numpy(qs)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jingest.key_quantiles(jstate, jnp.asarray(qs))))
+    np.testing.assert_allclose(ingest.cardinalities(state).numpy(),
+                               np.asarray(jingest.cardinalities(jstate)), rtol=1e-6)
+    got = ingest.key_quantiles_digest(state, torch.from_numpy(qs)).numpy()
+    want = np.asarray(jingest.key_quantiles_digest(jstate, jnp.asarray(qs)))
+    # both values of a key and quantile sit within the rank band of each
+    # other among that key's durations
+    key_counts = np.bincount(cols.key[cols.valid], minlength=cfg.max_keys)
+    for k in np.nonzero(key_counts >= 20)[0]:
+        d = np.sort(cols.dur[cols.valid & (cols.key == k)].astype(np.float64))
+        for j, q in enumerate(qs):
+            w = tdigest.cluster_q_width(cfg.digest_centroids, float(q))
+            rank = lambda v: np.searchsorted(d, float(v)) / len(d)  # noqa: E731
+            assert abs(rank(got[k, j]) - rank(want[k, j])) <= w, (k, q, got[k, j], want[k, j])

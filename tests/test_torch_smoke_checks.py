@@ -8,6 +8,11 @@
 - ``idle_serve`` (phase l0's idle reader check) says why a reader did not
   serve: the answer's body, the reader's ``/metrics`` and the server's
   segment counters are in the failure.
+- ``eval_verdict`` (phase q's verdict on the evals' subprocess) fails the
+  phase on a missing config line, a config that did not pass, a non-zero
+  exit, the time limit, a missing launches line, a device config that
+  missed a hand kernel or a config4 without its distinct-identity gate;
+  five passing lines pass it.
 """
 
 from __future__ import annotations
@@ -132,3 +137,48 @@ def test_an_idle_reader_that_serves_within_the_bound_passes(reader):
     _Reader.answers["/metrics"] = (200, {}, b"{}")
     with pytest.raises(AssertionError, match="answered 200 1600"):
         chip_smoke.idle_serve(base, "/api/v2/tpu/cardinalities", _Core(), 1500.0)
+
+
+def _eval_lines(**override) -> dict:
+    """Five passing config lines and the launches line, as the evals print
+    them (``override`` replaces a config's line, None drops it)."""
+    step = {"hll_update": 0, "hll_update_step": 16, "ring_append": 16, "link_chase": 8}
+    lines = {c: {"config": c, "passed": True} for c in chip_smoke.EVAL_CONFIGS}
+    lines["config4"].update(fast_path=True, distinct_identity_gate={"passed": True},
+                            query_program_device_ms={"spmd_card": 0.1})
+    lines.update(override)
+    launches = {c: dict(step) for c in chip_smoke.EVAL_CONFIGS}
+    launches["config0"] = dict.fromkeys(step, 0)
+    out = ["{\"progress\": 1}", "not json"] + [json.dumps(v) for v in lines.values() if v is not None]
+    return {"out": "\n".join(out + [json.dumps({"launches": launches})]), "launches": launches}
+
+
+def test_five_passing_eval_lines_pass_phase_q():
+    run = _eval_lines()
+    fig = chip_smoke.eval_verdict(run["out"], 0, False)
+    assert sorted(fig["configs"]) == list(chip_smoke.EVAL_CONFIGS)
+    assert fig["launches"] == run["launches"]
+
+
+@pytest.mark.parametrize("case", ["missing", "not_passed", "exit", "timeout", "no_launches",
+                                  "no_identity_gate"])
+def test_phase_q_fails_on_a_bad_run(case):
+    run = _eval_lines(**{"missing": {"config2": None},
+                         "not_passed": {"config3": {"config": "config3", "passed": False}},
+                         "no_identity_gate": {"config4": {"config": "config4", "passed": True,
+                                                          "fast_path": True,
+                                                          "distinct_identity_gate": None}},
+                         }.get(case, {}))
+    out = run["out"]
+    if case == "no_launches":
+        out = out.rsplit("\n", 1)[0]
+    with pytest.raises(AssertionError, match="phase q"):
+        chip_smoke.eval_verdict(out, 1 if case == "exit" else 0, case == "timeout")
+
+
+def test_phase_q_on_a_card_needs_each_device_config_to_launch_its_kernels():
+    run = _eval_lines()
+    run["launches"]["config2"]["link_chase"] = 0
+    out = run["out"].rsplit("\n", 1)[0] + "\n" + json.dumps({"launches": run["launches"]})
+    with pytest.raises(AssertionError, match="config2"):
+        chip_smoke.eval_verdict(out, 0, False)

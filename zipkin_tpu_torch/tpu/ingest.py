@@ -339,6 +339,21 @@ def dependency_links(config: AggConfig, state: AggState, ts_lo: int, ts_hi: int,
     return u32.wrap(calls + rc), u32.wrap(errors + re)
 
 
+def key_quantiles(state: AggState, qs: torch.Tensor) -> torch.Tensor:
+    """[keys, Q] latency quantiles from the histograms."""
+    return histogram.quantile(state.hist, qs)
+
+
+def key_quantiles_digest(state: AggState, qs: torch.Tensor) -> torch.Tensor:
+    """[keys, Q] latency quantiles from the t-digests (tighter tails)."""
+    return tdigest.quantile(state.digest, qs)
+
+
+def cardinalities(state: AggState) -> torch.Tensor:
+    """[services+1] estimated distinct traces (last row = global)."""
+    return hll.estimate(state.hll)
+
+
 def tt_sketches(config: AggConfig, state: AggState, lo_ep: int, hi_ep: int,
                 ctx: Optional[linker.LinkContext] = None):
     """The time-tier slots whose bucket epoch lies in ``[lo_ep, hi_ep]``
