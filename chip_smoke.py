@@ -175,7 +175,23 @@ Builds the hand-written kernels from the sources in the checkout, then:
     churn and mixed reads, each read program's device time from the
     observatory under 50 ms): every config must pass within the time limit,
     and its kernels' launches join the ``kernels`` line. ``--only q`` runs
-    it alone.
+    it alone;
+(q2) the reference's gate configs 5-9 at its settings, one subprocess: the
+    fan-out tier's wire-to-ack rate with sampling and the WAL live
+    (config5, whose 1M spans/s target is the reference's gate: the phase
+    logs the rate against it and fails on any other gate), the SLO
+    watchdog's trip and clear (config6), accuracy drift on a C=4 digest
+    (config7), an overload flood with a WAL ENOSPC and a gRPC shed
+    (config8), tenant containment with a mid-flood crash-resume (config9);
+    every config steps the card through ``hll_update_step`` and
+    ``ring_append``. ``--only q2`` runs it alone;
+(q3) config4's durable mode at 2M spans (WAL and snapshots live, at least
+    2 snapshots committed; a cold boot from its dirs holds every acked
+    span) and the resume driver at 4,194,304 spans over windows of
+    9 s (at least 1 restore; each resumed window restores the snapshot,
+    replays the WAL and captures its graphs again with 0 recompiles; the
+    final window's HLL holds the cumulative distinct count). ``--only q3``
+    runs it alone.
 
 Prints the card's name and power limit, the measurements, a ``kernels``
 JSON line, and as its last line ``{"ok": true, "device": {...}}``. Exits
@@ -255,16 +271,29 @@ def device_profile(fn, iters: int, torch, warm: bool = True):
     return sum(r[1] for r in rows), rows, wall
 
 
+# the traces in which the profiler saw no device time, by what was timed
+# instead: a sandbox's CUPTI tracing now and then delivers no device
+# activity, and then a figure comes from CUDA events (see busy_ms, kernel_ms)
+PROFILER_MISSES: list = []
+
+
 def busy_ms(fn, iters: int, torch, reset=lambda: None):
     """Device-busy ms per call from the profiler; a trace that saw no
-    device event is taken again (``reset`` runs before each try), and a
-    third empty one raises."""
+    device event is taken again (``reset`` runs before each try). After a
+    third empty one the calls are timed on CUDA events instead
+    (:func:`cuda_ms`, the host's launch gaps included), the miss is logged
+    and kept in ``PROFILER_MISSES``, and the rows are empty."""
     for _ in range(3):
         reset()
         busy, rows, _ = device_profile(fn, iters, torch)
         if busy > 0:
             return busy, rows
-    raise RuntimeError("the profiler saw no device time in three traces")
+        log("profiler: a trace saw no device time; taking it again")
+    reset()
+    ms = cuda_ms(fn, iters, torch)
+    PROFILER_MISSES.append(f"device busy {ms:.6f} ms a call on CUDA events")
+    log(f"profiler: three traces saw no device time; {ms:.6f} ms a call on CUDA events instead")
+    return ms, []
 
 
 def replay_ms(fn, iters: int, torch, reps: int = 5) -> float:
@@ -305,15 +334,24 @@ def replay_ms(fn, iters: int, torch, reps: int = 5) -> float:
     return start.elapsed_time(end) / (reps * iters)
 
 
-def kernel_ms(fn, iters: int, torch, name: str) -> float:
-    """ms a call of the profiler's rows whose kernel name holds ``name``
-    over calls ``fn(0..iters-1)`` (:func:`busy_ms`): the kernel's own
-    device time, without the host's launch gaps."""
-    _, rows = busy_ms(fn, iters, torch)
-    mine = [ms for key, ms in rows if name in key]
-    if not mine:
-        raise RuntimeError(f"the profiler saw no {name} kernel: {[k for k, _ in rows]}")
-    return sum(mine)
+def kernel_ms(fn, iters: int, torch, name: str, replayed_ms: float):
+    """(ms, how) a call of the profiler's rows whose kernel name holds
+    ``name`` over calls ``fn(0..iters-1)`` (:func:`device_profile`): the
+    kernel's own device time, without the host's launch gaps. A trace with
+    no such row is taken again; after a third the figure is
+    ``replayed_ms`` (the same calls in a graph replay between CUDA events,
+    :func:`replay_ms`, which has no launch gaps either), ``how`` says so
+    and the miss is kept in ``PROFILER_MISSES``."""
+    for _ in range(3):
+        _, rows, _ = device_profile(fn, iters, torch)
+        mine = [ms for key, ms in rows if name in key]
+        if mine:
+            return sum(mine), "profiler"
+        log(f"profiler: a trace saw no {name} kernel ({[k for k, _ in rows]}); taking it again")
+    PROFILER_MISSES.append(f"{name} {replayed_ms:.6f} ms a call from a graph replay on CUDA events")
+    log(f"profiler: three traces saw no {name} kernel; its graph replay's {replayed_ms:.6f} ms "
+        f"a call stands instead")
+    return replayed_ms, "graph replay"
 
 
 def time_calls(fn, reset, iters: int, torch):
@@ -1020,6 +1058,9 @@ def profile_steps(agg, traffic, chunk: int, cfg, torch) -> None:
     sub = type(traffic)(cols=slice_columns(traffic.cols, 0, 4 * 8 * chunk), edges={})
     busy, rows, wall = device_profile(lambda i: drive(agg, sub, 8 * chunk, chunk, cfg), 1, torch,
                                       warm=False)
+    if busy == 0:
+        PROFILER_MISSES.append("phase c's 4 profiled steps: device busy not measured")
+        log("profiled 4 steps: the profiler saw no device time (device busy not measured)")
     log(f"profiled 4 steps: wall {wall:.1f} ms (profiler on), device busy {busy:.1f} ms "
         f"({100 * busy / wall:.1f}% of wall)")
     log("top device ops over those steps (ms): " + json.dumps(
@@ -7254,19 +7295,20 @@ def phase_kernels_xla(seed: int, torch, cfg=None, iters: int = 20) -> dict:
         kernel = lambda i: ring_kernel.append(work, lanes, valid, pos)
         call_ms = cuda_ms(kernel, iters, torch)
         graph_ms = replay_ms(kernel, iters, torch)
-        device_ms = kernel_ms(kernel, iters, torch, "ring_append")
+        device_ms, device_by = kernel_ms(kernel, iters, torch, "ring_append", graph_ms)
         plain_ms = cuda_ms(lambda i: ring_kernel.append_plain(work, lanes, valid, pos), iters, torch)
         eager_ms = cuda_ms(lambda i: eager_ring_append(torch, work, lanes, valid, pos, live), iters, torch)
         nbytes = ring_bound_bytes(ring, lanes, n, live)
         bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
         case = dict(pattern=pattern, lanes=n, live=live, start=start, path=" step, " in pattern,
                     call_ms=call_ms,
-                    replay_ms=graph_ms, device_ms=device_ms, plain_ms=plain_ms, eager_ms=eager_ms,
+                    replay_ms=graph_ms, device_ms=device_ms, device_ms_by=device_by,
+                    plain_ms=plain_ms, eager_ms=eager_ms,
                     bound_ms=bound_ms, bound_bytes=nbytes, max_abs_err=err)
         ring_cases.append(case)
         log(f"phase p1: ring_append {pattern} ({live} live) from cursor {start} into {r}: "
             f"equal to its plain twin and the eager sort + index_put_ sequence; kernel on the "
-            f"profiler {device_ms:.5f} ms, in a graph replay {graph_ms:.5f} ms, a Python call "
+            f"{device_by} {device_ms:.5f} ms, in a graph replay {graph_ms:.5f} ms, a Python call "
             f"{call_ms:.5f} ms; plain {plain_ms:.5f} ms, eager sequence {eager_ms:.5f} ms, bound "
             f"{bound_ms:.6f} ms ({nbytes} B: the valid flags, a live lane's columns read and "
             f"its ring cells written)")
@@ -7299,7 +7341,7 @@ def phase_kernels_xla(seed: int, torch, cfg=None, iters: int = 20) -> dict:
         kernel = lambda i: chase_kernel.chase(parent, kind)
         call_ms = cuda_ms(kernel, iters, torch)
         graph_ms = replay_ms(kernel, iters, torch)
-        device_ms = kernel_ms(kernel, iters, torch, "link_chase")
+        device_ms, device_by = kernel_ms(kernel, iters, torch, "link_chase", graph_ms)
         plain_ms = cuda_ms(lambda i: chase_kernel.chase_plain(parent, kind), iters, torch)
         eager_ms = cuda_ms(lambda i: host_loop_chase(torch, parent, kind), iters, torch)
         # the bound: parent and kind read once, anc and root_ok written once
@@ -7312,11 +7354,12 @@ def phase_kernels_xla(seed: int, torch, cfg=None, iters: int = 20) -> dict:
         chase_cases.append(dict(shape=shape, lanes=n, path=n == r and shape != "roots", passes=ran,
                                 call_ms=call_ms,
                                 replay_ms=graph_ms,
-                                device_ms=device_ms, plain_ms=plain_ms, eager_ms=eager_ms,
+                                device_ms=device_ms, device_ms_by=device_by,
+                                plain_ms=plain_ms, eager_ms=eager_ms,
                                 bound_ms=bound_ms, bound_bytes=nbytes, pass_traffic_hbm_ms=pass_ms,
                                 max_abs_err=err))
         log(f"phase p1: link_chase {shape}, {n} lanes: {ran} passes (cap {doubling_passes(n)}), "
-            f"equal to its plain twin and the host loop; kernel on the profiler {device_ms:.5f} ms, "
+            f"equal to its plain twin and the host loop; kernel on the {device_by} {device_ms:.5f} ms, "
             f"in a graph replay {graph_ms:.5f} ms, a Python call {call_ms:.5f} ms; plain (every "
             f"pass of the cap) {plain_ms:.5f} ms, host loop {eager_ms:.5f} ms, bound {bound_ms:.6f} "
             f"ms ({nbytes} B in and out); the passes' int32 pointer traffic at the HBM rate "
@@ -7531,6 +7574,52 @@ EVAL_RATES = {"config1": "wall_spans_per_sec", "config2": "spans_per_sec",
               "config3": "ingest_spans_per_sec", "config4": "sustained_spans_per_sec"}
 
 
+def json_lines(out: str) -> list:
+    """The JSON objects among ``out``'s lines, in order."""
+    docs = []
+    for text in out.splitlines():
+        try:
+            doc = json.loads(text)
+        except ValueError:
+            continue
+        if isinstance(doc, dict):
+            docs.append(doc)
+    return docs
+
+
+def step_launch_faults(launches: dict, configs, chase=()) -> list:
+    """The configs of ``configs`` whose launches miss a hand kernel: every
+    one steps the card (``hll_update_step`` > 0, as many ``ring_append``),
+    and those of ``chase`` chase links too."""
+    return [c for c in configs if c not in launches
+            or not launches[c]["hll_update_step"]
+            or launches[c]["ring_append"] != launches[c]["hll_update_step"]
+            or (c in chase and not launches[c]["link_chase"])]
+
+
+def run_module(module: str, args, env_extra: dict, timeout_s: float, what: str):
+    """``python -m module args`` from the repository's root with
+    ``env_extra`` over this process's environment: (stdout, stderr, exit
+    code or None, timed out, wall s); its JSON lines are logged."""
+    import os
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, **env_extra)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", module, *args], cwd=root, env=env,
+                              capture_output=True, text=True, timeout=timeout_s)
+        out, err, rc, timed_out = proc.stdout, proc.stderr, proc.returncode, False
+    except subprocess.TimeoutExpired as e:  # run() has killed and reaped it; its output is bytes
+        out, err = (b.decode(errors="replace") if b else "" for b in (e.stdout, e.stderr))
+        rc, timed_out = None, True
+    wall = time.perf_counter() - t0
+    for text in out.splitlines():
+        if text.startswith("{"):
+            log(f"phase {what}: {text}")
+    return out, err, rc, timed_out, wall
+
+
 def eval_verdict(out: str, rc, timed_out: bool) -> dict:
     """Phase q's verdict on the evals' run: ``out`` its standard output,
     ``rc`` its exit code. It passes only when the run ended within its limit
@@ -7544,24 +7633,17 @@ def eval_verdict(out: str, rc, timed_out: bool) -> dict:
     if timed_out:
         raise AssertionError("phase q: the evals ran past their time limit")
     lines, launches = {}, None
-    for text in out.splitlines():
-        try:
-            doc = json.loads(text)
-        except ValueError:
-            continue
-        if isinstance(doc, dict) and "config" in doc:
+    for doc in json_lines(out):
+        if "config" in doc:
             lines[doc["config"]] = doc
-        elif isinstance(doc, dict) and "launches" in doc:
+        elif "launches" in doc:
             launches = doc["launches"]
     missing = [c for c in EVAL_CONFIGS if c not in lines]
     failed = [c for c in EVAL_CONFIGS if c in lines and lines[c].get("passed") is not True]
     if missing or failed or rc != 0 or launches is None:
         raise AssertionError(f"phase q: exit code {rc}; configs without a line {missing}, not passed "
                              f"{failed}; launches line {'found' if launches is not None else 'missing'}")
-    unlaunched = [c for c in EVAL_CONFIGS if c != "config0" and (
-        not launches[c]["hll_update_step"]
-        or launches[c]["ring_append"] != launches[c]["hll_update_step"]
-        or (c in ("config2", "config4") and not launches[c]["link_chase"]))]
+    unlaunched = step_launch_faults(launches, EVAL_CONFIGS[1:], chase=("config2", "config4"))
     if unlaunched:
         raise AssertionError(f"phase q: configs {unlaunched} missed a hand kernel: "
                              f"{json.dumps(launches)}")
@@ -7583,20 +7665,8 @@ def phase_evals(card: str) -> dict:
     launched its hand kernels (:func:`eval_verdict`). Logs each config's line,
     its spans/s and config4's query programs' device ms, and returns the
     lines, the kernels' launches in the run and its wall."""
-    import os
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    cmd = [sys.executable, "-m", "zipkin_tpu_torch.evals.run_configs", *EVAL_CONFIGS]
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, cwd=root, capture_output=True, text=True, timeout=EVAL_TIMEOUT_S)
-        out, err, rc, timed_out = proc.stdout, proc.stderr, proc.returncode, False
-    except subprocess.TimeoutExpired as e:  # run() has killed and reaped it; its output is bytes
-        out, err = (b.decode(errors="replace") if b else "" for b in (e.stdout, e.stderr))
-        rc, timed_out = None, True
-    wall = time.perf_counter() - t0
-    for text in out.splitlines():
-        log(f"phase q: {text}")
+    out, err, rc, timed_out, wall = run_module(
+        "zipkin_tpu_torch.evals.run_configs", EVAL_CONFIGS, {}, EVAL_TIMEOUT_S, "q")
     try:
         fig = eval_verdict(out, rc, timed_out)
     except AssertionError:
@@ -7612,16 +7682,255 @@ def phase_evals(card: str) -> dict:
     return fig
 
 
+GATE_CONFIGS = ("config5", "config6", "config7", "config8", "config9")
+GATE_TIMEOUT_S = 420.0  # phase q2's limit on the gates' subprocess
+GATE_FANOUT_SPANS = 1_048_576  # config5's EVAL_FANOUT_SPANS: the reference's default
+# config5's gates dict: all but the reference's absolute rate must hold
+CONFIG5_GATES = ("rate", "responses", "sampling_armed", "wal_attached", "no_recompiles")
+# phase q3: config4's durable run (2M spans, a snapshot every 16 batches,
+# so at least 2) and the resume driver (64 65,536-span batches, each window
+# adding 4 more in its warm-up): a 9 s window deadline trips the first
+# window and leaves the second one batch or more to stream at 204-408 k
+# spans/s (28-56 batches a window)
+DURABLE_SPANS, DURABLE_SNAP_EVERY = 2_000_000, 16
+RESUME_SPANS, RESUME_WINDOW_S = 4_194_304, 9.0
+RESUME_TIMEOUT_S = 600.0  # phase q3's limit on each of its two subprocesses
+
+
+def gate_verdict(out: str, rc, timed_out: bool) -> dict:
+    """Phase q2's verdict on configs 5-9's run (``out`` its standard output,
+    ``rc`` its exit code): a line for each of :data:`GATE_CONFIGS` and the
+    launches line; configs 6-9 passed; config5's ``gates`` held every one
+    of :data:`CONFIG5_GATES` but the absolute rate (every answer a 202 or a
+    429 retried and counted as backpressure, sampling armed, the WAL
+    attached, 0 recompiles in each window) and its ``spans_posted`` is
+    :data:`GATE_FANOUT_SPANS`; exit code 0, or 1 with config5's rate the
+    only gate that failed; each config launched ``hll_update_step`` and
+    ``ring_append`` alike, more than 0. Returns the lines and launches."""
+    if timed_out:
+        raise AssertionError("phase q2: configs 5-9 ran past their time limit")
+    lines, launches = {}, None
+    for doc in json_lines(out):
+        if "config" in doc:
+            lines[doc["config"]] = doc
+        elif "launches" in doc:
+            launches = doc["launches"]
+    missing = [c for c in GATE_CONFIGS if c not in lines]
+    failed = [c for c in GATE_CONFIGS[1:] if c in lines and lines[c].get("passed") is not True]
+    if missing or failed or launches is None:
+        raise AssertionError(f"phase q2: exit code {rc}; configs without a line {missing}, not "
+                             f"passed {failed}; launches line "
+                             f"{'found' if launches is not None else 'missing'}")
+    fan = lines["config5"]
+    gates = fan.get("gates") or {}
+    missed = [g for g in CONFIG5_GATES if gates.get(g) is not True]
+    if set(missed) - {"rate"} or fan.get("spans_posted") != GATE_FANOUT_SPANS:
+        raise AssertionError(f"phase q2: config5 failed a gate other than its rate: missed "
+                             f"{missed}, spans posted {fan.get('spans_posted')} of "
+                             f"{GATE_FANOUT_SPANS}; {json.dumps(fan)}")
+    rate_ok = not missed
+    if rc != (0 if rate_ok else 1):
+        raise AssertionError(f"phase q2: exit code {rc} with config5's rate gate "
+                             f"{'held' if rate_ok else 'missed'}")
+    unlaunched = step_launch_faults(launches, GATE_CONFIGS)
+    if unlaunched:
+        raise AssertionError(f"phase q2: configs {unlaunched} missed a hand kernel: "
+                             f"{json.dumps(launches)}")
+    return {"configs": {c: lines[c] for c in GATE_CONFIGS}, "launches": launches,
+            "config5_rate_passed": rate_ok}
+
+
+def phase_gates(card: str) -> dict:
+    """(q2) the reference's gate configs 5-9, ``python -m
+    zipkin_tpu_torch.evals.run_configs config5 ... config9``, as one
+    subprocess on the card within :data:`GATE_TIMEOUT_S`, at the reference's
+    settings (config5 at ``EVAL_FANOUT_SPANS`` = :data:`GATE_FANOUT_SPANS`
+    and the reference's 1M spans/s target): :func:`gate_verdict`. Logs
+    config5's wire-to-ack rate beside its target and the card."""
+    out, err, rc, timed_out, wall = run_module(
+        "zipkin_tpu_torch.evals.run_configs", GATE_CONFIGS,
+        {"EVAL_FANOUT_SPANS": str(GATE_FANOUT_SPANS)}, GATE_TIMEOUT_S, "q2")
+    try:
+        fig = gate_verdict(out, rc, timed_out)
+    except AssertionError:
+        log("phase q2: the gates' standard error:\n" + err[-6000:])
+        raise
+    fan = fig["configs"]["config5"]
+    log(f"phase q2 ({card}): config5 wire-to-ack {json.dumps(fan['wire_to_ack_spans_per_sec'])} "
+        f"spans/s against the reference's target {fan['target_spans_per_sec']} "
+        f"({'met' if fig['config5_rate_passed'] else 'missed'}), in process "
+        f"{fan['inprocess_proto3_spans_per_sec']}; configs 6-9 passed")
+    fig["wall_s"] = wall
+    log(f"phase q2: {wall:.1f} s; launches {json.dumps(fig['launches'])}")
+    return fig
+
+
+def durable_verdict(out: str, rc, timed_out: bool) -> dict:
+    """Phase q3's verdict on config4's durable run: exit 0, a passed line
+    with its ``durability`` and at least 2 snapshots, and its launches
+    (``hll_update_step`` = ``ring_append`` > 0, ``link_chase`` > 0)."""
+    docs = json_lines(out)
+    line = next((d for d in docs if d.get("config") == "config4"), None)
+    launches = next((d["launches"] for d in docs if "launches" in d), None)
+    dur = (line or {}).get("durability") or {}
+    if (timed_out or rc != 0 or line is None or line.get("passed") is not True
+            or dur.get("snapshots_taken", 0) < 2 or launches is None
+            or step_launch_faults(launches, ("config4",), chase=("config4",))):
+        raise AssertionError(f"phase q3: config4's durable run: exit code {rc}, timed out "
+                             f"{timed_out}, line {json.dumps(line)[:2000]}, launches {launches}")
+    return {"line": line, "launches": launches}
+
+
+def durable_boot(directory: str, spans: int, cfg=None, device=None) -> dict:
+    """Phase q3's cold boot from config4's durable run: a resume adapter
+    on the run's ``snap`` and ``wal`` dirs under ``directory`` (its last
+    snapshot restored, the WAL after it replayed) must hold ``spans``, the
+    count the run acked. Returns the count and the boot's restore stats."""
+    import os
+
+    from zipkin_tpu_torch.evals.run_configs import BATCH
+    from zipkin_tpu_torch.storage.tpu import TorchStorage as DurableStorage
+    from zipkin_tpu_torch.tpu.state import AggConfig
+
+    cfg = cfg or AggConfig()
+    store = DurableStorage(config=cfg, device=device,
+                           batch_size=min(BATCH, cfg.rollup_segment, cfg.digest_buffer),
+                           checkpoint_dir=os.path.join(directory, "snap"),
+                           wal_dir=os.path.join(directory, "wal"))
+    try:
+        held = int(store.agg.host_counters["spans"])
+        fig = {"spans": held, "restore": dict(store.restore_stats)}
+    finally:
+        store.close()
+    if held != spans:
+        raise AssertionError(f"phase q3: a cold boot from the durable run's dirs holds {held} "
+                             f"spans, the run acked {spans}; restore {fig['restore']}")
+    return fig
+
+
+def resume_verdict(out: str, rc, timed_out: bool) -> dict:
+    """Phase q3's verdict on the resume driver's run: its
+    ``config4_resume_driver`` line completed and passed with at least 1
+    restore, ``cumulative_spans`` equal to :data:`RESUME_SPANS` and
+    ``distinct_trace_ids`` equal to the final window's cursor; one config4
+    line a window, each with 0 recompiles and, after the first, the restore
+    stats and the previous window's cursor span count as its boot's;
+    the final window passed with its distinct-identity gate armed and
+    passed, and its launches line shows ``hll_update_step`` =
+    ``ring_append`` > 0 and ``link_chase`` > 0."""
+    docs = json_lines(out)
+    driver = next((d for d in docs if d.get("artifact") == "config4_resume_driver"), None)
+    windows = [d for d in docs if d.get("config") == "config4"]
+    launches = next((d["launches"] for d in docs if "launches" in d), None)
+    faults = []
+    if timed_out or rc != 0 or driver is None:
+        faults.append(f"exit code {rc}, timed out {timed_out}, driver line {driver}")
+    else:
+        if not (driver.get("completed") and driver.get("passed") and driver.get("restores", 0) >= 1):
+            faults.append(f"driver {driver}")
+        if driver.get("cumulative_spans") != RESUME_SPANS:
+            faults.append(f"cumulative spans {driver.get('cumulative_spans')} against "
+                          f"{RESUME_SPANS}")
+        if len(windows) != driver.get("windows"):
+            faults.append(f"{len(windows)} window lines for {driver.get('windows')} windows")
+    for w, line in enumerate(windows, start=1):
+        if line.get("window") != w or line.get("recompiles_in_window") != 0:
+            faults.append(f"window {w}: window {line.get('window')}, recompiles "
+                          f"{line.get('recompiles_in_window')}")
+        if w > 1 and (not line.get("restore") or line.get("resumed_from_spans")
+                      != (windows[w - 2].get("cursor") or {}).get("spans")):
+            faults.append(f"window {w} resumed from {line.get('resumed_from_spans')} with restore "
+                          f"{line.get('restore')}")
+    final = windows[-1] if windows else {}
+    gate = final.get("distinct_identity_gate") or {}
+    if final.get("passed") is not True or not gate.get("passed"):
+        faults.append(f"final window passed {final.get('passed')}, distinct-identity gate {gate}")
+    if driver is not None and (final.get("cursor") or {}).get("distinct_traces") != \
+            driver.get("distinct_trace_ids"):
+        faults.append(f"driver's distinct ids {driver.get('distinct_trace_ids')} against the "
+                      f"final cursor {final.get('cursor')}")
+    if launches is None or step_launch_faults(launches, ("config4",), chase=("config4",)):
+        faults.append(f"final window's launches {launches}")
+    if faults:
+        raise AssertionError("phase q3: the resume driver's run: " + "; ".join(faults))
+    return {"driver": driver, "windows": windows, "launches": launches}
+
+
+def phase_resume(card: str) -> dict:
+    """(q3) config4's two durable modes at the full ``AggConfig`` on the
+    card, each a subprocess within :data:`RESUME_TIMEOUT_S`: config4 under
+    ``EVAL_REPLAY_DURABLE`` at :data:`DURABLE_SPANS` with a snapshot every
+    :data:`DURABLE_SNAP_EVERY` batches (:func:`durable_verdict`) and a
+    cold boot in this process from its dirs (:func:`durable_boot`), then
+    ``python -m zipkin_tpu_torch.evals.resume_driver`` at
+    :data:`RESUME_SPANS` with a :data:`RESUME_WINDOW_S` window deadline
+    (:func:`resume_verdict`). Both state dirs are temporary."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    fig = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_q3_")
+    try:
+        out, err, rc, timed_out, wall = run_module(
+            "zipkin_tpu_torch.evals.run_configs", ["config4"],
+            {"EVAL_REPLAY_DURABLE": os.path.join(tmp, "durable"),
+             "EVAL_REPLAY_SPANS": str(DURABLE_SPANS),
+             "EVAL_SNAPSHOT_EVERY_BATCHES": str(DURABLE_SNAP_EVERY)},
+            RESUME_TIMEOUT_S, "q3")
+        try:
+            fig["durable"] = durable_verdict(out, rc, timed_out)
+        except AssertionError:
+            log("phase q3: the durable run's standard error:\n" + err[-6000:])
+            raise
+        line = fig["durable"]["line"]
+        fig["durable"]["wall_s"] = wall
+        log(f"phase q3 ({card}): durable config4 passed, {line['sustained_spans_per_sec']} "
+            f"spans/s, durability {json.dumps(line['durability'])}, {wall:.1f} s")
+        t0 = time.perf_counter()
+        boot = fig["durable"]["cold_boot"] = durable_boot(os.path.join(tmp, "durable"),
+                                                          line["spans"])
+        torch.cuda.empty_cache()
+        log(f"phase q3: a cold boot from the durable dirs holds all {boot['spans']} acked spans, "
+            f"restore {json.dumps(boot['restore'])}, {time.perf_counter() - t0:.1f} s")
+        out, err, rc, timed_out, wall = run_module(
+            "zipkin_tpu_torch.evals.resume_driver", [],
+            {"EVAL_RESUME_DIR": os.path.join(tmp, "resume"),
+             "EVAL_REPLAY_SPANS": str(RESUME_SPANS),
+             "EVAL_WINDOW_DEADLINE_S": str(RESUME_WINDOW_S)},
+            RESUME_TIMEOUT_S, "q3")
+        try:
+            fig["resume"] = resume_verdict(out, rc, timed_out)
+        except AssertionError:
+            log("phase q3: the resume driver's standard error:\n" + err[-6000:])
+            raise
+        fig["resume"]["wall_s"] = wall
+        driver = fig["resume"]["driver"]
+        log(f"phase q3 ({card}): the resume driver completed in {driver['windows']} windows "
+            f"({driver['restores']} restores), {driver['cumulative_spans']} spans, "
+            f"{driver['distinct_trace_ids']} distinct ids; restores "
+            f"{json.dumps([w['restore'] for w in fig['resume']['windows'][1:]])}; {wall:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fig["launches"] = {
+        "durable": fig["durable"]["launches"]["config4"],
+        "resume_final_window": fig["resume"]["launches"]["config4"]}
+    return fig
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--spans", type=int, default=1 << 20)
     parser.add_argument("--store-spans", type=int, default=1 << 18,
                         help="spans through the store's object path (phase e)")
-    parser.add_argument("--only", choices=("p1", "p", "q"),
+    parser.add_argument("--only", choices=("p1", "p", "q", "q2", "q3"),
                         help="run one phase alone (p1: the hand kernels for the reference's XLA "
                              "programs; p: p1, then the step graphs' p2 and p3; q: the BASELINE "
-                             "evals) and print its figures as a JSON line before the last")
+                             "evals 0-4; q2: the gate configs 5-9; q3: config4's durable and "
+                             "resume modes) and print its figures as a JSON line before the last")
     args = parser.parse_args()
 
     import torch
@@ -7652,7 +7961,8 @@ def main() -> int:
     if args.only:
         t0 = time.perf_counter()
         fig = {"p1": lambda: phase_kernels_xla(args.seed, torch), "p": lambda: phase_graphs(args.seed, torch),
-               "q": lambda: phase_evals(card)}[args.only]()
+               "q": lambda: phase_evals(card), "q2": lambda: phase_gates(card),
+               "q3": lambda: phase_resume(card)}[args.only]()
         log(f"phase {args.only} done in {time.perf_counter() - t0:.1f} s")
         print(json.dumps({args.only: fig, "card": card}))
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7748,6 +8058,15 @@ def main() -> int:
     evals = phase_evals(card)
     log(f"phase q done in {time.perf_counter() - t0:.1f} s")
     q_launches = evals["launches"]["total"]
+    t0 = time.perf_counter()
+    gates = phase_gates(card)
+    log(f"phase q2 done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    resumed = phase_resume(card)
+    log(f"phase q3 done in {time.perf_counter() - t0:.1f} s")
+    q2_launches = gates["launches"]["total"]
+    q3_parts = resumed["launches"]
+    q3_launches = {k: sum(p[k] for p in q3_parts.values()) for k in q2_launches}
 
     # hll_update: its single-target cases of phase a (uniform rows, both
     # shapes, fresh and filled); hll_update_step: the main path's own lanes,
@@ -7774,7 +8093,11 @@ def main() -> int:
     # one-shard twin, which launches once a step) and launches_phase_n
     # those of the wire entry points' (n1's four transport legs, n2's
     # scribe server; launches_phase_n_parts) and launches_phase_q those of
-    # the evals' subprocess (each config's in launches_phase_q_parts).
+    # the evals' subprocess (each config's in launches_phase_q_parts),
+    # launches_phase_q2 those of configs 5-9 (launches_phase_q2_parts) and
+    # launches_phase_q3 those of config4's durable run and the resume
+    # driver's final window (launches_phase_q3_parts; a window that trips
+    # exits before it prints its launches).
     mean = lambda cs, key: sum(c[key] for c in cs) / len(cs)
     source, replaces = "zipkin_tpu_torch/csrc/hll_update.cu", "zipkin_tpu/ops/pallas_hll.py:67"
     records = [
@@ -7795,7 +8118,9 @@ def main() -> int:
              launches_phase_n=wired["update_launches"],
              launches_phase_o=linted["update_launches"],
              launches_phase_q=q_launches["hll_update"],
-             cases=cases, card=card),
+             launches_phase_q2=q2_launches["hll_update"],
+             launches_phase_q3=q3_launches["hll_update"],
+             cases=cases, card=card, profiler_misses=PROFILER_MISSES),
         dict(name="hll_update_step", route="cuda", source=source, replaces=replaces,
              launches=launches["update_step"], max_abs_err=max(c["max_abs_err"] for c in step_cases),
              ms=mean(step_cases, "ms"), plain_ms=mean(step_cases, "plain_ms"),
@@ -7830,13 +8155,20 @@ def main() -> int:
              launches_phase_p=graphed["p2"]["launches"]["hll_update_step"],
              launches_phase_q=q_launches["hll_update_step"],
              launches_phase_q_parts={c: evals["launches"][c]["hll_update_step"] for c in EVAL_CONFIGS},
-             cases=step_cases, card=card),
+             launches_phase_q2=q2_launches["hll_update_step"],
+             launches_phase_q2_parts={c: gates["launches"][c]["hll_update_step"]
+                                      for c in GATE_CONFIGS},
+             launches_phase_q3=q3_launches["hll_update_step"],
+             launches_phase_q3_parts={k: p["hll_update_step"] for k, p in q3_parts.items()},
+             cases=step_cases, card=card, profiler_misses=PROFILER_MISSES),
     ]
     # the hand kernels for the reference's XLA programs: the means over
     # their p1 cases at the main path's shapes (phase c's 65,536-lane step
     # and the store's ladder into the 2^18 ring; the 2^18-lane chase),
     # every case beside them; ms is the kernel's own device time (the
-    # profiler), call_ms and replay_ms the same calls timed on the stream
+    # profiler, or a case's graph replay where three traces missed the
+    # kernel: its device_ms_by says which, profiler_misses lists every
+    # miss of the run), call_ms and replay_ms the same calls timed on the stream
     # as Python calls and as a graph replay. launches are phase c's,
     # launches_phase_p both sides of p2's steps, launches_phase_q the
     # evals' (each config's in launches_phase_q_parts). No one torch call computes
@@ -7857,7 +8189,11 @@ def main() -> int:
             library_ms=None, eager_ms=mean(on_path, "eager_ms"),
             launches_phase_p=graphed["p2"]["launches"][name], launches_phase_q=q_launches[name],
             launches_phase_q_parts={c: evals["launches"][c][name] for c in EVAL_CONFIGS},
-            cases=cs_, card=card))
+            launches_phase_q2=q2_launches[name],
+            launches_phase_q2_parts={c: gates["launches"][c][name] for c in GATE_CONFIGS},
+            launches_phase_q3=q3_launches[name],
+            launches_phase_q3_parts={k: p[name] for k, p in q3_parts.items()},
+            cases=cs_, card=card, profiler_misses=PROFILER_MISSES))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

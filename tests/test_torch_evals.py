@@ -13,8 +13,10 @@ reference's ``evals/run_configs.py`` and the JAX package, on the CPU.
   bit, HLL estimates within 1e-6 (a float32 harmonic sum in another
   order), digest p50/p99 ranks within 0.002 of the reference's. Each config's JSON line carries the reference's keys.
 - config4 with ``EVAL_SMALL`` and config0 pass; a corrupted link truth
-  fails config2; the durable and resume modes refuse; the CLI refuses to
-  start without a card unless given ``--device cpu``.
+  fails config2; the CLI refuses to start without a card unless given
+  ``--device cpu``, and refuses a config it does not know. (Configs 5-9
+  and config4's durable and resume modes are in
+  ``tests/test_torch_evals_{gates,flood,resume}.py``.)
 """
 
 from __future__ import annotations
@@ -318,13 +320,6 @@ def test_config0_passes(capsys):
         "config": "config0", "passed": True}
 
 
-@pytest.mark.parametrize("var", ["EVAL_REPLAY_DURABLE", "EVAL_RESUME_DIR"])
-def test_config4_durable_and_resume_modes_refuse(monkeypatch, tmp_path, var):
-    monkeypatch.setenv(var, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        rc.config4("cpu")
-
-
 def test_config4_refuses_without_the_native_parser(monkeypatch):
     """Without the native parser config4's realism gates would stay
     disarmed and pass; it raises instead of replaying another way."""
@@ -372,4 +367,4 @@ def test_cli_refuses_without_a_card_and_runs_on_the_cpu_when_asked():
     assert lines[0] == {"config": "config0", "passed": True}
     assert lines[1]["launches"]["total"] == {"hll_update": 0, "hll_update_step": 0,
                                              "ring_append": 0, "link_chase": 0}
-    assert cli("--device", "cpu", "config9").returncode == 2
+    assert cli("--device", "cpu", "config10").returncode == 2

@@ -4,7 +4,8 @@ same frames into both packages' device stores (integer planes bit-equal,
 digest means rtol 1e-5); and a server booted from the reference's
 environment (``COLLECTOR_SCRIBE_ENABLED``, port 0) whose scribe-fed trace
 reads back over HTTP and survives ``stop()`` and a boot from its
-checkpoint.
+checkpoint; such a server answers HTTP only once its scribe port is bound
+(a ``/health`` of UP means scribe takes connections).
 
 Frames carry the reference's thrift v1 encoding of ``tests/fixtures.py``
 spans, base64 in ``LogEntry`` messages of category ``zipkin``. Every
@@ -204,3 +205,31 @@ def test_stop_closes_a_connection_that_waits_between_frames():
 
     assert asyncio.run(run()) < 5.0
     assert len(storage.get_trace(TRACE[0].trace_id).execute()) == len(TRACE)
+
+
+def test_the_server_answers_http_only_after_its_scribe_port_is_bound(monkeypatch):
+    answered = []
+    real_start = ScribeCollector.start
+
+    async def start(self):
+        # before scribe binds: a /health now must find no one serving
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/health", timeout=0.5):
+                answered.append(True)
+        except OSError:
+            answered.append(False)
+        return await real_start(self)
+
+    monkeypatch.setattr(ScribeCollector, "start", start)
+    server = ZipkinServer(ServerConfig(host="127.0.0.1", port=0, storage_type="mem",
+                                       scribe_enabled=True, scribe_port=0), seal_interval_s=0)
+    server.start()
+    try:
+        assert answered == [False]
+        with urllib.request.urlopen(f"http://127.0.0.1:{server.port}/health",
+                                    timeout=TIMEOUT_S) as resp:
+            assert json.loads(resp.read())["status"] == "UP"
+        with socket.create_connection(("127.0.0.1", server.scribe_port), timeout=TIMEOUT_S):
+            pass
+    finally:
+        server.stop()

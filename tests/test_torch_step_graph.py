@@ -15,6 +15,9 @@ around it, on the CPU.
   stand-in graph (a CUDA graph captures only on a card): a graph is
   captured before it first runs, so a capture that fails leaves the state
   and the aggregator's bookkeeping as they were;
+- a capture and a device-wide sync take turns (``graphs.CAPTURE_LOCK``):
+  a sync on another thread while a stream captures would break the
+  capture and leave its pool marked as recording;
 - the boot captures' lane ladder, and the per-device words' memo.
 """
 
@@ -23,6 +26,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import tempfile
+import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +43,7 @@ from zipkin_tpu_torch import convert, kernels, u32
 from zipkin_tpu_torch.ops import hll_kernel, ring_kernel
 from zipkin_tpu_torch.parallel.aggregator import TorchAggregator, shard_program, unfuse_columns
 from zipkin_tpu_torch.tpu import ingest as ing
+from zipkin_tpu_torch.tpu import graphs as graphs_mod
 from zipkin_tpu_torch.tpu import snapshot
 from zipkin_tpu_torch.tpu.columnar import fuse_columns, route_fused
 from zipkin_tpu_torch.tpu.graphs import Captured, StepGraphs, addresses
@@ -306,6 +312,39 @@ def test_a_failed_capture_leaves_the_state_and_keeps_no_graph(monkeypatch):
     with pytest.raises(RuntimeError, match="capture failed"):
         agg.ingest_fused(route_fused(slice_columns(generate(64, seed=3).cols, 0, 64), 1), 64, 0, 0)
     assert (agg._pend_lanes, agg.write_version, agg.host_counters) == (pend, version, counters)
+
+
+def test_a_capture_and_a_device_sync_take_turns(monkeypatch):
+    _stand_in_cuda(monkeypatch)
+    held = []
+
+    class _Checking(_RecordingGraph):
+        def capture_begin(self, pool=None, capture_error_mode=None):
+            held.append(graphs_mod.CAPTURE_LOCK.locked())
+            super().capture_begin(pool, capture_error_mode)
+
+        def capture_end(self):
+            held.append(graphs_mod.CAPTURE_LOCK.locked())
+            super().capture_end()
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Checking)
+    state = TorchAggregator(CFG, device="cpu").states[0]
+    wire = route_fused(slice_columns(generate(64, seed=5).cols, 0, 64), 1)[0]
+    graphs = StepGraphs()
+    graphs.step((False, False), 0, state, wire, _recorded(shard_program(CFG, False, False)))
+    assert held == [True, True] and not graphs_mod.CAPTURE_LOCK.locked()
+
+    synced = []
+    monkeypatch.setattr(torch.cuda, "synchronize",
+                        lambda d=None: synced.append(graphs_mod.CAPTURE_LOCK.locked()))
+    on_card = types.SimpleNamespace(mesh=[torch.device("cuda", 0)])
+    with graphs_mod.CAPTURE_LOCK:  # another thread's capture in progress
+        t = threading.Thread(target=TorchAggregator.block_until_ready, args=(on_card,))
+        t.start()
+        t.join(0.2)
+        assert t.is_alive() and not synced
+    t.join(10)
+    assert not t.is_alive() and synced == [True]
 
 
 def test_a_warm_up_counts_its_launches_apart():

@@ -2,13 +2,17 @@
 (the exact object of BASELINE config[0]), the fixed ``TODAY`` its
 timestamps hang from, and the ``lots_of_spans`` generator (port of the
 parts of ``tests/fixtures.py`` that ``evals/run_configs.py`` takes, on the
-port's own model; the same seed gives the same spans)."""
+port's own model; the same seed gives the same spans); and the span
+generators of configs 5, 7, 8 and 9, which the reference writes inside
+each config's body (``fanout_payloads``, ``drift_spans``,
+``flood_spans``)."""
 
 from __future__ import annotations
 
 import random
-from typing import List
+from typing import List, Sequence
 
+from zipkin_tpu_torch.model import proto3
 from zipkin_tpu_torch.model.span import Endpoint, Kind, Span
 
 # Midnight UTC 2026-07-29, in epoch milliseconds — a fixed "today" so runs
@@ -116,3 +120,38 @@ def lots_of_spans(
             caller = callee
             ts += rng.randint(10, 500)
     return spans[:n]
+
+
+def fanout_payloads(batch: int) -> List[bytes]:
+    """config5's two proto3 payloads of ``batch`` spans each, cut from one
+    ``lots_of_spans(2 * batch, seed=7, services=40, span_names=120)``."""
+    spans = lots_of_spans(2 * batch, seed=7, services=40, span_names=120)
+    return [proto3.encode_span_list(spans[i : i + batch]) for i in range(0, len(spans), batch)]
+
+
+DRIFT_ENDPOINT = Endpoint.create("checkout", "10.0.0.7")
+
+
+def drift_spans(durations: Sequence[float], seq0: int, ts_us: int) -> List[Span]:
+    """config7's spans: one ``checkout``/``charge`` SERVER span a duration,
+    the ``k``-th with trace and span id ``seq0 + k + 1`` and timestamp
+    ``ts_us + seq0 + k + 1``."""
+    out = []
+    for k, d in enumerate(durations):
+        seq = seq0 + k + 1
+        out.append(Span.create(
+            trace_id=f"{seq:016x}", id=f"{seq:016x}", name="charge", kind=Kind.SERVER,
+            local_endpoint=DRIFT_ENDPOINT, timestamp=ts_us + seq, duration=int(d)))
+    return out
+
+
+def flood_spans(i: int, n: int, base: int) -> List[Span]:
+    """Payload ``i`` of configs 8 (``base`` 0xE800_0000) and 9
+    (0xE900_0000): ``n`` spans of trace ``base + i`` on ``svc{i % 8}``."""
+    ep = Endpoint.create(service_name=f"svc{i % 8}", ip="10.0.0.1")
+    return [
+        Span.create(
+            trace_id=f"{base + i:016x}", id=f"{(i << 16) + j + 1:016x}", name=f"op{j % 8}",
+            timestamp=1_753_000_000_000_000 + i * 1000 + j, duration=500 + j, local_endpoint=ep)
+        for j in range(n)
+    ]

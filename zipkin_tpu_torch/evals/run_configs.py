@@ -1,5 +1,5 @@
-"""The BASELINE.json eval configs 0-4 on the port, runnable end to end
-(port of ``evals/run_configs.py``'s configs 0-4).
+"""The BASELINE.json eval configs 0-9 on the port, runnable end to end
+(port of ``evals/run_configs.py``).
 
 Each stage prints one JSON line with pass/fail and measurements, under the
 reference's keys. Scales default to BASELINE's; env vars set them:
@@ -19,12 +19,40 @@ reference's keys. Scales default to BASELINE's; env vars set them:
             mixed Lens reads mid-stream and quiesced; each read program's
             device time from the device observatory, gated at 50 ms.
             EVAL_SMALL runs it at a small config (a CPU smoke of the
-            harness). Its durable and resume modes are not ported yet.
+            harness). EVAL_REPLAY_DURABLE=<dir> runs it with the WAL and
+            periodic snapshots live; EVAL_RESUME_DIR=<dir> makes it one
+            window of a crash-resumable run that
+            ``python -m zipkin_tpu_torch.evals.resume_driver`` relaunches.
+  config5 — the fan-out tier's wire-to-ack gate: proto3 through the
+            server's HTTP boundary with sampling and the WAL live, at least
+            EVAL_FANOUT_TARGET (the reference's 1M spans/s) through
+            min(4, cores) parse workers on a multi-core host, graceful
+            degradation against the same-run in-process budget on one core.
+  config6 — the SLO watchdog's trip and clear: an induced query_fresh burn
+            through the production record site; the alert within one long
+            window, on /prometheus, cleared after recovery.
+  config7 — accuracy drift's trip and clear: an undersized digest (C=4) on
+            a bimodal stream; the shadow's drift gauge crosses 0.20 and
+            digest_p99_relerr trips, then clears after a reset.
+  config8 — the overload flood gate: a flood of at least 3x the tier's
+            queue capacity through HTTP with a WAL ENOSPC mid-flood; acked
+            p99 within its SLO, every shed guided (Retry-After, gRPC
+            retry-delay), no acked span lost at durable parity, the at-risk
+            flag cleared by a snapshot, B0 back within one long window.
+  config9 — tenant flood containment: tenant B floods 4x its budget
+            (X-Tenant-Id) while A and C stay inside theirs; only B shed,
+            tenant-scoped, the global ladder at B0, exact per-tenant
+            attribution, no acked span lost across a mid-flood
+            crash-resume, the {tenant=} Prometheus families.
 
-Each config steps through captured graphs that were captured before its
-timed window (``capture_steps``) and reports the recompiles inside it.
-After the stages, a line ``{"launches": {...}}`` gives each hand kernel's
-launches in each config and in all.
+Each config that steps the card captures its graphs before its timed
+window (``capture_steps``) and reports the recompiles inside it. After the
+stages, a line ``{"launches": {...}}`` gives each hand kernel's launches in
+each config and in all. Where the reference's harness has a tool the port
+lacks, the config's docstring says what stands in for it: the reference
+drives its aiohttp app with aiohttp's test client and ``grpc.aio``; the
+port's ``http.server`` runs on an ephemeral port, driven by the thread
+clients of :mod:`zipkin_tpu_torch.evals.wire`.
 
 Run: python -m zipkin_tpu_torch.evals.run_configs [--device cpu] [config0 ...]
 It runs on the card; without one it refuses to start unless ``--device``
@@ -37,28 +65,33 @@ import argparse
 import dataclasses
 import json
 import os
+import random
 import shutil
 import sys
 import tempfile
 import time
-import urllib.error
-import urllib.request
 from typing import Optional
 
 import numpy as np
 import torch
 
-from zipkin_tpu_torch import native
-from zipkin_tpu_torch.evals.fixtures import TODAY, TODAY_US, TRACE, lots_of_spans
+from zipkin_tpu_torch import faults, native, obs
+from zipkin_tpu_torch.evals import wire
+from zipkin_tpu_torch.evals.fixtures import (TODAY, TODAY_US, TRACE, drift_spans, fanout_payloads,
+                                             flood_spans, lots_of_spans)
 from zipkin_tpu_torch.internal.dependency_linker import DependencyLinker
-from zipkin_tpu_torch.model import json_v2
+from zipkin_tpu_torch.model import json_v2, proto3
 from zipkin_tpu_torch.model.span import Endpoint, Kind, Span
 from zipkin_tpu_torch.obs.device import OBSERVATORY
 from zipkin_tpu_torch.ops import chase_kernel, hll, hll_kernel, ring_kernel
 from zipkin_tpu_torch.parallel.aggregator import TorchAggregator
+from zipkin_tpu_torch.runtime.supervisor import EX_RESTART, ResumeSupervisor
+from zipkin_tpu_torch.runtime.tenant import TENANT_HEADER
+from zipkin_tpu_torch.sampling import RATE_ONE
 from zipkin_tpu_torch.server.app import ZipkinServer
 from zipkin_tpu_torch.server.config import ServerConfig
 from zipkin_tpu_torch.storage.spi import QueryRequest
+from zipkin_tpu_torch.storage.tpu import TorchStorage as DurableStorage
 from zipkin_tpu_torch.tpu.columnar import SpanColumns, Vocab, _hash2_np, _mix32
 from zipkin_tpu_torch.tpu.state import AggConfig
 from zipkin_tpu_torch.tpu.store import TorchStorage
@@ -77,32 +110,21 @@ def _recompiles() -> int:
     return OBSERVATORY.totals()["recompiles"]
 
 
-def _http(method: str, url: str, body: Optional[bytes] = None, headers=None):
-    """(status, body) of one request; an error status is an answer too."""
-    req = urllib.request.Request(url, data=body, method=method, headers=headers or {})
-    try:
-        with urllib.request.urlopen(req, timeout=60) as resp:
-            return resp.status, resp.read()
-    except urllib.error.HTTPError as e:
-        return e.code, e.read()
-
-
 def config0(device=None) -> bool:
     """The reference drives its aiohttp app with aiohttp's test client; the
     port's server is ``http.server`` on an ephemeral port, driven with
-    ``urllib``."""
+    :func:`wire.request`."""
     server = ZipkinServer(ServerConfig(host="127.0.0.1", port=0, storage_type="mem"),
                           seal_interval_s=0, device=device).start()
     base = f"http://127.0.0.1:{server.port}"
     try:
-        status, _ = _http("POST", base + "/api/v2/spans", json_v2.encode_span_list(TRACE),
-                          {"Content-Type": "application/json"})
-        ok = status == 202
-        status, body = _http("GET", f"{base}/api/v2/trace/{TRACE[0].trace_id}")
-        ok &= status == 200 and len(json.loads(body)) == len(TRACE)
-        status, body = _http(
+        ok = wire.post(base + "/api/v2/spans", json_v2.encode_span_list(TRACE)).status == 202
+        ans = wire.request("GET", f"{base}/api/v2/trace/{TRACE[0].trace_id}")
+        ok &= ans.status == 200 and len(json.loads(ans.body)) == len(TRACE)
+        ans = wire.request(
             "GET", f"{base}/api/v2/dependencies?endTs={TODAY + 3_600_000}&lookback=86400000")
-        links = {(l["parent"], l["child"]) for l in json.loads(body)} if status == 200 else set()
+        links = ({(l["parent"], l["child"]) for l in json.loads(ans.body)} if ans.status == 200
+                 else set())
         ok &= links == {("frontend", "backend"), ("backend", "mysql")}
     finally:
         server.stop()
@@ -591,6 +613,12 @@ def program_gate(program_ms: dict, missing) -> bool:
     )
 
 
+def _on(device) -> dict:
+    """The resume adapter's placement: ``device``, else the first card (the
+    reference's ``num_devices=1``)."""
+    return {"device": device} if device is not None else {"num_devices": 1}
+
+
 def config4(device=None) -> bool:
     """Streaming replay + mixed Lens query load at the full-size AggConfig.
 
@@ -613,11 +641,33 @@ def config4(device=None) -> bool:
     themselves: each program's device time from the device observatory's
     CUDA events, gated at 50 ms; a program without its device time fails
     the gate, and the CPU has none to gate). min/p50/p99 all reported.
+
+    ``EVAL_REPLAY_DURABLE=<dir>`` runs the replay on the resume adapter
+    (:class:`zipkin_tpu_torch.storage.tpu.TorchStorage`) with the
+    durability plane live: the WAL in ``<dir>/wal``, a snapshot into
+    ``<dir>/snap`` every EVAL_SNAPSHOT_EVERY_BATCHES (448) batches, which
+    truncates the covered WAL segments, and a final one; the line's
+    ``durability`` reports the snapshots committed (under the reference's
+    key, ``snapshots_taken``, which there counts the ones attempted) and the
+    disk each plane holds at the end.
+
+    ``EVAL_RESUME_DIR=<dir>`` is the crash-resumable run (durable on
+    ``<dir>``): the store boots by restoring ``<dir>/snap`` and replaying
+    ``<dir>/wal``, batch indexing resumes from ``<dir>/eval_cursor.json``
+    (``next_batch``, ``distinct_traces``, ``windows``, ``spans``), so trace
+    id prefixes stay disjoint across windows, and a
+    :class:`~zipkin_tpu_torch.runtime.supervisor.ResumeSupervisor` watches
+    the sent count. A degraded window (EVAL_SUP_WINDOW_S,
+    EVAL_DEGRADED_FRACTION, EVAL_DEGRADED_WINDOWS) or the window deadline
+    (EVAL_WINDOW_DEADLINE_S) drains, snapshots, writes the cursor
+    atomically, prints the window's line and exits ``EX_RESTART`` (75) for
+    :mod:`zipkin_tpu_torch.evals.resume_driver` to relaunch. Span counts
+    and distinct trace ids accumulate across windows toward the target,
+    and the final window's distinct-identity gate holds the restored and
+    replayed HLL to the cumulative count. Unlike the reference, a window
+    whose batch reaches the target ends normally instead of tripping on
+    it (the relaunch would replay past the target).
     """
-    if os.environ.get("EVAL_REPLAY_DURABLE") or os.environ.get("EVAL_RESUME_DIR"):
-        raise NotImplementedError(
-            "config4's durable and resume modes (EVAL_REPLAY_DURABLE, EVAL_RESUME_DIR) "
-            "are not ported yet")
     if not native.available():
         # the stream, the archive probes and the realism gates all ride the
         # native parser; without it they would stay disarmed and pass
@@ -625,6 +675,15 @@ def config4(device=None) -> bool:
     total = int(os.environ.get("EVAL_REPLAY_SPANS", 2_000_000))
     cfg = SMALL if os.environ.get("EVAL_SMALL") else AggConfig()
     batch = min(BATCH, cfg.rollup_segment, cfg.digest_buffer)
+    durable_dir = os.environ.get("EVAL_REPLAY_DURABLE") or None
+    resume_dir = os.environ.get("EVAL_RESUME_DIR") or None
+    if resume_dir:
+        durable_dir = resume_dir
+    cursor = {"next_batch": 0, "distinct_traces": 0, "windows": 0}
+    cursor_path = os.path.join(resume_dir, "eval_cursor.json") if resume_dir else None
+    if cursor_path and os.path.exists(cursor_path):
+        with open(cursor_path) as f:
+            cursor.update(json.load(f))
     # disk archive on the ingest path: default ON, budget-bounded so
     # retention churns live, in a temporary directory removed at the end;
     # EVAL_ARCHIVE_DIR=off disables (for A/B), EVAL_ARCHIVE_BYTES sets the
@@ -650,9 +709,18 @@ def config4(device=None) -> bool:
     sync_every = int(os.environ.get("EVAL_SYNC_EVERY_BATCHES", 4))
     store = None
     try:
-        store = TorchStorage(config=cfg, device=device, pad_to_multiple=batch,
-                             archive_max_span_count=100_000, **arc_kw)
-        return _replay(store, cfg, total, batch, arc_dir, sync_every)
+        if durable_dir:
+            store = DurableStorage(
+                config=cfg, batch_size=batch, max_span_count=100_000,
+                checkpoint_dir=durable_dir + "/snap", wal_dir=durable_dir + "/wal",
+                **_on(device), **arc_kw)
+        else:
+            store = TorchStorage(config=cfg, device=device, pad_to_multiple=batch,
+                                 archive_max_span_count=100_000, **arc_kw)
+        durable = Durable(
+            durable_dir, int(os.environ.get("EVAL_SNAPSHOT_EVERY_BATCHES", 448)),
+            cursor, cursor_path) if durable_dir else None
+        return _replay(store, cfg, total, batch, arc_dir, sync_every, durable)
     finally:
         if store is not None:
             store.close()
@@ -660,9 +728,48 @@ def config4(device=None) -> bool:
             shutil.rmtree(arc_tmp, ignore_errors=True)
 
 
+@dataclasses.dataclass
+class Durable:
+    """config4's durability plane: the dir its WAL and snapshots live in,
+    the snapshot period in batches, in resume mode the cursor read at boot
+    and the path it is written back to (None otherwise), and the snapshots
+    this run committed (a save returns None on a full disk or after close)."""
+
+    directory: str
+    snap_every: int
+    cursor: dict
+    cursor_path: Optional[str]
+    snapshots: int = 0
+
+
+def dir_bytes(path: str) -> int:
+    """The bytes of every file under ``path``."""
+    total = 0
+    for root, _, files in os.walk(path):
+        for name in files:
+            try:
+                total += os.path.getsize(os.path.join(root, name))
+            except OSError:
+                pass
+    return total
+
+
+def write_cursor(path: str, cursor: dict) -> None:
+    """Replace ``path`` with ``cursor`` atomically (a rename)."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        json.dump(cursor, f)
+    os.replace(tmp, path)
+
+
 def _replay(store: TorchStorage, cfg: AggConfig, total: int, batch: int,
-            arc_dir: Optional[str], sync_every: int) -> bool:
-    """config4's stream, reads and gates on a built store."""
+            arc_dir: Optional[str], sync_every: int, durable: Optional[Durable] = None) -> bool:
+    """config4's stream, reads and gates on a built store; ``durable`` its
+    durability plane (the durable and resume modes)."""
+    cursor = durable.cursor if durable is not None else {"next_batch": 0, "distinct_traces": 0,
+                                                         "windows": 0}
+    resume = durable is not None and durable.cursor_path is not None
+    it0 = int(cursor["next_batch"])
     rotate_every = max(int(os.environ.get("EVAL_ROTATE_EVERY", 256)), 1)
     corpus = _replay_corpus(batch, rotate_every)
     template, payload_t, patched = corpus["template"], corpus["payload"], corpus["patched"]
@@ -672,6 +779,9 @@ def _replay(store: TorchStorage, cfg: AggConfig, total: int, batch: int,
 
     end_ts = max(s.timestamp for s in template if s.timestamp) // 1000 + 3_600_000
     lookback = 1000 * 86_400_000
+    # what the boot restored and replayed (the resume mode's cumulative
+    # count), before the warm-up adds the template once more
+    resumed_spans = store.ingest_counters()["spans"] if resume else 0
     # run EVERY program the stream can hit (each step variant, the
     # standalone flush and rollup) once, then capture the step graphs at
     # the store's lane ladder: no first use and no capture lands inside
@@ -741,20 +851,34 @@ def _replay(store: TorchStorage, cfg: AggConfig, total: int, batch: int,
     probes: list = []
     probes_incomplete = 0
     acked: list = []  # patched probe tids, oldest first (bounded)
-    distinct_traces = 0
+    distinct_traces = int(cursor["distinct_traces"])
     batches = 0
+    sup = tripped = None
+    if resume:
+        sup = ResumeSupervisor(
+            store,
+            window_s=float(os.environ.get("EVAL_SUP_WINDOW_S", 5.0)),
+            degraded_fraction=float(os.environ.get("EVAL_DEGRADED_FRACTION", 0.25)),
+            degraded_windows=int(os.environ.get("EVAL_DEGRADED_WINDOWS", 3)),
+            deadline_s=float(os.environ.get("EVAL_WINDOW_DEADLINE_S", 0) or 0),
+        )
+        sup.observe(sent)  # starts the window's clock
     recompiles0 = _recompiles()
     start = time.perf_counter()
     while sent < total:
         if deadline_s and time.perf_counter() - start > deadline_s:
             deadline_hit = True
             break
-        payload, tid = patched(batches)
+        payload, tid = patched(it0 + batches)
         n, _ = store.ingest_json_fast(payload)
         acked.append(tid)
         distinct_traces += distinct_per_batch
         sent += n
         batches += 1
+        if sup is not None and sent < total:  # a window that reached the target ends
+            tripped = sup.observe(sent)
+            if tripped:
+                break
         if sync_every and batches % sync_every == 0:
             # bound the in-flight dispatch queue (see docstring)
             store.agg.block_until_ready()
@@ -772,6 +896,11 @@ def _replay(store: TorchStorage, cfg: AggConfig, total: int, batch: int,
                 probes_incomplete += 1
             if len(acked) > 4 * probe_every:
                 del acked[: 2 * probe_every]
+        if durable is not None and durable.snap_every and batches % durable.snap_every == 0:
+            # the durability plane under load: a snapshot clones the state on
+            # the card under the lock, pulls it outside, and truncates the
+            # WAL segments it covers, so the disk stays bounded
+            durable.snapshots += store.snapshot() is not None
         if progress_every and batches % progress_every == 0:
             print(json.dumps({
                 "progress": sent,
@@ -779,6 +908,25 @@ def _replay(store: TorchStorage, cfg: AggConfig, total: int, batch: int,
                 "spans_per_sec": round((sent - warm) / (time.perf_counter() - start)),
             }), file=sys.stderr, flush=True)
     store.agg.block_until_ready()
+
+    def cursor_now() -> dict:
+        return {"next_batch": it0 + batches, "distinct_traces": distinct_traces,
+                "windows": cursor["windows"] + 1, "spans": sent}
+
+    if tripped:
+        # a degraded or deadline window: drain, snapshot, record the cursor
+        # and exit restartable; the relaunch restores the snapshot and the
+        # cumulative span count keeps climbing
+        sup.finalize()
+        now = cursor_now()
+        write_cursor(durable.cursor_path, now)
+        _emit(config="config4", window=now["windows"], window_tripped=tripped,
+              window_exit=EX_RESTART, resumed_from_spans=resumed_spans, spans=sent,
+              target_spans=total, supervisor=sup.stats(), restore=dict(store.restore_stats),
+              window_spans_per_sec=round(
+                  (sent - warm) / max(time.perf_counter() - start, 1e-9)),
+              recompiles_in_window=_recompiles() - recompiles0, cursor=now)
+        sys.exit(EX_RESTART)
 
     if not lat["dependencies"]:
         query_round(lat)  # never skip the query half at small smoke scales
@@ -928,12 +1076,28 @@ def _replay(store: TorchStorage, cfg: AggConfig, total: int, batch: int,
         and realism_ok
         and recompiles == 0
     )
+    durability = None
+    if durable is not None:
+        # the final snapshot truncates the last WAL tail
+        durable.snapshots += store.snapshot() is not None
+        durability = {
+            "snapshots_taken": durable.snapshots,
+            "wal_bytes_final": dir_bytes(durable.directory + "/wal"),
+            "snapshot_bytes_final": dir_bytes(durable.directory + "/snap"),
+        }
     archive_stats = None
     if arc_dir:
         archive_stats = {k: v for k, v in counters.items() if k.startswith("archive")}
+    now = cursor_now()
+    if resume:
+        write_cursor(durable.cursor_path, now)
     _emit(config="config4", passed=bool(ok and slo_ok), spans=sent,
           target_spans=total, wall_deadline_hit=deadline_hit,
-          window=None, resumed_from_spans=None, restore=None, supervisor=None,
+          window=now["windows"] if resume else None,
+          resumed_from_spans=resumed_spans if resume else None,
+          restore=dict(store.restore_stats) if resume else None,
+          supervisor=sup.stats() if sup is not None else None,
+          cursor=now if resume else None,
           fast_path=True,
           sustained_spans_per_sec=round((sent - warm) / elapsed),
           distinct_identity_gate=hll_gate,
@@ -955,12 +1119,784 @@ def _replay(store: TorchStorage, cfg: AggConfig, total: int, batch: int,
           under_load_p50_under_500ms=load_ok,
           archive_readable_in_fast_mode=trace_readable,
           recompiles_in_window=recompiles,
-          durability=None)
+          durability=durability)
     return bool(ok and slo_ok)
 
 
+WORKER_START_S = 120.0  # the longest a fan-out pool may take to start
+
+
+def _wait_workers(server: ZipkinServer) -> None:
+    """Wait until the server's fan-out tier reports every parse worker
+    ready (``wait_ready``): a pool still starting answers payloads with
+    backpressure, and that is set-up, not the window's traffic."""
+    if not server._mp_ingester.wait_ready(WORKER_START_S):
+        raise RuntimeError("a parse worker did not start")
+
+
+def config5(device=None, cfg: Optional[AggConfig] = None) -> bool:
+    """The parse fan-out tier's wire-to-ack gate: proto3 spans/s through
+    the server's HTTP boundary with device sampling armed (~50% hash drop:
+    every service's rate at ``RATE_ONE // 2``, the link table at 1000) and
+    the WAL attached.
+
+    Leg 0 is the same-run in-process budget: the same store and payloads
+    through ``ingest_json_fast`` with no server. Then, on a host of at
+    least 2 cores, one wire leg through ``ZipkinServer(tpu_fast_ingest,
+    tpu_mp_workers=min(4, cores))`` must reach EVAL_FANOUT_TARGET (the
+    reference's 1M spans/s); on one core the gate is graceful degradation
+    instead: the serial leg (0 workers) must hold EVAL_FANOUT_DEGRADE_FRAC
+    (0.8) of leg 0, and a 2-worker leg is reported beside it. Each leg's
+    store captures its graphs and warms before its window, and each window
+    reports its recompiles; every answer must be a 202 or a 429 retried
+    after 5 ms (:func:`zipkin_tpu_torch.evals.wire.drive`, two requests in
+    flight).
+
+    Departures: the reference's aiohttp client and fixed port
+    (EVAL_FANOUT_PORT) are a thread client on an ephemeral port; a wire
+    leg's window opens once the tier reports its parse workers ready
+    (:func:`_wait_workers`), where the reference's opens on a pool that may
+    still be starting. ``cfg`` (default
+    ``AggConfig(sampling=True)``, full width) is for the CPU tests; the
+    sampling tier is always on.
+    """
+    if not native.available():
+        _emit(config="config5", passed=False, error="native codec unavailable")
+        return False
+    cores = os.cpu_count() or 1
+    total = int(os.environ.get("EVAL_FANOUT_SPANS", 1_048_576))
+    target = float(os.environ.get("EVAL_FANOUT_TARGET", 1_000_000))
+    degrade_frac = float(os.environ.get("EVAL_FANOUT_DEGRADE_FRAC", 0.8))
+    cfg = dataclasses.replace(cfg or AggConfig(), sampling=True)
+    batch = BATCH
+    payloads = fanout_payloads(batch)
+    armed = {"sampling": True, "wal": True}
+
+    def make_store(td: str) -> DurableStorage:
+        store = DurableStorage(config=cfg, batch_size=batch, wal_dir=td + "/wal", **_on(device))
+        rate = np.full_like(store.sampler.rate, RATE_ONE // 2)
+        link = np.full_like(store.sampler.link, 1000)
+        store.sampler.set_tables(rate, store.sampler.tail, link)
+        store.install_sampler()
+        return store
+
+    def check_armed(store: DurableStorage) -> None:
+        sampler = store.agg.sampler
+        armed["sampling"] &= bool(sampler is not None and (sampler.rate == RATE_ONE // 2).all()
+                                  and (sampler.link == 1000).all())
+        armed["wal"] &= store.wal is not None
+
+    recompiles = {}
+    # leg 0: the same-run in-process proto3 budget (parse, pack, route, feed
+    # with sampling and the WAL; no server boundary), the one-core gate's
+    # denominator
+    with tempfile.TemporaryDirectory() as td:
+        store = make_store(td)
+        try:
+            store.warm(payloads[0])
+            store.capture_steps()
+            check_armed(store)
+            rec0 = _recompiles()
+            posted = i = 0
+            t0 = time.perf_counter()
+            while posted < total:
+                accepted, dropped = store.ingest_json_fast(payloads[i % len(payloads)])
+                posted += accepted + dropped
+                i += 1
+            store.agg.block_until_ready()
+            inproc_rate = posted / (time.perf_counter() - t0)
+            recompiles["inprocess"] = _recompiles() - rec0
+        finally:
+            store.close()
+
+    stats = {"backpressure": 0, "responses": {}}
+
+    def wire_leg(name: str, workers: int) -> float:
+        with tempfile.TemporaryDirectory() as td:
+            storage = make_store(td)
+            # the server captures the store's graphs when it is built
+            server = ZipkinServer(
+                ServerConfig(host="127.0.0.1", port=0, storage_type="tpu",
+                             tpu_fast_ingest=True, tpu_mp_workers=workers),
+                storage=storage, device=device).start()
+            try:
+                storage.warm(payloads[0])
+                check_armed(storage)
+                if server._mp_ingester is not None:
+                    _wait_workers(server)
+                rec0 = _recompiles()
+                elapsed = wire.drive(server.port, "proto3", payloads, batch, total, stats)
+                if server._mp_ingester is not None:
+                    t1 = time.perf_counter()
+                    server._mp_ingester.drain()
+                    elapsed += time.perf_counter() - t1
+                storage.agg.block_until_ready()
+                recompiles[name] = _recompiles() - rec0
+            finally:
+                server.stop()
+            # posted spans over wall time: sampling drops on the ack path are
+            # work done, not throughput lost
+            return total / elapsed
+
+    legs = {}
+    if cores >= 2:
+        fan_workers = min(4, cores)
+        name = f"fanout_w{fan_workers}"
+        legs[name] = round(wire_leg(name, fan_workers), 1)
+        rate_ok = legs[name] >= target
+        gate = "multi_core_absolute"
+    else:
+        legs["serial_w0"] = round(wire_leg("serial_w0", 0), 1)
+        # the degradation record: the fan-out under core starvation
+        legs["fanout_w2"] = round(wire_leg("fanout_w2", 2), 1)
+        rate_ok = legs["serial_w0"] >= degrade_frac * inproc_rate
+        gate = "one_core_degradation"
+    responses_ok = set(stats["responses"]) <= {"202", "429"} and \
+        stats["responses"].get("429", 0) == stats["backpressure"]
+    gates = {"rate": rate_ok, "responses": responses_ok, "sampling_armed": armed["sampling"],
+             "wal_attached": armed["wal"],
+             "no_recompiles": all(v == 0 for v in recompiles.values())}
+    ok = all(gates.values())
+    _emit(config="config5", passed=bool(ok), cores=cores, gate=gate,
+          wire_to_ack_spans_per_sec=legs,
+          inprocess_proto3_spans_per_sec=round(inproc_rate, 1),
+          target_spans_per_sec=target, degrade_frac=degrade_frac,
+          spans_posted=total,
+          sampling="~50% hash drop" if armed["sampling"] else "off",
+          wal="attached" if armed["wal"] else "detached",
+          responses=stats["responses"], backpressure=stats["backpressure"],
+          recompiles_in_window=recompiles, gates=gates)
+    return bool(ok)
+
+
+SLO_CFG = dict(max_services=64, max_keys=256, hll_precision=9, ring_capacity=1 << 13)
+
+
+def _statusz(base: str) -> dict:
+    ans = wire.request("GET", base + "/api/v2/tpu/statusz")
+    if ans.status != 200:
+        raise RuntimeError(f"statusz answered {ans.status}")
+    return json.loads(ans.body)
+
+
+def config6(device=None) -> bool:
+    """SLO watchdog trip and clear: a real burn on the ``query_fresh``
+    latency SLO through the production record site; the watchdog must trip
+    within one long window, show the alert on ``/prometheus``, and clear
+    after recovery.
+
+    The burn is physical: forced fresh dependency reads (the read cache
+    dropped each time) run the real read path, and the over-threshold
+    latencies go through the same ``obs.record("query_fresh", ...)`` the
+    read path uses, so recorder -> windowed rings -> burn rates -> alert
+    gauges is the production chain. The windows are shrunk through the
+    server's settings (a 0.25 s tick, short 2 s and long 4 s windows).
+
+    Who ticks: the reference drives an unstarted aiohttp app whose reads
+    tick the windows when due; the port's started server ticks them on its
+    own windows ticker, and a route ticks only when that ticker is not
+    running, so the ticker is the one owner and no tick comes twice.
+
+    Departure: phase A starts two seal periods after the POST, so the
+    ticker's time-tier seal, not phase A's first fresh read, flushes the
+    POST's pending digest points. That flush sorts the whole 131,072-point
+    buffer: ~28 ms on one CPU thread, past the watchdog's bucket edge
+    (32.8 ms) under load, while the reference counts on it being cheap.
+    """
+    short_s, long_s = 2.0, 4.0
+    storage = DurableStorage(config=AggConfig(digest_centroids=32, **SLO_CFG), **_on(device))
+    # warm the read path before the server builds its windowed plane: the
+    # first fresh read's set-up cost is recorded as query_fresh too, a real
+    # but uninteresting burn; the windows' baseline excludes what came before
+    storage.accept(TRACE).execute()
+    end_ts = max(s.timestamp for s in TRACE) // 1000 + 60_000
+    deps = f"/api/v2/dependencies?endTs={end_ts}&lookback=86400000"
+    for _ in range(3):
+        storage.invalidate_read_cache()
+        storage.get_dependencies(end_ts, 86_400_000).execute()
+    server = ZipkinServer(
+        ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", obs_windows_tick_s=0.25,
+                     obs_slo_short_s=short_s, obs_slo_long_s=long_s),
+        storage=storage, device=device).start()
+    base = f"http://127.0.0.1:{server.port}"
+
+    def verdict():
+        slo = _statusz(base)["slo"]
+        return next(v for v in slo["specs"] if v["name"] == "query_fresh_p99"), slo
+
+    try:
+        wire.post(base + "/api/v2/spans", json_v2.encode_span_list(TRACE))
+        # two seal periods and a tick: a seal of the windows ticker flushes
+        # the POST's pending digest points, not phase A's first read
+        time.sleep(2 * server.seal_interval_s + 0.25)
+        # phase A, healthy: fast fresh reads, no alert
+        for _ in range(4):
+            storage.invalidate_read_cache()
+            wire.request("GET", base + deps)
+            time.sleep(0.3)
+        v, _ = verdict()
+        healthy = not v["alert"]
+
+        # phase B, burn: every fresh read's latency lands far over the
+        # 50 ms threshold (recorded through the production site)
+        burn_t0 = time.perf_counter()
+        tripped_after = None
+        while time.perf_counter() - burn_t0 < 3 * long_s:
+            storage.invalidate_read_cache()
+            wire.request("GET", base + deps)
+            for _ in range(4):
+                obs.record("query_fresh", 0.080)
+            v, _ = verdict()
+            if v["alert"]:
+                tripped_after = time.perf_counter() - burn_t0
+                break
+            time.sleep(0.3)
+        text = wire.request("GET", base + "/prometheus").body.decode()
+        alert_on_prom = 'zipkin_tpu_slo_alert{slo="query_fresh_p99"} 1' in text
+        burn_on_prom = any(
+            ln.startswith('zipkin_tpu_slo_burn_rate{slo="query_fresh_p99"')
+            and float(ln.rsplit(" ", 1)[1]) >= 2.0 for ln in text.splitlines())
+
+        # phase C, recovery: healthy traffic only; the burn ages out of the
+        # long window and the alert clears
+        rec_t0 = time.perf_counter()
+        cleared_after = None
+        slo = {"trips": 0, "clears": 0}
+        while time.perf_counter() - rec_t0 < 4 * long_s:
+            storage.invalidate_read_cache()
+            wire.request("GET", base + deps)
+            v, slo = verdict()
+            if not v["alert"]:
+                cleared_after = time.perf_counter() - rec_t0
+                break
+            time.sleep(0.3)
+        r = {
+            "healthy_baseline": healthy,
+            "tripped_after_s": tripped_after and round(tripped_after, 2),
+            "alert_on_prometheus": alert_on_prom,
+            "burn_rate_on_prometheus": burn_on_prom,
+            "cleared_after_s": cleared_after and round(cleared_after, 2),
+            "trips": slo["trips"], "clears": slo["clears"],
+        }
+    finally:
+        server.stop()
+    ok = bool(
+        r["healthy_baseline"]
+        # the trip lands within one long window of the burn becoming
+        # visible, with one tick and poll of slack
+        and r["tripped_after_s"] is not None
+        and r["tripped_after_s"] <= long_s + 1.0
+        and r["alert_on_prometheus"] and r["burn_rate_on_prometheus"]
+        and r["cleared_after_s"] is not None
+        and r["trips"] >= 1 and r["clears"] >= 1
+    )
+    _emit(config="config6", passed=ok, short_s=short_s, long_s=long_s, threshold_ms=50.0, **r)
+    return ok
+
+
+def config7(device=None) -> bool:
+    """Accuracy drift trip and clear: a deliberately undersized t-digest
+    (C=4) fed a bimodal duration stream it cannot summarize. The accuracy
+    plane's shadow measures the real digest-against-truth p99 gap, the
+    drift gauge (the excess over the shadow's own sampling noise) crosses
+    the 0.20 limit and ``digest_p99_relerr`` trips within one long window;
+    recovery (the store cleared, the shadow reset, a unimodal stream)
+    clears it.
+
+    The drift is physical: spans go through ``POST /api/v2/spans``, the
+    shadow taps the production ingest path, and the rollup pulls the
+    card's digest through the packed read. The healthy phase proves the
+    converse: the same C=4 digest on a narrow unimodal stream shows near-0
+    drift, so the alert keys on genuine mis-sizing.
+
+    Who ticks: the server's own windows ticker (0.25 s), which rolls up the
+    accuracy plane on every tick (``obs_shadow_rollup_s=0``); the routes
+    tick only when that ticker is not running (config6's docstring).
+    """
+    short_s, long_s = 2.0, 4.0
+    seq = [0]
+    rng = random.Random(23)
+
+    def make_spans(durs):
+        out = drift_spans(durs, seq[0], int(time.time() * 1e6))
+        seq[0] += len(durs)
+        return out
+
+    def unimodal(n):
+        return [rng.gauss(1000, 40) for _ in range(n)]
+
+    def bimodal(n):
+        return [100_000 if rng.random() < 0.10 else 1000 for _ in range(n)]
+
+    storage = DurableStorage(config=AggConfig(digest_centroids=4, **SLO_CFG), **_on(device))
+    # warm the packed read programs before the server builds its windowed
+    # plane: the first rollup's set-up must not count as phase A's time
+    storage.accept(make_spans(unimodal(64))).execute()
+    storage.agg.merged_digest()
+    storage.agg.cardinalities()
+    storage.agg.dependency_edges(0, (1 << 32) - 1)
+    server = ZipkinServer(
+        ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", obs_windows_tick_s=0.25,
+                     obs_slo_short_s=short_s, obs_slo_long_s=long_s,
+                     obs_shadow_rollup_s=0.0),  # roll up on every tick
+        storage=storage, device=device).start()
+    base = f"http://127.0.0.1:{server.port}"
+
+    def verdict():
+        body = _statusz(base)
+        return next(x for x in body["slo"]["specs"] if x["name"] == "digest_p99_relerr"), body
+
+    def post(spans) -> None:
+        status = wire.post(base + "/api/v2/spans", json_v2.encode_span_list(spans)).status
+        if status != 202:
+            raise RuntimeError(f"POST /api/v2/spans answered {status}")
+
+    try:
+        # phase A, healthy: the undersized digest still summarizes a narrow
+        # unimodal stream; drift stays under the limit
+        post(make_spans(unimodal(2000)))
+        time.sleep(4 * 0.25)
+        v, body = verdict()
+        healthy = not v["alert"]
+        healthy_drift = body["accuracy"]["gauges"]["accuracyDigestP99Drift"]
+
+        # phase B, drift: a bimodal stream the C=4 digest cannot hold
+        post(make_spans(bimodal(4000)))
+        burn_t0 = time.perf_counter()
+        tripped_after = None
+        drift_seen = 0.0
+        while time.perf_counter() - burn_t0 < 3 * long_s:
+            v, body = verdict()
+            drift_seen = max(drift_seen, body["accuracy"]["gauges"]["accuracyDigestP99Drift"])
+            if v["alert"]:
+                tripped_after = time.perf_counter() - burn_t0
+                break
+            time.sleep(0.2)
+        prom = wire.request("GET", base + "/prometheus").body.decode()
+        alert_on_prom = 'zipkin_tpu_slo_alert{slo="digest_p99_relerr"} 1' in prom
+
+        # phase C, recovery: drop the poisoned state on both sides of the
+        # comparison and return to well-behaved traffic
+        storage.clear()
+        server._obs_shadow.reset()
+        post(make_spans(unimodal(2000)))
+        rec_t0 = time.perf_counter()
+        cleared_after = None
+        while time.perf_counter() - rec_t0 < 4 * long_s:
+            v, body = verdict()
+            if not v["alert"]:
+                cleared_after = time.perf_counter() - rec_t0
+                break
+            time.sleep(0.2)
+        r = {
+            "healthy_baseline": healthy,
+            "healthy_drift": round(healthy_drift, 4),
+            "drift_seen": round(drift_seen, 4),
+            "tripped_after_s": tripped_after and round(tripped_after, 2),
+            "alert_on_prometheus": alert_on_prom,
+            "cleared_after_s": cleared_after and round(cleared_after, 2),
+            "trips": body["slo"]["trips"],
+            "clears": body["slo"]["clears"],
+        }
+    finally:
+        server.stop()
+    ok = bool(
+        r["healthy_baseline"]
+        and r["healthy_drift"] < 0.20
+        and r["drift_seen"] > 0.20
+        and r["tripped_after_s"] is not None
+        and r["tripped_after_s"] <= long_s + 1.0
+        and r["alert_on_prometheus"]
+        and r["cleared_after_s"] is not None
+        and r["trips"] >= 1 and r["clears"] >= 1
+    )
+    _emit(config="config7", passed=ok, short_s=short_s, long_s=long_s, drift_limit=0.20,
+          digest_centroids=4, **r)
+    return ok
+
+
+# configs 8 and 9's store: a small config, batches of 512
+FLOOD_CFG = dict(max_services=64, max_keys=256, hll_precision=8, digest_centroids=16,
+                 digest_buffer=1 << 14, ring_capacity=1 << 14, link_buckets=4, hist_slices=2)
+LONG_WINDOW_TICKS = 300  # one long SLO window at the production 1 Hz tick
+
+
+def _flood_store(tmp: str, device) -> DurableStorage:
+    """A store on ``tmp``'s checkpoint and WAL dirs: the live one, or a
+    cold boot from what the live one made durable."""
+    return DurableStorage(config=AggConfig(**FLOOD_CFG), batch_size=512,
+                          checkpoint_dir=os.path.join(tmp, "ckpt"),
+                          wal_dir=os.path.join(tmp, "wal"), **_on(device))
+
+
+def _revived_spans(tmp: str, device) -> int:
+    """The span count a cold boot from ``tmp``'s dirs replays to: the acked
+    set a crash at this instant would keep. The live store has no rate
+    controller (no sampling budget) and its tier is drained, so nothing
+    writes the dirs while the twin boots."""
+    revived = _flood_store(tmp, device)
+    try:
+        return int(revived.agg.host_counters["spans"])
+    finally:
+        revived.close()
+
+
+def config8(device=None) -> bool:
+    """Overload flood gate: a flood of at least 3x the tier's queue capacity
+    through the HTTP boundary while the device feed is slowed and the WAL
+    hits ENOSPC mid-flood. The gate:
+
+    - admitted traffic's wire-to-ack p99 within the ack SLO (250 ms),
+    - every shed guided: ``Retry-After``/``X-Retry-After-Ms`` on each 429,
+      and a real-channel gRPC Report shed at B3 lands as
+      ``RESOURCE_EXHAUSTED`` with ``retry-delay`` trailing metadata,
+    - the disk-full window degrades to the at-risk flag (not a crash) and
+      the next committed snapshot clears it,
+    - no acked span lost: a cold boot from the same WAL and checkpoint dirs
+      replays to exactly the acked span set,
+    - the brownout ladder back at B0 within one long window (300 ticks) of
+      the flood's end.
+
+    Who ticks: the server runs with its windows off and no seal thread
+    (``seal_interval_s=0``), and the eval steps the ladder by hand
+    (``evaluate``), as the reference does; the 300 ticks are counted.
+    Every fault is disarmed in a ``finally``. The reference's concurrent
+    aiohttp posts go out from one event loop (:func:`wire.flood`), on
+    warmed connections as config9's do (see its docstring), its
+    ``grpc.aio`` channel a blocking one.
+
+    Departure: the flood starts once the tier reports its parse worker
+    ready (:func:`_wait_workers`), where the reference's starts on a pool
+    that may still be starting; a spawned worker loads for longer than the
+    port's server takes to start, so without the wait the flood would be
+    shed for the spawn, not for the overload.
+    """
+    workers, depth = 1, 2
+    capacity = workers * depth
+    per = int(os.environ.get("EVAL_FLOOD_PER", 40))
+    n_flood = int(os.environ.get("EVAL_FLOOD_N", 18))
+    ack_slo_ms = float(os.environ.get("EVAL_FLOOD_ACK_SLO_MS", 250.0))
+    with tempfile.TemporaryDirectory(prefix="eval_config8_") as tmp:
+        storage = _flood_store(tmp, device)
+        server = ZipkinServer(
+            ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", tpu_fast_ingest=True,
+                         tpu_mp_workers=workers, tpu_mp_queue_depth=depth,
+                         obs_windows_enabled=False),
+            storage=storage, seal_interval_s=0, device=device).start()
+        base = f"http://127.0.0.1:{server.port}"
+        try:
+            _wait_workers(server)
+            # the flood window: the device feed slowed (the real reason
+            # queues back up) and ENOSPC on the first WAL append: the disk
+            # fills while the tier is overloaded
+            faults.arm_resource("feed.latency", nth=1, count=6, latency_ms=120)
+            faults.arm_resource("wal.append", nth=1, count=1)
+            results = wire.flood([
+                ("POST", base + "/api/v2/spans",
+                 json_v2.encode_span_list(flood_spans(i, per, 0xE800_0000)),
+                 {"Content-Type": "application/json"})
+                for i in range(n_flood)])
+            acked = [r for r in results if r.status == 202]
+            shed = [r for r in results if r.status == 429]
+            guided = [r for r in shed if int(r.headers.get("Retry-After", 0)) >= 1
+                      and int(r.headers.get("X-Retry-After-Ms", 0)) > 0]
+            ack_p99_ms = float(np.percentile([r.ms for r in acked], 99)) if acked else None
+            server._mp_ingester.drain()
+            faults.disarm()
+
+            counters = storage.ingest_counters()
+            degraded = (counters.get("walEnospc") == 1
+                        and counters.get("walMissedRecords") == 1
+                        and counters.get("durabilityAtRisk") == 1)
+            acked_spans = per * len(acked)
+            device_parity = int(storage.agg.host_counters["spans"]) == acked_spans
+            # recovery: a committed snapshot covers the lost WAL record (the
+            # state it captures holds that batch) and the flag clears
+            snap_ok = storage.snapshot() is not None
+            at_risk_cleared = storage.ingest_counters()["durabilityAtRisk"] == 0
+            durable_parity = _revived_spans(tmp, device) == acked_spans
+
+            # the gRPC twin of the 429: pin the ladder at B3 (the flood in
+            # signal form) and Report over a real channel; B3 keeps a 5%
+            # bulk lifeline, so probe a few times for a shed
+            ctl = server._overload
+            for _ in range(8):
+                ctl.evaluate({"critpathQueueSaturation": 0.9})
+            grpc_guided = False
+            with wire.GrpcCollector(server.collector) as gsrv:
+                for k in range(5):
+                    code, md = wire.report(gsrv.port, proto3.encode_span_list(
+                        flood_spans(0x9000 + k, 4, 0xE800_0000)))
+                    if code != "OK":
+                        grpc_guided = (code == "RESOURCE_EXHAUSTED"
+                                       and md.get("retry-delay", "").endswith("s")
+                                       and int(md.get("retry-delay-ms", 0)) > 0)
+                        break
+
+            # the flood's end: calm ticks only; B0 must come back inside one
+            # long window (3 levels x dwell 5 + the EMA's decay is ~20 ticks)
+            ticks_to_b0 = None
+            for t in range(1, LONG_WINDOW_TICKS + 1):
+                if ctl.evaluate({"critpathQueueSaturation": 0.0}) == 0:
+                    ticks_to_b0 = t
+                    break
+            r = {
+                "offered": n_flood,
+                "queue_capacity": capacity,
+                "offered_over_capacity": round(n_flood / capacity, 1),
+                "acked": len(acked), "shed": len(shed),
+                "sheds_with_guidance": len(guided),
+                "acked_ack_p99_ms": ack_p99_ms and round(ack_p99_ms, 2),
+                "enospc_degraded_not_crashed": degraded,
+                "device_parity": device_parity,
+                "snapshot_cleared_at_risk": snap_ok and at_risk_cleared,
+                "durable_parity": durable_parity,
+                "grpc_shed_guided": grpc_guided,
+                "calm_ticks_to_b0": ticks_to_b0,
+                "ladder_transitions": len(ctl.status()["history"]),
+            }
+        finally:
+            faults.disarm()
+            server.stop()
+    ok = bool(
+        r["offered_over_capacity"] >= 3.0
+        and r["acked"] > 0 and r["shed"] > 0
+        and r["acked"] + r["shed"] == r["offered"]
+        and r["sheds_with_guidance"] == r["shed"]
+        and r["acked_ack_p99_ms"] is not None
+        and r["acked_ack_p99_ms"] <= ack_slo_ms
+        and r["enospc_degraded_not_crashed"]
+        and r["device_parity"] and r["durable_parity"]
+        and r["snapshot_cleared_at_risk"]
+        and r["grpc_shed_guided"]
+        and r["calm_ticks_to_b0"] is not None
+        and r["calm_ticks_to_b0"] <= LONG_WINDOW_TICKS
+    )
+    _emit(config="config8", passed=ok, ack_slo_ms=ack_slo_ms,
+          long_window_ticks=LONG_WINDOW_TICKS, **r)
+    return ok
+
+
+def config9(device=None) -> bool:
+    """Tenant flood containment gate: three tenants share one server;
+    tenant B floods 4x its per-tenant ingest budget through the HTTP
+    boundary (``X-Tenant-Id``) while A and C stay inside theirs. The gate:
+
+    - every 429 is B's, carries ``X-Shed-Scope: tenant``/``X-Shed-Tenant:
+      B`` and ``Retry-After`` guidance from B's own bucket deficit; A and C
+      are never shed,
+    - A's and C's wire-to-ack p99 and the mid-flood query p99 within SLO
+      (250 ms each), and the global brownout ladder never leaves B0 (0
+      transitions): containment, not degradation,
+    - per-tenant posture: B at level >= 2, A and C at 0, on ``/statusz``
+      and as ``{tenant=}`` Prometheus families,
+    - per-tenant acked attribution through the fan-out tier exact
+      (``mpTenantTable`` spans == per x that tenant's 202s),
+    - a gRPC Report as B over a real channel sheds ``RESOURCE_EXHAUSTED``
+      with ``shed-scope: tenant`` trailing metadata,
+    - no acked span lost for any tenant across a mid-flood crash-resume (a
+      cold boot between the flood's two waves replays exactly the acked
+      set) and again at the flood's end,
+    - calm ticks bring B back to level 0 within one long window (300).
+
+    Who ticks: as config8 (windows off, no seal thread, the ladder stepped
+    by hand, the ticks counted; the calm ticks paced 20 ms apart so the
+    bucket refills in real time). The queue capacity is far above the
+    offered load, so the tenant budget is the only control that sheds.
+
+    Departures: the flood starts once the tier reports its parse workers
+    ready, as in config8. The second wave starts one burst period (1 s)
+    after the first began. A and C send 3 payloads a wave against a bucket of 4 that
+    refills at 4 payloads/s, so they stay in budget only when at least
+    0.5 s separates the waves; the reference's cold boot between them
+    takes that long on its TPU (a new store's first compiles), the port's
+    takes less, and without the wait A and C would be shed for the
+    crash-resume's speed, not for their own traffic. A wave's 38 requests
+    go out at once from one thread (:func:`wire.flood`), their bodies
+    encoded before it starts, each on a connection that has answered a
+    ``GET /health`` first, as a pooled client's connections have; the
+    reference's first wave opens its connections inside the wave. The
+    port's threaded server starts a thread for each new connection, one
+    accept at a time, and on a loaded CPU 38 new connections alone took
+    120-190 ms, the whole of the measured ack time and no part of the
+    containment this gate measures; the reference's aiohttp server
+    accepts on its one event loop without a thread.
+    """
+    workers, depth = 2, 16
+    per = int(os.environ.get("EVAL_TENANT_SPANS_PER", 40))
+    n_flood = int(os.environ.get("EVAL_TENANT_FLOOD_N", 16))
+    n_calm_posts = 3
+    ack_slo_ms = float(os.environ.get("EVAL_TENANT_ACK_SLO_MS", 250.0))
+    query_slo_ms = float(os.environ.get("EVAL_TENANT_QUERY_SLO_MS", 250.0))
+    # B's budget sized off the real wire payload: a burst of 4 payloads, so
+    # a 16-payload burst is a 4x flood while A's and C's 3 stay inside
+    body_len = len(json_v2.encode_span_list(flood_spans(0, per, 0xE900_0000)))
+    budget_bytes_per_s = 4.0 * body_len
+    burst_s = 1.0
+    with tempfile.TemporaryDirectory(prefix="eval_config9_") as tmp:
+        storage = _flood_store(tmp, device)
+        server = ZipkinServer(
+            ServerConfig(host="127.0.0.1", port=0, storage_type="tpu", tpu_fast_ingest=True,
+                         tpu_mp_workers=workers, tpu_mp_queue_depth=depth,
+                         obs_windows_enabled=False,
+                         tenant_ingest_bytes_per_s=budget_bytes_per_s,
+                         tenant_ingest_burst_s=burst_s, tenant_flood_ratio=2.0,
+                         tenant_dwell_ticks=3),
+            storage=storage, seal_interval_s=0, device=device).start()
+        base = f"http://127.0.0.1:{server.port}"
+        ctl = server._overload
+        seq = iter(range(1, 1 << 20))
+        try:
+            _wait_workers(server)
+
+            def wave():
+                # the bodies are encoded before the wave starts (see the docstring)
+                tenants = ["B"] * n_flood + ["A"] * n_calm_posts + ["C"] * n_calm_posts
+                posts = [("POST", base + "/api/v2/spans",
+                          json_v2.encode_span_list(flood_spans(next(seq), per, 0xE900_0000)),
+                          {"Content-Type": "application/json", TENANT_HEADER: t}) for t in tenants]
+                out = wire.flood(posts + [("GET", base + "/api/v2/services", None, None)] * 8)
+                return ([(t, a.status, a.headers, a.ms) for t, a in zip(tenants, out)],
+                        [(a.status, a.ms) for a in out[len(posts):]])
+
+            wave_t0 = time.monotonic()
+            results, queries = wave()
+            server._mp_ingester.drain()
+            acked_so_far = per * sum(1 for r in results if r[1] == 202)
+            # the mid-flood crash-resume: a cold boot between the waves
+            durable_parity_mid = _revived_spans(tmp, device) == acked_so_far
+            # the calm tenants' buckets refill over one burst period before
+            # the flood resumes (see the docstring)
+            time.sleep(max(0.0, burst_s - (time.monotonic() - wave_t0)))
+            res2, q2 = wave()  # the flood resumes after the "crash"
+            results += res2
+            queries += q2
+            server._mp_ingester.drain()
+
+            by = {t: [r for r in results if r[0] == t] for t in ("A", "B", "C")}
+            sheds = [r for r in results if r[1] == 429]
+            guided = [r for r in sheds
+                      if r[2].get("X-Shed-Scope") == "tenant" and r[2].get("X-Shed-Tenant") == "B"
+                      and int(r[2].get("Retry-After", 0)) >= 1
+                      and int(r[2].get("X-Retry-After-Ms", 0)) > 0]
+            ac_ack_ms = [r[3] for t in ("A", "C") for r in by[t] if r[1] == 202]
+            ack_p99_ms = float(np.percentile(ac_ack_ms, 99)) if ac_ack_ms else None
+            q_ms = [ms for st, ms in queries if st == 200]
+            query_p99_ms = float(np.percentile(q_ms, 99)) if len(q_ms) == len(queries) else None
+            acked_n = {t: sum(1 for r in by[t] if r[1] == 202) for t in by}
+            mp_table = server._mp_ingester.stats()["mpTenantTable"]
+            attribution_exact = all(mp_table.get(t, {}).get("spans", 0) == per * acked_n[t]
+                                    for t in ("A", "B", "C"))
+
+            # the aggregate posture at the flood's peak: the ladder gets the
+            # real fan-out queue saturation; containment keeps it at B0
+            stats = server._mp_ingester.stats()
+            qsat = max(row["queueDepth"] for row in stats["mpWorkerTable"]) / depth
+            ctl.evaluate({"critpathQueueSaturation": qsat})
+            c = ctl.counters()
+            global_b0 = c["overloadLevel"] == 0 and c["overloadTransitions"] == 0
+            levels = {t: c.get(f"tenantLevel_{t}") for t in ("A", "B", "C")}
+            statusz_b_level = _statusz(base)["overload"]["tenants"]["tenants"]["B"]["level"]
+            prom = wire.request("GET", base + "/prometheus").body.decode()
+            prom_lines = [ln for ln in prom.splitlines()
+                          if ln.startswith("zipkin_tpu_tenant_") and "{" in ln]
+            prom_ok = (
+                any('zipkin_tpu_tenant_level{tenant="B"}' in ln for ln in prom_lines)
+                and any('tenant="A"' in ln for ln in prom_lines)
+                and all(len(ln.rsplit(" ", 1)) == 2 and float(ln.rsplit(" ", 1)[1]) >= 0.0
+                        for ln in prom_lines))
+
+            # the gRPC twin: Report as B over a real channel while B's bucket
+            # is dry, with payloads big enough that the refill cannot outrun
+            # the probes; an admitted probe is budget headroom working
+            grpc_guided = False
+            grpc_admitted_spans = 0
+            with wire.GrpcCollector(server.collector) as gsrv:
+                for k in range(6):
+                    n = per * 2
+                    code, md = wire.report(
+                        gsrv.port,
+                        proto3.encode_span_list(flood_spans(0x9100 + k, n, 0xE900_0000)),
+                        metadata=(("x-tenant-id", "B"),))
+                    if code == "OK":
+                        grpc_admitted_spans += n
+                        continue
+                    grpc_guided = (code == "RESOURCE_EXHAUSTED"
+                                   and md.get("shed-scope") == "tenant"
+                                   and md.get("shed-tenant") == "B"
+                                   and int(md.get("retry-delay-ms", 0)) > 0)
+                    break
+            server._mp_ingester.drain()
+            acked_spans = per * sum(acked_n.values()) + grpc_admitted_spans
+            device_parity = int(storage.agg.host_counters["spans"]) == acked_spans
+            durable_parity = _revived_spans(tmp, device) == acked_spans
+
+            # calm: pressure decays tick by tick and the bucket refills in
+            # real time; the ticks are paced so both can happen
+            ticks_to_calm = None
+            for t in range(1, LONG_WINDOW_TICKS + 1):
+                ctl.evaluate({"critpathQueueSaturation": 0.0})
+                c = ctl.counters()
+                if c["overloadLevel"] == 0 and c.get("tenantLevel_B", 0) == 0:
+                    ticks_to_calm = t
+                    break
+                time.sleep(0.02)
+            r = {
+                "budget_payloads_per_burst": 4,
+                "b_offered_over_budget": round(n_flood / 4.0, 1),
+                "acked": {t: acked_n[t] for t in ("A", "B", "C")},
+                "shed": len(sheds),
+                "sheds_tenant_scoped_to_b": len(guided),
+                "a_c_sheds": sum(1 for t in ("A", "C") for r in by[t] if r[1] == 429),
+                "ac_ack_p99_ms": ack_p99_ms and round(ack_p99_ms, 2),
+                "query_p99_ms": query_p99_ms and round(query_p99_ms, 2),
+                "attribution_exact": attribution_exact,
+                "global_stays_b0": global_b0,
+                "tenant_levels": levels,
+                "statusz_b_level": statusz_b_level,
+                "prom_tenant_families_ok": prom_ok,
+                "grpc_shed_guided": grpc_guided,
+                "device_parity": device_parity,
+                "durable_parity_mid_flood": durable_parity_mid,
+                "durable_parity": durable_parity,
+                "calm_ticks_to_level0": ticks_to_calm,
+            }
+        finally:
+            server.stop()
+    ok = bool(
+        r["b_offered_over_budget"] >= 3.0
+        and r["acked"]["A"] == 2 * n_calm_posts
+        and r["acked"]["C"] == 2 * n_calm_posts
+        and r["a_c_sheds"] == 0
+        and r["acked"]["B"] >= 1 and r["shed"] >= 1
+        and r["acked"]["B"] + r["shed"] == 2 * n_flood
+        and r["sheds_tenant_scoped_to_b"] == r["shed"]
+        and r["ac_ack_p99_ms"] is not None
+        and r["ac_ack_p99_ms"] <= ack_slo_ms
+        and r["query_p99_ms"] is not None
+        and r["query_p99_ms"] <= query_slo_ms
+        and r["attribution_exact"]
+        and r["global_stays_b0"]
+        and r["tenant_levels"]["B"] >= 2
+        and r["tenant_levels"]["A"] == 0
+        and r["tenant_levels"]["C"] == 0
+        and r["statusz_b_level"] >= 2
+        and r["prom_tenant_families_ok"]
+        and r["grpc_shed_guided"]
+        and r["device_parity"]
+        and r["durable_parity_mid_flood"] and r["durable_parity"]
+        and r["calm_ticks_to_level0"] is not None
+        and r["calm_ticks_to_level0"] <= LONG_WINDOW_TICKS
+    )
+    _emit(config="config9", passed=ok, ack_slo_ms=ack_slo_ms, query_slo_ms=query_slo_ms,
+          long_window_ticks=LONG_WINDOW_TICKS, **r)
+    return ok
+
+
 ALL = {"config0": config0, "config1": config1, "config2": config2,
-       "config3": config3, "config4": config4}
+       "config3": config3, "config4": config4, "config5": config5,
+       "config6": config6, "config7": config7, "config8": config8,
+       "config9": config9}
 
 
 def launch_counts() -> dict:

@@ -65,7 +65,7 @@ from zipkin_tpu_torch.ops import histogram, hll, tdigest
 from zipkin_tpu_torch.parallel.mesh import make_mesh
 from zipkin_tpu_torch.tpu import ingest as ing
 from zipkin_tpu_torch.tpu.columnar import SpanColumns, concat_remap, remap_fused, route_fused
-from zipkin_tpu_torch.tpu.graphs import StepGraphs
+from zipkin_tpu_torch.tpu.graphs import CAPTURE_LOCK, StepGraphs
 from zipkin_tpu_torch.tpu.state import AggConfig, AggState, init_state
 
 
@@ -770,4 +770,5 @@ class TorchAggregator:
     def block_until_ready(self) -> None:
         for d in dict.fromkeys(self.mesh):
             if d.type == "cuda":
-                torch.cuda.synchronize(d)
+                with CAPTURE_LOCK:  # never inside another thread's capture (tpu/graphs.py)
+                    torch.cuda.synchronize(d)

@@ -814,18 +814,20 @@ class ZipkinServer:
             self._threads.append(threading.Thread(
                 target=self._snapshot_loop, args=(core, self.config.tpu_snapshot_interval_s),
                 name="zipkin-snapshot", daemon=True))
-        for t in self._threads:
-            t.start()
         if grpc_server is not None or self.config.scribe_enabled:
+            # every listener is bound before the HTTP server answers, so a
+            # /health that says UP means the scribe and gRPC ports take
+            # connections too
             try:
                 self._start_transports(grpc_server)
             except BaseException:
                 self._stopping.set()
                 self._stop_transports()
-                self._httpd.shutdown()
                 self._httpd.server_close()
                 self._httpd = None
                 raise
+        for t in self._threads:
+            t.start()
         if self._obs_windows is not None:
             self._obs_windows.start_ticker()
         logger.info("zipkin-tpu-torch listening on %s:%d", self.config.host, self.port)

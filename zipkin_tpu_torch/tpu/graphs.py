@@ -34,7 +34,8 @@ the callers already pad to (``route_fused``'s pad multiple, the
   ``capture_error_mode="thread_local"`` (other threads may use the card
   meanwhile) and without the ``torch.cuda.graph`` context's device sync,
   garbage collection and cache release: it runs under the aggregator's
-  lock.
+  lock. A device-wide sync would break it, so captures and
+  ``TorchAggregator.block_until_ready`` take turns (``CAPTURE_LOCK``).
 - Every step runs on the device's current stream, warm-up and replay
   alike: the kernels' scratch and barrier words are one set per device,
   so their launches must not overlap, and one stream orders them.
@@ -90,6 +91,12 @@ def _end_failed_capture(graph) -> None:
     except RuntimeError:
         pass
 
+
+# held from a capture's begin to its end, and by a device-wide sync
+# (TorchAggregator.block_until_ready): a device sync while any stream of the
+# process captures fails, breaks that capture and leaves its pool marked as
+# recording, so every later capture into it fails too
+CAPTURE_LOCK = threading.Lock()
 
 # (device, variant, lanes, state shapes) already warmed in this process: the
 # warm-up's first-use work is the process's, not one aggregator's
@@ -175,7 +182,7 @@ class StepGraphs:
             pool = self._pools.get(dev)
             if pool is None:
                 pool = self._pools[dev] = torch.cuda.graph_pool_handle()
-            with kernels.recording_launches() as tally, torch.cuda.stream(side):
+            with CAPTURE_LOCK, kernels.recording_launches() as tally, torch.cuda.stream(side):
                 graph.capture_begin(pool=pool, capture_error_mode="thread_local")
                 try:
                     program(state, buf)

@@ -124,10 +124,11 @@ class IngestBackpressure(RuntimeError):
         self.retry_after_s = retry_after_s
 
 
-def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -> None:
+def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict, ready) -> None:
     """Parse worker entry point (a spawned process). It and every module it
     imports are numpy, the standard library and the native parser's shared
-    library; the build the parent made is loaded, never rebuilt."""
+    library; the build the parent made is loaded, never rebuilt. ``ready``
+    (an event) is set once the parser is loaded, before the first get."""
     from zipkin_tpu_torch import native
     from zipkin_tpu_torch.obs.critpath import (
         SEG_PACK,
@@ -251,6 +252,7 @@ def _worker_main(widx: int, work_q, result_q, ring_params: dict, params: dict) -
                               parse_s, pack_s, route_s))
             parse_s = 0.0  # the parse is billed once a payload
 
+    ready.set()
     try:
         while True:
             item = work_q.get()
@@ -373,9 +375,11 @@ class MultiProcessIngester:
                 self._cp_ledger, queue_capacity=workers * self.queue_depth,
                 recorder=obs.RECORDER, reclaim_age_s=critpath_reclaim_s)
             params["critpath"] = self._cp_ledger.params()
+        self._ready = [ctx.Event() for _ in range(workers)]
         self._procs = [
             ctx.Process(target=_worker_main,
-                        args=(w, self._work_qs[w], self._result_q, self._ring.params(), params),
+                        args=(w, self._work_qs[w], self._result_q, self._ring.params(), params,
+                              self._ready[w]),
                         daemon=True)
             for w in range(workers)
         ]
@@ -562,6 +566,19 @@ class MultiProcessIngester:
                     f"full ({len(live)} workers x queue depth {self.queue_depth}, "
                     f"{self._ring.stripe_slots} ring slots each); retry after backoff")
             time.sleep(0.002)
+
+    def wait_ready(self, timeout: float) -> bool:
+        """Block until every parse worker has loaded the native parser, at
+        most ``timeout`` seconds in all; False if one did not (it died or is
+        still starting). Until then the pool answers payloads with
+        backpressure: a worker that has not started takes no item off its
+        queue."""
+        deadline = time.monotonic() + timeout
+        for w, flag in enumerate(self._ready):
+            while not flag.wait(min(0.05, max(0.0, deadline - time.monotonic()))):
+                if time.monotonic() >= deadline or not self._procs[w].is_alive():
+                    return False
+        return True
 
     def drain(self, timeout: Optional[float] = None) -> None:
         """Block until every submitted payload has reached the card (the
