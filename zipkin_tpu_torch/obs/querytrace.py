@@ -202,6 +202,10 @@ class InstrumentedRLock:
         self._holders: Dict[str, List[int]] = {}  # label -> [count, holdSumUs]
         self._hold_t0 = 0
         self._holder_label = "unattributed"
+        # the newest measured outermost wait, (start, end) on
+        # perf_counter_ns, for its holder to read (the step timeline's
+        # lock_wait); None after an unmeasured acquire
+        self.wait_stamp = None
 
     # -- configuration --------------------------------------------------
 
@@ -243,6 +247,7 @@ class InstrumentedRLock:
                 self._tl.depth = 1
                 self.acquisitions += 1
                 self._hold_t0 = 0  # unmeasured acquire: skip hold math
+                self.wait_stamp = None
             return got
         t0 = time.perf_counter_ns()
         if self._inner.acquire(blocking=False):
@@ -267,6 +272,7 @@ class InstrumentedRLock:
             self.wait_max_us = wait_us
         self._hold_t0 = time.perf_counter_ns()
         self._holder_label = current_label()
+        self.wait_stamp = (t0, t0 + wait_ns)
         if wait_ns:
             stamp_active(QSEG_LOCK_WAIT, t0, t0 + wait_ns)
         rec = self._recorder if self._recorder is not None else _obs.RECORDER

@@ -42,10 +42,18 @@ observatory wrapper under the reference's ``spmd_*`` name
 (:mod:`zipkin_tpu_torch.obs.device`): the step variants, the flush and the
 rollup, and each read's program, which ends in the packed buffer that
 ``_pull`` carries to the host. One wrapper covers every shard (one call a
-step or a read, as in the reference), and its event pair is recorded on
-``mesh[0]``'s stream. ``device_dispatch`` here is the host wall of the
+step or a read, as in the reference), and a read's event pair is recorded
+on ``mesh[0]``'s stream. ``device_dispatch`` here is the host wall of the
 whole step under the lock: the due flush and rollup, every shard's step
 and their asynchronous launches.
+
+Every ``ingest`` and ``ingest_fused`` call is one record of the
+observatory's step timeline: its root, ``route``, the lock's
+``lock_wait``, and the first shard's ``upload`` and ``replay`` with the
+device events that time the step's copy and graph on ``mesh[0]`` (the
+other shards' host work counts in the root's self time). The syncs the
+aggregator makes anyway (``block_until_ready``, a read's pull) anchor the
+events' clock.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ import torch
 from zipkin_tpu_torch import convert, obs, readpack, u32
 from zipkin_tpu_torch.device import resolve_device
 from zipkin_tpu_torch.obs import querytrace
-from zipkin_tpu_torch.obs.device import OBSERVATORY
+from zipkin_tpu_torch.obs.device import OBSERVATORY, REPLAY, ROUTE, UPLOAD
 from zipkin_tpu_torch.ops import histogram, hll, tdigest
 from zipkin_tpu_torch.parallel.mesh import make_mesh
 from zipkin_tpu_torch.tpu import ingest as ing
@@ -242,12 +250,20 @@ class TorchAggregator:
             variant = (need_flush, need_rollup)
             program = shard_programs[variant]
 
-            def run(states, wires, graphs):  # zt-in-place: states — each shard's state is stepped in place
+            def run(states, wires, graphs, rec=None):  # zt-in-place: states — each shard's state is stepped in place
                 for shard, (state, wire) in enumerate(zip(states, wires)):
+                    r = rec if shard == 0 else None
                     if state.hll.device.type == "cuda":
-                        graphs.step(variant, shard, state, wire, program)
-                    else:
+                        graphs.step(variant, shard, state, wire, program, r)
+                    elif r is None:
                         program(state, u32.upload_bits(wire, state.hll.device))
+                    else:
+                        t0 = time.perf_counter_ns()
+                        bits = u32.upload_bits(wire, state.hll.device)
+                        t1 = time.perf_counter_ns()
+                        program(state, bits)
+                        r.span(UPLOAD, t0, t1)
+                        r.span(REPLAY, t1, time.perf_counter_ns())
                 return states
             return run
 
@@ -343,11 +359,12 @@ class TorchAggregator:
         }
         self._p = {name: OBSERVATORY.wrap(name, fn, device=self.device)
                    for name, fn in programs.items()}
-        # the step's variants by (flush due, rollup due), as the reference's
+        # the step's variants by (flush due, rollup due), as the reference's;
+        # the step timeline's events time them, not a wrapper's pair
         # zt-in-place: states — every variant steps the states in place
         self._step = {
             (f, r): OBSERVATORY.wrap("spmd_step" + ("_flush" if f else "") + ("_rollup" if r else ""),
-                                     step(f, r), device=self.device)
+                                     step(f, r), device=self.device, events=False)
             for f in (False, True) for r in (False, True)
         }
 
@@ -356,17 +373,24 @@ class TorchAggregator:
     def ingest(self, cols: SpanColumns) -> None:
         """Route one host batch across the shards by trace hash and fold it
         in (one shard: the wire image is the batch's packing)."""
+        rec = OBSERVATORY.begin_step("ingest")
         live_ts = cols.ts_min[cols.valid]
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         routed = route_fused(cols, self.n_shards)
-        obs.record("route", time.perf_counter() - t0)
+        t1 = time.perf_counter_ns()
+        obs.record("route", (t1 - t0) / 1e9)
+        if rec is not None:
+            rec.span(ROUTE, t0, t1)
         self.ingest_fused(
             routed,
             n_spans=int(cols.valid.sum()),
             n_dur=int((cols.valid & cols.has_dur).sum()),
             n_err=int((cols.valid & cols.err).sum()),
             ts_range=(int(live_ts.min()), int(live_ts.max())) if live_ts.size else (0, 0),
+            rec=rec,
         )
+        if rec is not None:
+            rec.end()
 
     @property
     def lane_cap(self) -> int:
@@ -374,12 +398,17 @@ class TorchAggregator:
         return min(self.config.digest_buffer, self.config.rollup_segment)
 
     def ingest_fused(self, fused: np.ndarray, n_spans: int, n_dur: int, n_err: int,
-                     ts_range=None) -> None:  # zt-dispatch-critical: the per-chunk device entry point — one host→device copy per shard + one step program under the state lock
+                     ts_range=None, rec=None) -> None:  # zt-dispatch-critical: the per-chunk device entry point — one host→device copy per shard + one step program under the state lock
         """Fold one routed wire image ``[S, 11, per]`` (u32) into the
         states, shard ``s``'s slice into ``states[s]``; the caller supplies
         the live/duration/error counts. Every shard steps, one that got no
         live lane included (its batch counter, pending cursor and slice
-        epochs advance as the reference's do)."""
+        epochs advance as the reference's do). ``rec``: the step's timeline
+        record when the caller opened it (``ingest``); without one this
+        call is the step's root."""
+        root = OBSERVATORY.begin_step("ingest_fused") if rec is None else None
+        if root is not None:
+            rec = root
         if fused.ndim != 3 or fused.shape[0] != self.n_shards or fused.shape[1] != 11:
             raise ValueError(f"expected a [{self.n_shards}, 11, n] wire image, got {fused.shape}")
         lanes = int(fused.shape[-1])
@@ -391,6 +420,8 @@ class TorchAggregator:
             )
         live_per_shard = (fused[:, 10, :] & 1).sum(axis=1, dtype=np.int64)
         with self.lock:
+            if rec is not None:
+                rec.lock_wait(self.lock.wait_stamp)
             # the contention ledger's holder: this hold is the write path
             self.lock.relabel("ingest_fused")
             need_flush = self._pend_lanes + lanes > self.config.digest_buffer
@@ -398,7 +429,8 @@ class TorchAggregator:
             if (0 if need_flush else self._pend_lanes) + lanes > self.config.digest_buffer:
                 raise AssertionError("pending digest buffer would overflow")
             t0 = time.perf_counter()
-            self._step[(need_flush, need_rollup)](self.states, fused, self.graphs)
+            step = self._step[(need_flush, need_rollup)]
+            step(self.states, fused, self.graphs, rec)
             # the host wall of the step: its host work and its launches
             # (the device runs them after this returns)
             step_wall = time.perf_counter() - t0
@@ -418,6 +450,8 @@ class TorchAggregator:
             c["spansWithDuration"] += n_dur
             c["spansWithError"] += n_err
             c["batches"] += 1
+            if rec is not None:
+                rec.step(c["batches"], 2 * need_flush + need_rollup, step.program_stats)
             lo, hi = ts_range if ts_range is not None else (0, (1 << 32) - 1)
             if n_spans > 0 and self.config.timetier_enabled and ts_range is not None:
                 self._tt_max_epoch = max(self._tt_max_epoch, int(hi) // self.config.time_bucket_minutes)
@@ -449,6 +483,8 @@ class TorchAggregator:
                         )
             elif self.wal_hook is not None:
                 self.wal_seq = self.wal_hook(fused, n_spans, n_dur, n_err, ts_range)
+        if root is not None:
+            root.end()
 
     def ingest_fused_multi(self, parts, n_spans: int, n_dur: int, n_err: int,
                            ts_range=None, pad_to_multiple: int = 256) -> None:  # zt-dispatch-critical: the coalesced multi-chunk device entry point
@@ -558,6 +594,8 @@ class TorchAggregator:
                     if state.hll.device.type == "cuda":
                         for variant, program in self._programs.items():
                             self.graphs.capture(variant, shard, state, lanes, program)
+            # the step timeline's events, made at boot and not in a step
+            OBSERVATORY.arm(self.device)
             self.graphs.booted = True
             return self.graphs.captures - before
 
@@ -602,7 +640,10 @@ class TorchAggregator:
                 # block identically; the split makes device wall observable
                 torch.cuda.current_stream(packed.device).synchronize()
             querytrace.stamp_active(querytrace.QSEG_DEVICE_WALL, t0, time.perf_counter_ns())
-        return readpack.pull(packed)
+        out = readpack.pull(packed)
+        # the pull waited for the stream: an anchor of the step timeline
+        OBSERVATORY.anchor(packed.device)
+        return out
 
     def _quantile_list(self, qs) -> torch.Tensor:
         """The read's quantile list on the state's device. It goes up from
@@ -772,3 +813,4 @@ class TorchAggregator:
             if d.type == "cuda":
                 with CAPTURE_LOCK:  # never inside another thread's capture (tpu/graphs.py)
                     torch.cuda.synchronize(d)
+                    OBSERVATORY.anchor(d)

@@ -1336,7 +1336,7 @@ class ZipkinServer:
     def get_tpu_statusz(self, q):
         """The observability plane's debug page
         (``zipkin_tpu/server/app.py:1408-1511``)."""
-        from zipkin_tpu_torch.obs.device import OBSERVATORY
+        from zipkin_tpu_torch.obs.device import OBSERVATORY, timeline_summary
 
         rec = obs.RECORDER
         snap = rec.snapshot()
@@ -1375,6 +1375,9 @@ class ZipkinServer:
         if self._accuracy is not None:
             body["accuracy"] = self._accuracy.status()
         body["device"] = OBSERVATORY.status()
+        # the port's own: the card's idle share over the newest ingest steps
+        # and the host spans it waited in
+        body["device"]["timeline"] = timeline_summary()
         core = getattr(self.storage, "delegate", self.storage)
         ing = getattr(core, "mp_ingester", None)
         if ing is not None:

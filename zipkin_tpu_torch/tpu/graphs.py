@@ -49,6 +49,12 @@ the callers already pad to (``route_fused``'s pad multiple, the
   replaced (:meth:`StepGraphs.drop`).
 - A replay adds to each kernel wrapper's ``launches`` the launches its
   graph holds (:func:`zipkin_tpu_torch.kernels.recording_launches`).
+- Given the step's timeline record (:mod:`zipkin_tpu_torch.obs.device`), a
+  step stamps its ``upload`` span (the staging into pinned memory and the
+  copy's enqueue) and its ``replay`` span (the replay and the launch tally),
+  and records the record's three events on the device's current stream:
+  before the copy (after the staging), between the copy and the replay,
+  and after the replay.
 - A capture is the port's compile (the reference's jit cache growing): its
   owner's ``on_capture(variant, seconds, recompile)`` hears of each one.
   Once ``booted`` is set (the owner's boot captures are done) a capture
@@ -57,8 +63,8 @@ the callers already pad to (``route_fused``'s pad multiple, the
   request.
 
 Only CUDA states are captured; on the CPU the aggregator runs the same
-static-shape step eagerly. Nothing here runs the observatory or the flight
-recorder: the aggregator's ``spmd_step*`` wrapper times the replays.
+static-shape step eagerly. Nothing here runs the flight recorder; the
+step's timeline record, when given, times the copy and the replay.
 """
 
 from __future__ import annotations
@@ -71,6 +77,7 @@ import numpy as np
 import torch
 
 from zipkin_tpu_torch import kernels, u32
+from zipkin_tpu_torch.obs.device import REPLAY, UPLOAD
 
 
 class Captured(NamedTuple):
@@ -140,14 +147,24 @@ class StepGraphs:
                                                              device=dev)
         return buf
 
-    def step(self, variant, shard: int, state, wire: np.ndarray, program: Callable) -> None:
+    def step(self, variant, shard: int, state, wire: np.ndarray, program: Callable,
+             rec=None) -> None:
         """Run ``program(state, bits)`` (one shard's step of ``variant``
         over the ``[11, lanes]`` int32 bits of ``wire``) on the state's
         card as a replay of its captured graph, captured first if this is
-        the key's first batch. Writes the state's leaves in place."""
+        the key's first batch. Writes the state's leaves in place. ``rec``:
+        the step's timeline record, stamped and given its events."""
         dev = state.hll.device
         lanes = int(wire.shape[-1])
-        u32.upload_bits(wire, dev, out=self._input(lanes, shard, dev))
+        buf = self._input(lanes, shard, dev)
+        t_up = time.perf_counter_ns() if rec is not None else 0
+        staged = u32.stage_bits(wire, dev)
+        if rec is not None:
+            rec.copy_begin(dev)
+        buf.copy_(staged, non_blocking=True)
+        if rec is not None:
+            rec.copy_end()
+            rec.span(UPLOAD, t_up, time.perf_counter_ns())
         key = (variant, lanes, shard)
         captured = self._graphs.get(key)
         if captured is None:
@@ -155,8 +172,13 @@ class StepGraphs:
         elif captured.leaves != addresses(state):
             raise RuntimeError(f"step graph {key}: a state leaf was swapped for another tensor "
                                "since the capture (leaves must be written in place)")
+        t_rep = time.perf_counter_ns() if rec is not None else 0
         captured.graph.replay()
+        if rec is not None:
+            rec.graph_end()
         kernels.add_launches(captured.launches)
+        if rec is not None:
+            rec.span(REPLAY, t_rep, time.perf_counter_ns())
         self.replays += 1
 
     def capture(self, variant, shard: int, state, lanes: int, program: Callable,

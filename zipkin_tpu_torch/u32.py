@@ -71,17 +71,22 @@ def bits32(x: torch.Tensor) -> torch.Tensor:
     return as_int32(x).to(torch.int32)
 
 
+def stage_bits(arr: np.ndarray, device) -> torch.Tensor:
+    """A numpy ``uint32`` array -> the int32 tensor of its bits on the
+    host, staged for a copy to ``device``: in pinned memory for a card (the
+    copy then queues behind the stream's work; a pageable one would wait
+    for that work before it returns), a copy of its own otherwise."""
+    a = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
+    if torch.device(device).type == "cuda":
+        return torch.empty(a.shape, dtype=torch.int32, pin_memory=True).copy_(torch.from_numpy(a))
+    return torch.from_numpy(a.copy())
+
+
 def upload_bits(arr: np.ndarray, device, out=None) -> torch.Tensor:
     """A numpy ``uint32`` array -> the int32 tensor of its bits on
     ``device`` (4 bytes a value), or written into ``out`` (an int32 tensor
     of the same shape there) and returned."""
-    a = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
-    if torch.device(device).type == "cuda":
-        # from pinned memory the copy queues behind the stream's work; a
-        # pageable one would wait for that work before it returns
-        t = torch.empty(a.shape, dtype=torch.int32, pin_memory=True).copy_(torch.from_numpy(a))
-    else:
-        t = torch.from_numpy(a.copy())
+    t = stage_bits(arr, device)
     if out is None:
         return t.to(device, non_blocking=True)
     return out.copy_(t, non_blocking=True)
