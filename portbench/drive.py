@@ -102,12 +102,15 @@ class Feed:
         self.done = 0  # batches whose ingest call returned
         self._events: deque = deque()
         self.call_s: List[float] = []  # host seconds of each ingest call
+        self.inputs_s: List[float] = []  # host seconds the entry took to make each input
         self.spans: List[tuple] = []  # (label, t0, t1) host spans, perf_counter s
         self.max_late_s = 0.0
         self.end_late_s = 0.0  # how late the open loop's last batch was issued
 
     def ingest(self, g: int) -> None:
+        t0 = time.perf_counter()
         inputs = self.entry.inputs(g)
+        self.inputs_s.append(time.perf_counter() - t0)
         if self.cuda and len(self._events) >= self.in_flight:
             t0 = time.perf_counter()
             self._events.popleft().synchronize()
@@ -279,6 +282,14 @@ class Readers:
             th.join(timeout)
         if any(th.is_alive() for th in self._threads):
             raise RuntimeError("a Lens client did not finish")
+
+
+def stage_totals() -> Dict[str, tuple]:
+    """The program's flight recorder now: (observations, microseconds) of
+    each stage, summed over the process (``obs.RECORDER``)."""
+    from zipkin_tpu_torch import obs
+
+    return {s.stage: (s.count, s.sum_us) for s in obs.RECORDER.snapshot().stages()}
 
 
 def read_schedule(mix: dict, seconds: float) -> int:

@@ -11,6 +11,24 @@ import numpy as np
 from portbench.generator import Pool, service_name, span_name
 
 
+def intern_names(vocab, mix: dict):
+    """(svc_map, key_map): the store's ids of the traffic's services and
+    sketch keys, interned into the store's vocabulary ``vocab`` as a warm
+    server holds them."""
+    services, names = int(mix["services"]), int(mix["names_per_service"])
+    svc_map = np.zeros(services + 1, np.int32)
+    key_map = np.zeros((services + 1) * names, np.int32)
+    name_ids = [vocab.span_names.intern(span_name(n)) for n in range(names)]
+    for s in range(1, services + 1):
+        sid = vocab.services.intern(service_name(s))
+        svc_map[s] = sid
+        for n, nid in enumerate(name_ids):
+            key_map[s * names + n] = vocab.key_id(sid, nid)
+    if not (svc_map[1:] > 0).all() or len(set(key_map[names:].tolist())) != services * names:
+        raise ValueError("the configuration's vocabulary cannot hold the traffic's names")
+    return svc_map, key_map
+
+
 class Entry:
     def __init__(self, store, pool: Pool):
         from zipkin_tpu_torch.tpu.columnar import SpanColumns
@@ -18,20 +36,7 @@ class Entry:
         self._cols = SpanColumns
         self.store = store
         self.pool = pool
-        mix = pool.mix
-        services, names = int(mix["services"]), int(mix["names_per_service"])
-        vocab = store.vocab
-        self.svc_map = np.zeros(services + 1, np.int32)
-        self.key_map = np.zeros((services + 1) * names, np.int32)
-        name_ids = [vocab.span_names.intern(span_name(n)) for n in range(names)]
-        for s in range(1, services + 1):
-            sid = vocab.services.intern(service_name(s))
-            self.svc_map[s] = sid
-            for n, nid in enumerate(name_ids):
-                self.key_map[s * names + n] = vocab.key_id(sid, nid)
-        if not (self.svc_map[1:] > 0).all() or len(set(self.key_map[names:].tolist())) \
-                != services * names:
-            raise ValueError("the configuration's vocabulary cannot hold the traffic's names")
+        self.svc_map, self.key_map = intern_names(store.vocab, pool.mix)
         self._mapped = [(self.svc_map[b.cols["svc"]], self.svc_map[b.cols["rsvc"]],
                          self.key_map[b.cols["key"]]) for b in pool.batches]
 

@@ -16,7 +16,11 @@ traces, and its minute is ``base_minute + g // batches_per_minute``, so
 the time buckets rotate as the stream goes on. Each pass also moves every
 duration within its latency-histogram bucket by the pass's offset, so
 durations do not repeat pass after pass while every histogram cell does.
-The same seed gives the
+A trace's 32-bit hash follows the mix's ``trace_h`` rule: ``"drawn"`` (the
+default) draws it per trace and XORs it with the pass's constant, for a
+feed that hands the columns over as they are; ``"id"`` hashes the pass's
+trace id (:func:`~portbench.reference.sketch.trace_id_hash`), as a store
+that parses the id off the wire does. The same seed gives the
 same stream. Ids here are the generator's own: services ``1..services``
 and sketch keys ``svc * names_per_service + name``; the harness maps them
 to the store's vocabulary, the reference keeps them.
@@ -28,10 +32,11 @@ from typing import Dict, List
 
 import numpy as np
 
-from portbench.reference.sketch import hist_bucket_bounds
+from portbench.reference.sketch import hist_bucket_bounds, trace_id_hash
 
 BASE_MINUTE = 29_000_000  # an epoch minute in 2025
 SEED_MASK = (1 << 64) - 1
+TRACE_H_RULES = ("drawn", "id")
 
 
 def service_name(svc: int) -> str:
@@ -131,6 +136,9 @@ class Pool:
         self.size = int(mix["pool_batches"])
         self.batches_per_minute = int(mix["batches_per_minute"])
         self.base_minute = int(mix.get("base_minute", BASE_MINUTE))
+        self.trace_h = mix.get("trace_h", "drawn")
+        if self.trace_h not in TRACE_H_RULES:
+            raise ValueError(f"trace_h must be one of {TRACE_H_RULES}, not {self.trace_h!r}")
         rng = np.random.default_rng([self.seed, 0])
         self.batches: List[PoolBatch] = [make_batch(rng, mix) for _ in range(self.size)]
         self._stamps: Dict[int, np.ndarray] = {}
@@ -151,8 +159,11 @@ class Pool:
 
     def trace_hashes(self, g: int) -> np.ndarray:
         """[traces] the re-stamped ``trace_h`` of each trace of batch ``g``."""
-        b = self.batches[g % self.size]
-        return b.cols["trace_h"][:: self.per_trace] ^ self.stamp(g)[0]
+        b = self.batches[g % self.size].cols
+        if self.trace_h == "id":
+            return trace_id_hash(b["tl0"][:: self.per_trace] ^ self.stamp(g)[1],
+                                 b["tl1"][:: self.per_trace])
+        return b["trace_h"][:: self.per_trace] ^ self.stamp(g)[0]
 
     def columns(self, g: int) -> Dict[str, np.ndarray]:
         """Global batch ``g``'s lane columns with generator ids: the pool
@@ -162,8 +173,9 @@ class Pool:
         k_trace, k_tl0, k_span, _ = self.stamp(g)
         out = dict(b)
         out["dur"] = self.durations(g)
-        out["trace_h"] = b["trace_h"] ^ k_trace
         out["tl0"] = b["tl0"] ^ k_tl0
+        out["trace_h"] = (trace_id_hash(out["tl0"], b["tl1"]) if self.trace_h == "id"
+                          else b["trace_h"] ^ k_trace)
         out["s0"] = b["s0"] ^ k_span
         out["p0"] = b["p0"] ^ (pb.parent_mask & k_span)
         out["ts_min"] = np.full(self.batch_spans, self.minute(g), np.uint32)

@@ -1,6 +1,6 @@
 """The sketches' defined bit rules in plain numpy: the 32-bit hash, the
-HyperLogLog register rule and estimator and the latency histogram's bucket
-rule. They are the semantics the
+trace id's hash, the HyperLogLog register rule and estimator and the
+latency histogram's bucket rule. They are the semantics the
 configuration states, written out again from their definitions; nothing
 here imports the program."""
 
@@ -25,6 +25,20 @@ def fmix32(x: np.ndarray) -> np.ndarray:
     x = (x * np.uint64(0xC2B2AE35)) & np.uint64(0xFFFFFFFF)
     x ^= x >> np.uint64(16)
     return x.astype(U32)
+
+
+def hash2(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The 32-bit hash of a pair of u32 words: fmix32(a ^ fmix32(b + the
+    golden ratio's 32 bits)), wrapping at 2^32."""
+    b = (np.asarray(b).astype(np.uint64) + np.uint64(0x9E3779B9)) & np.uint64(0xFFFFFFFF)
+    return fmix32(np.asarray(a).astype(U32) ^ fmix32(b))
+
+
+def trace_id_hash(tl0: np.ndarray, tl1: np.ndarray) -> np.ndarray:
+    """The 32-bit hash of 64-bit trace ids given as u32 halves (low, high):
+    the hash of the low pair, hashed with that of the high 64 bits, here 0."""
+    zero = np.zeros(1, U32)
+    return hash2(hash2(tl0, tl1), hash2(zero, zero))
 
 
 def floor_log2(x: np.ndarray) -> np.ndarray:

@@ -143,6 +143,7 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int, seconds: float, tra
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     feed.call_s.clear()
+    feed.inputs_s.clear()
     feed.spans.clear()
     tracer = Trace() if trace and cuda else None
     if tracer is not None:
@@ -174,6 +175,8 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int, seconds: float, tra
             traced["g_b"] = feed.started
 
     g_window = g
+    stages_open = drive.stage_totals()
+    cpu0 = time.process_time()
     t0 = time.perf_counter()
     if readers is not None:
         readers.start(t0, seconds)
@@ -182,6 +185,8 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int, seconds: float, tra
         readers.join(timeout=seconds + 120.0)
     store.agg.block_until_ready()
     t_end = time.perf_counter()
+    window_cpu_s = time.process_time() - cpu0
+    stages_close = drive.stage_totals()
     if tracer is not None and "g_a" in traced and "g_b" not in traced:
         tracer.stop()  # the clients have joined
         traced["g_b"] = feed.started
@@ -206,7 +211,11 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int, seconds: float, tra
     reads_attempted = readers.attempted if readers is not None else 0
     reads_failed = readers.failed if readers is not None else 0
     read_errors = readers.errors[:5] if readers is not None else []
-    run_ctx = {"ingest_call_s": list(feed.call_s), "feed_max_late_s": feed.max_late_s,
+    run_ctx = {"ingest_call_s": list(feed.call_s), "inputs_s": list(feed.inputs_s),
+               # each stage's (observations, microseconds) in the window
+               "stages": {k: (c - stages_open[k][0], us - stages_open[k][1])
+                          for k, (c, us) in stages_close.items()},
+               "feed_max_late_s": feed.max_late_s,
                "feed_end_late_s": feed.end_late_s,
                "inflight_wait_s": sum(b - a for label, a, b in feed.spans
                                       if label.startswith("wait")),
@@ -315,6 +324,11 @@ def run_cell(cell: dict, config: dict, mix: dict, seed: int, seconds: float, tra
                                          for k, v in read_lat.items() if v},
                      "read_errors": read_errors, "read_folds": len(folds.counts),
                      "ingest_call_ms_p50": quantile(run_ctx["ingest_call_s"], 50) * 1e3,
+                     # the calls' median in each tenth of the window: a drift shows
+                     "ingest_call_ms_tenths": [quantile(part, 50) * 1e3 for part in np.array_split(
+                         np.asarray(run_ctx["ingest_call_s"]), 10) if len(part)],
+                     "inputs_ms_p50": quantile(run_ctx["inputs_s"], 50) * 1e3,
+                     "window_cpu_s": window_cpu_s,  # the process's CPU seconds in the window
                      "inflight_wait_s": run_ctx["inflight_wait_s"],
                      "feed_max_late_s": run_ctx["feed_max_late_s"],
                      "feed_end_late_s": run_ctx["feed_end_late_s"],

@@ -29,16 +29,22 @@ def shrink(config: dict, mix: dict) -> None:
         mix["feed_batches_per_s"] = 20.0
 
 
-# a cell kept out of BENCHMARK.json (PERF.md, Open questions) whose files
-# stay for a later benchmark change; its read path is tested all the same
-LENS = {"name": "default.lens", "config": "zipkin-default", "traffic": "lens", "chips": 1}
+# cells kept out of BENCHMARK.json (PERF.md, Open questions) whose files
+# stay for a later benchmark change; their paths are tested all the same
+KEPT_OUT = {c["name"]: c for c in (
+    {"name": "default.lens", "config": "zipkin-default", "traffic": "lens", "chips": 1},
+    {"name": "default.wire-json", "config": "zipkin-default", "traffic": "wire-json",
+     "chips": 1},
+)}
 
 
 def small_cell(name: str):
-    if name == LENS["name"]:
-        b, _, config, mix = run.load_cell(run.ROOT, "default.feed")
-        cell = LENS
-        mix = run.load_json(run.HERE / "traffic" / "lens.json")
+    if name in KEPT_OUT:
+        cell = KEPT_OUT[name]
+        b = bench()
+        config = next(c for c in b["configs"] if c["name"] == cell["config"])
+        config = run.load_json(run.ROOT / config["file"])
+        mix = run.load_json(run.HERE / "traffic" / f"{cell['traffic']}.json")
     else:
         b, cell, config, mix = run.load_cell(run.ROOT, name)
     shrink(config, mix)

@@ -8,7 +8,7 @@ import pytest
 from portbench.tests.small import run_small
 
 EXACT = ("counts_gap", "hist_gap", "hll_gap", "links_gap", "tt_gap", "digest_gap")
-CELLS = ["default.feed", "default.lens"]
+CELLS = ["default.feed", "default.lens", "default.wire-json"]
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -1,24 +1,32 @@
 """A run with the timed path broken underneath comes out not correct,
 once for each fault a cell can have: a step that leaves the state
 unchanged, half of each batch left out, an answer altered where the store
-produces it, digests whose means drift while their weights stay exact.
+produces it (in the wire cell also a span's error flag lost where the
+parse produces it), digests whose means drift while their weights stay
+exact.
 (One card: no exchange between chips to leave out.)"""
 
+import numpy as np
 import pytest
 import torch
 
 from portbench.tests.small import run_small
 
 
-def test_step_that_leaves_the_state_unchanged(monkeypatch):
+CELLS = ["default.feed", "default.wire-json"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_step_that_leaves_the_state_unchanged(monkeypatch, cell):
     from zipkin_tpu_torch.tpu import ingest
 
     monkeypatch.setattr(ingest, "ingest_step", lambda config, state, batch: state)
-    out = run_small("default.feed")
+    out = run_small(cell)
     assert out["correct"] is False and out["checks"]["counts_gap"]["value"] > 0
 
 
-def test_half_of_each_batch_left_out(monkeypatch):
+@pytest.mark.parametrize("cell", CELLS)
+def test_half_of_each_batch_left_out(monkeypatch, cell):
     from zipkin_tpu_torch.tpu import ingest
 
     step = ingest.ingest_step
@@ -29,11 +37,11 @@ def test_half_of_each_batch_left_out(monkeypatch):
         return step(config, state, batch._replace(valid=batch.valid & keep))
 
     monkeypatch.setattr(ingest, "ingest_step", half)
-    out = run_small("default.feed")
+    out = run_small(cell)
     assert out["correct"] is False and out["checks"]["hist_gap"]["value"] > 0
 
 
-@pytest.mark.parametrize("cell", ["default.feed", "default.lens"])
+@pytest.mark.parametrize("cell", CELLS + ["default.lens"])
 def test_an_answer_altered_where_it_is_produced(monkeypatch, cell):
     from zipkin_tpu_torch.tpu.store import TorchStorage
 
@@ -67,3 +75,18 @@ def test_digest_means_altered_where_they_are_merged(monkeypatch):
     out = run_small("default.feed")
     assert out["correct"] is False and out["checks"]["digest_gap"]["value"] == 0
     assert out["checks"]["digest_rank_gap"]["value"] > out["checks"]["digest_rank_gap"]["limit"]
+
+
+def test_an_error_flag_lost_in_the_wire_parse(monkeypatch):
+    from zipkin_tpu_torch.tpu import store
+
+    pack = store.pack_parsed
+
+    def lost(parsed, vocab, pad_to_multiple=1024):
+        cols = pack(parsed, vocab, pad_to_multiple)
+        cols.err[np.argmax(cols.err)] = False
+        return cols
+
+    monkeypatch.setattr(store, "pack_parsed", lost)
+    out = run_small("default.wire-json")
+    assert out["correct"] is False and out["checks"]["counts_gap"]["value"] > 0

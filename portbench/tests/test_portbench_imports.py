@@ -13,7 +13,7 @@ RUN_CELL = """
 import sys
 from portbench import run
 from portbench.tests.small import run_small
-for name in ("default.feed", "default.lens"):
+for name in ("default.feed", "default.lens", "default.wire-json"):
     run_small(name, seconds=1.0)
 for m in run.load_json(run.ROOT / "BENCHMARK.json")["per_layer"]:
     run.metric_reader(m["name"])
